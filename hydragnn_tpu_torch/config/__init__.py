@@ -1,0 +1,6 @@
+from .config import (
+    get_log_name_config,
+    load_config,
+    update_config,
+    voi_from_config,
+)

@@ -1,0 +1,178 @@
+"""JSON config: data-derived completion of the parts this slice reads.
+
+Counterpart of ``hydragnn_tpu/config/config.py``: same JSON surface, same
+derived keys. The sorted-aggregation default is keyed on a CUDA device
+(where the hand-written kernels run) instead of the JAX package's TPU
+check.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import sys
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..data.graph import Graph
+from ..data.pipeline import VariablesOfInterest
+
+EQUIVARIANT_MODELS = ("EGNN", "SchNet", "PNAEq", "PAINN", "MACE")
+
+
+def voi_from_config(config: Dict[str, Any]) -> VariablesOfInterest:
+    """Build the VariablesOfInterest selector from a (completed) config."""
+    var = config["NeuralNetwork"]["Variables_of_interest"]
+    ds = config.get("Dataset", {})
+    return VariablesOfInterest(
+        input_node_features=var["input_node_features"],
+        output_names=var["output_names"],
+        output_types=var["type"],
+        output_index=var["output_index"],
+        node_feature_dims=ds.get("node_features", {}).get("dim", [1]),
+        graph_feature_dims=ds.get("graph_features", {}).get("dim", []),
+    )
+
+
+def measured_max_in_degree(graphs: Sequence[Graph]) -> int:
+    top = 1
+    for g in graphs:
+        if g.num_edges:
+            top = max(top, int(np.bincount(np.asarray(g.receivers)).max()))
+    return top
+
+
+def update_config(
+    config: Dict[str, Any],
+    trainset: Sequence[Graph],
+    valset: Sequence[Graph],
+    testset: Sequence[Graph],
+) -> Dict[str, Any]:
+    """Complete a user config from the data; returns a new dict.
+
+    Derived here: ``graph_size_variable``, ``num_pad_buckets``, output dims
+    and types, ``num_nodes``, ``input_dim``, the measured
+    ``max_in_degree`` (a supplied bound below the data's raises), and the
+    ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` defaults."""
+    config = copy.deepcopy(config)
+    arch = config["NeuralNetwork"]["Architecture"]
+    training = config["NeuralNetwork"]["Training"]
+    var = config["NeuralNetwork"]["Variables_of_interest"]
+
+    sizes = {g.num_nodes for ds in (trainset, valset, testset) for g in ds}
+    graph_size_variable = len(sizes) > 1
+    arch["graph_size_variable"] = graph_size_variable
+    arch["max_nodes_per_graph"] = max(sizes, default=0)
+    training.setdefault("compute_grad_energy", False)
+    if training["compute_grad_energy"]:
+        raise NotImplementedError(
+            "Training.compute_grad_energy (energy-force) comes with the "
+            "training slice of the port"
+        )
+    training.setdefault("num_pad_buckets", 4 if graph_size_variable else 1)
+
+    voi = voi_from_config(config)
+    sample = trainset[0]
+    output_dim: List[int] = []
+    for t, idx in zip(voi.output_types, voi.output_index):
+        if t == "graph":
+            output_dim.append(int(voi.graph_feature_dims[idx]))
+        elif t == "node":
+            dim = int(voi.node_feature_dims[idx])
+            node_head = arch["output_heads"].get("node", {})
+            if isinstance(node_head, list):  # multibranch list form
+                node_head = node_head[0].get("architecture", {}) if node_head else {}
+            if not graph_size_variable and node_head.get("type") == "mlp_per_node":
+                dim *= sample.num_nodes
+            output_dim.append(dim)
+        else:
+            raise ValueError(f"output type {t!r} not graph or node")
+    arch["output_dim"] = output_dim
+    arch["output_type"] = list(voi.output_types)
+    arch["num_nodes"] = sample.num_nodes
+    var.setdefault("denormalize_output", False)
+    arch["input_dim"] = voi.input_dim
+
+    # sorted aggregation: ON by default where the CUDA kernels run; a static
+    # in-degree bound is measured over EVERY split. The CUDA kernels are
+    # exact for any degree, but the bound stays part of the config contract
+    # shared with the JAX package (whose TPU kernels need it).
+    if arch.get("use_sorted_aggregation") is None:
+        on = torch.cuda.is_available()
+        arch["use_sorted_aggregation"] = on
+        if on:
+            print(
+                "[hydragnn_tpu_torch.config] use_sorted_aggregation "
+                "auto-enabled: a CUDA device is present",
+                file=sys.stderr,
+            )
+    if arch.get("use_sorted_aggregation"):
+        top = measured_max_in_degree((*trainset, *valset, *testset))
+        supplied = arch.get("max_in_degree")
+        if supplied and int(supplied) < top:
+            raise ValueError(
+                f"max_in_degree={supplied} is below the dataset's actual "
+                f"max in-degree {top}; remove the key to auto-measure"
+            )
+        arch["max_in_degree"] = int(supplied or top)
+    arch.setdefault("max_in_degree", 0)
+
+    # the fused edge kernel follows sorted aggregation unless set explicitly;
+    # fused without sorted could never engage, so it fails loudly
+    if arch.get("use_fused_edge_kernel") is None:
+        arch["use_fused_edge_kernel"] = bool(arch["use_sorted_aggregation"])
+    elif arch["use_fused_edge_kernel"] and not arch["use_sorted_aggregation"]:
+        raise ValueError(
+            "use_fused_edge_kernel requires use_sorted_aggregation: the "
+            "fused edge kernel rides the sorted-receivers contract"
+        )
+
+    if arch.get("equivariance"):
+        assert arch["mpnn_type"] in EQUIVARIANT_MODELS, (
+            "E(3) equivariance can only be ensured for "
+            + ", ".join(EQUIVARIANT_MODELS)
+        )
+    arch.setdefault("equivariance", False)
+    arch.setdefault("edge_dim", None)
+    arch.setdefault("activation_function", "relu")
+    arch.setdefault("num_conv_layers", 1)
+    training.setdefault("loss_function_type", "mse")
+    training.setdefault("batch_size", 32)
+    training.setdefault("num_epoch", 1)
+    training.setdefault("perc_train", 0.7)
+    training.setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
+    training["Optimizer"].setdefault("type", "AdamW")
+    training["Optimizer"].setdefault("learning_rate", 1e-3)
+    arch.setdefault("task_weights", [1.0] * len(output_dim))
+    assert len(arch["task_weights"]) == len(output_dim), (
+        f"task_weights {arch['task_weights']} must match number of heads {len(output_dim)}"
+    )
+    if config.get("Serving"):
+        from ..serve.config import ServeConfig
+
+        ServeConfig.from_config(config)
+    config.setdefault("Verbosity", {"level": 0})
+    config.setdefault("Visualization", {})
+    return config
+
+
+def get_log_name_config(config: Dict[str, Any]) -> str:
+    """Human-readable run name from key hyperparameters."""
+    arch = config["NeuralNetwork"]["Architecture"]
+    training = config["NeuralNetwork"]["Training"]
+    return (
+        f"{arch['mpnn_type']}"
+        f"-r-{arch.get('radius')}"
+        f"-ncl-{arch.get('num_conv_layers')}"
+        f"-hd-{arch.get('hidden_dim')}"
+        f"-ne-{training.get('num_epoch')}"
+        f"-lr-{training.get('Optimizer', {}).get('learning_rate')}"
+        f"-bs-{training.get('batch_size')}"
+    )
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)

@@ -1,0 +1,21 @@
+from .graph import (
+    Graph,
+    GraphBatch,
+    PadSpec,
+    SpecLadder,
+    batch_graphs,
+    batch_graphs_np,
+    graph_batch_from_np,
+    sort_edges_by_receiver,
+)
+from .neighbors import radius_graph
+from .pipeline import (
+    GraphLoader,
+    MinMax,
+    VariablesOfInterest,
+    extract_variables,
+    select_input_columns,
+    spec_template_batches,
+    split_dataset,
+)
+from .synthetic import deterministic_graph_dataset, oc20_shaped_dataset

@@ -1,0 +1,354 @@
+"""Padded graph batches as dataclasses of tensors.
+
+Counterpart of ``hydragnn_tpu/data/graph.py``. The host side is numpy and
+produces the very same padded arrays as the JAX package, with the same
+padding convention:
+
+- all graphs of a batch are concatenated (node indices offset per graph);
+- the result is padded up to a ``PadSpec`` (n_nodes, n_edges, n_graphs);
+- padding nodes belong to the final (dummy) graph slot, and padding edges
+  run from the last node to itself, so with receiver-sorted graphs the
+  batched receivers come out globally sorted and every padding edge lands
+  on the final node, whose output rows the model masks downstream.
+
+``GraphBatch`` is the device-side batch: a dataclass of tensors with
+``.to(device)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+# names of per-node / per-edge optional fields, used by batching
+_NODE_FIELDS = ("x", "pos", "pe", "z")
+_EDGE_FIELDS = ("edge_attr", "edge_shifts", "rel_pe")
+
+
+@dataclasses.dataclass
+class Graph:
+    """A single host-side graph sample (numpy arrays, ragged shapes)."""
+
+    x: np.ndarray  # [n, Fx] node input features
+    pos: np.ndarray  # [n, 3] positions
+    senders: np.ndarray  # [e] int32 message source node
+    receivers: np.ndarray  # [e] int32 message destination node
+    edge_attr: Optional[np.ndarray] = None  # [e, Fe]
+    edge_shifts: Optional[np.ndarray] = None  # [e, 3] PBC cartesian shifts
+    pe: Optional[np.ndarray] = None  # [n, pe_dim]
+    rel_pe: Optional[np.ndarray] = None  # [e, pe_dim]
+    z: Optional[np.ndarray] = None  # [n] int32 atomic numbers
+    graph_y: Optional[np.ndarray] = None  # [Fg] raw graph feature table
+    graph_targets: Optional[Dict[str, np.ndarray]] = None  # name -> [d]
+    node_targets: Optional[Dict[str, np.ndarray]] = None  # name -> [n, d]
+    dataset_id: int = 0
+    cell: Optional[np.ndarray] = None  # [3, 3] lattice (PBC only)
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.senders.shape[0])
+
+    def float_channels(self):
+        """``(name, array)`` for every numeric payload channel (the serving
+        admission check reads this to reject non-finite requests)."""
+        for name in ("x", "pos", "edge_attr", "edge_shifts", "pe", "rel_pe"):
+            v = getattr(self, name)
+            if v is not None:
+                yield name, np.asarray(v)
+        if self.graph_y is not None:
+            yield "graph_y", np.asarray(self.graph_y)
+        for table, label in ((self.graph_targets, "graph_target"),
+                             (self.node_targets, "node_target")):
+            for key, v in (table or {}).items():
+                yield f"{label}:{key}", np.asarray(v)
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """Padded batch of graphs. N = padded node count, E = padded edge
+    count, G = padded graph count; the last graph slot is the dummy graph
+    holding every padding node and edge (``graph_mask`` False there)."""
+
+    x: torch.Tensor  # [N, Fx]
+    pos: torch.Tensor  # [N, 3]
+    node_graph: torch.Tensor  # [N] int64
+    node_mask: torch.Tensor  # [N] bool
+    senders: torch.Tensor  # [E] int64
+    receivers: torch.Tensor  # [E] int64
+    edge_mask: torch.Tensor  # [E] bool
+    graph_mask: torch.Tensor  # [G] bool
+    dataset_id: torch.Tensor  # [G] int64
+    edge_attr: Optional[torch.Tensor] = None
+    edge_shifts: Optional[torch.Tensor] = None
+    pe: Optional[torch.Tensor] = None
+    rel_pe: Optional[torch.Tensor] = None
+    z: Optional[torch.Tensor] = None
+    graph_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    node_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.senders.shape[0])
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.graph_mask.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def replace(self, **kw) -> "GraphBatch":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        def mv(v):
+            return None if v is None else v.to(device, non_blocking=non_blocking)
+
+        kw = {
+            f.name: mv(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if f.name not in ("graph_targets", "node_targets")
+        }
+        return GraphBatch(
+            graph_targets={k: mv(v) for k, v in self.graph_targets.items()},
+            node_targets={k: mv(v) for k, v in self.node_targets.items()},
+            **kw,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PadSpec:
+    """Static padding target for a batch."""
+
+    n_nodes: int
+    n_edges: int
+    n_graphs: int  # includes the +1 dummy graph slot
+    n_triplets: int = 0  # kept for layout parity; no triplet channel here
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecLadder:
+    """A small ascending set of pad specs: each batch takes the smallest
+    level that fits it (the JAX package's variable-graph-size strategy,
+    kept so the served shapes are the same few levels)."""
+
+    specs: Tuple[PadSpec, ...]  # ascending; last is the exact worst case
+
+    @staticmethod
+    def for_dataset(
+        graphs: List[Graph],
+        batch_size: int,
+        num_buckets: int = 4,
+        node_multiple: int = 8,
+        edge_multiple: int = 128,
+        num_sim: int = 256,
+        seed: int = 0,
+    ) -> "SpecLadder":
+        n_sizes = np.asarray([g.num_nodes for g in graphs])
+        e_sizes = np.asarray([g.num_edges for g in graphs])
+        k = min(batch_size, len(graphs))
+        worst = PadSpec(
+            n_nodes=_round_up(int(np.sort(n_sizes)[-k:].sum()) + 2, node_multiple),
+            n_edges=_round_up(int(np.sort(e_sizes)[-k:].sum()) + 1, edge_multiple),
+            n_graphs=batch_size + 1,
+        )
+        if num_buckets <= 1 or len(graphs) <= batch_size:
+            return SpecLadder((worst,))
+        rng = np.random.default_rng(seed)
+        picks = np.stack(
+            [rng.choice(len(graphs), size=k, replace=False) for _ in range(num_sim)]
+        )
+        node_tot = n_sizes[picks].sum(axis=1)
+        edge_tot = e_sizes[picks].sum(axis=1)
+        # tail-halving quantiles (50, 75, 87.5, ...) plus a level just above
+        # the largest simulated batch
+        qs = [100.0 * (1.0 - 0.5 ** (i + 1)) for i in range(num_buckets - 1)]
+        levels = [
+            (int(np.percentile(node_tot, q)) + 2, int(np.percentile(edge_tot, q)) + 1)
+            for q in qs
+        ]
+        levels.append((int(node_tot.max() * 1.05) + 2, int(edge_tot.max() * 1.05) + 1))
+        specs: List[PadSpec] = []
+        for n_b, e_b in levels:
+            spec = PadSpec(
+                n_nodes=_round_up(n_b, node_multiple),
+                n_edges=_round_up(e_b, edge_multiple),
+                n_graphs=worst.n_graphs,
+            )
+            if spec.n_nodes < worst.n_nodes and (not specs or spec != specs[-1]):
+                specs.append(spec)
+        specs.append(worst)
+        return SpecLadder(tuple(specs))
+
+    def select(self, node_total: int, edge_total: int) -> PadSpec:
+        """Smallest spec fitting the batch; the top level fits any batch of
+        at most ``batch_size`` dataset graphs."""
+        for s in self.specs:
+            if node_total <= s.n_nodes - 1 and edge_total <= s.n_edges:
+                return s
+        return self.specs[-1]
+
+    def select_for(self, graphs: List[Graph]) -> PadSpec:
+        return self.select(
+            sum(g.num_nodes for g in graphs), sum(g.num_edges for g in graphs)
+        )
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _stack_optional(graphs: List[Graph], field: str) -> Optional[np.ndarray]:
+    vals = [getattr(g, field) for g in graphs]
+    if all(v is None for v in vals):
+        return None
+    if any(v is None for v in vals):
+        raise ValueError(f"field {field!r} present in some graphs but not all")
+    return np.concatenate([np.asarray(v) for v in vals], axis=0)
+
+
+def sort_edges_by_receiver(graph: Graph) -> Graph:
+    """Reorder a graph's edges so receivers ascend (stable sort): the
+    precondition of the sorted-segment kernels. All per-edge arrays are
+    permuted together."""
+    perm = np.argsort(graph.receivers, kind="stable")
+    rep = {
+        "senders": np.asarray(graph.senders)[perm],
+        "receivers": np.asarray(graph.receivers)[perm],
+    }
+    for field in _EDGE_FIELDS:
+        v = getattr(graph, field)
+        if v is not None:
+            rep[field] = np.asarray(v)[perm]
+    return dataclasses.replace(graph, **rep)
+
+
+def batch_graphs_np(
+    graphs: List[Graph],
+    spec: PadSpec,
+    np_dtype=np.float32,
+    sort_edges: bool = False,
+) -> Dict[str, np.ndarray]:
+    """Concatenate + pad a list of host graphs into flat numpy arrays, with
+    the padding convention of the module docstring. ``sort_edges=True``
+    sorts each graph's edges by receiver first."""
+    if sort_edges:
+        graphs = [sort_edges_by_receiver(g) for g in graphs]
+    G = len(graphs)
+    n = sum(g.num_nodes for g in graphs)
+    e = sum(g.num_edges for g in graphs)
+    if G > spec.n_graphs - 1 or n > spec.n_nodes - 1 or e > spec.n_edges:
+        raise ValueError(
+            f"batch ({G} graphs, {n} nodes, {e} edges) exceeds pad spec {spec}"
+        )
+
+    out: Dict[str, np.ndarray] = {}
+    for field in _NODE_FIELDS:
+        stacked = _stack_optional(graphs, field)
+        if stacked is None:
+            continue
+        if stacked.ndim == 1:
+            stacked = stacked[:, None]
+        dtype = np.int32 if field == "z" else np_dtype
+        buf = np.zeros((spec.n_nodes, stacked.shape[1]), dtype)
+        buf[:n] = stacked
+        out[field] = buf if field != "z" else buf[:, 0]
+
+    senders = np.full((spec.n_edges,), spec.n_nodes - 1, np.int32)
+    receivers = np.full((spec.n_edges,), spec.n_nodes - 1, np.int32)
+    node_graph = np.full((spec.n_nodes,), spec.n_graphs - 1, np.int32)
+    off = eoff = 0
+    for gi, g in enumerate(graphs):
+        senders[eoff : eoff + g.num_edges] = g.senders + off
+        receivers[eoff : eoff + g.num_edges] = g.receivers + off
+        node_graph[off : off + g.num_nodes] = gi
+        off += g.num_nodes
+        eoff += g.num_edges
+    out["senders"] = senders
+    out["receivers"] = receivers
+    out["node_graph"] = node_graph
+
+    for field in _EDGE_FIELDS:
+        stacked = _stack_optional(graphs, field)
+        if stacked is None:
+            continue
+        if stacked.ndim == 1:
+            stacked = stacked[:, None]
+        buf = np.zeros((spec.n_edges, stacked.shape[1]), np_dtype)
+        buf[:e] = stacked
+        out[field] = buf
+
+    node_mask = np.zeros((spec.n_nodes,), bool)
+    node_mask[:n] = True
+    edge_mask = np.zeros((spec.n_edges,), bool)
+    edge_mask[:e] = True
+    graph_mask = np.zeros((spec.n_graphs,), bool)
+    graph_mask[:G] = True
+    out["node_mask"] = node_mask
+    out["edge_mask"] = edge_mask
+    out["graph_mask"] = graph_mask
+
+    dataset_id = np.zeros((spec.n_graphs,), np.int32)
+    dataset_id[:G] = [g.dataset_id for g in graphs]
+    out["dataset_id"] = dataset_id
+
+    gt_names, nt_names = set(), set()
+    for g in graphs:
+        gt_names.update((g.graph_targets or {}).keys())
+        nt_names.update((g.node_targets or {}).keys())
+    for name in sorted(gt_names):
+        vals = [np.atleast_1d(np.asarray(g.graph_targets[name], np_dtype)) for g in graphs]
+        buf = np.zeros((spec.n_graphs, vals[0].shape[-1]), np_dtype)
+        buf[:G] = np.stack(vals)
+        out[f"graph_targets/{name}"] = buf
+    for name in sorted(nt_names):
+        vals = np.concatenate(
+            [np.asarray(g.node_targets[name], np_dtype).reshape(g.num_nodes, -1)
+             for g in graphs]
+        )
+        buf = np.zeros((spec.n_nodes, vals.shape[1]), np_dtype)
+        buf[:n] = vals
+        out[f"node_targets/{name}"] = buf
+    return out
+
+
+# index arrays become int64 tensors: torch indexing and index_add_ take
+# int64, and the kernels' wrappers narrow to int32 themselves
+_INDEX_FIELDS = ("senders", "receivers", "node_graph", "dataset_id", "z")
+
+
+def graph_batch_from_np(arrs: Dict[str, np.ndarray]) -> GraphBatch:
+    """Assemble a CPU ``GraphBatch`` from ``batch_graphs_np`` output."""
+
+    def t(k, v):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+        return v.long() if k in _INDEX_FIELDS else v
+
+    graph_targets = {
+        k.split("/", 1)[1]: t(k, v) for k, v in arrs.items()
+        if k.startswith("graph_targets/")
+    }
+    node_targets = {
+        k.split("/", 1)[1]: t(k, v) for k, v in arrs.items()
+        if k.startswith("node_targets/")
+    }
+    kwargs = {k: t(k, v) for k, v in arrs.items() if "/" not in k}
+    return GraphBatch(graph_targets=graph_targets, node_targets=node_targets, **kwargs)
+
+
+def batch_graphs(
+    graphs: List[Graph], spec: PadSpec, sort_edges: bool = False
+) -> GraphBatch:
+    return graph_batch_from_np(batch_graphs_np(graphs, spec, sort_edges=sort_edges))

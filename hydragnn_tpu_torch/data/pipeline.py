@@ -1,0 +1,278 @@
+"""Dataset -> model-ready batches: variable selection, split, min-max, loader.
+
+Counterpart of ``hydragnn_tpu/data/pipeline.py`` for a single host. Host
+work is numpy and gives the same padded arrays as the JAX package for the
+same graphs, seed and settings; ``GraphLoader`` yields CPU ``GraphBatch``es
+that the caller moves to its device. Not ported here: the prefetch thread,
+the sample validator, host sharding, stacked shards, size bucketing,
+oversampling and the mixture plane.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .graph import Graph, GraphBatch, PadSpec, SpecLadder, _round_up, batch_graphs
+
+
+def _pack_spec(graphs: Sequence[Graph], per_shard: int) -> PadSpec:
+    """Budget spec for packed batching: mean size * per_shard (+5%
+    headroom), never below the largest single graph, with 2x graph slots so
+    bins of small graphs are not cut short by the slot cap."""
+    ns = np.asarray([g.num_nodes for g in graphs])
+    es = np.asarray([g.num_edges for g in graphs])
+    budget_n = max(int(ns.mean() * per_shard * 1.05) + 2, int(ns.max()) + 2)
+    budget_e = max(int(es.mean() * per_shard * 1.05) + 1, int(es.max()) + 1)
+    return PadSpec(
+        n_nodes=_round_up(budget_n, 8),
+        n_edges=_round_up(budget_e, 128),
+        n_graphs=2 * per_shard + 1,
+    )
+
+
+def selectable_levels(
+    graphs: Sequence[Graph], ladder: SpecLadder
+) -> List[Tuple[int, Graph]]:
+    """(level index, one fitting graph) for every ladder level the graphs
+    can land in: exactly the set of shapes batching over them can produce."""
+    out: List[Tuple[int, Graph]] = []
+    for li, spec in enumerate(ladder.specs):
+        g = next(
+            (c for c in graphs
+             if c.num_nodes <= spec.n_nodes - 1 and c.num_edges <= spec.n_edges),
+            None,
+        )
+        if g is not None:
+            out.append((li, g))
+    return out
+
+
+def spec_template_batches(
+    graphs: Sequence[Graph], ladder: SpecLadder, sort_edges: bool = False
+) -> List[Tuple[PadSpec, GraphBatch]]:
+    """One template batch per reachable ladder level (the serving
+    warm-up inputs): a single fitting graph padded to the level."""
+    return [
+        (ladder.specs[li], batch_graphs([g], ladder.specs[li], sort_edges=sort_edges))
+        for li, g in selectable_levels(graphs, ladder)
+    ]
+
+
+@dataclasses.dataclass
+class VariablesOfInterest:
+    """Selection of model inputs and per-head targets from raw feature
+    tables (config ``NeuralNetwork.Variables_of_interest`` +
+    ``Dataset.{node,graph}_features``)."""
+
+    input_node_features: Sequence[int]
+    output_names: Sequence[str]
+    output_types: Sequence[str]  # "graph" | "node"
+    output_index: Sequence[int]
+    node_feature_dims: Sequence[int]
+    graph_feature_dims: Sequence[int]
+
+    def node_feature_slice(self, idx: int) -> slice:
+        off = int(np.sum(self.node_feature_dims[:idx]))
+        return slice(off, off + self.node_feature_dims[idx])
+
+    def graph_feature_slice(self, idx: int) -> slice:
+        off = int(np.sum(self.graph_feature_dims[:idx]))
+        return slice(off, off + self.graph_feature_dims[idx])
+
+    @property
+    def input_dim(self) -> int:
+        return int(sum(self.node_feature_dims[i] for i in self.input_node_features))
+
+
+def select_input_columns(graph: Graph, voi: VariablesOfInterest) -> Graph:
+    """Keep only the configured input node-feature columns of ``graph.x``."""
+    in_cols = np.concatenate([
+        np.arange(voi.node_feature_slice(i).start, voi.node_feature_slice(i).stop)
+        for i in voi.input_node_features
+    ])
+    return dataclasses.replace(graph, x=np.asarray(graph.x)[:, in_cols])
+
+
+def extract_variables(graph: Graph, voi: VariablesOfInterest) -> Graph:
+    """Model-ready graph: input columns + per-head target dicts."""
+    graph_targets: Dict[str, np.ndarray] = {}
+    node_targets: Dict[str, np.ndarray] = {}
+    for name, t, idx in zip(voi.output_names, voi.output_types, voi.output_index):
+        if t == "graph":
+            graph_targets[name] = np.asarray(graph.graph_y)[voi.graph_feature_slice(idx)]
+        else:
+            node_targets[name] = np.asarray(graph.x)[:, voi.node_feature_slice(idx)]
+    return dataclasses.replace(
+        select_input_columns(graph, voi),
+        graph_targets=graph_targets,
+        node_targets=node_targets,
+    )
+
+
+@dataclasses.dataclass
+class MinMax:
+    """Per-column min/max used to normalize features/targets to [0, 1]."""
+
+    x_min: np.ndarray
+    x_max: np.ndarray
+    y_min: np.ndarray
+    y_max: np.ndarray
+
+    @staticmethod
+    def fit(graphs: List[Graph]) -> "MinMax":
+        xs = np.concatenate([g.x for g in graphs], axis=0)
+        if graphs[0].graph_y is not None:
+            ys = np.stack([np.asarray(g.graph_y) for g in graphs])
+            y_min, y_max = ys.min(0), ys.max(0)
+        else:
+            y_min = y_max = np.zeros((0,), np.float32)
+        return MinMax(xs.min(0), xs.max(0), y_min, y_max)
+
+    def apply(self, graphs: List[Graph]) -> List[Graph]:
+        xr = np.where(self.x_max > self.x_min, self.x_max - self.x_min, 1.0)
+        yr = np.where(self.y_max > self.y_min, self.y_max - self.y_min, 1.0)
+        out = []
+        for g in graphs:
+            x = (g.x - self.x_min) / xr
+            gy = None if g.graph_y is None else (g.graph_y - self.y_min) / yr
+            out.append(dataclasses.replace(g, x=x.astype(np.float32), graph_y=gy))
+        return out
+
+
+def split_dataset(
+    graphs: List[Graph], perc_train: float, seed: int = 0
+) -> Tuple[List[Graph], List[Graph], List[Graph]]:
+    """Random train/val/test split; val and test share the remainder."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(len(graphs))
+    rng.shuffle(idx)
+    n_train = int(len(idx) * perc_train)
+    n_val = (len(idx) - n_train) // 2
+    return (
+        [graphs[i] for i in idx[:n_train]],
+        [graphs[i] for i in idx[n_train : n_train + n_val]],
+        [graphs[i] for i in idx[n_train + n_val :]],
+    )
+
+
+def check_in_degree(graphs: Sequence[Graph], max_in_degree: int) -> None:
+    """Raise when a graph's real in-degree exceeds the configured bound
+    that ``max_in_degree`` promises the sorted-aggregation path."""
+    for gi, g in enumerate(graphs):
+        if g.num_edges:
+            top = int(np.bincount(np.asarray(g.receivers), minlength=g.num_nodes).max())
+            if top > int(max_in_degree):
+                raise ValueError(
+                    f"graph {gi} has in-degree {top} > max_in_degree "
+                    f"{max_in_degree}; raise Architecture.max_in_degree"
+                )
+
+
+class GraphLoader:
+    """Shuffling, statically padded batch iterator over a list of graphs.
+
+    ``spec`` is a ``PadSpec``, a ``SpecLadder`` or None (a ladder of
+    ``num_buckets`` levels is built from the data). ``pack=True`` bins
+    consecutive graphs greedily into ONE budget with a variable real-graph
+    count per batch. ``sort_edges`` sorts receivers (the sorted-aggregation
+    precondition)."""
+
+    def __init__(
+        self,
+        graphs: List[Graph],
+        batch_size: int,
+        spec=None,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = False,
+        num_buckets: int = 1,
+        sort_edges: bool = False,
+        max_in_degree: Optional[int] = None,
+        pack: bool = False,
+    ):
+        self.graphs = graphs
+        self.batch_size = batch_size
+        self.pack = bool(pack)
+        if self.pack:
+            if isinstance(spec, SpecLadder):
+                spec = spec.specs[-1]
+            self.ladder = SpecLadder((spec if spec is not None
+                                      else _pack_spec(graphs, batch_size),))
+        elif spec is None:
+            self.ladder = SpecLadder.for_dataset(graphs, batch_size, num_buckets=num_buckets)
+        elif isinstance(spec, SpecLadder):
+            self.ladder = spec
+        else:
+            self.ladder = SpecLadder((spec,))
+        self.spec = self.ladder.specs[-1]
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.sort_edges = sort_edges
+        if sort_edges and max_in_degree:
+            check_in_degree(graphs, max_in_degree)
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.graphs))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def _pack_groups(self, idx: np.ndarray) -> List[List[int]]:
+        """Greedy stream packing: consecutive samples accumulate into a bin
+        until the next one would overflow the node/edge budget or the
+        graph-slot cap."""
+        spec = self.spec
+        cap_n, cap_e, cap_g = spec.n_nodes - 1, spec.n_edges, spec.n_graphs - 1
+        groups: List[List[int]] = []
+        cur: List[int] = []
+        n = e = 0
+        for i in idx:
+            g = self.graphs[i]
+            gn, ge = g.num_nodes, g.num_edges
+            if gn > cap_n or ge > cap_e:
+                raise ValueError(
+                    f"graph {i} (nodes={gn}, edges={ge}) exceeds the pack "
+                    f"budget {spec}; pass a larger spec"
+                )
+            if cur and (n + gn > cap_n or e + ge > cap_e or len(cur) >= cap_g):
+                groups.append(cur)
+                cur, n, e = [], 0, 0
+            cur.append(int(i))
+            n, e = n + gn, e + ge
+        if cur:
+            groups.append(cur)
+        return groups
+
+    def _groups(self) -> List[List[int]]:
+        idx = self._indices()
+        if self.pack:
+            groups = self._pack_groups(idx)
+            if self.drop_last and len(groups) > 1:
+                groups = groups[:-1]  # only the final bin can be sparse
+            return groups
+        bs = self.batch_size
+        n_full = len(idx) // bs
+        groups = [list(idx[b * bs : (b + 1) * bs]) for b in range(n_full)]
+        if len(idx) > n_full * bs and not self.drop_last:
+            groups.append(list(idx[n_full * bs :]))
+        return groups
+
+    def __len__(self) -> int:
+        return len(self._groups())
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        for grp in self._groups():
+            graphs = [self.graphs[i] for i in grp]
+            spec = self.spec if self.pack else self.ladder.select_for(graphs)
+            yield batch_graphs(graphs, spec, sort_edges=self.sort_edges)
+
+    def spec_template_batches(self) -> List[Tuple[PadSpec, GraphBatch]]:
+        return spec_template_batches(self.graphs, self.ladder, sort_edges=self.sort_edges)

@@ -1,0 +1,166 @@
+"""Deterministic synthetic datasets (numpy only).
+
+Counterpart of ``hydragnn_tpu/data/synthetic.py`` for the two generators
+this slice uses; for the same seed both packages return the same arrays.
+
+- ``deterministic_graph_dataset``: BCC configurations with closed-form
+  targets (the CI fixture);
+- ``oc20_shaped_dataset``: OC20-S2EF-shaped slabs (lognormal sizes with mean
+  ~73 atoms clipped to [20, 225], FCC packing, capped ~20-degree radius
+  graphs, Lennard-Jones energy and force targets) — the serving main path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .graph import Graph
+from .neighbors import radius_graph
+
+
+def knn_average(pos: np.ndarray, values: np.ndarray, k: int) -> np.ndarray:
+    """Average of the k nearest samples (incl. self)."""
+    from scipy.spatial import cKDTree
+
+    _, idx = cKDTree(pos).query(pos, k=k)
+    if k == 1:
+        idx = idx[:, None]
+    return values[idx].mean(axis=1)
+
+
+def bcc_positions(uc_x: int, uc_y: int, uc_z: int) -> np.ndarray:
+    """Body-centered-cubic positions: corner + center atom per unit cell."""
+    corners = np.array(
+        [(x, y, z) for x in range(uc_x) for y in range(uc_y) for z in range(uc_z)],
+        np.float64,
+    )
+    pos = np.empty((2 * corners.shape[0], 3), np.float64)
+    pos[0::2] = corners
+    pos[1::2] = corners + 0.5
+    return pos
+
+
+def deterministic_graph_dataset(
+    number_configurations: int = 500,
+    unit_cell_x_range: Sequence[int] = (1, 3),
+    unit_cell_y_range: Sequence[int] = (1, 3),
+    unit_cell_z_range: Sequence[int] = (1, 2),
+    number_types: int = 3,
+    types: Optional[Sequence[int]] = None,
+    number_neighbors: int = 2,
+    linear_only: bool = False,
+    radius: float = 2.0,
+    max_neighbours: int = 100,
+    seed: int = 97,
+) -> List[Graph]:
+    """BCC configurations with node table ``[type, out2, out3]`` and graph
+    target ``sum(out1) + sum(out2) + sum(out3)`` (``linear_only``: node
+    table ``[type]``, target ``sum(type)``)."""
+    if types is None:
+        types = list(range(number_types))
+    rng = np.random.default_rng(seed)
+    graphs: List[Graph] = []
+    for _ in range(number_configurations):
+        uc = (
+            rng.integers(unit_cell_x_range[0], unit_cell_x_range[1]),
+            rng.integers(unit_cell_y_range[0], unit_cell_y_range[1]),
+            rng.integers(unit_cell_z_range[0], unit_cell_z_range[1]),
+        )
+        pos = bcc_positions(*uc)
+        n = pos.shape[0]
+        node_type = rng.integers(min(types), max(types) + 1, (n, 1)).astype(np.float64)
+        out1 = node_type.copy() if linear_only else knn_average(
+            pos, node_type, number_neighbors
+        )
+        out2 = out1**2 + node_type
+        out3 = out1**3
+        if linear_only:
+            total = out1.sum(keepdims=False)
+            x_table = node_type.astype(np.float32)
+        else:
+            total = out1.sum() + out2.sum() + out3.sum()
+            x_table = np.concatenate([node_type, out2, out3], axis=1).astype(np.float32)
+        senders, receivers = radius_graph(pos, radius, max_neighbours)
+        graphs.append(Graph(
+            x=x_table,
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            graph_y=np.asarray([float(total)], np.float32),
+            z=node_type[:, 0].astype(np.int32),
+        ))
+    return graphs
+
+
+def _symmetrize_edges(senders: np.ndarray, receivers: np.ndarray):
+    """Every pair in both directions (Newton's third law for the LJ
+    targets), in sorted pair order."""
+    pairs = set(zip(senders.tolist(), receivers.tolist()))
+    pairs |= {(i, j) for (j, i) in pairs}
+    s, r = zip(*sorted(pairs))
+    return np.asarray(s, np.int32), np.asarray(r, np.int32)
+
+
+def _lj_targets(pos, senders, receivers, epsilon: float, sigma: float):
+    """Lennard-Jones total energy and per-atom forces over the edge list:
+    half the pair energy per directed edge, forces the exact gradient."""
+    diff = pos[receivers] - pos[senders]
+    r = np.linalg.norm(diff, axis=1)
+    s6 = (sigma / r) ** 6
+    s12 = s6**2
+    energy = float(np.sum(0.5 * 4.0 * epsilon * (s12 - s6)))
+    coef = 0.5 * 24.0 * epsilon * (2.0 * s12 - s6) / r**2
+    forces = np.zeros_like(pos)
+    np.add.at(forces, receivers, coef[:, None] * diff)
+    np.add.at(forces, senders, -coef[:, None] * diff)
+    return energy, forces
+
+
+def oc20_shaped_dataset(
+    number_configurations: int = 64,
+    mean_atoms: float = 73.0,
+    min_atoms: int = 20,
+    max_atoms: int = 225,
+    radius: float = 5.0,
+    max_neighbours: int = 20,
+    lattice_constant: float = 3.8,
+    jitter: float = 0.12,
+    seed: int = 42,
+) -> List[Graph]:
+    """OC20-S2EF-shaped workload: node table ``[Z, x, y, z]``, graph target
+    ``energy`` (per atom), node target ``forces``."""
+    rng = np.random.default_rng(seed)
+    mu = np.log(mean_atoms) - 0.35**2 / 2.0
+    zs = np.array([1, 6, 8, 13, 26, 29, 46, 78])  # adsorbate + catalyst metals
+    a = lattice_constant
+    basis = np.array(
+        [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], np.float64
+    )
+    sigma = a / np.sqrt(2.0) / 2.0 ** (1.0 / 6.0)  # LJ minimum at the nn distance
+    graphs: List[Graph] = []
+    for _ in range(number_configurations):
+        n = int(np.clip(rng.lognormal(mu, 0.35), min_atoms, max_atoms))
+        side = int(np.ceil((n / 4.0) ** (1.0 / 3.0))) + 1
+        cells = np.array(
+            [(x, y, z) for z in range(side) for y in range(side) for x in range(side)],
+            np.float64,
+        )
+        pos = (cells[:, None, :] + basis[None, :, :]).reshape(-1, 3) * a
+        pos = pos[:n] + rng.uniform(-jitter, jitter, (n, 3))
+        senders, receivers = radius_graph(pos, radius, max_neighbours)
+        senders, receivers = _symmetrize_edges(senders, receivers)
+        energy, forces = _lj_targets(pos, senders, receivers, 1.0, sigma)
+        z = rng.choice(zs, size=n).astype(np.int32)
+        x = np.concatenate([z[:, None].astype(np.float32), pos.astype(np.float32)], axis=1)
+        graphs.append(Graph(
+            x=x,
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            graph_targets={"energy": np.asarray([energy / n], np.float32)},
+            node_targets={"forces": forces.astype(np.float32)},
+            z=z,
+        ))
+    return graphs

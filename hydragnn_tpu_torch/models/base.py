@@ -1,0 +1,196 @@
+"""Multi-headed encoder/decoder base model.
+
+Counterpart of ``hydragnn_tpu/models/base.py``: a conv stack over padded
+``GraphBatch``es (each conv followed by masked batch norm and the
+activation), masked mean pooling, and branch-bank decoders whose
+parameters keep a leading ``[num_branches]`` axis, decoded densely for every
+branch and selected per graph by ``dataset_id``.
+
+Every conv layer implements ``(inv, equiv, batch) -> (inv, equiv)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.segment import masked_global_mean_pool
+from .layers import MLP, MaskedBatchNorm, get_activation
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphHeadConfig:
+    num_sharedlayers: int = 2
+    dim_sharedlayers: int = 10
+    num_headlayers: int = 2
+    dim_headlayers: Tuple[int, ...] = (10, 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeHeadConfig:
+    nn_type: str = "mlp"  # mlp (mlp_per_node and conv: later slices)
+    num_headlayers: int = 2
+    dim_headlayers: Tuple[int, ...] = (10, 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Frozen hyperparameter record; field names follow the JAX package's
+    ``ModelConfig`` (and so the config's Architecture keys)."""
+
+    mpnn_type: str
+    input_dim: int
+    hidden_dim: int
+    num_conv_layers: int
+    output_names: Tuple[str, ...]
+    output_dim: Tuple[int, ...]
+    output_type: Tuple[str, ...]
+    task_weights: Tuple[float, ...]
+    graph_head: Optional[GraphHeadConfig] = None
+    node_head: Optional[NodeHeadConfig] = None
+    num_branches: int = 1
+    activation: str = "relu"
+    loss_function_type: str = "mse"
+    edge_dim: int = 0
+    equivariance: bool = False
+    # receiver-sorted edges + static in-degree bound route the aggregation
+    # through K1 (ops/segment.py); fused_edge_kernel routes the single-
+    # consumer EGNN edge path through K2
+    sorted_aggregation: bool = False
+    max_in_degree: int = 0
+    fused_edge_kernel: bool = False
+    decoder_mirror_init: bool = True
+    decoder_recovery_slope: float = 0.1
+
+    @property
+    def normalized_task_weights(self) -> Tuple[float, ...]:
+        s = sum(abs(w) for w in self.task_weights)
+        return tuple(w / s for w in self.task_weights)
+
+
+# conv registry: mpnn_type -> (is_edge_model, ctor(cfg, in_dim, out_dim, last_layer))
+_CONV_REGISTRY: Dict[str, Tuple[bool, Callable]] = {}
+
+
+def register_conv(name: str, is_edge_model: bool = False):
+    def deco(ctor):
+        _CONV_REGISTRY[name] = (is_edge_model, ctor)
+        return ctor
+
+    return deco
+
+
+def get_conv_ctor(name: str):
+    try:
+        return _CONV_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown mpnn_type {name!r}; registered: {sorted(_CONV_REGISTRY)}"
+        )
+
+
+class MLPNode(nn.Module):
+    """Shared per-node MLP head (``nn_type == "mlp"``), its layers under
+    ``MLP_0`` as in the flax tree."""
+
+    def __init__(self, in_dim: int, output_dim: int, hidden_dims, nn_type: str,
+                 activation: str, mirror_init: bool, recovery_slope: float,
+                 num_branches: int):
+        super().__init__()
+        if nn_type != "mlp":
+            raise NotImplementedError(
+                f"node head type {nn_type!r} comes with a later slice of the "
+                "port; this slice serves the shared 'mlp' node head"
+            )
+        self.MLP_0 = MLP(in_dim, tuple(hidden_dims) + (output_dim,), activation,
+                         mirror_init=mirror_init, recovery_slope=recovery_slope,
+                         num_branches=num_branches)
+
+    def forward(self, x):
+        return self.MLP_0(x)
+
+
+class HydraModel(nn.Module):
+    """Encoder (conv stack) + multi-head, multi-branch decoders.
+
+    ``forward(batch)`` returns ``{head_name: predictions}``: graph heads
+    [G, d], node heads [N, d]; padding rows are garbage, reduce with the
+    batch masks."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        _, ctor = get_conv_ctor(cfg.mpnn_type)
+        convs = []
+        for i in range(cfg.num_conv_layers):
+            in_dim = cfg.input_dim if i == 0 else cfg.hidden_dim
+            convs.append(ctor(cfg, in_dim, cfg.hidden_dim, i == cfg.num_conv_layers - 1))
+        self.graph_convs = nn.ModuleList(convs)
+        self.feature_layers = nn.ModuleList(
+            MaskedBatchNorm(cfg.hidden_dim) for _ in range(cfg.num_conv_layers)
+        )
+        self.act = get_activation(cfg.activation)
+
+        B = cfg.num_branches
+        gh = cfg.graph_head or GraphHeadConfig()
+        if any(t == "graph" for t in cfg.output_type):
+            self.graph_shared = MLP(
+                cfg.hidden_dim, (gh.dim_sharedlayers,) * gh.num_sharedlayers,
+                cfg.activation, final_activation=True,
+                mirror_init=cfg.decoder_mirror_init,
+                recovery_slope=cfg.decoder_recovery_slope, num_branches=B,
+            )
+        heads = []
+        for t, d in zip(cfg.output_type, cfg.output_dim):
+            if t == "graph":
+                heads.append(MLP(
+                    gh.dim_sharedlayers, tuple(gh.dim_headlayers) + (d,),
+                    cfg.activation, mirror_init=cfg.decoder_mirror_init,
+                    recovery_slope=cfg.decoder_recovery_slope, num_branches=B,
+                ))
+            elif t == "node":
+                nh = cfg.node_head or NodeHeadConfig()
+                heads.append(MLPNode(
+                    cfg.hidden_dim, d, nh.dim_headlayers, nh.nn_type,
+                    cfg.activation, cfg.decoder_mirror_init,
+                    cfg.decoder_recovery_slope, B,
+                ))
+            else:
+                raise ValueError(f"unknown head type {t!r}")
+        self.heads_NN = nn.ModuleList(heads)
+
+    def encode(self, batch):
+        """Conv stack -> final invariant node features [N, hidden]."""
+        inv, equiv = batch.x, batch.pos
+        for conv, bn in zip(self.graph_convs, self.feature_layers):
+            inv, equiv = conv(inv, equiv, batch)
+            inv = self.act(bn(inv, batch.node_mask))
+        return inv, equiv
+
+    def forward(self, batch) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        x, _ = self.encode(batch)
+        x_graph = masked_global_mean_pool(x, batch.node_graph, batch.num_graphs,
+                                          batch.node_mask)
+        outputs: Dict[str, torch.Tensor] = {}
+        for ihead, (name, t, d) in enumerate(
+            zip(cfg.output_names, cfg.output_type, cfg.output_dim)
+        ):
+            if t == "graph":
+                stacked = self.heads_NN[ihead](self.graph_shared(x_graph))  # [B, G, d]
+                row_branch = batch.dataset_id
+            else:
+                stacked = self.heads_NN[ihead](x)  # [B, N, d]
+                row_branch = batch.dataset_id[batch.node_graph]
+            outputs[name] = self._select_branch(stacked, row_branch)[..., :d]
+        return outputs
+
+    def _select_branch(self, stacked, row_branch):
+        """Dense all-branch decode + per-row branch select."""
+        if self.cfg.num_branches == 1:
+            return stacked[0]
+        idx = row_branch.long()[None, :, None].expand(1, -1, stacked.shape[-1])
+        return torch.gather(stacked, 0, idx)[0]

@@ -1,0 +1,116 @@
+"""Model factory: completed JSON config -> ``HydraModel`` on a device.
+
+Counterpart of ``hydragnn_tpu/models/create.py``. EGNN is registered; the
+other convs of the JAX package come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .base import GraphHeadConfig, HydraModel, ModelConfig, NodeHeadConfig
+from .layers import reset_parameters
+
+# import model files for their registry side effects
+from . import egnn as _egnn  # noqa: F401
+
+# convs of the JAX package that this port does not carry yet
+_LATER_SLICES = ("CGCNN", "DimeNet", "GAT", "GIN", "MACE", "MFC", "PAINN",
+                 "PNA", "PNAEq", "PNAPlus", "SAGE", "SchNet")
+
+
+def normalize_output_heads(heads: Dict[str, Any]) -> Dict[str, List[Dict[str, Any]]]:
+    """Upgrade single-branch head configs to the multibranch list form."""
+    out: Dict[str, List[Dict[str, Any]]] = {}
+    for key, val in heads.items():
+        if isinstance(val, list):
+            out[key] = val
+        else:
+            out[key] = [{"type": "branch-0", "architecture": dict(val)}]
+    return out
+
+
+def model_config_from(config: Dict[str, Any]) -> ModelConfig:
+    """Build the frozen ModelConfig from a completed config dict (after
+    ``hydragnn_tpu_torch.config.update_config``)."""
+    nn_cfg = config["NeuralNetwork"]
+    arch = nn_cfg["Architecture"]
+    training = nn_cfg["Training"]
+    var = nn_cfg["Variables_of_interest"]
+    if arch["mpnn_type"] in _LATER_SLICES:
+        raise NotImplementedError(
+            f"mpnn_type {arch['mpnn_type']!r} comes with a later slice of the "
+            "PyTorch port; this slice carries EGNN"
+        )
+    if arch.get("global_attn_engine"):
+        raise NotImplementedError(
+            "GPS global attention (and its flash-attention kernel) comes with "
+            "a later slice of the PyTorch port"
+        )
+    loss_type = training.get("loss_function_type", "mse")
+    if loss_type == "GaussianNLLLoss":
+        raise NotImplementedError(
+            "variance heads (GaussianNLLLoss) come with a later slice of the port"
+        )
+
+    heads = normalize_output_heads(arch["output_heads"])
+    graph_head = node_head = None
+    num_branches = 1
+    if "graph" in heads:
+        num_branches = len(heads["graph"])
+        a = heads["graph"][0]["architecture"]
+        graph_head = GraphHeadConfig(
+            num_sharedlayers=a.get("num_sharedlayers", 2),
+            dim_sharedlayers=a.get("dim_sharedlayers", 10),
+            num_headlayers=a.get("num_headlayers", 2),
+            dim_headlayers=tuple(a.get("dim_headlayers", (10, 10))),
+        )
+    if "node" in heads:
+        a = heads["node"][0]["architecture"]
+        node_head = NodeHeadConfig(
+            nn_type=a.get("type", "mlp"),
+            num_headlayers=a.get("num_headlayers", 2),
+            dim_headlayers=tuple(a.get("dim_headlayers", (10, 10))),
+        )
+    return ModelConfig(
+        mpnn_type=arch["mpnn_type"],
+        input_dim=int(arch["input_dim"]),
+        hidden_dim=int(arch["hidden_dim"]),
+        num_conv_layers=int(arch["num_conv_layers"]),
+        output_names=tuple(var["output_names"]),
+        output_dim=tuple(int(d) for d in arch["output_dim"]),
+        output_type=tuple(arch["output_type"]),
+        task_weights=tuple(float(w) for w in arch["task_weights"]),
+        graph_head=graph_head,
+        node_head=node_head,
+        num_branches=num_branches,
+        activation=arch.get("activation_function", "relu"),
+        loss_function_type=loss_type,
+        edge_dim=int(arch.get("edge_dim") or 0),
+        equivariance=bool(arch.get("equivariance", False)),
+        sorted_aggregation=bool(arch.get("use_sorted_aggregation", False)),
+        max_in_degree=int(arch.get("max_in_degree") or 0),
+        fused_edge_kernel=bool(arch.get("use_fused_edge_kernel", False)),
+        decoder_mirror_init=bool(
+            True if arch.get("decoder_mirror_init") is None
+            else arch["decoder_mirror_init"]
+        ),
+        decoder_recovery_slope=float(
+            0.1 if arch.get("decoder_recovery_slope") is None
+            else arch["decoder_recovery_slope"]
+        ),
+    )
+
+
+def create_model(config: Dict[str, Any], device: DeviceLike = None,
+                 seed: int = 0) -> HydraModel:
+    """Completed config -> ``HydraModel`` in eval mode on ``device`` (the
+    current CUDA device when None; raises when there is none), its weights
+    drawn from ``torch.Generator().manual_seed(seed)``."""
+    dev = resolve_device(device)
+    model = HydraModel(model_config_from(config))
+    reset_parameters(model, torch.Generator().manual_seed(int(seed)))
+    return model.to(dev).eval()

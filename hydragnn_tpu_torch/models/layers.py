@@ -1,0 +1,257 @@
+"""Shared building blocks: dense layers, MLP, masked batch norm, activations,
+and the factored EGNN edge layer in its unfused and fused spellings.
+
+Counterpart of ``hydragnn_tpu/models/layers.py``. Parameter names follow the
+flax tree (``Dense_<i>`` inside an MLP, ``scale``/``bias`` and the
+``mean``/``var``/``count`` statistics of a batch norm) so ``bridge.py`` maps
+a JAX checkpoint one to one; a torch ``weight`` is the flax ``kernel``
+transposed to ``[out, in]``.
+
+Dtypes follow flax: a dense layer computes in the common dtype of its input
+and its parameters, so an f32 input against bf16 parameters runs in f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.segment import fused_edge_message_sum
+
+# init kinds: ("lecun",) flax's lecun_normal; ("mirror",) its mirrored (w, -w)
+# column pairs; ("variance_scaling", scale) fan_avg uniform
+Init = Tuple
+
+
+def _promote(*ts):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def dense(x, weight, bias=None):
+    """``x @ weight.T + bias`` in the common dtype of the three (flax Dense
+    promotion). ``weight`` is ``[out, in]``."""
+    dt = _promote(x, weight, bias)
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+
+
+def _lecun_normal_(w, fan_in: int, gen: torch.Generator):
+    # flax lecun_normal: truncated normal on [-2, 2] scaled to variance 1/fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.mul_(std)
+
+
+def init_dense_weight_(w, init: Init, gen: torch.Generator) -> None:
+    """Fill a ``[out, in]`` (or banked ``[B, out, in]``) weight in place."""
+    if w.dim() == 3:
+        for b in range(w.shape[0]):
+            init_dense_weight_(w[b], init, gen)
+        return
+    fan_out, fan_in = w.shape
+    kind = init[0]
+    if kind == "lecun":
+        _lecun_normal_(w, fan_in, gen)
+    elif kind == "mirror":
+        # mirrored_lecun_normal (hydragnn_tpu/models/layers.py): output units
+        # in (w, -w) pairs, so for any input with w.x != 0 one unit of each
+        # pair is active and no seed can draw a fully ReLU-dead layer
+        half = (fan_out + 1) // 2
+        base = torch.empty(half, fan_in)
+        _lecun_normal_(base, fan_in, gen)
+        with torch.no_grad():
+            w.copy_(torch.cat([base, -base[: fan_out - half]], dim=0))
+    elif kind == "variance_scaling":
+        limit = math.sqrt(3.0 * init[1] / ((fan_in + fan_out) / 2.0))
+        with torch.no_grad():
+            w.uniform_(-limit, limit, generator=gen)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``weight`` [out, in], optional ``bias`` [out]
+    (zeros at init)."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 init: Init = ("lecun",)):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        init_dense_weight_(self.weight, self.init, gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        return dense(x, self.weight, self.bias)
+
+
+class BankedDense(nn.Module):
+    """A dense layer lifted over the branch axis: ``weight`` [B, out, in],
+    ``bias`` [B, out], each branch initialized on its own (the flax
+    ``nn.vmap`` branch bank of models/base.py). A 2-D input ``[R, in]`` is
+    broadcast to every branch; a 3-D ``[B, R, in]`` input is mapped branch
+    by branch. Returns ``[B, R, out]``."""
+
+    def __init__(self, num_branches: int, in_dim: int, out_dim: int,
+                 init: Init = ("lecun",)):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(num_branches, out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(num_branches, out_dim))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        init_dense_weight_(self.weight, self.init, gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x):
+        dt = _promote(x, self.weight, self.bias)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        eq = "ri,boi->bro" if x.dim() == 2 else "bri,boi->bro"
+        return torch.einsum(eq, x.to(dt), w) + b[:, None, :]
+
+
+def _leaky_relu_flax(v):
+    return F.leaky_relu(v, 0.01)
+
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "gelu": lambda v: F.gelu(v, approximate="tanh"),  # flax nn.gelu default
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "elu": F.elu,
+    "leaky_relu": _leaky_relu_flax,
+    "softplus": F.softplus,
+    "identity": lambda v: v,
+}
+
+
+def get_activation(name: str) -> Callable:
+    try:
+        return ACTIVATIONS[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown activation {name!r}; known: {sorted(ACTIVATIONS)}")
+
+
+class MLP(nn.Module):
+    """Dense stack with the activation between layers and none after the
+    last (unless ``final_activation``). ``mirror_init`` draws every
+    activated layer with the mirrored init; ``recovery_slope`` > 0 turns a
+    relu activation into leaky relu with that slope (the decoder settings).
+    ``num_branches`` makes every layer a ``BankedDense``."""
+
+    def __init__(self, in_dim: int, features: Sequence[int], activation: str = "relu",
+                 final_activation: bool = False, mirror_init: bool = False,
+                 recovery_slope: float = 0.0, num_branches: Optional[int] = None):
+        super().__init__()
+        self.features = tuple(features)
+        self.final_activation = final_activation
+        act = get_activation(activation)
+        if recovery_slope and activation.lower() == "relu":
+            act = lambda v, s=recovery_slope: F.leaky_relu(v, s)
+        self.act = act
+        d = in_dim
+        for i, f in enumerate(self.features):
+            last = i == len(self.features) - 1
+            init = ("mirror",) if mirror_init and (not last or final_activation) else ("lecun",)
+            layer = (Dense(d, f, init=init) if num_branches is None
+                     else BankedDense(num_branches, d, f, init=init))
+            self.add_module(f"Dense_{i}", layer)
+            d = f
+
+    def forward(self, x):
+        n = len(self.features)
+        for i in range(n):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < n - 1 or self.final_activation:
+                x = self.act(x)
+        return x
+
+
+class MaskedBatchNorm(nn.Module):
+    """Batch norm over real nodes, eval path: normalizes with the running
+    statistics (buffers ``mean``, ``var``, ``count``, as in the flax
+    ``batch_stats`` collection). The training update comes with the
+    training slice."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.register_buffer("count", torch.zeros(()))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, mask=None, train: bool = False):
+        if train:
+            raise NotImplementedError(
+                "MaskedBatchNorm training statistics come with the training "
+                "slice of the port; this slice serves (eval) only"
+            )
+        y = (x - self.mean) / torch.sqrt(self.var + self.epsilon)
+        return y * self.scale + self.bias
+
+
+def pair_message_factored(layer, inv, batch, terms=()):
+    """The factored first edge-MLP layer: a node-sized receiver projection
+    ``layer.edge_lin_recv(inv)`` [N, C] (carrying the one bias) and one
+    edge-aligned operand: the bias-free sender projection gathered by
+    ``senders`` plus a bias-free projection of every ``(module, [E, d])``
+    entry of ``terms``. Returns ``(node_recv, edge_in)``."""
+    node_recv = layer.edge_lin_recv(inv)
+    edge_in = layer.edge_lin_send(inv)[batch.senders]
+    for module, arr in terms:
+        edge_in = edge_in + module(arr)
+    return node_recv, edge_in
+
+
+def hoisted_pair_dense(layer, inv, batch, terms=()):
+    """``Dense(concat[x_i, x_j, e...])`` computed on node-sized operands
+    before the edge gather: ``node_recv[receivers] + edge_in``."""
+    node_recv, edge_in = pair_message_factored(layer, inv, batch, terms)
+    return node_recv[batch.receivers] + edge_in
+
+
+def fused_pair_dense_sum(layer, inv, batch, terms=(), max_in_degree: int = 0):
+    """The whole edge path ``hoisted_pair_dense -> relu -> edge_lin2 -> relu
+    -> segment_sum`` as one op (K2 on the card), with the same parameters as
+    the unfused spelling: ``edge_lin2`` is an ordinary ``Dense`` whose
+    weight the fused op reads transposed."""
+    node_recv, edge_in = pair_message_factored(layer, inv, batch, terms)
+    lin2 = layer.edge_lin2
+    dt = _promote(node_recv, edge_in, lin2.weight, lin2.bias)
+    return fused_edge_message_sum(
+        node_recv.to(dt).contiguous(), edge_in.to(dt).contiguous(),
+        lin2.weight.to(dt).t().contiguous(), lin2.bias.to(dt).contiguous(),
+        batch.receivers, batch.num_nodes, max_in_degree,
+    )
+
+
+def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:
+    """Initialize every layer of ``module`` from ``gen``, in registration
+    order (deterministic for a given seed)."""
+    for m in module.modules():
+        if isinstance(m, (Dense, BankedDense, MaskedBatchNorm)):
+            m.reset_parameters(gen)

@@ -1,0 +1,121 @@
+"""Fused gather -> edge dense -> sorted-segment sum (K2): the hand-written
+CUDA kernel ``csrc/fused_edge.cu`` and its plain PyTorch version.
+
+Counterpart of ``hydragnn_tpu/ops/pallas_fused_edge.py``
+(``fused_edge_message_sum``, whose ``_forward`` reaches ``pl.pallas_call``):
+
+    segment_sum(relu(relu(node_recv[ids] + edge_in) @ W + b), ids)
+
+over ascending ``ids``, with per-edge messages kept out of device memory.
+Padding edges are NOT masked here (as in the JAX package): they all land on
+the final dummy node, whose row is garbage that every consumer masks.
+
+The wrapper runs the plain version for a CPU tensor and the kernel for a
+CUDA tensor; anything else raises. ``fused_edge_message_sum.launches``
+counts kernel launches (``launches_by_case`` splits them by dtype and
+widths).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from . import _build
+from .sorted_segment import (
+    _DTYPE_CODES,
+    _check_current_device,
+    check_ids,
+    sorted_segment_sum_plain,
+)
+
+_SIGNATURES = {
+    "hg_fused_edge_message_sum": (
+        ctypes.c_int,
+        (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
+    ),
+}
+
+# edges a block should own: rows per block follow the batch's mean in-degree
+# so a block walks about four 128-edge chunks (csrc/fused_edge.cu)
+_EDGES_PER_BLOCK = 512
+_MAX_ROWS_PER_BLOCK = 32
+
+
+def reference_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
+                               num_segments: int):
+    """Dense plain statement of the fused function: the per-edge messages
+    are materialized, then summed per row in f32."""
+    pre = node_recv[segment_ids.long()] + edge_in
+    msg = torch.relu(torch.relu(pre) @ weights + bias)
+    return sorted_segment_sum_plain(msg, segment_ids, num_segments)
+
+
+def rows_per_block(n_edges: int, num_segments: int) -> int:
+    mean_degree = max(n_edges, 1) / max(num_segments, 1)
+    return int(min(max(round(_EDGES_PER_BLOCK / mean_degree), 1), _MAX_ROWS_PER_BLOCK))
+
+
+def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
+                           num_segments: int):
+    """``node_recv`` [num_segments, Ci], ``edge_in`` [E, Ci], ``weights``
+    [Ci, Co], ``bias`` [Co], one dtype (float32 or bfloat16); returns
+    [num_segments, Co] in that dtype, accumulated in f32."""
+    if edge_in.device.type == "cpu":
+        return reference_edge_message_sum(
+            node_recv, edge_in, weights, bias, segment_ids, num_segments
+        )
+    if edge_in.device.type != "cuda":
+        raise ValueError(f"fused_edge_message_sum: unsupported device {edge_in.device}")
+    dtype = edge_in.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_edge_message_sum: dtype {dtype} not supported")
+    for name, t, ndim in (("node_recv", node_recv, 2), ("edge_in", edge_in, 2),
+                          ("weights", weights, 2), ("bias", bias, 1)):
+        if t.device != edge_in.device or t.dtype != dtype:
+            raise TypeError(
+                f"fused_edge_message_sum: {name} is {t.dtype} on {t.device}, "
+                f"expected {dtype} on {edge_in.device}"
+            )
+        if t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(
+                f"fused_edge_message_sum: {name} must be a contiguous {ndim}-D tensor"
+            )
+    e, ci = edge_in.shape
+    co = weights.shape[1]
+    if node_recv.shape != (num_segments, ci) or weights.shape[0] != ci or bias.shape != (co,):
+        raise ValueError(
+            "fused_edge_message_sum: shapes node_recv "
+            f"{tuple(node_recv.shape)}, edge_in {tuple(edge_in.shape)}, weights "
+            f"{tuple(weights.shape)}, bias {tuple(bias.shape)} do not agree "
+            f"with num_segments={num_segments}"
+        )
+    check_ids(segment_ids, e, edge_in.device)
+    if max(edge_in.numel(), node_recv.numel(), num_segments * co, ci * co) >= 2**31:
+        raise ValueError("fused_edge_message_sum: more than 2**31 elements")
+    out = torch.empty((num_segments, co), dtype=dtype, device=edge_in.device)
+    if out.numel() == 0:
+        return out
+    ids = segment_ids.to(torch.int64).contiguous()
+    # CSR row pointer scratch, filled by the library's first kernel
+    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=edge_in.device)
+    lib = _build.load("fused_edge", _SIGNATURES)
+    _check_current_device(edge_in.device)
+    stream = torch.cuda.current_stream(edge_in.device).cuda_stream
+    rc = lib.hg_fused_edge_message_sum(
+        node_recv.data_ptr(), edge_in.data_ptr(), weights.data_ptr(),
+        bias.data_ptr(), ids.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        int(e), int(num_segments), int(ci), int(co),
+        rows_per_block(e, num_segments), _DTYPE_CODES[dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_edge_message_sum kernel launch failed: CUDA error {rc}")
+    fused_edge_message_sum.launches += 1
+    fused_edge_message_sum.launches_by_case[f"{str(dtype)[6:]}/{ci}x{co}"] += 1
+    return out
+
+
+fused_edge_message_sum.launches = 0
+fused_edge_message_sum.launches_by_case = collections.Counter()

@@ -1,0 +1,80 @@
+"""Masked segment reductions and the routing to the hand-written kernels.
+
+Counterpart of ``hydragnn_tpu/ops/segment.py``. Routing follows the JAX
+package: receiver-sorted ids (``sorted_ids=True``) with a static in-degree
+bound go through the sorted-segment kernel (K1, ops/sorted_segment.py), and
+``fused_edge_message_sum`` through the fused edge kernel (K2,
+ops/fused_edge.py). Those wrappers take the kernel for a CUDA tensor and
+their plain version for a CPU tensor. Unsorted reductions (pooling, counts)
+are plain PyTorch, as they are plain XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .fused_edge import fused_edge_message_sum as _fused_edge_message_sum
+from .sorted_segment import sorted_segment_sum, sorted_segment_sum_plain
+
+
+def _mask_messages(messages, mask, fill: float = 0.0):
+    if mask is None:
+        return messages
+    m = mask.reshape(mask.shape + (1,) * (messages.dim() - mask.dim()))
+    return torch.where(m, messages, torch.full((), fill, dtype=messages.dtype,
+                                               device=messages.device))
+
+
+def segment_sum(messages, segment_ids, num_segments: int, mask=None,
+                sorted_ids: bool = False, max_degree: Optional[int] = None):
+    """Scatter-add of edge messages, padding masked to zero first. Sorted
+    ids with an in-degree bound and 2-D messages take K1."""
+    msg = _mask_messages(messages, mask)
+    if sorted_ids and max_degree and msg.dim() == 2:
+        return sorted_segment_sum(msg.contiguous(), segment_ids, num_segments)
+    if msg.dim() == 1:
+        return sorted_segment_sum_plain(msg[:, None], segment_ids, num_segments)[:, 0]
+    return sorted_segment_sum_plain(msg, segment_ids, num_segments)
+
+
+def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
+                           num_segments: int, max_degree: int):
+    """``segment_sum(relu(relu(node_recv[ids] + edge_in) @ W + b))`` over
+    receiver-sorted ids: K2 when an in-degree bound is set, else the dense
+    plain statement (the JAX package's routing)."""
+    if max_degree:
+        return _fused_edge_message_sum(
+            node_recv, edge_in, weights, bias, segment_ids, num_segments
+        )
+    from .fused_edge import reference_edge_message_sum
+
+    return reference_edge_message_sum(
+        node_recv, edge_in, weights, bias, segment_ids, num_segments
+    )
+
+
+def segment_count(segment_ids, num_segments: int, mask=None):
+    ones = torch.ones(segment_ids.shape[:1], dtype=torch.float32,
+                      device=segment_ids.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, torch.zeros((), device=ones.device))
+    out = torch.zeros(num_segments, dtype=torch.float32, device=ones.device)
+    return out.index_add_(0, segment_ids.long(), ones)
+
+
+def segment_mean(messages, segment_ids, num_segments: int, mask=None,
+                 eps: float = 0.0, sorted_ids: bool = False,
+                 max_degree: Optional[int] = None):
+    s = segment_sum(messages, segment_ids, num_segments, mask,
+                    sorted_ids=sorted_ids, max_degree=max_degree)
+    n = segment_count(segment_ids, num_segments, mask)
+    n = torch.clamp(n, min=1.0) if eps == 0.0 else n + eps
+    # f32 counts promote a bf16 sum to f32, as jnp does
+    return s / n.reshape(n.shape + (1,) * (s.dim() - 1))
+
+
+def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask):
+    """Per-graph mean over real nodes."""
+    return segment_mean(x, node_graph, num_graphs, node_mask)

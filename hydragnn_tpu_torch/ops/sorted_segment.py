@@ -1,0 +1,103 @@
+"""Sorted-segment sum of edge messages (K1): the hand-written CUDA kernel
+``csrc/sorted_segment_sum.cu`` and its plain PyTorch version.
+
+Counterpart of ``hydragnn_tpu/ops/pallas_segment.py`` (``sorted_segment_sum``,
+whose ``_forward`` reaches ``pl.pallas_call``). ``segment_ids`` must ascend
+(receiver-sorted batches, ``GraphLoader(sort_edges=True)``); unlike the TPU
+kernel, every row is exact whatever its degree, the over-degree dummy row
+included. Accumulation is f32; the result comes back in the messages'
+dtype.
+
+The wrapper runs the plain version for a CPU tensor and the kernel for a
+CUDA tensor; anything else raises. ``sorted_segment_sum.launches`` counts
+kernel launches (``launches_by_case`` splits them by dtype and width).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_SIGNATURES = {
+    "hg_sorted_segment_sum": (
+        ctypes.c_int,
+        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+    ),
+}
+
+
+def sorted_segment_sum_plain(messages, segment_ids, num_segments: int):
+    """``index_add_`` in f32, returned in the messages' dtype — the same
+    function as the kernel, for CPU tensors and for comparison."""
+    out = torch.zeros(
+        (num_segments,) + tuple(messages.shape[1:]),
+        dtype=torch.float32, device=messages.device,
+    )
+    out.index_add_(0, segment_ids.long(), messages.float())
+    return out.to(messages.dtype)
+
+
+def _check_current_device(device) -> None:
+    """The kernels launch in the current CUDA context: the tensors must live
+    on the current device."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensors on {device} but the current CUDA device is "
+            f"{torch.cuda.current_device()}; call torch.cuda.set_device first"
+        )
+
+
+def check_ids(segment_ids, n_edges: int, device) -> None:
+    if segment_ids.device != device:
+        raise ValueError(f"segment_ids on {segment_ids.device}, messages on {device}")
+    if segment_ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_ids must be int32 or int64, got {segment_ids.dtype}")
+    if segment_ids.shape != (n_edges,):
+        raise ValueError(
+            f"segment_ids shape {tuple(segment_ids.shape)} != ({n_edges},)"
+        )
+
+
+def sorted_segment_sum(messages, segment_ids, num_segments: int):
+    """``out[i] = sum_{e: ids[e] == i} messages[e]`` over ascending ids.
+    ``messages`` [E, C] float32/bfloat16; returns [num_segments, C]."""
+    if messages.device.type == "cpu":
+        return sorted_segment_sum_plain(messages, segment_ids, num_segments)
+    if messages.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sum: unsupported device {messages.device}")
+    if messages.dtype not in _DTYPE_CODES:
+        raise TypeError(f"sorted_segment_sum: dtype {messages.dtype} not supported")
+    if messages.dim() != 2 or not messages.is_contiguous():
+        raise ValueError("sorted_segment_sum: messages must be a contiguous [E, C] tensor")
+    e, c = messages.shape
+    check_ids(segment_ids, e, messages.device)
+    if messages.numel() >= 2**31 or num_segments * c >= 2**31:
+        raise ValueError("sorted_segment_sum: more than 2**31 elements")
+    out = torch.empty((num_segments, c), dtype=messages.dtype, device=messages.device)
+    if out.numel() == 0:
+        return out
+    ids = segment_ids.to(torch.int64).contiguous()
+    # CSR row pointer scratch, filled by the library's first kernel
+    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=messages.device)
+    lib = _build.load("sorted_segment_sum", _SIGNATURES)
+    _check_current_device(messages.device)
+    stream = torch.cuda.current_stream(messages.device).cuda_stream
+    rc = lib.hg_sorted_segment_sum(
+        messages.data_ptr(), ids.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        int(e), int(num_segments), int(c), _DTYPE_CODES[messages.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"sorted_segment_sum kernel launch failed: CUDA error {rc}")
+    sorted_segment_sum.launches += 1
+    sorted_segment_sum.launches_by_case[f"{str(messages.dtype)[6:]}/C{c}"] += 1
+    return out
+
+
+sorted_segment_sum.launches = 0
+sorted_segment_sum.launches_by_case = collections.Counter()

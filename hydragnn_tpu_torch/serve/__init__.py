@@ -1,0 +1,13 @@
+from .config import ServeConfig
+from .errors import (
+    ERROR_CODES,
+    DeadlineExceededError,
+    InvalidRequestError,
+    QueueFullError,
+    RequestError,
+    ServeError,
+    ServerClosedError,
+    ServerDrainingError,
+    SheddedError,
+)
+from .server import GraphServer, PredictionHandle

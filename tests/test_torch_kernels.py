@@ -1,0 +1,149 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+K1 (hydragnn_tpu_torch/ops/sorted_segment.py) and K2
+(hydragnn_tpu_torch/ops/fused_edge.py): on the CPU their wrappers run the
+plain PyTorch versions, held here against the JAX kernels in interpret mode
+and the JAX dense references, in f32 with atol 1e-5 (the same function
+summed in another order). The CUDA kernels themselves run only on a GPU:
+tests/test_torch_cuda.py holds them against these plain versions there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hydragnn_tpu.ops.pallas_fused_edge import fused_edge_message_sum as jax_fused
+from hydragnn_tpu.ops.pallas_fused_edge import reference_edge_message_sum as jax_fused_ref
+from hydragnn_tpu.ops.pallas_segment import sorted_segment_sum as jax_sorted_sum
+from hydragnn_tpu.ops.segment import segment_mean as jax_segment_mean
+from hydragnn_tpu_torch.ops import fused_edge as t_fused
+from hydragnn_tpu_torch.ops import segment as t_segment
+from hydragnn_tpu_torch.ops import sorted_segment as t_sorted
+
+torch.set_num_threads(2)
+
+ATOL = 1e-5
+
+
+def _sorted_ids(rng, e, n, max_degree):
+    """Ascending receiver ids with every in-degree <= max_degree."""
+    deg = np.zeros(n, np.int64)
+    out = []
+    while len(out) < e:
+        i = int(rng.integers(0, n))
+        if deg[i] < max_degree:
+            deg[i] += 1
+            out.append(i)
+    return np.sort(np.asarray(out, np.int32))
+
+
+@pytest.mark.parametrize("c", [3, 40])
+def pytest_sorted_segment_sum_plain_matches_jax_kernel(c):
+    rng = np.random.default_rng(c)
+    e, n, max_degree = 300, 50, 16
+    ids = _sorted_ids(rng, e, n, max_degree)
+    msg = rng.normal(size=(e, c)).astype(np.float32)
+    want = np.asarray(jax_sorted_sum(jnp.asarray(msg), jnp.asarray(ids), n, max_degree,
+                                     interpret=True))
+    got = t_sorted.sorted_segment_sum(torch.from_numpy(msg), torch.from_numpy(ids), n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("c", [3, 40])
+def pytest_segment_mean_matches_jax_pallas_route(monkeypatch, c):
+    """The routed masked mean (ops/segment.py) against the JAX routing with
+    the Pallas route forced (interpret mode), padding edges masked."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS_SEGMENT", "1")
+    rng = np.random.default_rng(100 + c)
+    e, n, max_degree = 256, 40, 12
+    ids = _sorted_ids(rng, e, n, max_degree)
+    msg = rng.normal(size=(e, c)).astype(np.float32)
+    mask = rng.random(e) > 0.2
+    want = np.asarray(jax_segment_mean(jnp.asarray(msg), jnp.asarray(ids), n,
+                                       jnp.asarray(mask), sorted_ids=True,
+                                       max_degree=max_degree))
+    got = t_segment.segment_mean(torch.from_numpy(msg), torch.from_numpy(ids), n,
+                                 torch.from_numpy(mask), sorted_ids=True,
+                                 max_degree=max_degree)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def _fused_operands(rng, e, n, ci, co):
+    nr = rng.normal(size=(n, ci)).astype(np.float32)
+    ei = rng.normal(size=(e, ci)).astype(np.float32)
+    w = (rng.normal(size=(ci, co)) / np.sqrt(ci)).astype(np.float32)
+    b = rng.normal(size=(co,)).astype(np.float32)
+    return nr, ei, w, b
+
+
+@pytest.mark.parametrize("e,n,ci,co,max_degree", [(200, 40, 24, 20, 12), (37, 64, 3, 5, 4)])
+def pytest_fused_edge_plain_matches_jax_kernel(e, n, ci, co, max_degree):
+    rng = np.random.default_rng(e + ci)
+    ids = _sorted_ids(rng, e, n, max_degree)
+    ops = _fused_operands(rng, e, n, ci, co)
+    j = [jnp.asarray(a) for a in ops]
+    want_kernel = np.asarray(jax_fused(*j, jnp.asarray(ids), n, max_degree, interpret=True))
+    want_ref = np.asarray(jax_fused_ref(*j, jnp.asarray(ids), n))
+    got = t_fused.fused_edge_message_sum(*[torch.from_numpy(a) for a in ops],
+                                         torch.from_numpy(ids), n)
+    np.testing.assert_allclose(got.numpy(), want_kernel, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=0, atol=ATOL)
+
+
+def pytest_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(_sorted_ids(rng, 64, 10, 10))
+    msg = torch.from_numpy(rng.normal(size=(64, 7)).astype(np.float32))
+    k1, k2 = t_sorted.sorted_segment_sum.launches, t_fused.fused_edge_message_sum.launches
+    torch.testing.assert_close(t_sorted.sorted_segment_sum(msg, ids, 10),
+                               t_sorted.sorted_segment_sum_plain(msg, ids, 10))
+    ops = [torch.from_numpy(a) for a in _fused_operands(rng, 64, 10, 7, 6)]
+    torch.testing.assert_close(t_fused.fused_edge_message_sum(*ops, ids, 10),
+                               t_fused.reference_edge_message_sum(*ops, ids, 10))
+    assert t_sorted.sorted_segment_sum.launches == k1
+    assert t_fused.fused_edge_message_sum.launches == k2
+
+
+def pytest_plain_versions_keep_the_operand_dtype_and_sum_in_f32():
+    """bf16 messages: the sum is taken in f32 and rounded once."""
+    ids = torch.zeros(300, dtype=torch.int64)
+    msg = torch.full((300, 2), 1.0, dtype=torch.bfloat16)
+    out = t_sorted.sorted_segment_sum_plain(msg, ids, 2)
+    assert out.dtype == torch.bfloat16
+    assert float(out[0, 0]) == 300.0  # a bf16 running sum would stall at 256
+    assert float(out[1].abs().sum()) == 0.0
+
+
+def pytest_routing_masks_before_k1_and_not_before_k2():
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(_sorted_ids(rng, 30, 6, 8))
+    msg = torch.ones(30, 4)
+    mask = torch.arange(30) < 20
+    out = t_segment.segment_sum(msg, ids, 6, mask, sorted_ids=True, max_degree=8)
+    assert float(out.sum()) == 20 * 4
+    ops = [torch.from_numpy(a) for a in _fused_operands(rng, 30, 6, 4, 3)]
+    torch.testing.assert_close(
+        t_segment.fused_edge_message_sum(*ops, ids, 6, max_degree=8),
+        t_fused.reference_edge_message_sum(*ops, ids, 6),
+    )
+
+
+def pytest_fused_edge_rows_per_block_follow_the_mean_degree():
+    assert t_fused.rows_per_block(1_000_000, 10_000) == 5  # 512 edges / degree 100
+    assert t_fused.rows_per_block(34_000, 2_160) == 32  # capped
+    assert t_fused.rows_per_block(10, 10_000) == 32
+    assert t_fused.rows_per_block(10_000, 1) == 1
+
+
+def pytest_build_keys_libraries_by_source_and_flags():
+    from hydragnn_tpu_torch.ops import _build
+
+    p1 = _build.library_path("sorted_segment_sum")
+    p2 = _build.library_path("fused_edge")
+    assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
+    assert p1 != p2 and p1 == _build.library_path("sorted_segment_sum")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    with pytest.raises(RuntimeError, match="no kernel source"):
+        _build.library_path("no_such_kernel")

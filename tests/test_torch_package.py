@@ -1,0 +1,100 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, its entry points refuse to drop to the CPU on their own, and the
+chip smoke refuses to run without a GPU or outside a checkout."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import hydragnn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(hydragnn_tpu_torch.__path__, "hydragnn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "jaxlib", "optax", "hydragnn_tpu")
+             or m.startswith(("jax.", "flax.", "jaxlib.", "hydragnn_tpu.")))
+print(len(names), bad)
+assert len(names) >= 20, names
+assert not bad, bad
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def pytest_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def pytest_entry_points_raise_without_a_gpu(monkeypatch):
+    from hydragnn_tpu_torch import api, device
+    from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
+    from hydragnn_tpu_torch.models import create_model
+    from hydragnn_tpu_torch.serve import GraphServer
+    from test_torch_serve import _config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device.resolve_device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    splits = split_dataset(oc20_shaped_dataset(8, mean_atoms=20, min_atoms=10,
+                                               max_atoms=40, max_neighbours=10), 0.5)
+    config, (_, _, test_loader), _ = api.prepare_data(_config(), splits)
+    with pytest.raises(RuntimeError):
+        create_model(config)
+    model = create_model(config, device="cpu")
+    with pytest.raises(RuntimeError):
+        GraphServer(model, test_loader.ladder, template_graphs=test_loader.graphs)
+    with pytest.raises(RuntimeError):
+        api.run_server(_config(), datasets=splits)
+    with pytest.raises(RuntimeError):
+        api.run_prediction(_config(), datasets=splits)
+
+
+def pytest_later_slices_raise_not_implemented():
+    from hydragnn_tpu_torch.models.create import model_config_from
+    from test_torch_serve import _config
+
+    c = _config()
+    arch = c["NeuralNetwork"]["Architecture"]
+    arch.update(mpnn_type="PNA", input_dim=4, output_dim=[1, 3], output_type=["graph", "node"])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model_config_from(c)
+
+
+def pytest_chip_smoke_fails_without_a_gpu():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the smoke would run for real")
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def pytest_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
