@@ -1,9 +1,9 @@
 """JSON config: data-derived completion of the parts this slice reads.
 
 Counterpart of ``hydragnn_tpu/config/config.py``: same JSON surface, same
-derived keys. The sorted-aggregation default is keyed on a CUDA device
-(where the hand-written kernels run) instead of the JAX package's TPU
-check.
+derived keys. The sorted-aggregation and flash-attention defaults are keyed
+on a CUDA device (where the hand-written kernels run) instead of the JAX
+package's TPU check.
 """
 
 from __future__ import annotations
@@ -20,6 +20,23 @@ from ..data.graph import Graph
 from ..data.pipeline import VariablesOfInterest
 
 EQUIVARIANT_MODELS = ("EGNN", "SchNet", "PNAEq", "PAINN", "MACE")
+PNA_MODELS = ("PNA", "PNAPlus", "PNAEq")
+
+
+def degree_histogram(graphs: Sequence[Graph], max_deg: int = 64) -> List[int]:
+    """In-degree histogram over all nodes of the dataset, used by the PNA
+    degree scalers."""
+    hist = np.zeros(max_deg + 1, np.int64)
+    top = 0
+    for g in graphs:
+        deg = np.bincount(g.receivers, minlength=1)
+        deg = np.concatenate([deg, np.zeros(g.num_nodes - deg.shape[0], np.int64)])
+        h = np.bincount(deg.astype(np.int64), minlength=max_deg + 1)
+        if h.shape[0] > hist.shape[0]:
+            hist = np.concatenate([hist, np.zeros(h.shape[0] - hist.shape[0], np.int64)])
+        hist[: h.shape[0]] += h
+        top = max(top, int(deg.max(initial=0)))
+    return hist[: top + 1].tolist()
 
 
 def voi_from_config(config: Dict[str, Any]) -> VariablesOfInterest:
@@ -52,10 +69,12 @@ def update_config(
 ) -> Dict[str, Any]:
     """Complete a user config from the data; returns a new dict.
 
-    Derived here: ``graph_size_variable``, ``num_pad_buckets``, output dims
-    and types, ``num_nodes``, ``input_dim``, the measured
-    ``max_in_degree`` (a supplied bound below the data's raises), and the
-    ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` defaults."""
+    Derived here: ``graph_size_variable``, ``max_nodes_per_graph``, the GPS
+    defaults, ``num_pad_buckets``, output dims and types, ``num_nodes``,
+    ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), the
+    measured ``max_in_degree`` (a supplied bound below the data's raises),
+    and the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
+    ``use_flash_attention`` defaults."""
     config = copy.deepcopy(config)
     arch = config["NeuralNetwork"]["Architecture"]
     training = config["NeuralNetwork"]["Training"]
@@ -65,6 +84,13 @@ def update_config(
     graph_size_variable = len(sizes) > 1
     arch["graph_size_variable"] = graph_size_variable
     arch["max_nodes_per_graph"] = max(sizes, default=0)
+
+    # GPS defaults
+    arch.setdefault("global_attn_engine", None)
+    arch.setdefault("global_attn_type", None)
+    arch.setdefault("global_attn_heads", 0)
+    arch.setdefault("pe_dim", 0)
+
     training.setdefault("compute_grad_energy", False)
     if training["compute_grad_energy"]:
         raise NotImplementedError(
@@ -94,6 +120,15 @@ def update_config(
     arch["num_nodes"] = sample.num_nodes
     var.setdefault("denormalize_output", False)
     arch["input_dim"] = voi.input_dim
+
+    # PNA degree histogram over the training split; the neighbour cap
+    # follows the largest degree seen there
+    if arch["mpnn_type"] in PNA_MODELS:
+        deg = degree_histogram(trainset)
+        arch["pna_deg"] = deg
+        arch["max_neighbours"] = len(deg) - 1
+    else:
+        arch["pna_deg"] = None
 
     # sorted aggregation: ON by default where the CUDA kernels run; a static
     # in-degree bound is measured over EVERY split. The CUDA kernels are
@@ -128,6 +163,23 @@ def update_config(
             "use_fused_edge_kernel requires use_sorted_aggregation: the "
             "fused edge kernel rides the sorted-receivers contract"
         )
+
+    # GPS flash attention (K4): ON by default where the CUDA kernel runs and
+    # GPS attention is configured; an explicit true/false wins. The
+    # attention probabilities never exist on the flash route, so flash
+    # configs run attention-prob dropout at 0 (models/gps.py).
+    if arch.get("use_flash_attention") is None:
+        on = bool(arch.get("global_attn_engine")) and torch.cuda.is_available()
+        arch["use_flash_attention"] = on
+        if on:
+            print(
+                "[hydragnn_tpu_torch.config] use_flash_attention auto-enabled: "
+                "a CUDA device is present; NOTE GPS attention-prob dropout runs "
+                "at 0 under this flag (Architecture.dropout still drives the "
+                "module-output dropout; set use_flash_attention: false for "
+                "reference prob-dropout semantics)",
+                file=sys.stderr,
+            )
 
     if arch.get("equivariance"):
         assert arch["mpnn_type"] in EQUIVARIANT_MODELS, (

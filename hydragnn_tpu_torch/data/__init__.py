@@ -8,6 +8,7 @@ from .graph import (
     graph_batch_from_np,
     sort_edges_by_receiver,
 )
+from .lappe import add_dataset_pe, add_graph_pe, laplacian_pe
 from .neighbors import radius_graph
 from .pipeline import (
     GraphLoader,

@@ -106,6 +106,12 @@ class GraphBatch:
         return int(self.graph_mask.shape[0])
 
     @property
+    def nodes_per_graph(self) -> torch.Tensor:
+        """[G] int32 number of real nodes in each graph."""
+        seg = torch.zeros(self.num_graphs, dtype=torch.int32, device=self.device)
+        return seg.index_add_(0, self.node_graph, self.node_mask.to(torch.int32))
+
+    @property
     def device(self) -> torch.device:
         return self.x.device
 

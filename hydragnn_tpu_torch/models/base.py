@@ -4,7 +4,10 @@ Counterpart of ``hydragnn_tpu/models/base.py``: a conv stack over padded
 ``GraphBatch``es (each conv followed by masked batch norm and the
 activation), masked mean pooling, and branch-bank decoders whose
 parameters keep a leading ``[num_branches]`` axis, decoded densely for every
-branch and selected per graph by ``dataset_id``.
+branch and selected per graph by ``dataset_id``. With GPS global attention
+(``global_attn_engine``) the inputs are embedded with the Laplacian
+positional encodings first (``pos_emb``, ``node_emb``/``node_lin``,
+``rel_pos_emb``) and every conv is wrapped in a ``GPSConv``.
 
 Every conv layer implements ``(inv, equiv, batch) -> (inv, equiv)``.
 """
@@ -18,7 +21,8 @@ import torch
 from torch import nn
 
 from ..ops.segment import masked_global_mean_pool
-from .layers import MLP, MaskedBatchNorm, get_activation
+from .gps import GPSConv
+from .layers import MLP, Dense, MaskedBatchNorm, get_activation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +60,19 @@ class ModelConfig:
     loss_function_type: str = "mse"
     edge_dim: int = 0
     equivariance: bool = False
+    # GPS global attention
+    global_attn_engine: str = ""
+    global_attn_type: str = ""
+    global_attn_heads: int = 0
+    pe_dim: int = 0
+    # static bound on nodes per graph (data-derived): lets GPS attention run
+    # per graph ([G, Nmax] layout, or K4) instead of over the flat [N, N]
+    max_nodes_per_graph: int = 0
+    # GPS attention through the segment-masked flash kernel (K4)
+    use_flash_attention: bool = False
+    dropout: float = 0.25
+    # PNA in-degree histogram of the training split (degree scalers)
+    pna_deg: Tuple[int, ...] = ()
     # receiver-sorted edges + static in-degree bound route the aggregation
     # through K1 (ops/segment.py); fused_edge_kernel routes the single-
     # consumer EGNN edge path through K2
@@ -69,6 +86,14 @@ class ModelConfig:
     def normalized_task_weights(self) -> Tuple[float, ...]:
         s = sum(abs(w) for w in self.task_weights)
         return tuple(w / s for w in self.task_weights)
+
+    @property
+    def use_edge_attr(self) -> bool:
+        return self.edge_dim > 0
+
+    @property
+    def use_global_attn(self) -> bool:
+        return bool(self.global_attn_engine)
 
 
 # conv registry: mpnn_type -> (is_edge_model, ctor(cfg, in_dim, out_dim, last_layer))
@@ -123,16 +148,41 @@ class HydraModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        _, ctor = get_conv_ctor(cfg.mpnn_type)
+        self.is_edge_model, ctor = get_conv_ctor(cfg.mpnn_type)
+        embed_dim = cfg.hidden_dim if cfg.use_global_attn else cfg.input_dim
         convs = []
         for i in range(cfg.num_conv_layers):
-            in_dim = cfg.input_dim if i == 0 else cfg.hidden_dim
-            convs.append(ctor(cfg, in_dim, cfg.hidden_dim, i == cfg.num_conv_layers - 1))
+            in_dim = embed_dim if i == 0 else cfg.hidden_dim
+            # under GPS every conv output must match the residual's width, so
+            # every conv takes its final-layer form
+            final_form = cfg.use_global_attn or i == cfg.num_conv_layers - 1
+            mpnn = ctor(cfg, in_dim, cfg.hidden_dim, final_form)
+            if cfg.use_global_attn:
+                mpnn = GPSConv(
+                    cfg.hidden_dim, mpnn, heads=cfg.global_attn_heads, dropout=cfg.dropout,
+                    attn_type=cfg.global_attn_type or "multihead",
+                    max_nodes_per_graph=cfg.max_nodes_per_graph,
+                    use_flash_attention=cfg.use_flash_attention,
+                )
+            convs.append(mpnn)
         self.graph_convs = nn.ModuleList(convs)
         self.feature_layers = nn.ModuleList(
             MaskedBatchNorm(cfg.hidden_dim) for _ in range(cfg.num_conv_layers)
         )
         self.act = get_activation(cfg.activation)
+
+        # learnable embeddings of GPS
+        if cfg.use_global_attn:
+            h = cfg.hidden_dim
+            self.pos_emb = Dense(cfg.pe_dim, h, bias=False)
+            if cfg.input_dim:
+                self.node_emb = Dense(cfg.input_dim, h, bias=False)
+                self.node_lin = Dense(2 * h, h, bias=False)
+            if self.is_edge_model:
+                self.rel_pos_emb = Dense(cfg.pe_dim, h, bias=False)
+                if cfg.use_edge_attr:
+                    self.edge_emb = Dense(cfg.edge_dim, h, bias=False)
+                    self.edge_lin = Dense(2 * h, h, bias=False)
 
         B = cfg.num_branches
         gh = cfg.graph_head or GraphHeadConfig()
@@ -162,9 +212,31 @@ class HydraModel(nn.Module):
                 raise ValueError(f"unknown head type {t!r}")
         self.heads_NN = nn.ModuleList(heads)
 
+    def _embedding(self, batch):
+        """Input node features and the batch the convs see: under GPS the
+        positional encodings embedded with the node features, and the
+        relative encodings as edge features."""
+        cfg = self.cfg
+        x = batch.x
+        edge_attr = batch.edge_attr if cfg.use_edge_attr else None
+        if cfg.use_global_attn:
+            pe = self.pos_emb(batch.pe)
+            if cfg.input_dim:
+                pe = self.node_lin(torch.cat([self.node_emb(x), pe], dim=1))
+            x = pe
+            if self.is_edge_model:
+                e = self.rel_pos_emb(batch.rel_pe)
+                if cfg.use_edge_attr:
+                    e = self.edge_lin(torch.cat([self.edge_emb(batch.edge_attr), e], dim=1))
+                edge_attr = e
+        if edge_attr is not None:
+            batch = batch.replace(edge_attr=edge_attr)
+        return x, batch
+
     def encode(self, batch):
         """Conv stack -> final invariant node features [N, hidden]."""
-        inv, equiv = batch.x, batch.pos
+        inv, batch = self._embedding(batch)
+        equiv = batch.pos
         for conv, bn in zip(self.graph_convs, self.feature_layers):
             inv, equiv = conv(inv, equiv, batch)
             inv = self.act(bn(inv, batch.node_mask))

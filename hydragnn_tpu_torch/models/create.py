@@ -1,7 +1,9 @@
 """Model factory: completed JSON config -> ``HydraModel`` on a device.
 
-Counterpart of ``hydragnn_tpu/models/create.py``. EGNN is registered; the
-other convs of the JAX package come with later slices of the port.
+Counterpart of ``hydragnn_tpu/models/create.py``. EGNN and PNA are
+registered, with GPS multi-head global attention around either; the other
+convs and attention types of the JAX package come with later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ from .layers import reset_parameters
 
 # import model files for their registry side effects
 from . import egnn as _egnn  # noqa: F401
+from . import pna as _pna  # noqa: F401
 
 # convs of the JAX package that this port does not carry yet
 _LATER_SLICES = ("CGCNN", "DimeNet", "GAT", "GIN", "MACE", "MFC", "PAINN",
-                 "PNA", "PNAEq", "PNAPlus", "SAGE", "SchNet")
+                 "PNAEq", "PNAPlus", "SAGE", "SchNet")
 
 
 def normalize_output_heads(heads: Dict[str, Any]) -> Dict[str, List[Dict[str, Any]]]:
@@ -43,12 +46,12 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
     if arch["mpnn_type"] in _LATER_SLICES:
         raise NotImplementedError(
             f"mpnn_type {arch['mpnn_type']!r} comes with a later slice of the "
-            "PyTorch port; this slice carries EGNN"
+            "PyTorch port; this slice carries EGNN and PNA"
         )
-    if arch.get("global_attn_engine"):
+    if arch.get("global_attn_engine") and arch.get("global_attn_type") in ("ring", "performer"):
         raise NotImplementedError(
-            "GPS global attention (and its flash-attention kernel) comes with "
-            "a later slice of the PyTorch port"
+            f"global_attn_type {arch['global_attn_type']!r} comes with a later "
+            "slice of the PyTorch port; this slice carries GPS 'multihead'"
         )
     loss_type = training.get("loss_function_type", "mse")
     if loss_type == "GaussianNLLLoss":
@@ -90,6 +93,14 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
         activation=arch.get("activation_function", "relu"),
         loss_function_type=loss_type,
         edge_dim=int(arch.get("edge_dim") or 0),
+        global_attn_engine=arch.get("global_attn_engine") or "",
+        global_attn_type=arch.get("global_attn_type") or "",
+        global_attn_heads=int(arch.get("global_attn_heads") or 0),
+        pe_dim=int(arch.get("pe_dim") or 0),
+        max_nodes_per_graph=int(arch.get("max_nodes_per_graph") or 0),
+        use_flash_attention=bool(arch.get("use_flash_attention", False)),
+        dropout=float(0.25 if arch.get("dropout") is None else arch["dropout"]),
+        pna_deg=tuple(arch.get("pna_deg") or ()),
         equivariance=bool(arch.get("equivariance", False)),
         sorted_aggregation=bool(arch.get("use_sorted_aggregation", False)),
         max_in_degree=int(arch.get("max_in_degree") or 0),

@@ -1,0 +1,143 @@
+"""GPS (GraphGPS) global attention layer.
+
+Counterpart of ``hydragnn_tpu/models/gps.py``: ``GPSConv`` wraps a local
+MPNN (residual + masked batch norm) beside global multi-head attention
+(residual + masked batch norm), sums the two, and adds a two-layer MLP
+block with a third norm. Attention is block-diagonal over graphs, three
+routes as in the JAX package:
+
+- flash (``use_flash_attention`` with a static node bound and no
+  attention-prob dropout): the segment-masked kernel over the flat node
+  array (K4 on the card, ops/flash_attention.py);
+- gathered dense (a static node bound, no kernel): nodes gathered per graph
+  into ``[G, Nmax]`` and dense attention within each graph;
+- flat masked (no bound): one ``[H, N, N]``-masked attention.
+
+Both bounded routes poison the output with NaN when a real graph exceeds
+``max_nodes_per_graph``. ``global_attn_type`` "ring" and "performer" come
+with later slices (``models/create.py`` raises for them).
+
+Parameter names follow the flax tree: ``conv``, ``MaskedBatchNorm_{0,1,2}``,
+``MultiheadSelfAttention_0`` (``Dense_0`` the fused QKV projection,
+``Dense_1`` the output projection) and the MLP block's ``Dense_0`` /
+``Dense_1``.
+"""
+
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_self_attention
+from .layers import Dense, MaskedBatchNorm
+
+
+def _poison_overflow(out, batch, nmax: int):
+    """NaN everywhere when a real graph has more than ``nmax`` nodes: the
+    bounded routes would silently under-cover it."""
+    overflow = ((batch.nodes_per_graph > nmax) & batch.graph_mask).any()
+    return torch.where(overflow, torch.full((), math.nan, dtype=out.dtype, device=out.device),
+                       out)
+
+
+class MultiheadSelfAttention(nn.Module):
+    """In-projection QKV and out-projection, attention restricted to
+    same-graph pairs of real nodes."""
+
+    def __init__(self, channels: int, heads: int, dropout: float = 0.0,
+                 max_nodes_per_graph: int = 0, use_flash_attention: bool = False):
+        super().__init__()
+        if channels % heads:
+            raise ValueError(f"channels {channels} not divisible by heads {heads}")
+        self.channels = channels
+        self.heads = heads
+        self.dropout = dropout
+        self.max_nodes_per_graph = max_nodes_per_graph
+        self.use_flash_attention = use_flash_attention
+        self.Dense_0 = Dense(channels, 3 * channels)
+        self.Dense_1 = Dense(channels, channels)
+
+    def forward(self, x, batch):
+        H, C = self.heads, self.channels
+        d = C // H
+        n = x.shape[0]
+        q, k, v = self.Dense_0(x).split(C, dim=-1)
+        # sqrt(d) rounded to f32, then to the input dtype (jnp.sqrt(d).astype)
+        scale = torch.tensor(math.sqrt(d), dtype=torch.float32, device=x.device).to(x.dtype)
+        prob_dropout = self.dropout > 0 and self.training
+        nmax = self.max_nodes_per_graph
+        if self.use_flash_attention and nmax > 0 and not prob_dropout:
+            out = flash_self_attention(
+                q.view(n, H, d), k.view(n, H, d), v.view(n, H, d),
+                batch.node_graph, batch.node_mask, batch.num_graphs,
+            ).reshape(n, C)
+            out = _poison_overflow(out, batch, nmax)
+        elif nmax > 0:
+            G = batch.num_graphs
+            counts = batch.nodes_per_graph
+            starts = torch.cumsum(counts, 0) - counts
+            slot = torch.arange(nmax, device=x.device)
+            valid = (slot[None, :] < counts[:, None]) & batch.graph_mask[:, None]
+            # flat node id of slot r in graph g; invalid slots hit the last
+            # node, which the pad spec guarantees is a padding node
+            idx = torch.where(valid, starts[:, None] + slot[None, :], n - 1)
+            qg = q[idx].reshape(G, nmax, H, d)
+            kg = k[idx].reshape(G, nmax, H, d)
+            vg = v[idx].reshape(G, nmax, H, d)
+            logits = torch.einsum("gihd,gjhd->ghij", qg, kg) / scale
+            logits = torch.where(valid[:, None, None, :], logits, torch.finfo(x.dtype).min)
+            probs = torch.softmax(logits, dim=-1)
+            if prob_dropout:
+                probs = F.dropout(probs, self.dropout)
+            og = torch.einsum("ghij,gjhd->gihd", probs, vg).reshape(G * nmax, C)
+            out = torch.zeros((n, C), dtype=x.dtype, device=x.device).index_add_(
+                0, idx.reshape(-1), og * valid.reshape(-1, 1))
+            out = _poison_overflow(out, batch, nmax)
+        else:
+            qf, kf, vf = q.reshape(n, H, d), k.reshape(n, H, d), v.reshape(n, H, d)
+            same = (batch.node_graph[:, None] == batch.node_graph[None, :]) & (
+                batch.node_mask[:, None] & batch.node_mask[None, :])
+            logits = torch.einsum("ihd,jhd->hij", qf, kf) / scale
+            logits = torch.where(same[None], logits, torch.finfo(x.dtype).min)
+            probs = torch.softmax(logits, dim=-1)
+            # rows with no valid key (padding nodes) are uniform garbage,
+            # masked downstream
+            if prob_dropout:
+                probs = F.dropout(probs, self.dropout)
+            out = torch.einsum("hij,jhd->ihd", probs, vf).reshape(n, C)
+        return self.Dense_1(out)
+
+
+class GPSConv(nn.Module):
+    """Local MPNN + global attention + MLP block (the GraphGPS layer)."""
+
+    def __init__(self, channels: int, conv: nn.Module, heads: int = 1,
+                 dropout: float = 0.0, attn_type: str = "multihead",
+                 max_nodes_per_graph: int = 0, use_flash_attention: bool = False):
+        super().__init__()
+        if attn_type != "multihead":  # ring, performer: later slices (models/create.py)
+            raise ValueError(f"attn_type {attn_type!r} not supported")
+        self.dropout = dropout
+        self.conv = conv
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(channels)
+        # attention-prob dropout is 0 on the flash route on every device:
+        # its probabilities never exist to be dropped
+        self.MultiheadSelfAttention_0 = MultiheadSelfAttention(
+            channels, heads, 0.0 if use_flash_attention else dropout,
+            max_nodes_per_graph, use_flash_attention=use_flash_attention,
+        )
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(channels)
+        self.Dense_0 = Dense(channels, 2 * channels)
+        self.Dense_1 = Dense(2 * channels, channels)
+        self.MaskedBatchNorm_2 = MaskedBatchNorm(channels)
+
+    def forward(self, inv, equiv, batch):
+        drop = lambda t: F.dropout(t, self.dropout, self.training)  # noqa: E731
+        h, equiv = self.conv(inv, equiv, batch)
+        local = self.MaskedBatchNorm_0(drop(h) + inv, batch.node_mask)
+        h = drop(self.MultiheadSelfAttention_0(inv, batch)) + inv
+        out = local + self.MaskedBatchNorm_1(h, batch.node_mask)
+        out = out + drop(self.Dense_1(drop(torch.relu(self.Dense_0(out)))))
+        return self.MaskedBatchNorm_2(out, batch.node_mask), equiv

@@ -214,14 +214,14 @@ class MaskedBatchNorm(nn.Module):
         return y * self.scale + self.bias
 
 
-def pair_message_factored(layer, inv, batch, terms=()):
+def pair_message_factored(recv, send, inv, batch, terms=()):
     """The factored first edge-MLP layer: a node-sized receiver projection
-    ``layer.edge_lin_recv(inv)`` [N, C] (carrying the one bias) and one
-    edge-aligned operand: the bias-free sender projection gathered by
+    ``recv(inv)`` [N, C] (carrying the one bias) and one edge-aligned
+    operand: the bias-free sender projection ``send(inv)`` gathered by
     ``senders`` plus a bias-free projection of every ``(module, [E, d])``
     entry of ``terms``. Returns ``(node_recv, edge_in)``."""
-    node_recv = layer.edge_lin_recv(inv)
-    edge_in = layer.edge_lin_send(inv)[batch.senders]
+    node_recv = recv(inv)
+    edge_in = send(inv)[batch.senders]
     for module, arr in terms:
         edge_in = edge_in + module(arr)
     return node_recv, edge_in
@@ -230,7 +230,8 @@ def pair_message_factored(layer, inv, batch, terms=()):
 def hoisted_pair_dense(layer, inv, batch, terms=()):
     """``Dense(concat[x_i, x_j, e...])`` computed on node-sized operands
     before the edge gather: ``node_recv[receivers] + edge_in``."""
-    node_recv, edge_in = pair_message_factored(layer, inv, batch, terms)
+    node_recv, edge_in = pair_message_factored(layer.edge_lin_recv, layer.edge_lin_send,
+                                               inv, batch, terms)
     return node_recv[batch.receivers] + edge_in
 
 
@@ -239,7 +240,8 @@ def fused_pair_dense_sum(layer, inv, batch, terms=(), max_in_degree: int = 0):
     -> segment_sum`` as one op (K2 on the card), with the same parameters as
     the unfused spelling: ``edge_lin2`` is an ordinary ``Dense`` whose
     weight the fused op reads transposed."""
-    node_recv, edge_in = pair_message_factored(layer, inv, batch, terms)
+    node_recv, edge_in = pair_message_factored(layer.edge_lin_recv, layer.edge_lin_send,
+                                               inv, batch, terms)
     lin2 = layer.edge_lin2
     dt = _promote(node_recv, edge_in, lin2.weight, lin2.bias)
     return fused_edge_message_sum(

@@ -1,0 +1,164 @@
+"""Segment-masked flash self-attention (K4): the hand-written CUDA kernel
+``csrc/flash_attention.cu`` and its plain PyTorch versions.
+
+Counterpart of ``hydragnn_tpu/ops/pallas_flash_attention.py``
+(``flash_self_attention``, whose ``_forward`` reaches ``pl.pallas_call``):
+softmax attention over flat ``[N, H, d]`` q/k/v restricted to same-graph
+pairs of real nodes, with graphs contiguous along the node axis
+(``node_graph`` ascending, padding nodes in the final dummy graph). Padding
+rows and rows with no valid key come out 0.
+
+The plain versions compute the kernel's function: scores, softmax and the
+``p @ v`` accumulation in f32 from the operand values, with ``p`` rounded
+to the operand dtype before ``p @ v`` (a no-op in f32), the result in the
+operand dtype. In f32 they are the JAX package's references.
+``reference_masked_attention`` is the flat ``[H, N, N]``-masked statement,
+exact for any graph size; ``reference_gathered_attention`` is the per-graph
+``[G, Nmax]`` layout (exact on graphs of at most ``max_nodes_per_graph``
+nodes).
+
+The wrapper runs ``reference_masked_attention`` for a CPU tensor and the
+kernel for a CUDA tensor; anything else raises. Unlike the TPU kernel, the
+kernel needs no static node bound: each q tile's key window is derived on
+the card from ``node_graph``. ``flash_self_attention.launches`` counts
+kernel launches (``launches_by_case`` splits them by dtype and head shape).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .sorted_segment import _DTYPE_CODES, _check_current_device
+
+_SIGNATURES = {
+    "hg_flash_attention": (
+        ctypes.c_int,
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
+        + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
+    ),
+}
+
+# head dims the kernel is built for (four threads per query, d / 4 each)
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+
+# masking constant of the JAX references (finite, so exp of differences
+# never overflows)
+_NEG = -1.0e30
+
+
+def _softmax_apply(logits, valid, v, eq: str, dtype):
+    """``softmax(logits) @ v`` over the last axis restricted to ``valid``
+    keys, in f32 with ``p`` rounded to ``dtype`` for the product; rows with
+    no valid key give 0."""
+    logits = torch.where(valid, logits, _NEG)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum(eq, p.to(dtype).float(), v.float())
+    return acc, l
+
+
+def reference_masked_attention(q, k, v, node_graph, node_mask):
+    """Flat ``[H, N, N]``-masked softmax attention over ``[N, H, d]``."""
+    d = q.shape[-1]
+    gid = torch.where(node_mask, node_graph.long(), -1)
+    valid = (gid[:, None] == gid[None, :]) & (gid[None, :] >= 0)  # [N(q), N(k)]
+    logits = torch.einsum("ihd,jhd->hij", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    acc, l = _softmax_apply(logits, valid[None], v, "hij,jhd->hid", q.dtype)
+    out = acc / torch.clamp(l, min=1e-30)  # [H, N, d]; no valid key: 0
+    return out.transpose(0, 1).to(q.dtype)
+
+
+def reference_gathered_attention(q, k, v, node_graph, node_mask, num_graphs: int,
+                                 max_nodes_per_graph: int):
+    """Per-graph gathered dense attention: the nodes of each graph gathered
+    into ``[G, Nmax, H, d]``, attention within each graph, scattered back."""
+    n, _, d = q.shape
+    nmax = max_nodes_per_graph
+    counts = torch.zeros(num_graphs, dtype=torch.int64, device=q.device).index_add_(
+        0, node_graph.long(), node_mask.long())
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(nmax, device=q.device)
+    valid = slot[None, :] < counts[:, None]  # [G, Nmax]
+    idx = torch.where(valid, starts[:, None] + slot[None, :], n - 1)
+    qg, kg, vg = q[idx], k[idx], v[idx]  # [G, Nmax, H, d]
+    logits = torch.einsum("gihd,gjhd->ghij", qg.float(), kg.float()) * (1.0 / math.sqrt(d))
+    acc, l = _softmax_apply(logits, valid[:, None, None, :], vg, "ghij,gjhd->ghid", q.dtype)
+    og = (acc / torch.clamp(l, min=1e-30)).transpose(1, 2)  # [G, Nmax, H, d]
+    og = og * valid[:, :, None, None]
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    out.index_add_(0, idx.reshape(-1), og.reshape(-1, *q.shape[1:]))
+    return out.to(q.dtype)
+
+
+def _check_qkv(name, t, n, h, d, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise TypeError(f"flash_self_attention: {name} is {t.dtype} on {t.device}, "
+                        f"expected {dtype} on {device}")
+    if t.shape != (n, h, d) or t.stride(2) != 1 or t.stride(1) != d or t.stride(0) < h * d:
+        raise ValueError(
+            f"flash_self_attention: {name} must be [N, H, d] = {(n, h, d)} with the "
+            f"head and dimension axes contiguous, got shape {tuple(t.shape)} "
+            f"strides {t.stride()}"
+        )
+
+
+def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
+    """Same-graph softmax attention over ``q``/``k``/``v`` [N, H, d] (one
+    dtype, float32 or bfloat16; each may be a row-strided view, such as a
+    slice of a fused QKV projection). ``node_graph`` [N] ascending in
+    ``[0, num_graphs)``, ``node_mask`` [N] bool. Returns a contiguous
+    [N, H, d] in the operand dtype."""
+    if q.device.type == "cpu":
+        return reference_masked_attention(q, k, v, node_graph, node_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_self_attention: unsupported device {q.device}")
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_self_attention: dtype {dtype} not supported")
+    if q.dim() != 3:
+        raise ValueError(f"flash_self_attention: q must be [N, H, d], got {tuple(q.shape)}")
+    n, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_self_attention: head dim {d} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_qkv(name, t, n, h, d, dtype, q.device)
+    for name, t, want in (("node_graph", node_graph, (torch.int64,)),
+                          ("node_mask", node_mask, (torch.bool,))):
+        if t.device != q.device or t.dtype not in want or t.shape != (n,):
+            raise ValueError(f"flash_self_attention: {name} must be [{n}] {want[0]} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if max(n * max(q.stride(0), k.stride(0), v.stride(0)), num_graphs) >= 2**31:
+        raise ValueError("flash_self_attention: more than 2**31 elements")
+    if num_graphs < 1:
+        raise ValueError("flash_self_attention: num_graphs must be positive")
+    out = torch.empty((n, h, d), dtype=dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    node_graph = node_graph.contiguous()
+    node_mask = node_mask.contiguous()
+    # graph row pointer scratch, filled by the library's first kernel
+    graph_ptr = torch.empty(num_graphs + 1, dtype=torch.int32, device=q.device)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    _check_current_device(q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.hg_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.stride(0)), int(k.stride(0)),
+        int(v.stride(0)), node_graph.data_ptr(), node_mask.data_ptr(), graph_ptr.data_ptr(),
+        out.data_ptr(), int(n), int(h), int(d), int(num_graphs),
+        math.log2(math.e) / math.sqrt(d), _DTYPE_CODES[dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_self_attention kernel launch failed: CUDA error {rc}")
+    flash_self_attention.launches += 1
+    flash_self_attention.launches_by_case[f"{str(dtype)[6:]}/H{h}xd{d}"] += 1
+    return out
+
+
+flash_self_attention.launches = 0
+flash_self_attention.launches_by_case = collections.Counter()

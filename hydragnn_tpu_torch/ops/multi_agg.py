@@ -1,0 +1,135 @@
+"""Multi-moment aggregation (K3): the hand-written CUDA kernel
+``csrc/multi_agg.cu`` and its plain PyTorch version.
+
+Counterpart of ``hydragnn_tpu/ops/pallas_multi_agg.py`` (``fused_multi_agg``,
+whose ``_forward`` reaches ``pl.pallas_call``): per receiver row, the five
+f32 moments ``(sum, count, min, max, sumsq)`` of the edge message
+``m = (node_recv[ids] + edge_in) * gate`` (``node_recv`` and ``gate``
+optional), in one pass, the messages never materialized. The message is
+formed in the operand dtype and widened to f32 before any moment, as in the
+JAX reference; a row without edges gets min = max = 0. ``segment_ids`` must
+ascend; unlike the TPU kernel, every row is exact whatever its degree, the
+dummy padding row included.
+
+The wrapper runs the plain version for a CPU tensor and the kernel for a
+CUDA tensor; anything else raises. ``fused_multi_agg.launches`` counts
+kernel launches (``launches_by_case`` splits them by dtype and width).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from . import _build
+from .sorted_segment import _DTYPE_CODES, _check_current_device, check_ids
+
+_SIGNATURES = {
+    "hg_multi_agg": (
+        ctypes.c_int,
+        (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+    ),
+    "hg_multi_agg_scratch_floats": (ctypes.c_int64, (ctypes.c_int, ctypes.c_int)),
+    "hg_multi_agg_scratch_ints": (ctypes.c_int64, (ctypes.c_int,)),
+}
+
+# min/max masking sentinel of the plain version (the JAX reference's _BIG)
+_BIG = 3.0e38
+
+
+def reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int,
+                        mask=None):
+    """Dense statement of the fused computation: the per-edge messages are
+    materialized in the operand dtype, widened to f32 and reduced five
+    ways; ``mask`` drops edges from every moment. Returns ``(sum [N, C],
+    count [N], min [N, C], max [N, C], sumsq [N, C])``, all f32."""
+    ids = segment_ids.long()
+    msg = edge_in if node_recv is None else node_recv[ids] + edge_in
+    if gate is not None:
+        msg = msg * gate
+    msg = msg.float()
+    ones = torch.ones(ids.shape[0], dtype=torch.float32, device=msg.device)
+    if mask is not None:
+        m = mask.reshape(mask.shape + (1,) * (msg.dim() - mask.dim()))
+        msg_0 = torch.where(m, msg, 0.0)
+        msg_lo = torch.where(m, msg, _BIG)
+        msg_hi = torch.where(m, msg, -_BIG)
+        ones = torch.where(mask, ones, 0.0)
+    else:
+        msg_0 = msg_lo = msg_hi = msg
+    shape = (num_segments,) + tuple(msg.shape[1:])
+    zeros = torch.zeros(shape, dtype=torch.float32, device=msg.device)
+    idx = ids.reshape(ids.shape + (1,) * (msg.dim() - 1)).expand_as(msg)
+    s = zeros.index_add(0, ids, msg_0)
+    cnt = torch.zeros(num_segments, dtype=torch.float32, device=msg.device).index_add_(0, ids, ones)
+    mn = torch.full(shape, _BIG, device=msg.device).scatter_reduce_(0, idx, msg_lo, "amin")
+    mx = torch.full(shape, -_BIG, device=msg.device).scatter_reduce_(0, idx, msg_hi, "amax")
+    ssq = zeros.index_add(0, ids, msg_0 * msg_0)
+    nonempty = (cnt > 0.0).reshape((num_segments,) + (1,) * (msg.dim() - 1))
+    return s, cnt, torch.where(nonempty, mn, 0.0), torch.where(nonempty, mx, 0.0), ssq
+
+
+def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
+    """``(sum, count, min, max, sumsq)`` of ``(node_recv[ids] + edge_in) *
+    gate`` over ascending ``segment_ids``. ``edge_in`` [E, C] (and ``gate``
+    [E, C]) and ``node_recv`` [num_segments, C], one dtype (float32 or
+    bfloat16); ``node_recv`` and ``gate`` may be None. Every moment is f32."""
+    if edge_in.device.type == "cpu":
+        return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
+    if edge_in.device.type != "cuda":
+        raise ValueError(f"fused_multi_agg: unsupported device {edge_in.device}")
+    dtype = edge_in.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_multi_agg: dtype {dtype} not supported")
+    if edge_in.dim() != 2 or not edge_in.is_contiguous():
+        raise ValueError("fused_multi_agg: edge_in must be a contiguous [E, C] tensor")
+    e, c = edge_in.shape
+    for name, t, rows in (("node_recv", node_recv, num_segments), ("gate", gate, e)):
+        if t is None:
+            continue
+        if t.device != edge_in.device or t.dtype != dtype:
+            raise TypeError(
+                f"fused_multi_agg: {name} is {t.dtype} on {t.device}, expected "
+                f"{dtype} on {edge_in.device}"
+            )
+        if t.shape != (rows, c) or not t.is_contiguous():
+            raise ValueError(
+                f"fused_multi_agg: {name} must be a contiguous ({rows}, {c}) tensor, "
+                f"got {tuple(t.shape)}"
+            )
+    check_ids(segment_ids, e, edge_in.device)
+    if max(edge_in.numel(), num_segments * c) >= 2**31:
+        raise ValueError("fused_multi_agg: more than 2**31 elements")
+    dev = edge_in.device
+    s, mn, mx, ssq = (torch.empty((num_segments, c), dtype=torch.float32, device=dev)
+                      for _ in range(4))
+    cnt = torch.empty(num_segments, dtype=torch.float32, device=dev)
+    if num_segments == 0:
+        return s, cnt, mn, mx, ssq
+    ids = segment_ids.to(torch.int64).contiguous()
+    lib = _build.load("multi_agg", _SIGNATURES)
+    # scratch the library fills: the CSR row pointer, and the long rows'
+    # partial moments per edge chunk with their row ids
+    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    part = torch.empty(lib.hg_multi_agg_scratch_floats(e, c), dtype=torch.float32, device=dev)
+    slots = torch.empty(lib.hg_multi_agg_scratch_ints(e), dtype=torch.int32, device=dev)
+    _check_current_device(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.hg_multi_agg(
+        None if node_recv is None else node_recv.data_ptr(), edge_in.data_ptr(),
+        None if gate is None else gate.data_ptr(), ids.data_ptr(), rowptr.data_ptr(),
+        part.data_ptr(), slots.data_ptr(), s.data_ptr(), cnt.data_ptr(), mn.data_ptr(),
+        mx.data_ptr(), ssq.data_ptr(), int(e), int(num_segments), int(c),
+        _DTYPE_CODES[dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_multi_agg kernel launch failed: CUDA error {rc}")
+    fused_multi_agg.launches += 1
+    fused_multi_agg.launches_by_case[f"{str(dtype)[6:]}/C{c}"] += 1
+    return s, cnt, mn, mx, ssq
+
+
+fused_multi_agg.launches = 0
+fused_multi_agg.launches_by_case = collections.Counter()

@@ -2,11 +2,13 @@
 
 Counterpart of ``hydragnn_tpu/ops/segment.py``. Routing follows the JAX
 package: receiver-sorted ids (``sorted_ids=True``) with a static in-degree
-bound go through the sorted-segment kernel (K1, ops/sorted_segment.py), and
+bound go through the sorted-segment kernel (K1, ops/sorted_segment.py),
 ``fused_edge_message_sum`` through the fused edge kernel (K2,
-ops/fused_edge.py). Those wrappers take the kernel for a CUDA tensor and
-their plain version for a CPU tensor. Unsorted reductions (pooling, counts)
-are plain PyTorch, as they are plain XLA in the JAX package.
+ops/fused_edge.py) and ``multi_moment_agg`` through the multi-moment kernel
+(K3, ops/multi_agg.py). Those wrappers take the kernel for a CUDA tensor
+and their plain version for a CPU tensor. Unsorted reductions (pooling,
+counts, min/max/std) are plain PyTorch, as they are plain XLA in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 
 from .fused_edge import fused_edge_message_sum as _fused_edge_message_sum
+from .multi_agg import fused_multi_agg, reference_multi_agg
 from .sorted_segment import sorted_segment_sum, sorted_segment_sum_plain
 
 
@@ -55,6 +58,22 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     )
 
 
+def multi_moment_agg(edge_in, segment_ids, num_segments: int, node_recv=None,
+                     gate=None, mask=None, sorted_ids: bool = False,
+                     max_degree: int = 0):
+    """The five f32 moments ``(sum, count, min, max, sumsq)`` of
+    ``(node_recv[ids] + edge_in) * gate`` (``node_recv``/``gate`` optional)
+    that the PNA aggregators derive from. Sorted ids with an in-degree
+    bound and 2-D messages take K3, which ignores ``mask``: the sorted
+    layout sends every padding edge to the final dummy node, masked
+    downstream. Otherwise the dense plain version runs and honours
+    ``mask``."""
+    if sorted_ids and max_degree and edge_in.dim() == 2:
+        return fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
+    return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments,
+                               mask=mask)
+
+
 def segment_count(segment_ids, num_segments: int, mask=None):
     ones = torch.ones(segment_ids.shape[:1], dtype=torch.float32,
                       device=segment_ids.device)
@@ -73,6 +92,39 @@ def segment_mean(messages, segment_ids, num_segments: int, mask=None,
     n = torch.clamp(n, min=1.0) if eps == 0.0 else n + eps
     # f32 counts promote a bf16 sum to f32, as jnp does
     return s / n.reshape(n.shape + (1,) * (s.dim() - 1))
+
+
+def _segment_extreme(messages, segment_ids, num_segments: int, mask, reduce: str):
+    info = torch.finfo(messages.dtype)
+    fill = info.min if reduce == "amax" else info.max
+    msg = _mask_messages(messages, mask, fill)
+    ids = segment_ids.long()
+    idx = ids.reshape(ids.shape + (1,) * (msg.dim() - 1)).expand_as(msg)
+    out = torch.full((num_segments,) + tuple(msg.shape[1:]), fill, dtype=msg.dtype,
+                     device=msg.device).scatter_reduce_(0, idx, msg, reduce)
+    # segments with no (real) incoming messages -> 0, like torch_scatter
+    empty = out <= fill / 2 if reduce == "amax" else out >= fill / 2
+    return torch.where(empty, torch.zeros((), dtype=out.dtype, device=out.device), out)
+
+
+def segment_max(messages, segment_ids, num_segments: int, mask=None):
+    return _segment_extreme(messages, segment_ids, num_segments, mask, "amax")
+
+
+def segment_min(messages, segment_ids, num_segments: int, mask=None):
+    return _segment_extreme(messages, segment_ids, num_segments, mask, "amin")
+
+
+def segment_std(messages, segment_ids, num_segments: int, mask=None, eps: float = 1e-5):
+    """Population std per segment (PNA's 'std' aggregator). The moments
+    accumulate in f32 whatever the message dtype, and the E[x^2] - E[x]^2
+    variance is clamped at zero before the sqrt: a bf16 near-constant
+    segment would otherwise give a small negative variance and a NaN."""
+    m = messages.float()
+    mean = segment_mean(m, segment_ids, num_segments, mask)
+    mean_sq = segment_mean(m * m, segment_ids, num_segments, mask)
+    var = torch.clamp(mean_sq - mean**2, min=0.0)
+    return torch.sqrt(var + eps).to(messages.dtype)
 
 
 def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask):

@@ -8,13 +8,20 @@ without the JAX package's dependencies:
 Tolerances: f32 sums in another order than index_add_/cuBLAS (1e-4); bf16
 rounds once after f32 accumulation in both versions, but K2's plain version
 rounds the product before adding the bias, so a message may differ by an ulp
-or two of bf16 (2e-2 of the largest output).
+or two of bf16 (2e-2 of the largest output). K3 forms each message exactly
+as its plain version does, so count, min and max agree exactly and sum and
+sumsq to f32 summation order (1e-5 of the largest value). K4 sums in
+another order (f32: 1e-5 of max |v|); in bf16 it rounds p to bf16 against a
+running maximum where the plain version uses the row's final maximum, an
+ulp of bf16 on each p, and rounds the output (2e-2 of max |v|).
 """
 
 import pytest
 import torch
 
+from hydragnn_tpu_torch.ops import flash_attention as t_flash
 from hydragnn_tpu_torch.ops import fused_edge as t_fused
+from hydragnn_tpu_torch.ops import multi_agg as t_multi
 from hydragnn_tpu_torch.ops import sorted_segment as t_sorted
 
 
@@ -127,6 +134,139 @@ def pytest_egnn_kernels_match_the_plain_route_on_card(cuda):
     torch.cuda.synchronize()
     assert t_sorted.sorted_segment_sum.launches - k1 == 4  # 2 equivariant layers x 2
     assert t_fused.fused_edge_message_sum.launches - k2 == 1
+    for k in want:
+        m = batch.graph_mask if want[k].shape[0] == batch.num_graphs else batch.node_mask
+        scale = float(want[k][m].abs().max())
+        assert float((got[k][m] - want[k][m]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,recv,gate", [(256, True, False), (33, True, True), (5, False, False),
+                                          (3, False, True)])
+def pytest_k3_kernel_matches_plain_on_card(cuda, dtype, c, recv, gate):
+    """Empty rows (a run and the last-but-one), three long rows side by side
+    on the chunked two-pass route (and one just under its threshold) and a
+    long dummy last row."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    n = 400
+    deg = torch.randint(0, 30, (n,), generator=gen, device=cuda)
+    deg[10:25] = 0
+    deg[200:203] = torch.tensor([65, 300, 64], device=cuda)
+    deg[-2] = 0
+    deg[-1] = 900
+    ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+    e = ids.shape[0]
+    ops = [torch.randn(n, c, generator=gen, device=cuda).to(dtype) if recv else None,
+           torch.randn(e, c, generator=gen, device=cuda).to(dtype),
+           torch.randn(e, c, generator=gen, device=cuda).to(dtype) if gate else None]
+    before = t_multi.fused_multi_agg.launches
+    got = t_multi.fused_multi_agg(*ops, ids, n)
+    want = t_multi.reference_multi_agg(*ops, ids, n)
+    torch.cuda.synchronize()
+    assert t_multi.fused_multi_agg.launches == before + 1
+    names = ("sum", "count", "min", "max", "sumsq")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        if name in ("count", "min", "max"):
+            assert torch.equal(a, b), name
+        else:
+            tol = 1e-5 * max(float(b.abs().max()), 1.0)
+            assert float((a - b).abs().max()) <= tol, name
+    assert float(got[2][10:25].abs().sum() + got[3][10:25].abs().sum()) == 0.0
+
+
+def _attention_case(cuda, dtype, h, d, sizes, n_pad, seed):
+    """q/k/v [N, H, d] over graphs of the given sizes, then n_pad padding
+    nodes in the dummy graph."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    sizes = torch.tensor(sizes, device=cuda)
+    g = sizes.shape[0]
+    node_graph = torch.cat([torch.repeat_interleave(torch.arange(g, device=cuda), sizes),
+                            torch.full((n_pad,), g, device=cuda)])
+    n = node_graph.shape[0]
+    node_mask = torch.arange(n, device=cuda) < int(sizes.sum())
+    qkv = [torch.randn(n, h, d, generator=gen, device=cuda).to(dtype) for _ in range(3)]
+    return qkv, node_graph, node_mask, g + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(8, 32), (2, 8), (1, 128)])
+def pytest_k4_kernel_matches_plain_on_card(cuda, dtype, h, d):
+    """A single-node graph, graphs across q tiles, a graph of 225 nodes (the
+    serving bound) and padding rows, which come out 0."""
+    sizes = [1, 40, 225, 3, 70, 1, 128, 17]
+    qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, h, d, sizes, 37, d)
+    before = t_flash.flash_self_attention.launches
+    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    want = t_flash.reference_masked_attention(*qkv, node_graph, node_mask)
+    gathered = t_flash.reference_gathered_attention(*qkv, node_graph, node_mask, g, max(sizes))
+    torch.cuda.synchronize()
+    assert t_flash.flash_self_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    assert float(got[~node_mask].float().abs().sum()) == 0.0
+    scale = float(qkv[2].float().abs().max())
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * scale
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((got.float() - gathered.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def pytest_k4_kernel_takes_row_strided_views_of_a_fused_projection(cuda):
+    qkv, node_graph, node_mask, g = _attention_case(cuda, torch.float32, 4, 16, [30, 50], 5, 1)
+    fused = torch.cat([t.reshape(t.shape[0], -1) for t in qkv], dim=1)  # [N, 3 * H * d]
+    views = [t.view(-1, 4, 16) for t in fused.split(64, dim=1)]
+    assert views[0].stride(0) == 192
+    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g)
+    want = t_flash.flash_self_attention(*[t.contiguous() for t in qkv], node_graph, node_mask, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash.flash_self_attention(*[t[..., :12] for t in qkv], node_graph, node_mask, g)
+
+
+@pytest.mark.gpu
+def pytest_gps_pna_kernels_match_the_plain_route_on_card(cuda):
+    """A small GPS-PNA on the card: K3 and K4 in every layer against the same
+    weights on the plain route (unsorted, dense attention), f32, real rows
+    to 1e-4 of each head's largest value."""
+    import copy
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import (GraphLoader, add_dataset_pe, oc20_shaped_dataset,
+                                         split_dataset)
+    from hydragnn_tpu_torch.models import create_model
+
+    graphs = add_dataset_pe(oc20_shaped_dataset(16, mean_atoms=20, min_atoms=10, max_atoms=40), 4)
+    splits = split_dataset(graphs, 0.75)
+    arch = {"mpnn_type": "PNA", "radius": 5.0, "max_neighbours": 20, "hidden_dim": 64,
+            "num_conv_layers": 2, "global_attn_engine": "GPS", "global_attn_type": "multihead",
+            "global_attn_heads": 4, "pe_dim": 4, "dropout": 0.0,
+            "use_sorted_aggregation": True, "task_weights": [1.0, 1.0],
+            "output_heads": {
+                "graph": {"num_sharedlayers": 1, "dim_sharedlayers": 16,
+                          "num_headlayers": 1, "dim_headlayers": [16]},
+                "node": {"num_headlayers": 1, "dim_headlayers": [16], "type": "mlp"}}}
+    cfg = {"Dataset": {"node_features": {"dim": [1, 3, 3]}, "graph_features": {"dim": [1]}},
+           "NeuralNetwork": {"Architecture": arch, "Training": {"batch_size": 8},
+                             "Variables_of_interest": {
+                                 "input_node_features": [0, 1],
+                                 "output_names": ["energy", "forces"],
+                                 "output_index": [0, 2], "type": ["graph", "node"]}}}
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["NeuralNetwork"]["Architecture"].update(use_sorted_aggregation=False,
+                                                      use_flash_attention=False)
+    model = create_model(update_config(cfg, *splits), device=cuda)
+    plain = create_model(update_config(plain_cfg, *splits), device=cuda)
+    plain.load_state_dict(model.state_dict())
+    batch = next(iter(GraphLoader(splits[0], 8, sort_edges=True))).to(cuda)
+    k3, k4 = t_multi.fused_multi_agg.launches, t_flash.flash_self_attention.launches
+    with torch.no_grad():
+        got, want = model(batch), plain(batch)
+    torch.cuda.synchronize()
+    assert t_multi.fused_multi_agg.launches - k3 == 2
+    assert t_flash.flash_self_attention.launches - k4 == 2
     for k in want:
         m = batch.graph_mask if want[k].shape[0] == batch.num_graphs else batch.node_mask
         scale = float(want[k][m].abs().max())

@@ -73,9 +73,16 @@ def _splits(dataset_ids=False):
 def _jax_variables(model, batch, seed=3):
     v = jax.tree_util.tree_map(np.asarray, jax.device_get(j_init(model, batch, seed=seed)))
     rng = np.random.default_rng(seed)
-    for stats in v["batch_stats"].values():
-        stats["mean"] = (0.1 * rng.normal(size=stats["mean"].shape)).astype(np.float32)
-        stats["var"] = rng.uniform(0.5, 2.0, size=stats["var"].shape).astype(np.float32)
+
+    def randomize(tree):  # every batch norm's running statistics, nested or not
+        if "mean" not in tree:
+            for sub in tree.values():
+                randomize(sub)
+            return
+        tree["mean"] = (0.1 * rng.normal(size=tree["mean"].shape)).astype(np.float32)
+        tree["var"] = rng.uniform(0.5, 2.0, size=tree["var"].shape).astype(np.float32)
+
+    randomize(v["batch_stats"])
     return v
 
 

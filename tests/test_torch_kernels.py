@@ -4,7 +4,9 @@ K1 (hydragnn_tpu_torch/ops/sorted_segment.py) and K2
 (hydragnn_tpu_torch/ops/fused_edge.py): on the CPU their wrappers run the
 plain PyTorch versions, held here against the JAX kernels in interpret mode
 and the JAX dense references, in f32 with atol 1e-5 (the same function
-summed in another order). The CUDA kernels themselves run only on a GPU:
+summed in another order). K3 and K4 are held against the JAX package in
+tests/test_torch_pna.py and tests/test_torch_gps.py; here their wrappers'
+CPU routing. The CUDA kernels themselves run only on a GPU:
 tests/test_torch_cuda.py holds them against these plain versions there.
 """
 
@@ -18,7 +20,9 @@ from hydragnn_tpu.ops.pallas_fused_edge import fused_edge_message_sum as jax_fus
 from hydragnn_tpu.ops.pallas_fused_edge import reference_edge_message_sum as jax_fused_ref
 from hydragnn_tpu.ops.pallas_segment import sorted_segment_sum as jax_sorted_sum
 from hydragnn_tpu.ops.segment import segment_mean as jax_segment_mean
+from hydragnn_tpu_torch.ops import flash_attention as t_flash
 from hydragnn_tpu_torch.ops import fused_edge as t_fused
+from hydragnn_tpu_torch.ops import multi_agg as t_multi
 from hydragnn_tpu_torch.ops import segment as t_segment
 from hydragnn_tpu_torch.ops import sorted_segment as t_sorted
 
@@ -106,6 +110,46 @@ def pytest_cpu_wrappers_take_the_plain_version_and_count_nothing():
     assert t_fused.fused_edge_message_sum.launches == k2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_k3_k4_cpu_wrappers_take_the_plain_versions_and_count_nothing(dtype):
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(_sorted_ids(rng, 64, 10, 10))
+    ops = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+           for s in ((10, 7), (64, 7), (64, 7))]
+    k3, k4 = t_multi.fused_multi_agg.launches, t_flash.flash_self_attention.launches
+    for got, want in zip(t_multi.fused_multi_agg(*ops, ids, 10),
+                         t_multi.reference_multi_agg(*ops, ids, 10)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    node_graph = torch.tensor([0] * 4 + [1] * 5 + [2] * 3)
+    node_mask = torch.arange(12) < 9
+    qkv = [torch.from_numpy(rng.normal(size=(12, 2, 4)).astype(np.float32)).to(dtype)
+           for _ in range(3)]
+    out = t_flash.flash_self_attention(*qkv, node_graph, node_mask, 3)
+    assert out.dtype == dtype and out.shape == (12, 2, 4)
+    torch.testing.assert_close(out, t_flash.reference_masked_attention(*qkv, node_graph, node_mask),
+                               rtol=0, atol=0)
+    assert float(out[9:].abs().max()) == 0.0
+    assert t_multi.fused_multi_agg.launches == k3
+    assert t_flash.flash_self_attention.launches == k4
+
+
+def pytest_plain_attention_rounds_p_like_the_kernel():
+    """bf16 operands: the plain versions round the probabilities to bf16
+    before ``p @ v`` (the kernel's rounding point) and normalize by the
+    unrounded sum. Logits (0, -0.1): p = (1, 0.9047) rounds to (1, 0.90625),
+    so the output 0.90625 / 1.9047 rounds to 0.4765625 in bf16, where the
+    unrounded p would give 0.474609375."""
+    node_graph = torch.zeros(2, dtype=torch.int64)
+    node_mask = torch.ones(2, dtype=torch.bool)
+    q = torch.ones(2, 1, 1, dtype=torch.bfloat16)
+    k = torch.tensor([0.0, -0.1], dtype=torch.bfloat16).reshape(2, 1, 1)
+    v = torch.tensor([0.0, 1.0], dtype=torch.bfloat16).reshape(2, 1, 1)
+    for out in (t_flash.reference_masked_attention(q, k, v, node_graph, node_mask),
+                t_flash.reference_gathered_attention(q, k, v, node_graph, node_mask, 1, 2)):
+        assert float(out[0, 0, 0]) == 0.4765625
+
+
 def pytest_plain_versions_keep_the_operand_dtype_and_sum_in_f32():
     """bf16 messages: the sum is taken in f32 and rounded once."""
     ids = torch.zeros(300, dtype=torch.int64)
@@ -140,10 +184,11 @@ def pytest_fused_edge_rows_per_block_follow_the_mean_degree():
 def pytest_build_keys_libraries_by_source_and_flags():
     from hydragnn_tpu_torch.ops import _build
 
-    p1 = _build.library_path("sorted_segment_sum")
-    p2 = _build.library_path("fused_edge")
-    assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
-    assert p1 != p2 and p1 == _build.library_path("sorted_segment_sum")
+    paths = [_build.library_path(k) for k in
+             ("sorted_segment_sum", "fused_edge", "multi_agg", "flash_attention")]
+    p1 = paths[0]
+    assert all(p.parent == _build.BUILD_DIR and p.suffix == ".so" for p in paths)
+    assert len(set(paths)) == 4 and p1 == _build.library_path("sorted_segment_sum")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="no kernel source"):
         _build.library_path("no_such_kernel")

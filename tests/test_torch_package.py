@@ -70,13 +70,18 @@ def pytest_entry_points_raise_without_a_gpu(monkeypatch):
         api.run_prediction(_config(), datasets=splits)
 
 
-def pytest_later_slices_raise_not_implemented():
+@pytest.mark.parametrize("later", [
+    dict(mpnn_type="GIN"),
+    dict(mpnn_type="PNA", global_attn_engine="GPS", global_attn_type="performer"),
+    dict(mpnn_type="PNA", global_attn_engine="GPS", global_attn_type="ring"),
+])
+def pytest_later_slices_raise_not_implemented(later):
     from hydragnn_tpu_torch.models.create import model_config_from
     from test_torch_serve import _config
 
     c = _config()
     arch = c["NeuralNetwork"]["Architecture"]
-    arch.update(mpnn_type="PNA", input_dim=4, output_dim=[1, 3], output_type=["graph", "node"])
+    arch.update(input_dim=4, output_dim=[1, 3], output_type=["graph", "node"], **later)
     with pytest.raises(NotImplementedError, match="later slice"):
         model_config_from(c)
 
