@@ -9,19 +9,22 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal on failure (exit code 1):
 
 1. card: name and power limit from nvidia-smi, ``torch.cuda.get_device_name``;
-2. build: every kernel of the served paths, built by nvcc for sm_90a from
+2. build: every kernel of the paths, built by nvcc for sm_90a from
    ``hydragnn_tpu_torch/csrc/`` (one nvcc per source, all started together);
-3. kernels: each kernel's wrapper on the card at the shapes its serving
-   path gives it (one real batch of that path: an OC20-shaped packed batch
-   of 32 graphs for K1/K2, an unpacked batch of 16 for K3/K4), held against
-   its plain PyTorch version with a stated tolerance, then timed with CUDA
+3. kernels: each kernel's wrapper on the card at the shapes its path gives
+   it (one real batch of that path: an OC20-shaped packed batch of 32
+   graphs for K1/K2, an unpacked batch of 16 for K3/K4, the spanning BCC
+   supercell of 8,192 atoms for K4b and K1 at C = 256), held against its
+   plain PyTorch version with a stated tolerance, then timed with CUDA
    events (and its device time under torch.profiler) beside the plain
    version, one library call where PyTorch has one, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of the
-   unit that could run them: the tensor cores for K2's and K4's products,
-   at the TF32 rate for three TF32 products in f32; the f32 units for the
-   rest). K3 also runs on the same batch padded to the top of its serving
-   ladder (a dummy row of ~17k edges), off the kernels line;
+   unit that could run them: the tensor cores for K2's, K4's and K4b's
+   products, at the TF32 rate for three TF32 products in f32; the f32 units
+   for the rest). K3 also runs on the same batch padded to the top of its
+   serving ladder (a dummy row of ~17k edges), off the kernels line. Then
+   the ring-merge check: K4b over four key blocks merged through the ring's
+   ``_block_attend`` against one K4b call over all keys;
 4. serving ``egnn``: ``api.run_server`` on the SC25-shaped EGNN (hidden 866,
    4 conv layers, equivariant, graph and node heads of width 889, batch 32,
    packed, bf16 mixed precision, sorted aggregation) with random weights
@@ -34,11 +37,22 @@ Phases, each fatal on failure (exit code 1):
    256, 4 conv layers, 8 heads of 32, Laplacian PE of 4, graph head
    [256, 256], node head [256, 256], batch 16, not packed, bf16 mixed
    precision, sorted aggregation, so the multi-moment and flash kernels):
-   K3 and K4 each once in bf16 and three times in f32 per served batch.
+   K3 and K4 each once in bf16 and three times in f32 per served batch;
+6. ``gin_ring``: sequence-parallel evaluation of one spanning graph (GIN
+   with GPS ring attention, hidden 256, 4 conv layers, 8 heads of 32,
+   Laplacian PE of 4, graph head [256, 256], batch 1, f32, sorted
+   aggregation and the block-summary kernel) on a ring of one rank:
+   ``parallel.make_sp_eval_step`` on 4 requests, each a BCC supercell of
+   16^3 cells (8,192 atoms, ~98k periodic edges) whose node features are
+   redrawn per request on one topology and one PE. K4b and K1 (C = 256) each
+   four times in f32 per request; the answers against the same route
+   through the kernels' plain versions and against the dense fallback
+   (outside the SP context: [8, N, N] f32 logits); ms per forward, nodes/s
+   and the peak memory of both routes.
 
-Each serving path sets every launch count to 0 just before its requests and
-reads them just after, and prints one ``profile:`` block. The last three
-lines are the card, the kernels JSON line and the result line.
+Each path sets every launch count to 0 just before its requests and reads
+them just after, and prints one ``profile:`` block. The last three lines
+are the card, the kernels JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -68,12 +82,18 @@ N_REQUESTS = 192  # 1.5x the dataset: every graph once, a third of them twice
 # padding edges of a GPS-PNA batch at the top of its serving ladder (33408
 # edge slots against ~17k real edges), all received by the dummy node
 LONG_ROW_EDGES = 16384
+# the gin_ring supercell: 16^3 BCC cells (8,192 atoms), 4 requests on it,
+# and the key blocks of the ring-merge check
+GIN_RING_CELLS = 16
+GIN_RING_REQUESTS = 4
+MERGE_BLOCKS = 4
 
 KERNELS = {  # kernel -> (module, wrapper) of hydragnn_tpu_torch.ops
     "K1": ("sorted_segment", "sorted_segment_sum"),
     "K2": ("fused_edge", "fused_edge_message_sum"),
     "K3": ("multi_agg", "fused_multi_agg"),
     "K4": ("flash_attention", "flash_self_attention"),
+    "K4b": ("flash_attention", "flash_block_summary"),
 }
 
 
@@ -222,6 +242,71 @@ def gps_pna_dataset(n: int = 128):
     return add_dataset_pe(oc20_shaped_dataset(n), 4)
 
 
+def gin_ring_config(hidden: int = 256, head: int = 256, heads: int = 8, layers: int = 4):
+    """GIN with GPS ring attention over one spanning graph: the JAX
+    package's GPS bench cell (bench.py ``_gps_cell_workload``: GIN, hidden
+    256, 4 conv layers, 8 heads, PE 4, dropout 0) with the attention type,
+    graph-only head and batch of 1 of its mesoscale example
+    (examples/mesoscale/mesoscale.py), in f32; the sorted and block-summary
+    kernels follow from the card at config completion."""
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": "bcc_supercell", "node_features": {"dim": [1, 1, 1]},
+                    "graph_features": {"dim": [1]}},
+        "NeuralNetwork": {
+            "Architecture": {
+                "mpnn_type": "GIN", "hidden_dim": hidden, "num_conv_layers": layers,
+                "global_attn_engine": "GPS", "global_attn_type": "ring",
+                "global_attn_heads": heads, "pe_dim": 4, "dropout": 0.0,
+                "task_weights": [1.0],
+                "output_heads": {"graph": {"num_sharedlayers": 2, "dim_sharedlayers": 50,
+                                           "num_headlayers": 2,
+                                           "dim_headlayers": [head, head]}},
+            },
+            "Variables_of_interest": {"input_node_features": [0], "output_names": ["total"],
+                                      "output_index": [0], "type": ["graph"]},
+            "Training": {"batch_size": 1, "num_epoch": 1,
+                         "Optimizer": {"type": "AdamW", "learning_rate": 3e-3}},
+        },
+    }
+
+
+def gin_ring_requests(topology, n: int, pe_dim: int = 4):
+    """``n`` spanning-graph requests on one supercell topology: the node
+    features redrawn per request (``[x, x^2, x^3]``, x uniform in [0.2, 1],
+    target their sum, as ``bcc_supercell`` draws them), MinMax over the
+    requests, the variables of interest, and the Laplacian PE, computed
+    once: it depends on the topology only. Returns (graphs, PE seconds)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data import MinMax, VariablesOfInterest, add_graph_pe, extract_variables
+
+    t0 = time.perf_counter()
+    with_pe = add_graph_pe(topology, pe_dim)
+    pe_s = time.perf_counter() - t0
+    graphs = []
+    for r in range(n):
+        rng = np.random.default_rng(SEED + 1 + r)
+        x = rng.uniform(0.2, 1.0, (topology.num_nodes, 1)).astype(np.float32)
+        feats = np.concatenate([x, x**2, x**3], axis=1).astype(np.float32)
+        graphs.append(dataclasses.replace(topology, x=feats,
+                                          graph_y=np.asarray([feats.sum()], np.float32)))
+    graphs = MinMax.fit(graphs).apply(graphs)
+    voi = VariablesOfInterest([0], ["total"], ["graph"], [0], [1, 1, 1], [1])
+    return [dataclasses.replace(extract_variables(g, voi), pe=with_pe.pe, rel_pe=with_pe.rel_pe)
+            for g in graphs], pe_s
+
+
+def gin_ring_spec(graph):
+    """One spanning graph per batch, padded as the mesoscale example pads
+    it for a ring of one rank: two padding nodes and edges, a dummy graph."""
+    from hydragnn_tpu_torch.data.graph import PadSpec
+
+    return PadSpec(n_nodes=graph.num_nodes + 2, n_edges=graph.num_edges + 2, n_graphs=2)
+
+
 def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, shape,
           check_exact=None, scale=None):
     source, replaces = {
@@ -233,6 +318,8 @@ def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, 
                "hydragnn_tpu/ops/pallas_multi_agg.py:306"),
         "K4": ("hydragnn_tpu_torch/csrc/flash_attention.cu",
                "hydragnn_tpu/ops/pallas_flash_attention.py:299"),
+        "K4b": ("hydragnn_tpu_torch/csrc/flash_attention.cu",
+                "hydragnn_tpu/ops/pallas_flash_attention.py:420"),
     }[kernel]
     return dict(kernel=kernel, dtype=str(dtype)[6:], name=name, case=case, fn=fn, plain=plain,
                 library=library, nbytes=nbytes, ops_ms=ops_ms, iters=iters, shape=shape,
@@ -382,6 +469,98 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
     return cases
 
 
+def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
+    """K1 (f32, C = 256: GIN's neighbour sum) and K4b at the gin_ring
+    shapes, inputs from a seed: the spanning batch's receiver ids for K1,
+    its node mask as K4b's key mask (queries and keys: every node of the
+    batch, padding included, as on the path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hydragnn_tpu_torch.ops.flash_attention import (
+        flash_block_summary,
+        reference_block_summary,
+    )
+    from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum, sorted_segment_sum_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ids = batch.receivers.to(device)
+    mask = batch.edge_mask.to(device)[:, None]
+    key_mask = batch.node_mask.to(device)
+    n, e = batch.num_nodes, batch.num_edges
+    c, d = channels, channels // heads
+    valid = int(key_mask.sum())
+    msg = torch.randn(e, c, generator=gen, device=device)
+    kw = dict(messages=torch.where(mask, msg, torch.zeros((), device=device)),
+              segment_ids=ids, num_segments=n)
+    base = torch.zeros(n, c, device=device)
+    cases = [_case(
+        "K1", torch.float32, f"sorted_segment_sum (float32, C={c})", f"float32/C{c}",
+        lambda: sorted_segment_sum(**kw),
+        lambda: sorted_segment_sum_plain(**kw),
+        lambda: base.index_add(0, ids, kw["messages"]),
+        (e * c + n * c) * 4 + e * 4,
+        e * c / PEAK_FLOPS["float32"] * 1e3,
+        50, dict(E=e, N=n, C=c),
+    )]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype)[6:]
+        size = torch.tensor([], dtype=dtype).element_size()
+        q, k, v = (torch.randn(n, heads, d, generator=gen, device=device).to(dtype)
+                   for _ in range(3))
+        kw4 = dict(q=q, k=k, v=v, key_mask=key_mask)
+        qh, kh, vh = (t.transpose(0, 1).contiguous() for t in (q, k, v))  # [H, N, d]
+        cases.append(_case(
+            "K4b", dtype, f"flash_block_summary ({dname}, H={heads}, d={d})",
+            f"{dname}/H{heads}xd{d}",
+            lambda kw4=kw4: flash_block_summary(**kw4),
+            lambda kw4=kw4: reference_block_summary(**kw4),
+            # the normalized output only: SDPA has no (m, l) statistics
+            lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=key_mask[None, :]),
+            # q, k, v and the key mask in; m, l, acc out
+            (3 * n * heads * d + n * heads * (d + 2)) * size + n,
+            # q.k and p.v, 2 flops each per dimension and (query, valid key)
+            # pair, priced as K4's: the tensor cores in bf16, three TF32
+            # products for f32 accuracy (the kernel itself uses the FMA units)
+            MMA_PASSES[dname][1] * 4 * heads * d * n * valid
+            / PEAK_FLOPS[MMA_PASSES[dname][0]] * 1e3,
+            10, dict(n_q=n, n_k=n, valid_keys=valid, H=heads, d=d),
+        ))
+    return cases
+
+
+def ring_merge_check(batch, device, heads: int = 8, d: int = 32, blocks: int = MERGE_BLOCKS):
+    """K4b over ``blocks`` key blocks (n_q != n_k), merged through the
+    ring's ``_block_attend``, against one K4b call over all the keys: f32,
+    the path's dtype, at the gin_ring shapes. The merge rescales partials by
+    exp of differences of f32 maxima, a few ulp: tolerance 1e-5 of max |v|."""
+    import torch
+
+    from hydragnn_tpu_torch.ops.flash_attention import flash_block_summary
+    from hydragnn_tpu_torch.parallel.ring_attention import _block_attend
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    n = batch.num_nodes
+    key_mask = batch.node_mask.to(device)
+    q, k, v = (torch.randn(n, heads, d, generator=gen, device=device) for _ in range(3))
+    m, l, acc = flash_block_summary(q, k, v, key_mask)
+    whole = acc / torch.clamp(l, min=1e-30)[..., None]
+    m = torch.full((n, heads), torch.finfo(torch.float32).min, device=device)
+    denom, acc = torch.zeros(n, heads, device=device), torch.zeros_like(q)
+    scale = 1.0 / math.sqrt(d)
+    for kb, vb, mb in zip(k.chunk(blocks), v.chunk(blocks), key_mask.chunk(blocks)):
+        m, denom, acc = _block_attend(q, kb, vb, mb, m, denom, acc, scale, use_flash=True)
+    merged = acc / torch.clamp(denom, min=1e-30)[..., None]
+    torch.cuda.synchronize()
+    err = float((merged - whole).abs().max())
+    tol = 1e-5 * float(v.abs().max())
+    print(f"check ring merge: K4b over {blocks} key blocks of {k.chunk(blocks)[0].shape[0]} "
+          f"against one call over {n} keys (f32, H={heads}, d={d}): max_abs_err {err:.6g} "
+          f"(tolerance {tol:.6g} = 1e-5 x max |v|)", flush=True)
+    check(math.isfinite(err) and err <= tol, "the merged K4b blocks disagree with one call")
+
+
 # (atol, rtol of max |plain|) per kernel and dtype. K1/K2 f32: the kernels sum
 # in another order than index_add_/cuBLAS, a few ulp per term. K1/K2 bf16:
 # both versions accumulate in f32 and round once, but K2's plain version
@@ -395,6 +574,10 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
 # another order; bf16 rounds p to bf16 against a running maximum where the
 # plain version uses the row's final one (an ulp of bf16 on each p), and
 # rounds the output.
+# K4b (each of m, l, acc against its own largest value): f32 sums in another
+# order and exp2 of log2-scaled scores where the plain version takes exp;
+# bf16 rounds m, l and acc = o * l to bf16 (an ulp is 2**-8 of the value) and
+# p against a running maximum, as K4.
 TOLERANCES = {
     ("K1", "float32"): (1e-4, 1e-5),
     ("K1", "bfloat16"): (1e-2, 8e-3),
@@ -404,6 +587,8 @@ TOLERANCES = {
     ("K3", "bfloat16"): (0.0, 3e-5),
     ("K4", "float32"): (0.0, 1e-5),
     ("K4", "bfloat16"): (0.0, 2e-2),
+    ("K4b", "float32"): (0.0, 1e-5),
+    ("K4b", "bfloat16"): (0.0, 2e-2),
 }
 
 
@@ -441,6 +626,21 @@ SERVE_RTOL = {  # reference -> head -> (largest row, median row)
                                                       "forces": (0.4, 1e-2)},
                 "f32 through the kernels": {"energy": (1e-2, 2e-5), "forces": (0.15, 1e-5)}},
 }
+
+
+# gin_ring answers (one graph total per request) against the same route through
+# the kernels' plain versions and against the dense fallback, relative to the
+# largest reference: (largest row, median row). All f32: the same function
+# in another summation order. Readings from this script on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W) at seed 0, (largest, median): plain versions
+# (8.1e-7, 3.7e-7), dense fallback (8.8e-7, 3.4e-7); limits at about four
+# times each. The totals are dominated by GIN's local branch (its (1 + eps)
+# x = 101 x), so these gates are coarse on the attention; the phase prints
+# how far a wrong attention (K4b's partials given to the wrong queries)
+# moves them, and fails if these limits would not catch it. The kernel
+# checks are the tight ones.
+GIN_RING_RTOL = {"ring route, plain versions": (3e-6, 1.5e-6),
+                 "dense fallback": (3e-6, 1.5e-6)}
 
 
 def _outputs(out):
@@ -503,13 +703,8 @@ def run_kernels(cases):
 
 
 def profile_batch(server, graphs, label: str) -> None:
-    """Where one served batch spends its time: host batching, the forward's
-    wall time (median of 5), and one forward under torch.profiler: device
-    time by kernel and the device's busy share of that forward."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one served batch spends its time: host batching, then
+    ``profile_forward`` on its forward."""
     from hydragnn_tpu_torch.data.graph import batch_graphs
 
     spec = server.ladder.specs[-1]
@@ -523,26 +718,37 @@ def profile_batch(server, graphs, label: str) -> None:
     t0 = time.perf_counter()
     batch = batch_graphs(gs, server.ladder.select_for(gs), sort_edges=server.sort_edges)
     host_ms = (time.perf_counter() - t0) * 1e3
+    profile_forward(label, f"batch of {len(gs)} graphs, host batching {host_ms:.2f} ms",
+                    lambda: server.forward(batch))
+
+
+def profile_forward(label: str, what: str, forward) -> None:
+    """The wall time of ``forward()`` (median of 5 after one more) and one
+    call under torch.profiler: device time by kernel and the device's busy
+    share of that call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     walls = []
     for _ in range(6):
         t0 = time.perf_counter()
-        server.forward(batch)
+        forward()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     forward_ms = float(np.median(walls[1:]))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.forward(batch)
+        forward()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(_device_us(ev), ev.key, ev.count) for ev in prof.key_averages()
             if str(ev.device_type).endswith("CUDA")]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"profile: {label}: batch of {len(gs)} graphs, host batching {host_ms:.2f} ms, forward "
-          f"{forward_ms:.2f} ms (median of 5), under the profiler {prof_wall_ms:.2f} ms "
-          f"with the device busy {busy_ms:.2f} ms ({100 * busy_ms / prof_wall_ms:.1f}%)",
-          flush=True)
+    print(f"profile: {label}: {what}, forward {forward_ms:.2f} ms (median of 5), under the "
+          f"profiler {prof_wall_ms:.2f} ms with the device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / prof_wall_ms:.1f}%)", flush=True)
     for dev_us, key, count in rows[:14]:
         print(f"profile: {dev_us / 1e3:9.3f} ms {100 * dev_us / 1e3 / max(busy_ms, 1e-9):5.1f}% "
               f"x{count:<4d} {key[:100]}", flush=True)
@@ -557,23 +763,36 @@ def _wrappers():
 
 @contextlib.contextmanager
 def plain_versions(on: bool):
-    """Within the block, the model's K3 and K4 call sites take the kernels'
-    plain versions on the card (the served route, no kernel)."""
+    """Within the block, the model's K1, K3, K4 and K4b call sites take the
+    kernels' plain versions on the card (the same route, no kernel)."""
     if not on:
         yield
         return
     import hydragnn_tpu_torch.models.gps as gps
     import hydragnn_tpu_torch.ops.segment as segment
-    from hydragnn_tpu_torch.ops.flash_attention import reference_masked_attention
+    import hydragnn_tpu_torch.parallel.ring_attention as ring
+    from hydragnn_tpu_torch.ops.flash_attention import (
+        reference_block_summary,
+        reference_masked_attention,
+    )
     from hydragnn_tpu_torch.ops.multi_agg import reference_multi_agg
+    from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum_plain
 
-    saved = gps.flash_self_attention, segment.fused_multi_agg
-    gps.flash_self_attention = lambda q, k, v, ng, nm, g: reference_masked_attention(q, k, v, ng, nm)
-    segment.fused_multi_agg = reference_multi_agg
+    swaps = [
+        (gps, "flash_self_attention",
+         lambda q, k, v, ng, nm, g: reference_masked_attention(q, k, v, ng, nm)),
+        (segment, "fused_multi_agg", reference_multi_agg),
+        (segment, "sorted_segment_sum", sorted_segment_sum_plain),
+        (ring, "flash_block_summary", reference_block_summary),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        gps.flash_self_attention, segment.fused_multi_agg = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases):
@@ -718,6 +937,124 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
     return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
 
 
+def run_gin_ring(topology, topology_s: float, device, n_requests: int):
+    """SP evaluation of one spanning graph per request through
+    ``parallel.make_sp_eval_step`` (a ring of one rank) and its checks.
+    Returns the launches by (kernel, case)."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel import make_sp_eval_step
+
+    label = "gin_ring"
+    wrappers = _wrappers()
+    graphs, pe_s = gin_ring_requests(topology, n_requests)
+    n_atoms = topology.num_nodes
+    print(f"{label}: BCC supercell of {GIN_RING_CELLS}^3 cells, {n_atoms} atoms, "
+          f"{topology.num_edges} periodic edges: topology built in {topology_s:.2f} s, "
+          f"Laplacian PE of 4 (dense eigh) in {pe_s:.2f} s", flush=True)
+    config = update_config(gin_ring_config(), graphs, graphs[:1], graphs[:1])
+    arch = config["NeuralNetwork"]["Architecture"]
+    print(f"{label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, "
+          f"{arch['num_conv_layers']} conv layers, GPS {arch['global_attn_type']} "
+          f"x{arch['global_attn_heads']} heads, PE {arch['pe_dim']}, graph head "
+          f"{arch['output_heads']['graph']['dim_headlayers']}, batch 1, f32, sorted aggregation "
+          f"{arch['use_sorted_aggregation']} (in-degree bound {arch['max_in_degree']}), "
+          f"block-summary kernel {arch['use_flash_attention']}, random weights (seed {SEED})",
+          flush=True)
+    check(arch["use_sorted_aggregation"] and arch["use_flash_attention"],
+          f"{label}: config completion did not turn the kernels on")
+    model = create_model(config, device=device, seed=SEED)
+    evalf = make_sp_eval_step(model, device=device)
+    spec = gin_ring_spec(graphs[0])
+    t0 = time.perf_counter()
+    batches = [batch_graphs([g], spec, sort_edges=True) for g in graphs]
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    evalf(batches[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+
+    # the main path: every launch count from 0, read right after
+    for w in wrappers.values():
+        w.launches = 0
+        w.launches_by_case.clear()
+    torch.cuda.reset_peak_memory_stats()
+    walls, results = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        results.append(evalf(b))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: (w.launches, dict(w.launches_by_case)) for k, w in wrappers.items()}
+    ring_peak = torch.cuda.max_memory_allocated() - resident
+
+    print(f"{label}: launches " + ", ".join(f"{k} {n} {cases}" for k, (n, cases) in launches.items()),
+          flush=True)
+    per_request = {"K1": {"float32/C256": 4}, "K4b": {"float32/H8xd32": 4}}
+    for k, (_, cases) in launches.items():
+        want = {case: per * len(batches) for case, per in per_request.get(k, {}).items()}
+        check(cases == want, f"{label}: {k} launched {cases} in {len(batches)} requests, "
+                             f"expected {want}")
+    for tot, tasks, out in results:
+        check(set(out) == {"total"} and tuple(out["total"].shape) == (2, 1),
+              f"{label}: outputs { {k: tuple(v.shape) for k, v in out.items()} }")
+        check(bool(torch.isfinite(out["total"][0]).all()) and math.isfinite(float(tot))
+              and math.isfinite(float(tasks["total"])), f"{label}: non-finite output or loss")
+    print(f"{label}: losses " + ", ".join(f"{float(t):.6g}" for t, _, _ in results), flush=True)
+
+    # the answers against the same route through the kernels' plain versions,
+    # and against the dense fallback (no SP context: [H, N, N] f32 logits)
+    refs = {}
+    with plain_versions(True):
+        refs["ring route, plain versions"] = [evalf(b)[2]["total"][0] for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        refs["dense fallback"] = [model(b.to(device))["total"][0] for b in batches]
+    torch.cuda.synchronize()
+    dense_peak = torch.cuda.max_memory_allocated() - resident
+    got = torch.stack([out["total"][0] for _, _, out in results]).float().cpu().numpy()
+    for r, rows in refs.items():
+        want = torch.stack(rows).float().cpu().numpy()
+        err = np.abs(got - want).max(axis=1)
+        scale = float(np.abs(want).max())
+        rel = err / max(scale, 1e-12)
+        worst, median = float(rel.max()), float(np.median(rel))
+        lim = GIN_RING_RTOL[r]
+        print(f"{label}: ring route vs {r}: max abs err {float(err.max()):.6g}, max |ref| "
+              f"{scale:.6g}, relative: largest {worst:.6g}, median row {median:.6g} "
+              f"(tolerance (largest, median) {lim} of max |ref|)", flush=True)
+        check(worst <= lim[0] and median <= lim[1], f"{label}: the ring route disagrees with {r}")
+    # what the gates can see: the same route with K4b's partials rolled by
+    # one query (each query gets its neighbour's attention)
+    import hydragnn_tpu_torch.parallel.ring_attention as ring
+
+    summary = ring.flash_block_summary
+    ring.flash_block_summary = lambda *a: tuple(t.roll(1, 0) for t in summary(*a))
+    try:
+        wrong = torch.stack([evalf(b)[2]["total"][0] for b in batches]).float().cpu().numpy()
+    finally:
+        ring.flash_block_summary = summary
+    rel = np.abs(wrong - got).max(axis=1) / max(float(np.abs(got).max()), 1e-12)
+    print(f"{label}: gate sensitivity: the attention rolled by one query moves the totals by "
+          f"largest {float(rel.max()):.6g}, median row {float(np.median(rel)):.6g} of the largest",
+          flush=True)
+    check(float(rel.max()) > min(lim[0] for lim in GIN_RING_RTOL.values()),
+          f"{label}: the answer gates would not see a wrong attention")
+
+    ms = float(np.mean(walls))
+    profile_forward(label, f"one spanning graph of {n_atoms} nodes, host batching "
+                           f"{host_ms:.2f} ms", lambda: evalf(batches[0]))
+    print(f"{label}: {ms:.2f} ms per forward (mean of {len(walls)}: "
+          f"{', '.join(f'{w:.2f}' for w in walls)}), {n_atoms / ms * 1e3:.1f} nodes/s, peak "
+          f"memory above the resident {resident / 2**20:.1f} MiB: ring route "
+          f"{ring_peak / 2**20:.1f} MiB, dense fallback {dense_peak / 2**20:.1f} MiB", flush=True)
+    return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -758,10 +1095,11 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.graph import batch_graphs
     from hydragnn_tpu_torch.data.pipeline import split_dataset
-    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+    from hydragnn_tpu_torch.data.synthetic import bcc_supercell, oc20_shaped_dataset
 
-    # one real batch of each serving path gives its kernels' shapes
+    # one real batch of each path gives its kernels' shapes
     paths = {"egnn": (serving_config(), oc20_shaped_dataset(128)),
              "gps_pna": (gps_pna_config(), gps_pna_dataset(128))}
     cases = []
@@ -774,7 +1112,16 @@ def main() -> None:
               f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
               f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
         cases += (egnn_kernel_cases if label == "egnn" else gps_kernel_cases)(batch, device)
+    t0 = time.perf_counter()
+    topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
+    topology_s = time.perf_counter() - t0
+    batch = batch_graphs([topology], gin_ring_spec(topology), sort_edges=True)
+    print(f"batch gin_ring: 1 graph, {int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
+          f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
+    cases += gin_ring_kernel_cases(batch, device)
     kernels = run_kernels(cases)
+    del cases  # their inputs, so the phases' memory readings start clean
+    ring_merge_check(batch, device)
     torch.cuda.synchronize()
 
     launched = {}
@@ -791,10 +1138,12 @@ def main() -> None:
         for label, (config, graphs) in paths.items():
             launched.update(run_serving(label, config, graphs, device, N_REQUESTS,
                                         per_batch_cases[label]))
+        launched.update(run_gin_ring(topology, topology_s, device, GIN_RING_REQUESTS))
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
-    # the bf16 fused edge case is measured but not on the served path (the
-    # last conv runs in f32 there), so it stays out of the kernels line
+    # the bf16 fused edge and block-summary cases are measured but not on a
+    # path (the last EGNN conv and the SP path run in f32), so they stay out
+    # of the kernels line
     on_path = [k for k in kernels if args.kernels or k["launches"] > 0]
     off_path = [k for k in kernels if k not in on_path]
     for k in off_path:

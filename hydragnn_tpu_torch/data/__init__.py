@@ -9,7 +9,7 @@ from .graph import (
     sort_edges_by_receiver,
 )
 from .lappe import add_dataset_pe, add_graph_pe, laplacian_pe
-from .neighbors import radius_graph
+from .neighbors import radius_graph, radius_graph_pbc
 from .pipeline import (
     GraphLoader,
     MinMax,
@@ -19,4 +19,4 @@ from .pipeline import (
     spec_template_batches,
     split_dataset,
 )
-from .synthetic import deterministic_graph_dataset, oc20_shaped_dataset
+from .synthetic import bcc_supercell, deterministic_graph_dataset, oc20_shaped_dataset

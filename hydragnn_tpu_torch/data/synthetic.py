@@ -1,13 +1,15 @@
 """Deterministic synthetic datasets (numpy only).
 
-Counterpart of ``hydragnn_tpu/data/synthetic.py`` for the two generators
-this slice uses; for the same seed both packages return the same arrays.
+Counterpart of ``hydragnn_tpu/data/synthetic.py`` for the generators the
+port's slices use; for the same seed both packages return the same arrays.
 
 - ``deterministic_graph_dataset``: BCC configurations with closed-form
   targets (the CI fixture);
 - ``oc20_shaped_dataset``: OC20-S2EF-shaped slabs (lognormal sizes with mean
   ~73 atoms clipped to [20, 225], FCC packing, capped ~20-degree radius
-  graphs, Lennard-Jones energy and force targets) — the serving main path.
+  graphs, Lennard-Jones energy and force targets) — the serving main path;
+- ``bcc_supercell``: one periodic BCC supercell (the mesoscale example's
+  spanning graph) — the SP evaluation path.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .graph import Graph
-from .neighbors import radius_graph
+from .neighbors import radius_graph, radius_graph_pbc
 
 
 def knn_average(pos: np.ndarray, values: np.ndarray, k: int) -> np.ndarray:
@@ -164,3 +166,34 @@ def oc20_shaped_dataset(
             z=z,
         ))
     return graphs
+
+
+def bcc_supercell(cells: int, jitter: float, seed: int) -> Graph:
+    """BCC supercell of ``cells``^3 unit cells (``2 * cells**3`` atoms) with
+    thermal jitter, under periodic boundary conditions (radius 1.1 lattice
+    constants, 12 neighbours): node table ``[x, x^2, x^3]`` and the graph
+    target ``sum`` of that table. The same graph as the mesoscale example's
+    ``build_supercell`` (examples/mesoscale/mesoscale.py) for the same
+    arguments: one graph spanning a whole SP batch."""
+    rng = np.random.default_rng(seed)
+    a = 1.0
+    base = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]]) * a
+    pos = []
+    for i in range(cells):
+        for j in range(cells):
+            for k in range(cells):
+                pos.append(base + np.array([i, j, k], float) * a)
+    pos = np.concatenate(pos) + rng.normal(0.0, jitter, (2 * cells**3, 3))
+    cell = np.eye(3) * (a * cells)
+    senders, receivers, shifts = radius_graph_pbc(pos, cell, radius=1.1 * a, max_neighbours=12)
+    x = rng.uniform(0.2, 1.0, (pos.shape[0], 1)).astype(np.float32)
+    feats = np.concatenate([x, x**2, x**3], axis=1).astype(np.float32)
+    target = np.asarray([feats.sum()], np.float32)
+    return Graph(
+        x=feats,
+        pos=pos.astype(np.float32),
+        senders=senders.astype(np.int32),
+        receivers=receivers.astype(np.int32),
+        edge_shifts=shifts.astype(np.float32),
+        graph_y=target,
+    )

@@ -1,9 +1,9 @@
 """Model factory: completed JSON config -> ``HydraModel`` on a device.
 
-Counterpart of ``hydragnn_tpu/models/create.py``. EGNN and PNA are
-registered, with GPS multi-head global attention around either; the other
-convs and attention types of the JAX package come with later slices of the
-port.
+Counterpart of ``hydragnn_tpu/models/create.py``. EGNN, PNA and GIN are
+registered, with GPS global attention ("multihead", or "ring" for one
+spanning graph) around any of them; the other convs and the "performer"
+attention of the JAX package come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -18,10 +18,11 @@ from .layers import reset_parameters
 
 # import model files for their registry side effects
 from . import egnn as _egnn  # noqa: F401
+from . import gin as _gin  # noqa: F401
 from . import pna as _pna  # noqa: F401
 
 # convs of the JAX package that this port does not carry yet
-_LATER_SLICES = ("CGCNN", "DimeNet", "GAT", "GIN", "MACE", "MFC", "PAINN",
+_LATER_SLICES = ("CGCNN", "DimeNet", "GAT", "MACE", "MFC", "PAINN",
                  "PNAEq", "PNAPlus", "SAGE", "SchNet")
 
 
@@ -46,12 +47,12 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
     if arch["mpnn_type"] in _LATER_SLICES:
         raise NotImplementedError(
             f"mpnn_type {arch['mpnn_type']!r} comes with a later slice of the "
-            "PyTorch port; this slice carries EGNN and PNA"
+            "PyTorch port; this slice carries EGNN, PNA and GIN"
         )
-    if arch.get("global_attn_engine") and arch.get("global_attn_type") in ("ring", "performer"):
+    if arch.get("global_attn_engine") and arch.get("global_attn_type") == "performer":
         raise NotImplementedError(
-            f"global_attn_type {arch['global_attn_type']!r} comes with a later "
-            "slice of the PyTorch port; this slice carries GPS 'multihead'"
+            "global_attn_type 'performer' comes with a later slice of the "
+            "PyTorch port; this slice carries GPS 'multihead' and 'ring'"
         )
     loss_type = training.get("loss_function_type", "mse")
     if loss_type == "GaussianNLLLoss":

@@ -14,13 +14,19 @@ routes as in the JAX package:
 - flat masked (no bound): one ``[H, N, N]``-masked attention.
 
 Both bounded routes poison the output with NaN when a real graph exceeds
-``max_nodes_per_graph``. ``global_attn_type`` "ring" and "performer" come
-with later slices (``models/create.py`` raises for them).
+``max_nodes_per_graph``.
+
+``global_attn_type: "ring"`` (``RingSelfAttention``) attends over every real
+node of a batch that holds ONE spanning graph: inside
+``parallel.sp.sp_context`` through ring attention (the block-summary kernel
+K4b on the card with ``use_flash_attention``), outside it through the same
+math computed densely. A batch with more than one real graph comes out NaN.
+"performer" comes with a later slice (``models/create.py`` raises for it).
 
 Parameter names follow the flax tree: ``conv``, ``MaskedBatchNorm_{0,1,2}``,
-``MultiheadSelfAttention_0`` (``Dense_0`` the fused QKV projection,
-``Dense_1`` the output projection) and the MLP block's ``Dense_0`` /
-``Dense_1``.
+``MultiheadSelfAttention_0`` or ``RingSelfAttention_0`` (``Dense_0`` the
+fused QKV projection, ``Dense_1`` the output projection) and the MLP
+block's ``Dense_0`` / ``Dense_1``.
 """
 
 from __future__ import annotations
@@ -31,15 +37,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_self_attention
+from ..parallel.ring_attention import ring_self_attention
+from ..parallel.sp import current_sp
 from .layers import Dense, MaskedBatchNorm
+
+
+def _poison(out, cond):
+    """NaN everywhere where the 0-dim bool ``cond`` holds."""
+    return torch.where(cond, torch.full((), math.nan, dtype=out.dtype, device=out.device), out)
 
 
 def _poison_overflow(out, batch, nmax: int):
     """NaN everywhere when a real graph has more than ``nmax`` nodes: the
     bounded routes would silently under-cover it."""
-    overflow = ((batch.nodes_per_graph > nmax) & batch.graph_mask).any()
-    return torch.where(overflow, torch.full((), math.nan, dtype=out.dtype, device=out.device),
-                       out)
+    return _poison(out, ((batch.nodes_per_graph > nmax) & batch.graph_mask).any())
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -110,6 +121,44 @@ class MultiheadSelfAttention(nn.Module):
         return self.Dense_1(out)
 
 
+class RingSelfAttention(nn.Module):
+    """Global attention for ONE graph spanning the batch: exact softmax
+    attention over every real node (no per-graph mask). Inside an SP
+    context through ``ring_self_attention`` over the context's group (with
+    K4b when ``use_flash_attention``); outside one, the dense fallback with
+    ``finfo.min`` masking, the same numbers up to summation order."""
+
+    def __init__(self, channels: int, heads: int, use_flash_attention: bool = False):
+        super().__init__()
+        if channels % heads:
+            raise ValueError(f"channels {channels} not divisible by heads {heads}")
+        self.channels = channels
+        self.heads = heads
+        self.use_flash_attention = use_flash_attention
+        self.Dense_0 = Dense(channels, 3 * channels)
+        self.Dense_1 = Dense(channels, channels)
+
+    def forward(self, x, batch):
+        H, C = self.heads, self.channels
+        d = C // H
+        n = x.shape[0]
+        q, k, v = (t.view(n, H, d) for t in self.Dense_0(x).split(C, dim=-1))
+        active, group = current_sp()
+        if active:
+            out = ring_self_attention(q, k, v, batch.node_mask, group=group,
+                                      use_flash=self.use_flash_attention)
+        else:
+            scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=q.dtype, device=q.device))
+            logits = torch.einsum("ihd,jhd->hij", q, k) * scale
+            logits = torch.where(batch.node_mask[None, None, :], logits,
+                                 torch.finfo(q.dtype).min)
+            out = torch.einsum("hij,jhd->ihd", torch.softmax(logits, dim=-1), v)
+        # attention spans every real node: a batch of several real graphs
+        # would mix them silently, so it comes out NaN
+        out = _poison(out, batch.graph_mask.sum() > 1)
+        return self.Dense_1(out.reshape(n, C))
+
+
 class GPSConv(nn.Module):
     """Local MPNN + global attention + MLP block (the GraphGPS layer)."""
 
@@ -117,17 +166,23 @@ class GPSConv(nn.Module):
                  dropout: float = 0.0, attn_type: str = "multihead",
                  max_nodes_per_graph: int = 0, use_flash_attention: bool = False):
         super().__init__()
-        if attn_type != "multihead":  # ring, performer: later slices (models/create.py)
-            raise ValueError(f"attn_type {attn_type!r} not supported")
         self.dropout = dropout
         self.conv = conv
         self.MaskedBatchNorm_0 = MaskedBatchNorm(channels)
-        # attention-prob dropout is 0 on the flash route on every device:
-        # its probabilities never exist to be dropped
-        self.MultiheadSelfAttention_0 = MultiheadSelfAttention(
-            channels, heads, 0.0 if use_flash_attention else dropout,
-            max_nodes_per_graph, use_flash_attention=use_flash_attention,
-        )
+        self.attn_name = ("RingSelfAttention_0" if attn_type == "ring"
+                          else "MultiheadSelfAttention_0")
+        if attn_type == "ring":
+            self.RingSelfAttention_0 = RingSelfAttention(
+                channels, heads, use_flash_attention=use_flash_attention)
+        elif attn_type == "multihead":
+            # attention-prob dropout is 0 on the flash route on every device:
+            # its probabilities never exist to be dropped
+            self.MultiheadSelfAttention_0 = MultiheadSelfAttention(
+                channels, heads, 0.0 if use_flash_attention else dropout,
+                max_nodes_per_graph, use_flash_attention=use_flash_attention,
+            )
+        else:  # performer: a later slice (models/create.py)
+            raise ValueError(f"attn_type {attn_type!r} not supported")
         self.MaskedBatchNorm_1 = MaskedBatchNorm(channels)
         self.Dense_0 = Dense(channels, 2 * channels)
         self.Dense_1 = Dense(2 * channels, channels)
@@ -137,7 +192,7 @@ class GPSConv(nn.Module):
         drop = lambda t: F.dropout(t, self.dropout, self.training)  # noqa: E731
         h, equiv = self.conv(inv, equiv, batch)
         local = self.MaskedBatchNorm_0(drop(h) + inv, batch.node_mask)
-        h = drop(self.MultiheadSelfAttention_0(inv, batch)) + inv
+        h = drop(getattr(self, self.attn_name)(inv, batch)) + inv
         out = local + self.MaskedBatchNorm_1(h, batch.node_mask)
         out = out + drop(self.Dense_1(drop(torch.relu(self.Dense_0(out)))))
         return self.MaskedBatchNorm_2(out, batch.node_mask), equiv

@@ -1,5 +1,6 @@
-"""Segment-masked flash self-attention (K4): the hand-written CUDA kernel
-``csrc/flash_attention.cu`` and its plain PyTorch versions.
+"""Segment-masked flash self-attention (K4) and the one-block online-softmax
+summary of ring attention (K4b): the hand-written CUDA kernels of
+``csrc/flash_attention.cu`` and their plain PyTorch versions.
 
 Counterpart of ``hydragnn_tpu/ops/pallas_flash_attention.py``
 (``flash_self_attention``, whose ``_forward`` reaches ``pl.pallas_call``):
@@ -17,11 +18,17 @@ exact for any graph size; ``reference_gathered_attention`` is the per-graph
 ``[G, Nmax]`` layout (exact on graphs of at most ``max_nodes_per_graph``
 nodes).
 
-The wrapper runs ``reference_masked_attention`` for a CPU tensor and the
-kernel for a CUDA tensor; anything else raises. Unlike the TPU kernel, the
-kernel needs no static node bound: each q tile's key window is derived on
-the card from ``node_graph``. ``flash_self_attention.launches`` counts
-kernel launches (``launches_by_case`` splits them by dtype and head shape).
+``flash_block_summary`` (counterpart of the JAX package's
+``flash_block_summary``, the same ``_forward`` with ``emit_stats``) returns
+the un-normalized partial ``(m, l, acc)`` of every query against one key
+block, which ``parallel/ring_attention.py`` merges across ring steps;
+``reference_block_summary`` is its plain version.
+
+Each wrapper runs its plain version for a CPU tensor and its kernel for a
+CUDA tensor; anything else raises. Unlike the TPU kernel, K4 needs no
+static node bound: each q tile's key window is derived on the card from
+``node_graph``. ``<wrapper>.launches`` counts kernel launches
+(``launches_by_case`` splits them by dtype and head shape).
 """
 
 from __future__ import annotations
@@ -35,13 +42,12 @@ import torch
 from . import _build
 from .sorted_segment import _DTYPE_CODES, _check_current_device
 
-_SIGNATURES = {
-    "hg_flash_attention": (
-        ctypes.c_int,
-        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
-        + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
-    ),
-}
+# both entries: q, k, v, three row strides, four pointers, four sizes,
+# scale_log2, dtype code, stream
+_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
+             + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_SIGNATURES = {"hg_flash_attention": (ctypes.c_int, _ARGTYPES),
+               "hg_flash_block_summary": (ctypes.c_int, _ARGTYPES)}
 
 # head dims the kernel is built for (four threads per query, d / 4 each)
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
@@ -53,14 +59,15 @@ _NEG = -1.0e30
 
 def _softmax_apply(logits, valid, v, eq: str, dtype):
     """``softmax(logits) @ v`` over the last axis restricted to ``valid``
-    keys, in f32 with ``p`` rounded to ``dtype`` for the product; rows with
-    no valid key give 0."""
+    keys, in f32 with ``p`` rounded to ``dtype`` for the product, as the
+    un-normalized ``(acc, l, m)`` (``l`` and ``m`` keep the reduced axis);
+    rows with no valid key give ``(0, 0, _NEG)``."""
     logits = torch.where(valid, logits, _NEG)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(logits - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum(eq, p.to(dtype).float(), v.float())
-    return acc, l
+    return acc, l, m
 
 
 def reference_masked_attention(q, k, v, node_graph, node_mask):
@@ -69,7 +76,7 @@ def reference_masked_attention(q, k, v, node_graph, node_mask):
     gid = torch.where(node_mask, node_graph.long(), -1)
     valid = (gid[:, None] == gid[None, :]) & (gid[None, :] >= 0)  # [N(q), N(k)]
     logits = torch.einsum("ihd,jhd->hij", q.float(), k.float()) * (1.0 / math.sqrt(d))
-    acc, l = _softmax_apply(logits, valid[None], v, "hij,jhd->hid", q.dtype)
+    acc, l, _ = _softmax_apply(logits, valid[None], v, "hij,jhd->hid", q.dtype)
     out = acc / torch.clamp(l, min=1e-30)  # [H, N, d]; no valid key: 0
     return out.transpose(0, 1).to(q.dtype)
 
@@ -88,7 +95,8 @@ def reference_gathered_attention(q, k, v, node_graph, node_mask, num_graphs: int
     idx = torch.where(valid, starts[:, None] + slot[None, :], n - 1)
     qg, kg, vg = q[idx], k[idx], v[idx]  # [G, Nmax, H, d]
     logits = torch.einsum("gihd,gjhd->ghij", qg.float(), kg.float()) * (1.0 / math.sqrt(d))
-    acc, l = _softmax_apply(logits, valid[:, None, None, :], vg, "ghij,gjhd->ghid", q.dtype)
+    acc, l, _ = _softmax_apply(logits, valid[:, None, None, :], vg, "ghij,gjhd->ghid",
+                               q.dtype)
     og = (acc / torch.clamp(l, min=1e-30)).transpose(1, 2)  # [G, Nmax, H, d]
     og = og * valid[:, :, None, None]
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -96,16 +104,49 @@ def reference_gathered_attention(q, k, v, node_graph, node_mask, num_graphs: int
     return out.to(q.dtype)
 
 
-def _check_qkv(name, t, n, h, d, dtype, device):
+def _unnormalize(o, m, l):
+    """The block summary from the normalized output and the f32 statistics,
+    at the JAX wrapper's rounding points: ``(m, l, o * l)`` in ``o``'s
+    dtype (exact where ``l > 0``; all zero where ``l == 0``)."""
+    dt = o.dtype
+    l = l.to(dt)
+    return m.to(dt), l, o * l[..., None]
+
+
+def reference_block_summary(q, k, v, key_mask):
+    """Online-softmax partial of ``q [n_q, H, d]`` against one key block
+    ``k``/``v [n_k, H, d]`` with ``key_mask [n_k]``: ``m`` the row max of
+    the scaled scores over valid keys, ``l = sum exp(s - m)``, ``acc = exp(s
+    - m) @ v``, each ``[n_q, H(, d)]`` in the operand dtype. Queries are not
+    masked; rows with no valid key give ``(-1e30, 0, 0)``."""
+    d = q.shape[-1]
+    logits = torch.einsum("qhd,khd->qhk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    acc, l, m = _softmax_apply(logits, key_mask[None, None, :], v, "qhk,khd->qhd", q.dtype)
+    o = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return _unnormalize(o, m[..., 0], l[..., 0])
+
+
+def _check_qkv(fn, name, t, n, h, d, dtype, device):
     if t.device != device or t.dtype != dtype:
-        raise TypeError(f"flash_self_attention: {name} is {t.dtype} on {t.device}, "
+        raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, "
                         f"expected {dtype} on {device}")
     if t.shape != (n, h, d) or t.stride(2) != 1 or t.stride(1) != d or t.stride(0) < h * d:
         raise ValueError(
-            f"flash_self_attention: {name} must be [N, H, d] = {(n, h, d)} with the "
+            f"{fn}: {name} must be {(n, h, d)} [rows, H, d] with the "
             f"head and dimension axes contiguous, got shape {tuple(t.shape)} "
             f"strides {t.stride()}"
         )
+
+
+def _check_heads(fn, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn}: dtype {q.dtype} not supported")
+    if q.dim() != 3:
+        raise ValueError(f"{fn}: q must be [rows, H, d], got {tuple(q.shape)}")
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {q.shape[2]} not in {HEAD_DIMS}")
 
 
 def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
@@ -116,18 +157,11 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
     [N, H, d] in the operand dtype."""
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, node_graph, node_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_self_attention: unsupported device {q.device}")
+    _check_heads("flash_self_attention", q)
     dtype = q.dtype
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_self_attention: dtype {dtype} not supported")
-    if q.dim() != 3:
-        raise ValueError(f"flash_self_attention: q must be [N, H, d], got {tuple(q.shape)}")
     n, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_self_attention: head dim {d} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_qkv(name, t, n, h, d, dtype, q.device)
+        _check_qkv("flash_self_attention", name, t, n, h, d, dtype, q.device)
     for name, t, want in (("node_graph", node_graph, (torch.int64,)),
                           ("node_mask", node_mask, (torch.bool,))):
         if t.device != q.device or t.dtype not in want or t.shape != (n,):
@@ -162,3 +196,50 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
 
 flash_self_attention.launches = 0
 flash_self_attention.launches_by_case = collections.Counter()
+
+
+def flash_block_summary(q, k, v, key_mask):
+    """Online-softmax partial ``(m [n_q, H], l [n_q, H], acc [n_q, H, d])``
+    of ``q [n_q, H, d]`` against one key block ``k``/``v [n_k, H, d]``
+    (one dtype, float32 or bfloat16; each may be a row-strided view) with
+    ``key_mask [n_k]`` bool, in the operand dtype. ``n_q`` and ``n_k`` may
+    differ. Rows with no valid key give ``(-1e30, 0, 0)``."""
+    if q.device.type == "cpu":
+        return reference_block_summary(q, k, v, key_mask)
+    fn = "flash_block_summary"
+    _check_heads(fn, q)
+    dtype = q.dtype
+    nq, h, d = q.shape
+    nk = k.shape[0] if k.dim() == 3 else -1
+    _check_qkv(fn, "q", q, nq, h, d, dtype, q.device)
+    for name, t in (("k", k), ("v", v)):
+        _check_qkv(fn, name, t, nk, h, d, dtype, q.device)
+    if key_mask.device != q.device or key_mask.dtype != torch.bool or key_mask.shape != (nk,):
+        raise ValueError(f"{fn}: key_mask must be [{nk}] bool on {q.device}, got "
+                         f"{tuple(key_mask.shape)} {key_mask.dtype} on {key_mask.device}")
+    if max(nq * q.stride(0), nk * max(k.stride(0), v.stride(0))) >= 2**31:
+        raise ValueError(f"{fn}: more than 2**31 elements")
+    out = torch.empty((nq, h, d), dtype=dtype, device=q.device)
+    m = torch.empty((nq, h), dtype=torch.float32, device=q.device)
+    l = torch.empty((nq, h), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return _unnormalize(out, m, l)
+    key_mask = key_mask.contiguous()
+    lib = _build.load("flash_attention", _SIGNATURES)
+    _check_current_device(q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.hg_flash_block_summary(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.stride(0)), int(k.stride(0)),
+        int(v.stride(0)), key_mask.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        int(nq), int(nk), int(h), int(d), math.log2(math.e) / math.sqrt(d),
+        _DTYPE_CODES[dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_block_summary kernel launch failed: CUDA error {rc}")
+    flash_block_summary.launches += 1
+    flash_block_summary.launches_by_case[f"{str(dtype)[6:]}/H{h}xd{d}"] += 1
+    return _unnormalize(out, m, l)
+
+
+flash_block_summary.launches = 0
+flash_block_summary.launches_by_case = collections.Counter()

@@ -13,7 +13,11 @@ as its plain version does, so count, min and max agree exactly and sum and
 sumsq to f32 summation order (1e-5 of the largest value). K4 sums in
 another order (f32: 1e-5 of max |v|); in bf16 it rounds p to bf16 against a
 running maximum where the plain version uses the row's final maximum, an
-ulp of bf16 on each p, and rounds the output (2e-2 of max |v|).
+ulp of bf16 on each p, and rounds the output (2e-2 of max |v|). K4b's
+m, l and acc, each against its own largest value: f32 1e-5 (summation order,
+exp2 of log2-scaled scores against exp); bf16 2e-2 (m, l and acc = o * l
+rounded to bf16, p rounded against a running maximum). Merging K4b blocks
+rescales them by exp of differences of f32 maxima: 1e-5 of max |v|.
 """
 
 import pytest
@@ -271,3 +275,74 @@ def pytest_gps_pna_kernels_match_the_plain_route_on_card(cuda):
         m = batch.graph_mask if want[k].shape[0] == batch.num_graphs else batch.node_mask
         scale = float(want[k][m].abs().max())
         assert float((got[k][m] - want[k][m]).abs().max()) <= 1e-4 * scale, k
+
+
+def _block_case(cuda, dtype, n_q, n_k, h, d, seed, p_mask=0.2):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(n_q, h, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(n_k, h, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    key_mask = torch.rand(n_k, generator=gen, device=cuda) > p_mask
+    return q, k, v, key_mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_k,h,d", [(300, 300, 8, 32), (70, 513, 2, 8), (513, 70, 1, 128),
+                                         (33, 5, 4, 16)])
+def pytest_k4b_kernel_matches_plain_on_card(cuda, dtype, n_q, n_k, h, d):
+    """Square and n_q != n_k blocks, key blocks shorter and longer than a
+    shared-memory tile, a fifth of the keys masked."""
+    q, k, v, key_mask = _block_case(cuda, dtype, n_q, n_k, h, d, seed=n_q + n_k)
+    before = t_flash.flash_block_summary.launches
+    got = t_flash.flash_block_summary(q, k, v, key_mask)
+    want = t_flash.reference_block_summary(q, k, v, key_mask)
+    torch.cuda.synchronize()
+    assert t_flash.flash_block_summary.launches == before + 1
+    rtol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("m", "l", "acc"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= rtol * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_k4b_fully_masked_block_on_card(cuda, dtype):
+    """A block of padding keys only: (-1e30, 0, 0) in the operand dtype, the
+    merge-neutral partial, as the plain version gives."""
+    q, k, v, _ = _block_case(cuda, dtype, 40, 100, 2, 16, seed=3)
+    none = torch.zeros(100, dtype=torch.bool, device=cuda)
+    m, l, acc = t_flash.flash_block_summary(q, k, v, none)
+    want = t_flash.reference_block_summary(q, k, v, none)
+    torch.cuda.synchronize()
+    assert float(m.float().max()) <= -1e29
+    assert float(l.abs().max()) == 0.0 and float(acc.abs().max()) == 0.0
+    for a, b in zip((m, l, acc), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def pytest_k4b_blocks_merge_to_one_call_on_card(cuda):
+    """Four key blocks through K4b merged by the ring's ``_block_attend``
+    against one K4b call over all keys, and against ring attention on the
+    dense route (f32)."""
+    from hydragnn_tpu_torch.parallel import ring_self_attention
+    from hydragnn_tpu_torch.parallel.ring_attention import _block_attend
+
+    n, h, d = 1030, 8, 32
+    q, k, v, key_mask = _block_case(cuda, torch.float32, n, n, h, d, seed=11)
+    key_mask[-300:] = False  # the last block is mostly padding
+    m, l, acc = t_flash.flash_block_summary(q, k, v, key_mask)
+    whole = acc / l[..., None]
+    mm = torch.full((n, h), torch.finfo(torch.float32).min, device=cuda)
+    denom, accm = torch.zeros(n, h, device=cuda), torch.zeros_like(q)
+    before = t_flash.flash_block_summary.launches
+    for kb, vb, mb in zip(k.chunk(4), v.chunk(4), key_mask.chunk(4)):
+        mm, denom, accm = _block_attend(q, kb, vb, mb, mm, denom, accm, d**-0.5, use_flash=True)
+    merged = accm / denom[..., None]
+    dense = ring_self_attention(q, k, v, key_mask, use_flash=False)
+    torch.cuda.synchronize()
+    assert t_flash.flash_block_summary.launches == before + 4
+    tol = 1e-5 * float(v.abs().max())
+    assert float((merged - whole).abs().max()) <= tol
+    assert float((merged - dense).abs().max()) <= tol

@@ -71,9 +71,9 @@ def pytest_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("later", [
-    dict(mpnn_type="GIN"),
+    dict(mpnn_type="SAGE"),
+    dict(mpnn_type="MFC"),
     dict(mpnn_type="PNA", global_attn_engine="GPS", global_attn_type="performer"),
-    dict(mpnn_type="PNA", global_attn_engine="GPS", global_attn_type="ring"),
 ])
 def pytest_later_slices_raise_not_implemented(later):
     from hydragnn_tpu_torch.models.create import model_config_from
@@ -84,6 +84,43 @@ def pytest_later_slices_raise_not_implemented(later):
     arch.update(input_dim=4, output_dim=[1, 3], output_type=["graph", "node"], **later)
     with pytest.raises(NotImplementedError, match="later slice"):
         model_config_from(c)
+
+
+def pytest_sp_ring_over_two_ranks_raises_not_implemented(monkeypatch):
+    """A GIN GPS-ring model builds, but its SP evaluation over a group of
+    two ranks stops at ``shard_sp_batch``: the partition of the rest of the
+    model across ranks comes with the multi-GPU slice."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import PadSpec, batch_graphs, bcc_supercell, extract_variables
+    from hydragnn_tpu_torch.data import VariablesOfInterest, add_dataset_pe
+    from hydragnn_tpu_torch.models import create_model
+    from hydragnn_tpu_torch.parallel import make_sp_eval_step
+
+    voi = VariablesOfInterest([0], ["total"], ["graph"], [0], [1, 1, 1], [1])
+    g = add_dataset_pe([extract_variables(bcc_supercell(2, 0.03, 0), voi)], 2)[0]
+    arch = {"mpnn_type": "GIN", "hidden_dim": 8, "num_conv_layers": 1,
+            "global_attn_engine": "GPS", "global_attn_type": "ring", "global_attn_heads": 2,
+            "pe_dim": 2, "output_heads": {"graph": {"num_sharedlayers": 1,
+                                                    "dim_sharedlayers": 4,
+                                                    "num_headlayers": 1,
+                                                    "dim_headlayers": [4]}}}
+    config = update_config({
+        "NeuralNetwork": {"Architecture": arch, "Training": {"batch_size": 1},
+                          "Variables_of_interest": {"input_node_features": [0],
+                                                    "output_names": ["total"],
+                                                    "output_index": [0], "type": ["graph"]}},
+        "Dataset": {"node_features": {"dim": [1, 1, 1]}, "graph_features": {"dim": [1]}},
+    }, [g], [g], [g])
+    model = create_model(config, device="cpu")
+    batch = batch_graphs([g], PadSpec(g.num_nodes + 2, g.num_edges + 2, 2))
+    two_ranks = object()
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2 if group is two_ranks else 1)
+    tot, _, out = make_sp_eval_step(model, device="cpu")(batch)
+    assert torch.isfinite(tot) and torch.isfinite(out["total"]).all()
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        make_sp_eval_step(model, group=two_ranks, device="cpu")(batch)
 
 
 def pytest_chip_smoke_fails_without_a_gpu():
