@@ -21,10 +21,15 @@ Phases, each fatal on failure (exit code 1):
    larger of bytes over 3.35 TB/s and operations over the peak rate of the
    unit that could run them: the tensor cores for K2's, K4's and K4b's
    products, at the TF32 rate for three TF32 products in f32; the f32 units
-   for the rest). K3 also runs on the same batch padded to the top of its
-   serving ladder (a dummy row of ~17k edges), off the kernels line. Then
-   the ring-merge check: K4b over four key blocks merged through the ring's
-   ``_block_attend`` against one K4b call over all keys;
+   for the rest), after a warm-up that brings the card's clocks up. The
+   device time of each call is also listed by kernel name. K3 also runs on
+   the same batch padded to the top of its serving ladder (a dummy row of
+   ~17k edges), off the kernels line. Then the ring-merge check: K4b over
+   four key blocks merged through the ring's ``_block_attend`` against one
+   K4b call over all keys; then, for the flash and K1 libraries, each
+   kernel's tensor-core instruction count (``cuobjdump -sass``), registers
+   and spills (``ptxas -v``): a flash instance without tensor-core
+   instructions or any spill fails;
 4. serving ``egnn``: ``api.run_server`` on the SC25-shaped EGNN (hidden 866,
    4 conv layers, equivariant, graph and node heads of width 889, batch 32,
    packed, bf16 mixed precision, sorted aggregation) with random weights
@@ -132,13 +137,28 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def warm_up_card(seconds: float = 2.0) -> None:
+    """Keep the card busy for ``seconds`` (f32 matrix products) so that its
+    clocks have left their idle state before anything is timed: a card that
+    sat idle through the kernels' build runs the first timed calls slower."""
+    import torch
+
+    a = torch.randn(4096, 4096, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = torch.tanh(a @ a * (1.0 / 64))
+        torch.cuda.synchronize()
+
+
 def device_ms(fn, iters: int):
     """Device time per call of ``fn``: the summed device time of every
-    kernel and copy it launches, under torch.profiler, over ``iters`` calls.
-    Unlike ``cuda_ms`` it leaves out the host's time between launches, which
-    is most of a wrapper's call time when its kernel takes microseconds.
-    A profile that caught no device event is taken again, up to three
-    times; None if none caught one."""
+    kernel and copy it launches, under torch.profiler, over ``iters`` calls,
+    and the same split by kernel (or copy) name. Unlike ``cuda_ms`` it
+    leaves out the host's time between launches, which is most of a
+    wrapper's call time when its kernel takes microseconds. A profile that
+    caught no device event is taken again, up to three times; (None, {}) if
+    none caught one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -149,16 +169,80 @@ def device_ms(fn, iters: int):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(_device_us(ev) for ev in prof.key_averages()
-                       if str(ev.device_type).endswith("CUDA"))
-        if total_us > 0:
-            return total_us / iters / 1e3
-    return None
+        by_name = {ev.key: _device_us(ev) / iters / 1e3 for ev in prof.key_averages()
+                   if str(ev.device_type).endswith("CUDA") and _device_us(ev) > 0}
+        if by_name:
+            return sum(by_name.values()), by_name
+    return None, {}
 
 
 def _device_us(ev) -> float:
     us = getattr(ev, "self_device_time_total", None)
     return ev.self_cuda_time_total if us is None else us
+
+
+def _short(name: str, width: int = 90) -> str:
+    """A kernel's name as the profiler gives it, cut to ``width``."""
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def _ptxas_by_kernel(log: str):
+    """Registers and spill bytes (stores + loads) per kernel, by mangled
+    name, from ``ptxas -v`` output."""
+    import re
+
+    info, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            info.setdefault(cur, {"registers": None, "spill": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            info[cur]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            info[cur]["registers"] = int(m.group(1))
+    return info
+
+
+def library_report(names) -> None:
+    """For each named kernel library, per kernel: the tensor-core
+    instructions (HMMA, HGMMA) in the SASS that ``cuobjdump -sass`` prints,
+    and the registers and spill bytes ``ptxas -v`` reported. Fails if a
+    flash-attention instance has no tensor-core instruction or any kernel
+    of these libraries spills."""
+    import re
+
+    from hydragnn_tpu_torch.ops import _build
+
+    bin_dir = Path(_build.nvcc()).parent
+    for name in names:
+        out = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(_build.library_path(name))],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump -sass {name} failed: {out.stderr[-2000:]}")
+        counts, fn = {}, None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+                counts[fn] += 1
+        ptxas = _ptxas_by_kernel(_build.build_log.get(name, ""))
+        demangled = subprocess.run([str(bin_dir / "cu++filt"), *counts],
+                                   capture_output=True, text=True, timeout=60)
+        labels = (demangled.stdout.splitlines() if demangled.returncode == 0
+                  and len(demangled.stdout.splitlines()) == len(counts) else list(counts))
+        spill = 0
+        for label, (mangled, n) in sorted(zip(labels, counts.items())):
+            p = ptxas.get(mangled, {"registers": None, "spill": None})
+            print(f"sass {name}: {n:4d} tensor-core instructions (HMMA/HGMMA), "
+                  f"{p['registers']} registers, {p['spill']} bytes spilled (ptxas) in {label}",
+                  flush=True)
+            spill += p["spill"] or 0
+            if "flash_attention_kernel" in label:
+                check(n > 0, f"{label}: no tensor-core instruction in its SASS")
+        check(spill == 0, f"{name}: ptxas reports {spill} bytes of spill stores and loads")
 
 
 def serving_config(batch_size: int = 32, hidden: int = 866, head: int = 889):
@@ -459,8 +543,8 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
             4 * n * heads * d * size + n * 9,
             # q.k and p.v, 2 flops each per dimension and same-graph pair, at
             # the least time the card could take them: the tensor cores in
-            # bf16, three TF32 products for f32 accuracy (the kernel itself
-            # runs them on the f32 FMA units)
+            # bf16, three TF32 products for f32 accuracy (as the kernel runs
+            # them)
             MMA_PASSES[dname][1] * 4 * heads * d * pairs
             / PEAK_FLOPS[MMA_PASSES[dname][0]] * 1e3,
             50, dict(N=n, H=heads, d=d, G=int(batch.graph_mask.sum()), pairs_per_head=pairs),
@@ -522,7 +606,7 @@ def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
             (3 * n * heads * d + n * heads * (d + 2)) * size + n,
             # q.k and p.v, 2 flops each per dimension and (query, valid key)
             # pair, priced as K4's: the tensor cores in bf16, three TF32
-            # products for f32 accuracy (the kernel itself uses the FMA units)
+            # products for f32 accuracy
             MMA_PASSES[dname][1] * 4 * heads * d * n * valid
             / PEAK_FLOPS[MMA_PASSES[dname][0]] * 1e3,
             10, dict(n_q=n, n_k=n, valid_keys=valid, H=heads, d=d),
@@ -692,12 +776,16 @@ def run_kernels(cases):
         print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
               f"{results[-1]['bound_ms']:.4f} ms ({results[-1]['bound_by']})", flush=True)
-        dev = {w: "n/a" if kc[w] is None else device_ms(kc[w], 10)
-               for w in ("fn", "plain", "library")}
-        dev = {w: f"{t:.4f} ms" if isinstance(t, float) else t or "not measured"
-               for w, t in dev.items()}
-        print(f"device time {name} (torch.profiler, per call): kernel {dev['fn']}, "
-              f"plain {dev['plain']}, library {dev['library']}", flush=True)
+        dev, split = {}, {}
+        for w in ("fn", "plain", "library"):
+            dev[w], split[w] = (None, {}) if kc[w] is None else device_ms(kc[w], 10)
+        shown = {w: "n/a" if kc[w] is None else "not measured" if t is None else f"{t:.4f} ms"
+                 for w, t in dev.items()}
+        print(f"device time {name} (torch.profiler, per call): kernel {shown['fn']}, "
+              f"plain {shown['plain']}, library {shown['library']}; the kernel call's "
+              f"device work by name: " + ", ".join(
+                  f"{_short(key)} {ms:.4f} ms" for key, ms in sorted(split["fn"].items())),
+              flush=True)
         del out_k, out_p
     return results
 
@@ -1119,10 +1207,12 @@ def main() -> None:
     print(f"batch gin_ring: 1 graph, {int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
           f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += gin_ring_kernel_cases(batch, device)
+    warm_up_card()
     kernels = run_kernels(cases)
     del cases  # their inputs, so the phases' memory readings start clean
     ring_merge_check(batch, device)
     torch.cuda.synchronize()
+    library_report(["flash_attention", "sorted_segment_sum"])
 
     launched = {}
     if not args.kernels:

@@ -49,7 +49,8 @@ _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) *
 _SIGNATURES = {"hg_flash_attention": (ctypes.c_int, _ARGTYPES),
                "hg_flash_block_summary": (ctypes.c_int, _ARGTYPES)}
 
-# head dims the kernel is built for (four threads per query, d / 4 each)
+# head dims the kernel is built for (one template instance each; d below the
+# tensor-core MMA depth is zero-padded inside the kernel)
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 
 # masking constant of the JAX references (finite, so exp of differences

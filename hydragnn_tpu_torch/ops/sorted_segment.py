@@ -9,8 +9,10 @@ included. Accumulation is f32; the result comes back in the messages'
 dtype.
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor; anything else raises. ``sorted_segment_sum.launches`` counts
-kernel launches (``launches_by_case`` splits them by dtype and width).
+CUDA tensor (one launch: the kernel finds each row's edges itself, with no
+row-pointer scratch); anything else raises. ``sorted_segment_sum.launches``
+counts kernel launches (``launches_by_case`` splits them by dtype and
+width).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "hg_sorted_segment_sum": (
         ctypes.c_int,
-        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
     ),
 }
 
@@ -83,13 +85,11 @@ def sorted_segment_sum(messages, segment_ids, num_segments: int):
     if out.numel() == 0:
         return out
     ids = segment_ids.to(torch.int64).contiguous()
-    # CSR row pointer scratch, filled by the library's first kernel
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=messages.device)
     lib = _build.load("sorted_segment_sum", _SIGNATURES)
     _check_current_device(messages.device)
     stream = torch.cuda.current_stream(messages.device).cuda_stream
     rc = lib.hg_sorted_segment_sum(
-        messages.data_ptr(), ids.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        messages.data_ptr(), ids.data_ptr(), out.data_ptr(),
         int(e), int(num_segments), int(c), _DTYPE_CODES[messages.dtype], stream,
     )
     if rc != 0:

@@ -346,3 +346,135 @@ def pytest_k4b_blocks_merge_to_one_call_on_card(cuda):
     tol = 1e-5 * float(v.abs().max())
     assert float((merged - whole).abs().max()) <= tol
     assert float((merged - dense).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8])
+def pytest_k1_narrow_rows_match_plain_on_card(cuda, dtype, c):
+    """The narrow-row layout (a group of lanes per row up to 16 bytes a
+    row): ids that start above 0, empty runs inside and at the end, long
+    rows walked by the whole block (three in one block) and a long last
+    real row."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + c)
+    n = 300
+    deg = torch.randint(0, 20, (n,), generator=gen, device=cuda)
+    deg[:7] = 0
+    deg[50:60] = 0
+    deg[100:103] = torch.tensor([65, 200, 64], device=cuda)
+    deg[-40] = 900
+    deg[-39:] = 0
+    ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+    msg = torch.randn(ids.shape[0], c, generator=gen, device=cuda).to(dtype)
+    got = t_sorted.sorted_segment_sum(msg, ids, n)
+    want = t_sorted.sorted_segment_sum_plain(msg, ids, n)
+    torch.cuda.synchronize()
+    assert float(got[:7].float().abs().sum() + got[-39:].float().abs().sum()) == 0.0
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [3, 866])
+def pytest_k1_is_deterministic_and_one_launch_on_card(cuda, c):
+    """Two calls give bitwise-equal sums (no atomics, fixed order), and each
+    call is one device kernel: no row-pointer kernel before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    deg = torch.randint(0, 30, (2000,), generator=gen, device=cuda)
+    deg[-1] = 700
+    ids = torch.repeat_interleave(torch.arange(2000, device=cuda), deg)
+    msg = torch.randn(ids.shape[0], c, generator=gen, device=cuda)
+    first = t_sorted.sorted_segment_sum(msg, ids, 2000)
+    torch.cuda.synchronize()
+    before = t_sorted.sorted_segment_sum.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = t_sorted.sorted_segment_sum(msg, ids, 2000)
+        torch.cuda.synchronize()
+    assert t_sorted.sorted_segment_sum.launches == before + 1
+    kernels = [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")]
+    assert sum(ev.count for ev in kernels) == 1, [ev.key for ev in kernels]
+    assert torch.equal(first, second)
+
+
+def _check_summary(got, want, dtype):
+    rtol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("m", "l", "acc"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= rtol * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", t_flash.HEAD_DIMS)
+def pytest_flash_kernels_every_head_dim_on_card(cuda, dtype, d):
+    """K4 and K4b at every head dim the wrapper takes (d below the MMA depth
+    zero-padded, d = 64 and 128 on shorter key tiles)."""
+    sizes = [1, 40, 130, 3, 70]
+    qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, 2, d, sizes, 11, d + 1)
+    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    want = t_flash.reference_masked_attention(*qkv, node_graph, node_mask)
+    q, k, v, key_mask = _block_case(cuda, dtype, 150, 170, 2, d, seed=d)
+    got_b = t_flash.flash_block_summary(q, k, v, key_mask)
+    want_b = t_flash.reference_block_summary(q, k, v, key_mask)
+    torch.cuda.synchronize()
+    assert float(got[~node_mask].float().abs().sum()) == 0.0
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) * float(qkv[2].float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    _check_summary(got_b, want_b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_k", [(1, 65), (15, 17), (17, 15), (63, 65), (65, 63), (65, 1),
+                                     (8194, 63), (63, 8194), (8194, 8194)])
+def pytest_k4b_query_and_key_counts_on_card(cuda, dtype, n_q, n_k):
+    """Query and key counts on both sides of the 16-row and 64-key tiles,
+    up to the gin_ring block of 8,194."""
+    q, k, v, key_mask = _block_case(cuda, dtype, n_q, n_k, 2, 32, seed=n_q * 7 + n_k)
+    got = t_flash.flash_block_summary(q, k, v, key_mask)
+    want = t_flash.reference_block_summary(q, k, v, key_mask)
+    torch.cuda.synchronize()
+    _check_summary(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128])
+def pytest_k4b_all_masked_tile_between_valid_ones_on_card(cuda, dtype, d):
+    """Keys 64-191 masked: whole key tiles skipped between tiles that
+    attend, and a partly masked tile at each edge of the run."""
+    q, k, v, key_mask = _block_case(cuda, dtype, 100, 300, 2, d, seed=5, p_mask=0.0)
+    key_mask[64:192] = False
+    key_mask[40:50] = False
+    got = t_flash.flash_block_summary(q, k, v, key_mask)
+    want = t_flash.reference_block_summary(q, k, v, key_mask)
+    torch.cuda.synchronize()
+    _check_summary(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def pytest_flash_kernels_take_misaligned_row_strided_views_on_card(cuda, dtype, offset):
+    """q, k, v as views of one fused projection that starts `offset`
+    elements into its rows, so the rows are not 16-byte aligned (bf16 at
+    offset 1: 2-byte aligned): the same result as contiguous copies."""
+    h, d, n = 2, 32, 150
+    qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, h, d, [60, 80], 10, offset)
+    fused = torch.zeros(n, offset + 3 * h * d + 3, dtype=dtype, device=cuda)
+    fused[:, offset:offset + 3 * h * d] = torch.cat([t.reshape(n, -1) for t in qkv], dim=1)
+    views = [fused[:, offset + i * h * d:offset + (i + 1) * h * d].view(n, h, d)
+             for i in range(3)]
+    size = fused.element_size()
+    assert any(t.data_ptr() % 16 or t.stride(0) * size % 16 for t in views)
+    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g)
+    want = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    got_b = t_flash.flash_block_summary(*views, node_mask)
+    want_b = t_flash.flash_block_summary(*qkv, node_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(got_b, want_b):
+        assert torch.equal(a, b)
