@@ -24,12 +24,14 @@ Phases, each fatal on failure (exit code 1):
    for the rest), after a warm-up that brings the card's clocks up. The
    device time of each call is also listed by kernel name. K3 also runs on
    the same batch padded to the top of its serving ladder (a dummy row of
-   ~17k edges), off the kernels line. Then the ring-merge check: K4b over
-   four key blocks merged through the ring's ``_block_attend`` against one
-   K4b call over all keys; then, for the flash and K1 libraries, each
+   ~17k edges), off the kernels line; a K3 call that is more than one
+   device kernel fails. Then the ring-merge check: K4b over four key blocks
+   merged through the ring's ``_block_attend`` against one K4b call over
+   all keys; K1's fixed-order plain version twice on the gin_ring shapes
+   (the same bits, or it fails); then, for every kernel library, each
    kernel's tensor-core instruction count (``cuobjdump -sass``), registers
-   and spills (``ptxas -v``): a flash instance without tensor-core
-   instructions or any spill fails;
+   and spills (``ptxas -v``): a flash or fused-edge instance without
+   tensor-core instructions, or any spill, fails;
 4. serving ``egnn``: ``api.run_server`` on the SC25-shaped EGNN (hidden 866,
    4 conv layers, equivariant, graph and node heads of width 889, batch 32,
    packed, bf16 mixed precision, sorted aggregation) with random weights
@@ -51,9 +53,10 @@ Phases, each fatal on failure (exit code 1):
    16^3 cells (8,192 atoms, ~98k periodic edges) whose node features are
    redrawn per request on one topology and one PE. K4b and K1 (C = 256) each
    four times in f32 per request; the answers against the same route
-   through the kernels' plain versions and against the dense fallback
-   (outside the SP context: [8, N, N] f32 logits); ms per forward, nodes/s
-   and the peak memory of both routes.
+   through the kernels' plain versions (K1's a fixed-order sum, run twice,
+   its largest difference printed) and against the dense fallback (outside
+   the SP context: [8, N, N] f32 logits); ms per forward, nodes/s and the
+   peak memory of both routes.
 
 Each path sets every launch count to 0 just before its requests and reads
 them just after, and prints one ``profile:`` block. The last three lines
@@ -93,6 +96,8 @@ GIN_RING_CELLS = 16
 GIN_RING_REQUESTS = 4
 MERGE_BLOCKS = 4
 
+# the kernel libraries of the paths (hydragnn_tpu_torch/csrc/<name>.cu)
+LIBRARIES = ("sorted_segment_sum", "fused_edge", "multi_agg", "flash_attention")
 KERNELS = {  # kernel -> (module, wrapper) of hydragnn_tpu_torch.ops
     "K1": ("sorted_segment", "sorted_segment_sum"),
     "K2": ("fused_edge", "fused_edge_message_sum"),
@@ -210,8 +215,8 @@ def library_report(names) -> None:
     """For each named kernel library, per kernel: the tensor-core
     instructions (HMMA, HGMMA) in the SASS that ``cuobjdump -sass`` prints,
     and the registers and spill bytes ``ptxas -v`` reported. Fails if a
-    flash-attention instance has no tensor-core instruction or any kernel
-    of these libraries spills."""
+    flash-attention or fused-edge instance has no tensor-core instruction
+    or any kernel of these libraries spills."""
     import re
 
     from hydragnn_tpu_torch.ops import _build
@@ -240,7 +245,7 @@ def library_report(names) -> None:
                   f"{p['registers']} registers, {p['spill']} bytes spilled (ptxas) in {label}",
                   flush=True)
             spill += p["spill"] or 0
-            if "flash_attention_kernel" in label:
+            if "flash_attention_kernel" in label or "fused_edge_kernel" in label:
                 check(n > 0, f"{label}: no tensor-core instruction in its SASS")
         check(spill == 0, f"{name}: ptxas reports {spill} bytes of spill stores and loads")
 
@@ -614,6 +619,27 @@ def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
     return cases
 
 
+def plain_route_repeat_check(batch, device, channels: int = 256) -> None:
+    """K1's plain version (the fixed-order route the plain-versions gates
+    compare against) twice on the gin_ring shapes: the same bits, where
+    ``index_add_``'s atomics add in another order on every call."""
+    import torch
+
+    from hydragnn_tpu_torch.ops.sorted_segment import segment_sum_plain, sorted_segment_sum_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    ids = batch.receivers.to(device)
+    msg = torch.randn(batch.num_edges, channels, generator=gen, device=device) * 100.0
+    runs = [sorted_segment_sum_plain(msg, ids, batch.num_nodes) for _ in range(2)]
+    atomics = [segment_sum_plain(msg, ids, batch.num_nodes) for _ in range(2)]
+    torch.cuda.synchronize()
+    differ = int((atomics[0] != atomics[1]).sum())
+    print(f"check plain route: sorted_segment_sum_plain twice on {batch.num_edges} edges x "
+          f"{channels}: bitwise equal {torch.equal(*runs)} (index_add_ twice: {differ} elements "
+          f"differ)", flush=True)
+    check(torch.equal(*runs), "the fixed-order plain route gave other bits on a second run")
+
+
 def ring_merge_check(batch, device, heads: int = 8, d: int = 32, blocks: int = MERGE_BLOCKS):
     """K4b over ``blocks`` key blocks (n_q != n_k), merged through the
     ring's ``_block_attend``, against one K4b call over all the keys: f32,
@@ -786,6 +812,8 @@ def run_kernels(cases):
               f"device work by name: " + ", ".join(
                   f"{_short(key)} {ms:.4f} ms" for key, ms in sorted(split["fn"].items())),
               flush=True)
+        if kc["kernel"] == "K3":  # one launch per call: no row-pointer or long-row kernel
+            check(len(split["fn"]) == 1, f"{name}: {len(split['fn'])} device kernels per call")
         del out_k, out_p
     return results
 
@@ -1098,6 +1126,9 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
     refs = {}
     with plain_versions(True):
         refs["ring route, plain versions"] = [evalf(b)[2]["total"][0] for b in batches]
+        again = [evalf(b)[2]["total"][0] for b in batches]
+    drift = max(float((a - b).abs().max()) for a, b in zip(refs["ring route, plain versions"], again))
+    print(f"{label}: the plain-versions route run twice: largest difference {drift:.6g}", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
@@ -1173,7 +1204,7 @@ def main() -> None:
     from hydragnn_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    seconds = _build.build(["sorted_segment_sum", "fused_edge", "multi_agg", "flash_attention"])
+    seconds = _build.build(LIBRARIES)
     print(f"build: {seconds} s per kernel from {_build.CSRC.relative_to(REPO)}/ "
           f"(wall {time.perf_counter() - t0:.2f} s; nvcc {' '.join(_build.NVCC_FLAGS)}) "
           f"into {_build.BUILD_DIR.relative_to(REPO)}/", flush=True)
@@ -1211,8 +1242,9 @@ def main() -> None:
     kernels = run_kernels(cases)
     del cases  # their inputs, so the phases' memory readings start clean
     ring_merge_check(batch, device)
+    plain_route_repeat_check(batch, device)
     torch.cuda.synchronize()
-    library_report(["flash_attention", "sorted_segment_sum"])
+    library_report(LIBRARIES)
 
     launched = {}
     if not args.kernels:

@@ -28,7 +28,7 @@ from .sorted_segment import (
     _DTYPE_CODES,
     _check_current_device,
     check_ids,
-    sorted_segment_sum_plain,
+    segment_sum_plain,
 )
 
 _SIGNATURES = {
@@ -39,7 +39,7 @@ _SIGNATURES = {
 }
 
 # edges a block should own: rows per block follow the batch's mean in-degree
-# so a block walks about four 128-edge chunks (csrc/fused_edge.cu)
+# so a block walks about four 128-edge tiles (csrc/fused_edge.cu)
 _EDGES_PER_BLOCK = 512
 _MAX_ROWS_PER_BLOCK = 32
 
@@ -50,7 +50,7 @@ def reference_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     are materialized, then summed per row in f32."""
     pre = node_recv[segment_ids.long()] + edge_in
     msg = torch.relu(torch.relu(pre) @ weights + bias)
-    return sorted_segment_sum_plain(msg, segment_ids, num_segments)
+    return segment_sum_plain(msg, segment_ids, num_segments)
 
 
 def rows_per_block(n_edges: int, num_segments: int) -> int:
@@ -99,14 +99,20 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     if out.numel() == 0:
         return out
     ids = segment_ids.to(torch.int64).contiguous()
-    # CSR row pointer scratch, filled by the library's first kernel
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=edge_in.device)
+    # scratch the library fills: the CSR row pointer, then W transposed
+    # to [Co, Ci] (rows padded to 16 bytes), split into TF32 hi and lo parts
+    # in f32 (csrc/fused_edge.cu)
+    size = edge_in.element_size()
+    ci_pad = -(-ci * size // 16) * 16 // size
+    n_w = (2 if dtype == torch.float32 else 1) * co * ci_pad
+    scratch = torch.empty(-(-(num_segments + 1) // 4) * 16 + n_w * size,
+                          dtype=torch.uint8, device=edge_in.device)
     lib = _build.load("fused_edge", _SIGNATURES)
     _check_current_device(edge_in.device)
     stream = torch.cuda.current_stream(edge_in.device).cuda_stream
     rc = lib.hg_fused_edge_message_sum(
         node_recv.data_ptr(), edge_in.data_ptr(), weights.data_ptr(),
-        bias.data_ptr(), ids.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        bias.data_ptr(), ids.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         int(e), int(num_segments), int(ci), int(co),
         rows_per_block(e, num_segments), _DTYPE_CODES[dtype], stream,
     )

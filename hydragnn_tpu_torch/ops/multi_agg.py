@@ -12,8 +12,9 @@ ascend; unlike the TPU kernel, every row is exact whatever its degree, the
 dummy padding row included.
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor; anything else raises. ``fused_multi_agg.launches`` counts
-kernel launches (``launches_by_case`` splits them by dtype and width).
+CUDA tensor (one launch, one scratch tensor); anything else raises.
+``fused_multi_agg.launches`` counts kernel launches (``launches_by_case``
+splits them by dtype and width).
 """
 
 from __future__ import annotations
@@ -29,11 +30,28 @@ from .sorted_segment import _DTYPE_CODES, _check_current_device, check_ids
 _SIGNATURES = {
     "hg_multi_agg": (
         ctypes.c_int,
-        (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
     ),
-    "hg_multi_agg_scratch_floats": (ctypes.c_int64, (ctypes.c_int, ctypes.c_int)),
-    "hg_multi_agg_scratch_ints": (ctypes.c_int64, (ctypes.c_int,)),
 }
+
+# edges per chunk of a split row (csrc/multi_agg.cu kChunk)
+_CHUNK = 256
+# per device: the split rows' arrival counters, all 0 between calls (each
+# call's kernel resets what it counted), grown as a call needs more. Calls
+# that share a device run one after another on its current stream.
+_counters = {}
+
+
+def _zeroed_counters(device, n: int):
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+    return buf
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
 
 # min/max masking sentinel of the plain version (the JAX reference's _BIG)
 _BIG = 3.0e38
@@ -110,19 +128,19 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
         return s, cnt, mn, mx, ssq
     ids = segment_ids.to(torch.int64).contiguous()
     lib = _build.load("multi_agg", _SIGNATURES)
-    # scratch the library fills: the CSR row pointer, and the long rows'
-    # partial moments per edge chunk with their row ids
-    rowptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
-    part = torch.empty(lib.hg_multi_agg_scratch_floats(e, c), dtype=torch.float32, device=dev)
-    slots = torch.empty(lib.hg_multi_agg_scratch_ints(e), dtype=torch.int32, device=dev)
+    # the one scratch tensor: the split rows' edge ranges, then each edge
+    # chunk's partial moments of the rows at its ends (csrc/multi_agg.cu)
+    n_chunks = -(-e // _CHUNK)
+    scratch = torch.empty(_round4(2 * num_segments) + n_chunks * 2 * c * 4,
+                          dtype=torch.int32, device=dev)
+    counters = _zeroed_counters(dev, num_segments * -(-c // 32))
     _check_current_device(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hg_multi_agg(
         None if node_recv is None else node_recv.data_ptr(), edge_in.data_ptr(),
-        None if gate is None else gate.data_ptr(), ids.data_ptr(), rowptr.data_ptr(),
-        part.data_ptr(), slots.data_ptr(), s.data_ptr(), cnt.data_ptr(), mn.data_ptr(),
-        mx.data_ptr(), ssq.data_ptr(), int(e), int(num_segments), int(c),
-        _DTYPE_CODES[dtype], stream,
+        None if gate is None else gate.data_ptr(), ids.data_ptr(), counters.data_ptr(),
+        scratch.data_ptr(), s.data_ptr(), cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+        ssq.data_ptr(), int(e), int(num_segments), int(c), _DTYPE_CODES[dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_multi_agg kernel launch failed: CUDA error {rc}")

@@ -19,7 +19,7 @@ import torch
 
 from .fused_edge import fused_edge_message_sum as _fused_edge_message_sum
 from .multi_agg import fused_multi_agg, reference_multi_agg
-from .sorted_segment import sorted_segment_sum, sorted_segment_sum_plain
+from .sorted_segment import segment_sum_plain, sorted_segment_sum, sorted_segment_sum_plain
 
 
 def _mask_messages(messages, mask, fill: float = 0.0):
@@ -38,8 +38,8 @@ def segment_sum(messages, segment_ids, num_segments: int, mask=None,
     if sorted_ids and max_degree and msg.dim() == 2:
         return sorted_segment_sum(msg.contiguous(), segment_ids, num_segments)
     if msg.dim() == 1:
-        return sorted_segment_sum_plain(msg[:, None], segment_ids, num_segments)[:, 0]
-    return sorted_segment_sum_plain(msg, segment_ids, num_segments)
+        return segment_sum_plain(msg[:, None], segment_ids, num_segments)[:, 0]
+    return segment_sum_plain(msg, segment_ids, num_segments)
 
 
 def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
@@ -128,5 +128,11 @@ def segment_std(messages, segment_ids, num_segments: int, mask=None, eps: float 
 
 
 def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask):
-    """Per-graph mean over real nodes."""
-    return segment_mean(x, node_graph, num_graphs, node_mask)
+    """Per-graph mean over real nodes. ``node_graph`` ascends (graphs are
+    contiguous along the node axis, as ``batch_graphs`` lays them out), so
+    each graph's nodes are summed in node order: the same bits on every run,
+    where ``index_add_`` on the card adds in the order its atomics land."""
+    s = sorted_segment_sum_plain(_mask_messages(x, node_mask), node_graph, num_graphs)
+    n = torch.clamp(segment_count(node_graph, num_graphs, node_mask), min=1.0)
+    # f32 counts promote a bf16 sum to f32, as jnp does
+    return s / n.reshape(n.shape + (1,) * (s.dim() - 1))

@@ -35,8 +35,26 @@ _SIGNATURES = {
 
 
 def sorted_segment_sum_plain(messages, segment_ids, num_segments: int):
-    """``index_add_`` in f32, returned in the messages' dtype — the same
-    function as the kernel, for CPU tensors and for comparison."""
+    """The same function as the kernel, for CPU tensors and for comparison:
+    ``torch.segment_reduce`` in f32 over the row lengths of the ascending
+    ids, returned in the messages' dtype. Each row is summed in edge order,
+    so two calls give the same bits on the card too (``index_add_`` adds in
+    the order its atomics land). Edges whose id lies outside
+    ``[0, num_segments)`` are dropped."""
+    ids = segment_ids.long()
+    bounds = torch.searchsorted(
+        ids, torch.arange(num_segments + 1, dtype=torch.int64, device=ids.device)
+    )
+    out = torch.segment_reduce(
+        messages[bounds[0]:bounds[-1]].float(), "sum", lengths=bounds.diff(), axis=0,
+        unsafe=True,
+    )
+    return out.to(messages.dtype)
+
+
+def segment_sum_plain(messages, segment_ids, num_segments: int):
+    """``index_add_`` in f32, returned in the messages' dtype: the segment
+    sum for ids in any order."""
     out = torch.zeros(
         (num_segments,) + tuple(messages.shape[1:]),
         dtype=torch.float32, device=messages.device,

@@ -478,3 +478,133 @@ def pytest_flash_kernels_take_misaligned_row_strided_views_on_card(cuda, dtype, 
     assert torch.equal(got, want)
     for a, b in zip(got_b, want_b):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co", [(33, 129), (258, 130), (17, 300), (866, 866)])
+def pytest_k2_ragged_widths_and_rows_across_edge_tiles_on_card(cuda, dtype, ci, co):
+    """Widths off the 128-column tile and the k slice (odd bf16 rows take the
+    element-wise loads); a row of 300 edges across three 128-edge tiles with
+    empty rows on both sides, and a dummy last row of 700."""
+    gen = torch.Generator(device=cuda).manual_seed(ci + co)
+    n = 120
+    deg = torch.randint(0, 30, (n,), generator=gen, device=cuda)
+    deg[40:45] = 0
+    deg[45] = 300
+    deg[46:50] = 0
+    deg[-1] = 700
+    ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+    e = ids.shape[0]
+    ops = [torch.randn(n, ci, generator=gen, device=cuda),
+           torch.randn(e, ci, generator=gen, device=cuda),
+           torch.randn(ci, co, generator=gen, device=cuda) / ci**0.5,
+           torch.randn(co, generator=gen, device=cuda)]
+    ops = [o.to(dtype) for o in ops]
+    before = t_fused.fused_edge_message_sum.launches
+    got = t_fused.fused_edge_message_sum(*ops, ids, n)
+    want = t_fused.reference_edge_message_sum(*ops, ids, n)
+    torch.cuda.synchronize()
+    assert t_fused.fused_edge_message_sum.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, co)
+    assert float(got[40:45].float().abs().sum() + got[46:50].float().abs().sum()) == 0.0
+    scale = float(want.float().abs().max())
+    atol, rtol = (1e-3, 1e-4) if dtype == torch.float32 else (5e-2, 2e-2)
+    assert float((got.float() - want.float()).abs().max()) <= atol + rtol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_k2_and_k3_give_the_same_bits_twice_on_card(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, c = 500, 256
+    deg = torch.randint(0, 30, (n,), generator=gen, device=cuda)
+    deg[-1] = 3000
+    ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+    e = ids.shape[0]
+    nr = torch.randn(n, c, generator=gen, device=cuda).to(dtype)
+    ei = torch.randn(e, c, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(c, c, generator=gen, device=cuda) / c**0.5).to(dtype)
+    b = torch.randn(c, generator=gen, device=cuda).to(dtype)
+    k2 = [t_fused.fused_edge_message_sum(nr, ei, w, b, ids, n) for _ in range(2)]
+    k3 = [t_multi.fused_multi_agg(nr, ei, None, ids, n) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k2[0], k2[1])
+    for a, b_ in zip(*k3):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_k3_is_one_launch_on_card(cuda, dtype):
+    """One device kernel per call, with a split dummy row: no row-pointer
+    kernel, no separate long-row pass, no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    deg = torch.randint(0, 30, (1000,), generator=gen, device=cuda)
+    deg[-1] = 2000
+    ids = torch.repeat_interleave(torch.arange(1000, device=cuda), deg)
+    nr = torch.randn(1000, 256, generator=gen, device=cuda).to(dtype)
+    ei = torch.randn(ids.shape[0], 256, generator=gen, device=cuda).to(dtype)
+    first = t_multi.fused_multi_agg(nr, ei, None, ids, 1000)
+    torch.cuda.synchronize()
+    before = t_multi.fused_multi_agg.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = t_multi.fused_multi_agg(nr, ei, None, ids, 1000)
+        torch.cuda.synchronize()
+    assert t_multi.fused_multi_agg.launches == before + 1
+    kernels = [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")]
+    assert sum(ev.count for ev in kernels) == 1, [ev.key for ev in kernels]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("long_deg", [255, 256, 257, 511, 512, 513, 1500])
+@pytest.mark.parametrize("offset", [0, 100])
+def pytest_k3_long_rows_around_the_chunk_size_on_card(cuda, dtype, long_deg, offset):
+    """Rows at and just above the 256-edge chunk, starting on a chunk
+    boundary or off it: one in the middle, two side by side, and the dummy
+    last row; the moments exact in count, min and max."""
+    gen = torch.Generator(device=cuda).manual_seed(long_deg + offset)
+    n = 60
+    deg = torch.randint(0, 10, (n,), generator=gen, device=cuda)
+    deg[0] = offset
+    deg[20] = long_deg
+    deg[30] = long_deg
+    deg[31] = long_deg
+    deg[-1] = long_deg
+    ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+    e = ids.shape[0]
+    nr = torch.randn(n, 256, generator=gen, device=cuda).to(dtype)
+    ei = torch.randn(e, 256, generator=gen, device=cuda).to(dtype)
+    for _ in range(2):  # the arrival counters are back at 0 for the second call
+        got = t_multi.fused_multi_agg(nr, ei, None, ids, n)
+        want = t_multi.reference_multi_agg(nr, ei, None, ids, n)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("sum", "count", "min", "max", "sumsq"), got, want):
+            if name in ("count", "min", "max"):
+                assert torch.equal(a, b), name
+            else:
+                assert float((a - b).abs().max()) <= 3e-5 * max(float(b.abs().max()), 1.0), name
+
+
+@pytest.mark.gpu
+def pytest_k1_plain_version_gives_the_same_bits_twice_on_card(cuda):
+    """The fixed-order plain route (segment_reduce over the row lengths),
+    unlike index_add_'s atomics, adds in the same order on every call."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    deg = torch.randint(0, 30, (3000,), generator=gen, device=cuda)
+    deg[-1] = 5000
+    ids = torch.repeat_interleave(torch.arange(3000, device=cuda), deg)
+    msg = torch.randn(ids.shape[0], 256, generator=gen, device=cuda)
+    a = t_sorted.sorted_segment_sum_plain(msg, ids, 3000)
+    b = t_sorted.sorted_segment_sum_plain(msg, ids, 3000)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    # index_add_ sums in another order: the 5,000-edge row differs by f32
+    # rounding, 1e-5 of the largest sum
+    other = t_sorted.segment_sum_plain(msg, ids, 3000)
+    assert float((a - other).abs().max()) <= 1e-5 * float(other.abs().max())

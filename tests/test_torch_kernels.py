@@ -56,6 +56,43 @@ def pytest_sorted_segment_sum_plain_matches_jax_kernel(c):
 
 
 @pytest.mark.parametrize("c", [3, 40])
+def pytest_fixed_order_plain_route_matches_jax_kernel_and_index_add(c):
+    """K1's plain version (``segment_reduce`` over the row lengths, each row
+    in edge order) against the JAX kernel in interpret mode, and against
+    ``index_add_`` (``segment_sum_plain``, the route for unsorted ids), with
+    empty rows before, between and after the edges."""
+    rng = np.random.default_rng(200 + c)
+    e, n, max_degree = 300, 60, 16
+    ids = _sorted_ids(rng, e, n - 10, max_degree) + 3
+    msg = rng.normal(size=(e, c)).astype(np.float32)
+    want = np.asarray(jax_sorted_sum(jnp.asarray(msg), jnp.asarray(ids), n, max_degree,
+                                     interpret=True))
+    t_msg, t_ids = torch.from_numpy(msg), torch.from_numpy(ids)
+    got = t_sorted.sorted_segment_sum_plain(t_msg, t_ids, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), t_sorted.segment_sum_plain(t_msg, t_ids, n).numpy(),
+                               rtol=0, atol=ATOL)
+    assert float(got[:3].abs().sum() + got[-7:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def pytest_fixed_order_plain_route_sums_a_long_dummy_row_like_jax(dtype):
+    """A dummy last row of 900 edges (over any in-degree bound): the plain
+    route is exact for it, as the JAX dense segment sum is."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    ids = np.concatenate([_sorted_ids(rng, 200, 39, 12), np.full(900, 39, np.int32)])
+    msg = torch.from_numpy(rng.normal(size=(ids.shape[0], 5)).astype(np.float32)).to(dtype)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(msg.float().numpy()), jnp.asarray(ids), 40))
+    got = t_sorted.sorted_segment_sum_plain(msg, torch.from_numpy(ids), 40)
+    assert got.dtype == dtype
+    # f32: summation order; bf16: the f32 sum rounded once to bf16
+    rtol = 1e-6 if dtype == torch.float32 else 2.0**-8
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [3, 40])
 def pytest_segment_mean_matches_jax_pallas_route(monkeypatch, c):
     """The routed masked mean (ops/segment.py) against the JAX routing with
     the Pallas route forced (interpret mode), padding edges masked."""

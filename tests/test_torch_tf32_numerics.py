@@ -13,6 +13,16 @@ the plain version (``reference_block_summary``) and the JAX package's
 ``flash_block_summary`` in interpret mode, at the gate ``chip_smoke.py``
 holds the kernel to: 1e-5 of each output's largest value. One TF32 product
 misses that gate.
+
+The fused edge kernel (``csrc/fused_edge.cu``, K2) runs its f32 product the
+same way, with its own split and grouping, emulated below: W split once
+(``hi = rna(w)``, ``lo = w - hi``, which the tensor core truncates to TF32),
+the left operand ``relu(node_recv[ids] + edge_in)`` split per element the
+same way, and each 16-deep k slice's three products (two 8-deep steps)
+summed from zero and added to the running f32 sum. At a small shape with a long dummy row it passes
+K2's f32 gate in ``chip_smoke.py`` (``1e-3 + 1e-4 x`` the largest output)
+against the plain version and the JAX package's
+``reference_edge_message_sum``; one TF32 product per step misses it.
 """
 
 import math
@@ -23,8 +33,10 @@ import torch
 
 import jax.numpy as jnp
 
+from hydragnn_tpu.ops.pallas_fused_edge import reference_edge_message_sum as j_edge_sum
 from hydragnn_tpu.ops.pallas_flash_attention import flash_block_summary as j_block_summary
 from hydragnn_tpu_torch.ops import flash_attention as t_flash
+from hydragnn_tpu_torch.ops import fused_edge as t_fused
 
 GATE = 1e-5  # chip_smoke.py TOLERANCES[("K4b", "float32")]: of each output's max
 TILE = 64    # keys per tile, as the kernel's f32 d <= 32 instances
@@ -145,3 +157,96 @@ def pytest_tf32_rounding_is_to_nearest_with_ties_away_from_zero():
                      dtype=torch.float32)
     want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0], dtype=torch.float32)
     assert torch.equal(_tf32_rna(x), want)
+
+
+K2_ATOL, K2_RTOL = 1e-3, 1e-4  # chip_smoke.py TOLERANCES[("K2", "float32")]
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an f32 operand: the low 13 mantissa
+    bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _k2_split(x: torch.Tensor):
+    """K2's split: ``hi = rna(x)``; ``lo = x - hi`` (exact in f32) as the
+    tensor core reads it."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+K2_SLICE = 16  # f32 values of a k slice (csrc/fused_edge.cu Kind<float>::SLICE / 4)
+
+
+def _emulated_fused_edge(node_recv, edge_in, w, b, ids, n, passes: int):
+    """K2's f32 route: per k slice, ``lo*hi + hi*lo + hi*hi`` (or the one
+    product) from zero, added to the running sum in f32; then bias, relu
+    and the row sums in f32."""
+    a_hi, a_lo = _k2_split(torch.relu(node_recv[ids.long()] + edge_in))
+    w_hi, w_lo = _k2_split(w)
+    acc = torch.zeros(edge_in.shape[0], w.shape[1])
+    for k0 in range(0, w.shape[0], K2_SLICE):
+        k = slice(k0, k0 + K2_SLICE)
+        step = a_hi[:, k] @ w_hi[k]
+        if passes == 3:
+            step = (a_lo[:, k] @ w_hi[k] + a_hi[:, k] @ w_lo[k]) + step
+        acc = acc + step
+    msg = torch.relu(acc + b)
+    return torch.zeros(n, w.shape[1]).index_add_(0, ids.long(), msg)
+
+
+def _k2_inputs(e, n, ci, co, dummy, seed):
+    """Ascending receiver ids with ``dummy`` padding edges on the last row."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(np.concatenate([rng.integers(0, n - 1, e - dummy),
+                                  np.full(dummy, n - 1)])).astype(np.int64)
+    nr = rng.normal(size=(n, ci)).astype(np.float32)
+    ei = rng.normal(size=(e, ci)).astype(np.float32)
+    w = (rng.normal(size=(ci, co)) / np.sqrt(ci)).astype(np.float32)
+    b = (0.1 * rng.normal(size=co)).astype(np.float32)
+    return nr, ei, w, b, ids
+
+
+K2_SHAPES = [(700, 60, 96, 80, 300), (500, 40, 130, 70, 200), (1500, 100, 256, 128, 700)]
+
+
+def _k2_err(got, want):
+    want = torch.from_numpy(np.array(want, np.float32))
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()), K2_ATOL + K2_RTOL * scale
+
+
+@pytest.mark.parametrize("e,n,ci,co,dummy", K2_SHAPES + [(300, 30, 7, 5, 100)])
+def pytest_k2_three_tf32_products_pass_the_gate_against_the_plain_version(e, n, ci, co, dummy):
+    nr, ei, w, b, ids = map(torch.from_numpy, _k2_inputs(e, n, ci, co, dummy, seed=e))
+    got = _emulated_fused_edge(nr, ei, w, b, ids, n, passes=3)
+    err, gate = _k2_err(got, t_fused.reference_edge_message_sum(nr, ei, w, b, ids, n))
+    assert err <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("e,n,ci,co,dummy", K2_SHAPES)
+def pytest_k2_three_tf32_products_pass_the_gate_against_jax(e, n, ci, co, dummy):
+    inputs = _k2_inputs(e, n, ci, co, dummy, seed=e)
+    got = _emulated_fused_edge(*map(torch.from_numpy, inputs), n, passes=3)
+    want = j_edge_sum(*map(jnp.asarray, inputs), n)
+    err, gate = _k2_err(got, want)
+    assert err <= gate, (err, gate)
+
+
+@pytest.mark.parametrize("e,n,ci,co,dummy", K2_SHAPES)
+def pytest_k2_one_tf32_product_misses_the_gate(e, n, ci, co, dummy):
+    nr, ei, w, b, ids = map(torch.from_numpy, _k2_inputs(e, n, ci, co, dummy, seed=e))
+    want = t_fused.reference_edge_message_sum(nr, ei, w, b, ids, n)
+    one, gate = _k2_err(_emulated_fused_edge(nr, ei, w, b, ids, n, passes=1), want)
+    three, _ = _k2_err(_emulated_fused_edge(nr, ei, w, b, ids, n, passes=3), want)
+    assert one > gate, (one, gate)
+    assert one > 100 * three, (one, three)
+
+
+def pytest_k2_split_of_w_is_exact_and_its_parts_tf32():
+    w = torch.from_numpy(np.random.default_rng(3).normal(size=(97, 33)).astype(np.float32))
+    hi, lo = _k2_split(w)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert torch.equal(hi + (w - hi), w)  # the remainder is exact in f32
+    err = (w.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0**-21 * w.double().abs()).all())
