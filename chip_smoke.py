@@ -31,7 +31,9 @@ Phases, each fatal on failure (exit code 1):
    (the same bits, or it fails); then, for every kernel library, each
    kernel's tensor-core instruction count (``cuobjdump -sass``), registers
    and spills (``ptxas -v``): a flash or fused-edge instance without
-   tensor-core instructions, or any spill, fails;
+   tensor-core instructions, or any spill, fails. K1's first- and
+   second-order gradients at the EGNN shapes are held against
+   ``index_add_``'s autograd (a route that shares none of K1's code);
 4. serving ``egnn``: ``api.run_server`` on the SC25-shaped EGNN (hidden 866,
    4 conv layers, equivariant, graph and node heads of width 889, batch 32,
    packed, bf16 mixed precision, sorted aggregation) with random weights
@@ -56,16 +58,41 @@ Phases, each fatal on failure (exit code 1):
    through the kernels' plain versions (K1's a fixed-order sum, run twice,
    its largest difference printed) and against the dense fallback (outside
    the SP context: [8, N, N] f32 logits); ms per forward, nodes/s and the
-   peak memory of both routes.
+   peak memory of both routes;
+7. ``egnn_train``: the SC25-shaped EGNN of phase 4 trained at full width
+   with the JAX benchmark's Training block (AdamW lr 1e-3, MAE, task
+   weights [1, 100], bf16 mixed precision, packed batch 32 at the serving
+   cell's budget, the non-finite step guard on), random weights from a
+   seed, through ``train.make_train_step``, so K1 and K2 run forward and
+   carry gradients (their backwards are torch ops). One step's gradients
+   against the same step through the kernels' plain versions, in f32 and in
+   bf16, printed beside controls (``train_routes``: the plain route again,
+   each kernel alone, K1's sums in ``index_add_``'s order); every
+   parameter's gradient finite and nonzero; a loss trajectory
+   over every batch of 768 OC20-shaped graphs' train split (23 steps)
+   through the kernels and through the plain versions, from one init; ms
+   per step and graphs/s (from step 4), peak memory, one profiled step;
+   the launches per step (the forward's: a backward launches no kernel);
+   one epoch of ``api.run_training`` with no device given (on the egnn
+   cell's split), its launches per step and eval batch; then one
+   energy-force step (one node head, forces ``-dE/dpos`` by a
+   double backward, f32) whose loss, forces and gradients are held against
+   the plain route, printed beside the same controls; every route and
+   rounding draws (the plain route carrying K1's kernel values in some
+   calls, or correctly rounded sums) are printed against the same step in
+   f64, and each K1 sum of that step against an f64 sum beside its plain
+   version's (K1 no further from it, or it fails). The kernel checks of
+   phase 3 also time K1's and K2's backwards.
 
-Each path sets every launch count to 0 just before its requests and reads
-them just after, and prints one ``profile:`` block. The last three lines
-are the card, the kernels JSON line and the result line.
+Each path sets every launch count to 0 just before its requests (or steps)
+and reads them just after, and prints one ``profile:`` block. The last
+three lines are the card, the kernels JSON line and the result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -158,27 +185,40 @@ def warm_up_card(seconds: float = 2.0) -> None:
 
 def device_ms(fn, iters: int):
     """Device time per call of ``fn``: the summed device time of every
-    kernel and copy it launches, under torch.profiler, over ``iters`` calls,
-    and the same split by kernel (or copy) name. Unlike ``cuda_ms`` it
-    leaves out the host's time between launches, which is most of a
-    wrapper's call time when its kernel takes microseconds. A profile that
-    caught no device event is taken again, up to three times; (None, {}) if
-    none caught one."""
+    kernel and copy it launches, under torch.profiler, over ``iters`` calls
+    (after as many calls profiled to warm the profiler up and not recorded:
+    a cold profile can drop its first kernels), and the same split by
+    kernel (or copy) name. Unlike ``cuda_ms`` it leaves out the host's time
+    between launches, which is most of a wrapper's call time when its
+    kernel takes microseconds. A profile that caught no device event is
+    taken again, up to three times; (None, {}) if none caught one."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {ev.key: _device_us(ev) / iters / 1e3 for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA") and _device_us(ev) > 0}
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for warm in (True, False):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                if warm:  # a step after the recorded calls would drop them
+                    prof.step()
+        by_name = {ev.key: _device_us(ev) / iters / 1e3 for ev in _device_events(prof)
+                   if _device_us(ev) > 0}
         if by_name:
             return sum(by_name.values()), by_name
     return None, {}
+
+
+def _device_events(prof):
+    """The profile's device kernels and copies, without the device-side
+    ranges of user annotations (``Optimizer.step#AdamW.step`` spans the
+    kernels it launched: counting it would count them twice)."""
+    return [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def _device_us(ev) -> float:
@@ -397,7 +437,7 @@ def gin_ring_spec(graph):
 
 
 def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, shape,
-          check_exact=None, scale=None):
+          check_exact=None, scale=None, backward=None, gradients=None):
     source, replaces = {
         "K1": ("hydragnn_tpu_torch/csrc/sorted_segment_sum.cu",
                "hydragnn_tpu/ops/pallas_segment.py:173"),
@@ -412,7 +452,41 @@ def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, 
     }[kernel]
     return dict(kernel=kernel, dtype=str(dtype)[6:], name=name, case=case, fn=fn, plain=plain,
                 library=library, nbytes=nbytes, ops_ms=ops_ms, iters=iters, shape=shape,
-                source=source, replaces=replaces, check_exact=check_exact, scale=scale)
+                source=source, replaces=replaces, check_exact=check_exact, scale=scale,
+                backward=backward, gradients=gradients)
+
+
+def backward_call(fn, kw, names):
+    """A zero-argument call of the backward of ``fn(**kw)`` with respect to
+    the inputs ``names`` (the kernel's Function: its backward is torch ops,
+    no kernel), for timing: the forward runs once, here, and each call
+    takes the gradients again from the kept graph."""
+    import torch
+
+    leaves = {k: (v.detach().clone().requires_grad_(True) if k in names else v)
+              for k, v in kw.items()}
+    with torch.enable_grad():
+        out = fn(**leaves)
+    dout = torch.ones_like(out)
+    inputs = [leaves[k] for k in names]
+    return lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)
+
+
+def first_and_second(fn, messages, seed: int):
+    """The first and second derivatives of ``fn`` in ``messages``:
+    ``g = d/dm sum(w tanh(fn(m)))``, then ``d/dm <g, v>`` (a double
+    backward, as the energy-force loss takes), ``w`` and ``v`` from a
+    seed."""
+    import torch
+
+    m = messages.detach().clone().requires_grad_(True)
+    out = fn(m)
+    gen = torch.Generator(device=m.device).manual_seed(seed)
+    w = torch.randn(out.shape, generator=gen, device=m.device)
+    v = torch.randn(m.shape, generator=gen, device=m.device)
+    (g,) = torch.autograd.grad(torch.sum(w * torch.tanh(out.float())), m, create_graph=True)
+    (gg,) = torch.autograd.grad(torch.sum(g.float() * v), m)
+    return g.detach(), gg
 
 
 def egnn_kernel_cases(batch, device):
@@ -426,6 +500,7 @@ def egnn_kernel_cases(batch, device):
         reference_edge_message_sum,
     )
     from hydragnn_tpu_torch.ops.sorted_segment import (
+        segment_sum_plain,
         sorted_segment_sum,
         sorted_segment_sum_plain,
     )
@@ -451,6 +526,13 @@ def egnn_kernel_cases(batch, device):
                 (e * c + n * c) * size + e * 4,
                 e * c / PEAK_FLOPS["float32"] * 1e3,  # one f32 add per element
                 50, dict(E=e, N=n, C=c),
+                backward=lambda kw=kw: backward_call(sorted_segment_sum, kw, ("messages",)),
+                # an independent route: index_add_ through ordinary autograd
+                # (the fixed-order plain version shares K1's Function)
+                gradients=(lambda kw=kw, c=c: first_and_second(
+                               lambda m: sorted_segment_sum(m, ids, n), kw["messages"], c),
+                           lambda kw=kw, c=c: first_and_second(
+                               lambda m: segment_sum_plain(m, ids, n), kw["messages"], c)),
             ))
         ci = co = 866
         kw = dict(
@@ -472,6 +554,8 @@ def egnn_kernel_cases(batch, device):
             (passes * 2 * e * ci * co / PEAK_FLOPS[unit]
              + (2 * e * ci + 3 * e * co) / PEAK_FLOPS["float32"]) * 1e3,
             10, dict(E=e, N=n, Ci=ci, Co=co),
+            backward=lambda kw=kw: backward_call(
+                fused_edge_message_sum, kw, ("node_recv", "edge_in", "weights", "bias")),
         ))
     return cases
 
@@ -702,6 +786,12 @@ TOLERANCES = {
 }
 
 
+# K1's first- and second-order gradients at the path's shapes against
+# index_add_'s autograd (the forwards' f32 sums in another order reach the
+# gradients through tanh'), relative to each gradient's largest value
+GRAD_TOLERANCES = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
 # Served answers against the plain ops on the same weights, relative to each
 # head's largest value: the largest error of any output row (a graph's
 # energy, a node's forces), and the median over rows. Readings from this
@@ -753,6 +843,51 @@ GIN_RING_RTOL = {"ring route, plain versions": (3e-6, 1.5e-6),
                  "dense fallback": (3e-6, 1.5e-6)}
 
 
+# egnn_train: the training path through K1 and K2 against the same steps
+# through their plain versions (both differentiable to any order), on the
+# same weights and batches. Per parameter max|g - g_plain| / max|g_plain|
+# (largest parameter, median parameter; the denominator floored at
+# GRAD_FLOOR of the largest gradient); the per-step relative difference of
+# the losses over the trajectory; the energy-force step's loss, its forces
+# per atom relative to the largest (largest row, median row) and its
+# gradients. Readings from this script on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W) at seed 0: f32 gradients (6.8e-3 to 1.04e-2, 1.8e-3 to 2.8e-3),
+# bf16 gradients (1.5e-2 to 2.1e-2, 2.9e-3 to 3.9e-3), trajectory 2.5e-3 to
+# 5.5e-3, energy-force loss 6.9e-7 to 9.7e-7, forces (1.65e-2 to 1.66e-2,
+# 9.8e-5 to 1.09e-4), gradients (4.5e-2 to 4.8e-2, 2.4e-3). Limits at about
+# three times each, except the forces' largest row: the first limits,
+# (0.01, 1e-3), failed on that row (1.66e-2), which no f32 route can bring
+# under ~1.7e-2: the plain route and the plain route with K1's sums
+# correctly rounded lie 1.69e-2 from the same step in f64 in their largest
+# row (one atom's force hangs on a rounding-sized flip); the new limit is
+# three times that. The plain route against itself and with K1 or K2
+# alone swapped for its kernel are printed beside each reading: for the
+# MAE step every control reads as far as the kernels do (its index_add_
+# atomics land in another order; the forward's rounding flips ReLUs and
+# MAE signs). In the energy-force step K1's kernel alone carries the whole
+# gap, and its values do, not its Function: the plain route's graph with
+# K1's kernel values reads the same, with correctly rounded sums it does
+# not. K1's sums on that step's data lie closer to f64 than its plain
+# version's in every call (gated below); the step through them lies
+# further from the f64 step, as the plain route does with K1's kernel
+# values in the conv-1 sum alone (PERF.md, Findings and Open questions).
+GRAD_FLOOR = 1e-3
+TRAIN_RTOL = {"f32 gradients": (0.03, 0.01), "bf16 gradients": (0.06, 0.012),
+              "trajectory": 0.02, "energy-force loss": 4e-6,
+              "energy-force forces": (0.05, 4e-4), "energy-force gradients": (0.15, 8e-3)}
+# OC20-shaped graphs of the egnn_train cell (the first 128 are the serving
+# cell's): 23 packed batches of 32 in its 90% train split
+TRAIN_GRAPHS = 768
+# K1 and K2 launches of one train step (its forward: the backwards launch no
+# kernel), by case: the served batch's, as the cast is the same (bf16
+# parameters and inputs; the coordinate mean's f32 counts promote conv
+# layers 1-3 to f32); and of the energy-force step, all f32
+TRAIN_PER_STEP = {"K1": {"bfloat16/C866": 1, "float32/C866": 2,
+                         "bfloat16/C3": 1, "float32/C3": 2},
+                  "K2": {"float32/866x866": 1}}
+EF_PER_STEP = {"K1": {"float32/C866": 3, "float32/C3": 3}, "K2": {"float32/866x866": 1}}
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -786,6 +921,23 @@ def run_kernels(cases):
             check(math.isfinite(err_i) and err_i <= tol,
                   f"{name}: kernel output {i} disagrees with its plain version")
             err = max(err, err_i)
+        if kc["gradients"] is not None:
+            launches = _wrappers()[kc["kernel"]].launches
+            got, want = (f() for f in kc["gradients"])
+            torch.cuda.synchronize()
+            check(_wrappers()[kc["kernel"]].launches == launches + 1,
+                  f"{name}: the gradients launched {_wrappers()[kc['kernel']].launches - launches}"
+                  " kernels, not the forward's one")
+            rtol = GRAD_TOLERANCES[kc["dtype"]]
+            for order, a, b in zip(("first", "second"), got, want):
+                err_g = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                print(f"check {name}: {order}-order gradient against index_add_'s autograd: "
+                      f"max_abs_err {err_g:.6g} (tolerance {rtol} x scale {scale:.6g})",
+                      flush=True)
+                check(math.isfinite(err_g) and err_g <= rtol * scale,
+                      f"{name}: the {order}-order gradient disagrees with index_add_'s")
+            del got, want
         iters = kc["iters"]
         ms = cuda_ms(kc["fn"], iters)
         plain_ms = cuda_ms(kc["plain"], max(iters // 5, 2))
@@ -814,6 +966,20 @@ def run_kernels(cases):
               flush=True)
         if kc["kernel"] == "K3":  # one launch per call: no row-pointer or long-row kernel
             check(len(split["fn"]) == 1, f"{name}: {len(split['fn'])} device kernels per call")
+        if kc["backward"] is not None:
+            launches = _wrappers()[kc["kernel"]].launches
+            bwd = kc["backward"]()
+            bwd_ms = cuda_ms(bwd, max(iters // 5, 2))
+            bwd_dev, bwd_split = device_ms(bwd, 5)
+            check(_wrappers()[kc["kernel"]].launches == launches + 1,
+                  f"{name}: the backward launched a kernel")
+            results[-1].update(backward_ms=bwd_ms, backward_device_ms=bwd_dev)
+            print(f"time {name} backward (torch ops, no kernel): {bwd_ms:.4f} ms, device "
+                  f"{'not measured' if bwd_dev is None else f'{bwd_dev:.4f} ms'}; by name: "
+                  + ", ".join(f"{_short(key, 60)} {ms:.4f} ms"
+                              for key, ms in sorted(bwd_split.items(), key=lambda kv: -kv[1])[:6]),
+                  flush=True)
+            del bwd
         del out_k, out_p
     return results
 
@@ -838,13 +1004,17 @@ def profile_batch(server, graphs, label: str) -> None:
                     lambda: server.forward(batch))
 
 
-def profile_forward(label: str, what: str, forward) -> None:
-    """The wall time of ``forward()`` (median of 5 after one more) and one
-    call under torch.profiler: device time by kernel and the device's busy
-    share of that call."""
+def profile_forward(label: str, what: str, forward, noun: str = "forward",
+                    groups=None) -> None:
+    """The wall time of ``forward()`` (median of 5 after one more), then
+    calls under torch.profiler (one to warm it up, not recorded: a cold
+    profile can drop a call's first kernels, then two recorded): device time
+    by kernel and the device's busy share, per call. ``noun`` names the call
+    in the printed line; ``groups`` (name -> substrings of kernel names)
+    sums the device time of the kernels each group matches."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     walls = []
     for _ in range(6):
@@ -853,21 +1023,32 @@ def profile_forward(label: str, what: str, forward) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     forward_ms = float(np.median(walls[1:]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(_device_us(ev), ev.key, ev.count) for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")]
+    calls, prof_walls = 2, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls)) as prof:
+        for i in range(1 + calls):
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            if i > 0:
+                prof_walls.append((time.perf_counter() - t0) * 1e3)
+            if i < calls:  # a step after the last call would end the cycle, and drop it
+                prof.step()
+    prof_wall_ms = float(np.mean(prof_walls))
+    rows = [(_device_us(ev) / calls, ev.key, ev.count // calls) for ev in _device_events(prof)]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"profile: {label}: {what}, forward {forward_ms:.2f} ms (median of 5), under the "
-          f"profiler {prof_wall_ms:.2f} ms with the device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / prof_wall_ms:.1f}%)", flush=True)
-    for dev_us, key, count in rows[:14]:
+    print(f"profile: {label}: {what}, {noun} {forward_ms:.2f} ms (median of 5), under the "
+          f"profiler {prof_wall_ms:.2f} ms with the device busy {busy_ms:.2f} ms per call "
+          f"({100 * busy_ms / prof_wall_ms:.1f}% of the profiled call, "
+          f"{100 * busy_ms / forward_ms:.1f}% of the median unprofiled one)", flush=True)
+    for dev_us, key, count in rows[:20 if noun != "forward" else 14]:
         print(f"profile: {dev_us / 1e3:9.3f} ms {100 * dev_us / 1e3 / max(busy_ms, 1e-9):5.1f}% "
               f"x{count:<4d} {key[:100]}", flush=True)
+    for name, parts in (groups or {}).items():
+        ms = sum(r[0] for r in rows if any(p in r[1] for p in parts)) / 1e3
+        print(f"profile: {label}: {name}: {ms:.3f} ms of the device time "
+              f"({100 * ms / max(busy_ms, 1e-9):.1f}%)", flush=True)
 
 
 def _wrappers():
@@ -877,30 +1058,32 @@ def _wrappers():
             for k, (mod, fn) in KERNELS.items()}
 
 
-@contextlib.contextmanager
-def plain_versions(on: bool):
-    """Within the block, the model's K1, K3, K4 and K4b call sites take the
-    kernels' plain versions on the card (the same route, no kernel)."""
-    if not on:
-        yield
-        return
-    import hydragnn_tpu_torch.models.gps as gps
-    import hydragnn_tpu_torch.ops.segment as segment
-    import hydragnn_tpu_torch.parallel.ring_attention as ring
-    from hydragnn_tpu_torch.ops.flash_attention import (
-        reference_block_summary,
-        reference_masked_attention,
-    )
-    from hydragnn_tpu_torch.ops.multi_agg import reference_multi_agg
-    from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum_plain
+def _zero_launches(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+        w.launches_by_case.clear()
 
-    swaps = [
-        (gps, "flash_self_attention",
-         lambda q, k, v, ng, nm, g: reference_masked_attention(q, k, v, ng, nm)),
-        (segment, "fused_multi_agg", reference_multi_agg),
-        (segment, "sorted_segment_sum", sorted_segment_sum_plain),
-        (ring, "flash_block_summary", reference_block_summary),
-    ]
+
+def _check_launches(label, wrappers, per_unit, units, unit="steps"):
+    """Every kernel's launches against ``per_unit`` (by case) times the
+    ``units`` (batches, requests or steps) driven; a kernel not named must
+    not launch. Returns them by (kernel, case)."""
+    launches = {k: (w.launches, dict(w.launches_by_case)) for k, w in wrappers.items()}
+    print(f"{label}: launches in {units} {unit} " + ", ".join(
+        f"{k} {n} {cases}" for k, (n, cases) in launches.items()), flush=True)
+    for k, (_, cases) in launches.items():
+        want = {case: per * units for case, per in per_unit.get(k, {}).items()}
+        check(cases == want, f"{label}: {k} launched {cases} in {units} {unit}, expected {want}")
+    return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
+
+
+PLAIN = ("K1", "K2", "K3", "K4", "K4b")
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    """Within the block, each ``(module, name, fn)`` of ``swaps`` has
+    ``module.name`` set to ``fn``."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -909,6 +1092,34 @@ def plain_versions(on: bool):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def plain_versions(swap=PLAIN, k1=None):
+    """Within the block, the model's call sites of the kernels named in
+    ``swap`` take the kernels' plain versions on the card (the same route,
+    no kernel; each differentiable as its kernel's Function is). ``k1``
+    replaces K1's plain version (``segment_sum_plain``: the same sums in
+    ``index_add_``'s order, through ordinary autograd)."""
+    import hydragnn_tpu_torch.models.gps as gps
+    import hydragnn_tpu_torch.ops.segment as segment
+    import hydragnn_tpu_torch.parallel.ring_attention as ring
+    from hydragnn_tpu_torch.ops.flash_attention import (
+        reference_block_summary,
+        reference_masked_attention,
+    )
+    from hydragnn_tpu_torch.ops.fused_edge import reference_edge_message_sum
+    from hydragnn_tpu_torch.ops.multi_agg import reference_multi_agg
+    from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum_plain
+
+    swaps = {
+        "K4": (gps, "flash_self_attention",
+               lambda q, k, v, ng, nm, g: reference_masked_attention(q, k, v, ng, nm)),
+        "K3": (segment, "fused_multi_agg", reference_multi_agg),
+        "K1": (segment, "sorted_segment_sum", k1 or sorted_segment_sum_plain),
+        "K2": (segment, "_fused_edge_message_sum", reference_edge_message_sum),
+        "K4b": (ring, "flash_block_summary", reference_block_summary),
+    }
+    return swapped([swaps[k] for k in swap])
 
 
 def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases):
@@ -946,34 +1157,26 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
     batches0 = server.stats()["batches"]
 
     # the main path: every launch count from 0, read right after
-    for w in wrappers.values():
-        w.launches = 0
-        w.launches_by_case.clear()
+    _zero_launches(wrappers)
     t_start = time.perf_counter()
     handles = [server.submit(g) for g in requests]
     results = [h.result(timeout=600) for h in handles]
     t_end = max(h.done_at for h in handles)
     torch.cuda.synchronize()
-    launches = {k: (w.launches, dict(w.launches_by_case)) for k, w in wrappers.items()}
     stats = server.stats()
     batches = stats["batches"] - batches0
+    launched = _check_launches(f"serve {label}", wrappers, per_batch_cases, batches, "batches")
 
     lat = np.asarray([h.done_at - h.submitted_at for h in handles]) * 1e3
     gps = n_requests / (t_end - t_start)
     print(f"serve {label}: {n_requests} requests in {batches} batches, {gps:.1f} graphs/s, "
           f"latency p50 {np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} ms",
           flush=True)
-    print(f"serve {label}: launches " + ", ".join(
-        f"{k} {n} {cases}" for k, (n, cases) in launches.items()), flush=True)
     per_batch = {k: round(1e3 * v / max(batches, 1), 3) for k, v in stats["seconds"].items()}
     print(f"serve {label}: ms per batch in the serve loop (all batches since start, warm-up "
           f"excluded): {per_batch}", flush=True)
     check(stats["failed_batches"] == 0 and stats["rejected"] == 0, f"serving stats {stats}")
     check(batches > 0, f"{label}: no batch served")
-    for k, (n, cases) in launches.items():
-        want = {case: per * batches for case, per in per_batch_cases.get(k, {}).items()}
-        check(cases == want, f"{label}: {k} launched {cases} in {batches} batches, "
-                             f"expected {want}")
     for g, r in zip(requests, results):
         check(set(r) == {"energy", "forces"}, f"served heads {sorted(r)}")
         check(r["energy"].shape == (1,) and r["forces"].shape == (g.num_nodes, 3),
@@ -1020,7 +1223,7 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
             batch = batch_graphs(gs, spec, sort_edges=True).to(device)
             outs = {"served": None}
             for r, (model, cast) in models.items():
-                with plain_versions(r.endswith("plain versions")):
+                with plain_versions(PLAIN if r.endswith("plain versions") else ()):
                     out = model(cast(batch))
                 outs[r] = {k: v.float().cpu().numpy() for k, v in out.items()}
             off = 0
@@ -1050,7 +1253,7 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
     server.close()
     print(f"serving {label}: {gps:.1f} graphs/s, p50 {np.percentile(lat, 50):.2f} ms, "
           f"p99 {np.percentile(lat, 99):.2f} ms", flush=True)
-    return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
+    return launched
 
 
 def run_gin_ring(topology, topology_s: float, device, n_requests: int):
@@ -1094,9 +1297,7 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
     resident = torch.cuda.memory_allocated()
 
     # the main path: every launch count from 0, read right after
-    for w in wrappers.values():
-        w.launches = 0
-        w.launches_by_case.clear()
+    _zero_launches(wrappers)
     torch.cuda.reset_peak_memory_stats()
     walls, results = [], []
     for b in batches:
@@ -1104,16 +1305,10 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
         results.append(evalf(b))
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    launches = {k: (w.launches, dict(w.launches_by_case)) for k, w in wrappers.items()}
     ring_peak = torch.cuda.max_memory_allocated() - resident
-
-    print(f"{label}: launches " + ", ".join(f"{k} {n} {cases}" for k, (n, cases) in launches.items()),
-          flush=True)
-    per_request = {"K1": {"float32/C256": 4}, "K4b": {"float32/H8xd32": 4}}
-    for k, (_, cases) in launches.items():
-        want = {case: per * len(batches) for case, per in per_request.get(k, {}).items()}
-        check(cases == want, f"{label}: {k} launched {cases} in {len(batches)} requests, "
-                             f"expected {want}")
+    launched = _check_launches(label, wrappers, {"K1": {"float32/C256": 4},
+                                                 "K4b": {"float32/H8xd32": 4}},
+                               len(batches), "requests")
     for tot, tasks, out in results:
         check(set(out) == {"total"} and tuple(out["total"].shape) == (2, 1),
               f"{label}: outputs { {k: tuple(v.shape) for k, v in out.items()} }")
@@ -1124,7 +1319,7 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
     # the answers against the same route through the kernels' plain versions,
     # and against the dense fallback (no SP context: [H, N, N] f32 logits)
     refs = {}
-    with plain_versions(True):
+    with plain_versions():
         refs["ring route, plain versions"] = [evalf(b)[2]["total"][0] for b in batches]
         again = [evalf(b)[2]["total"][0] for b in batches]
     drift = max(float((a - b).abs().max()) for a, b in zip(refs["ring route, plain versions"], again))
@@ -1171,10 +1366,442 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
           f"{', '.join(f'{w:.2f}' for w in walls)}), {n_atoms / ms * 1e3:.1f} nodes/s, peak "
           f"memory above the resident {resident / 2**20:.1f} MiB: ring route "
           f"{ring_peak / 2**20:.1f} MiB, dense fallback {dense_peak / 2**20:.1f} MiB", flush=True)
-    return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
+    return launched
+
+
+def train_config(energy_force: bool = False, **kw):
+    """The egnn_train cell: ``serving_config``'s SC25-shaped EGNN with the
+    JAX benchmark's Training block (bench.py ``_production_workload``:
+    AdamW lr 1e-3, MAE, task weights [1, 100], bf16 mixed precision, packed
+    batch 32, sorted aggregation, the non-finite step guard on). With
+    ``energy_force``: one node head of nodal energy, forces ``-dE/dpos``
+    (``compute_grad_energy``), the atomic number as the only node input,
+    in f32, as the OC20 example trains it
+    (examples/open_catalyst_2020/open_catalyst_2020.json)."""
+    config = serving_config(**kw)
+    if energy_force:
+        nn_cfg = config["NeuralNetwork"]
+        nn_cfg["Architecture"].update(task_weights=[1.0], output_heads={
+            "node": nn_cfg["Architecture"]["output_heads"]["node"]})
+        nn_cfg["Variables_of_interest"] = {
+            "input_node_features": [0], "output_names": ["graph_energy"],
+            "output_index": [0], "output_dim": [1], "type": ["node"]}
+        nn_cfg["Training"].update(compute_grad_energy=True, mixed_precision=False)
+    return config
+
+
+def _train_copy(model, device):
+    """A copy of ``model`` (weights and batch-norm statistics) with a fresh
+    optimizer of the cell: two routes start from one init."""
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer
+
+    m = copy.deepcopy(model).to(device)
+    return TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+
+
+def train_routes():
+    """The routes of one train step that the gates compare: route -> (the
+    kernels swapped for their plain versions, K1's replacement). Besides
+    the kernels and the plain versions: the plain route again (its
+    ``index_add_`` atomics land in another order), each kernel alone, and
+    the plain route with K1 summing in ``index_add_``'s order
+    (``segment_sum_plain``, ordinary autograd): how far the same sums in
+    another order move the answers."""
+    from hydragnn_tpu_torch.ops.sorted_segment import segment_sum_plain
+
+    return {"kernels": ((), None), "plain": (PLAIN, None),
+            "the plain route again": (PLAIN, None),
+            "K1's kernel, K2 plain": (("K2",), None),
+            "K2's kernel, K1 plain": (("K1",), None),
+            "the plain route with K1 in index_add_'s order": (PLAIN, segment_sum_plain)}
+
+
+def k1_against_f64(readings: list):
+    """Within the block, each call of K1 at the model's call site also sums
+    its messages in f64 and in f32 through K1's fixed-order plain version
+    and ``index_add_``; ``readings`` gets, per call, each f32 sum's error
+    against the f64 one (largest and root-mean-square, relative to the f64
+    sums' largest and root-mean-square)."""
+    import torch
+
+    import hydragnn_tpu_torch.ops.segment as segment
+    from hydragnn_tpu_torch.ops.sorted_segment import (
+        segment_sum_plain,
+        sorted_segment_sum_plain,
+    )
+
+    inner = segment.sorted_segment_sum
+
+    def summed(messages, segment_ids, num_segments):
+        out = inner(messages, segment_ids, num_segments)
+        with torch.no_grad():
+            m, ids = messages.detach(), segment_ids.long()
+            keep = ids < num_segments
+            ref = torch.zeros((num_segments,) + tuple(m.shape[1:]), dtype=torch.float64,
+                              device=m.device).index_add_(0, ids[keep], m[keep].double())
+            top, rms = float(ref.abs().max()), float(ref.square().mean().sqrt())
+            sums = {"kernel": out.detach(),
+                    "fixed order": sorted_segment_sum_plain(m, segment_ids, num_segments),
+                    "index_add_": segment_sum_plain(m, segment_ids, num_segments)}
+            readings.append((f"{str(m.dtype)[6:]}/C{m.shape[1]}", {
+                k: (float((v.double() - ref).abs().max()) / top,
+                    float((v.double() - ref).square().mean().sqrt()) / rms)
+                for k, v in sums.items()}))
+        return out
+
+    return swapped([(segment, "sorted_segment_sum", summed)])
+
+
+def k1_values(calls=None):
+    """K1's replacement for a rounding draw: the fixed-order plain version's
+    autograd graph carrying other f32 values of the same sums, K1's kernel
+    values in the calls numbered ``calls`` (from 0) and the plain
+    version's in the rest; with ``calls`` None, every sum correctly
+    rounded from f64."""
+    import torch
+
+    from hydragnn_tpu_torch.ops.sorted_segment import (
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
+
+    seen = []
+
+    def summed(messages, segment_ids, num_segments):
+        out = sorted_segment_sum_plain(messages, segment_ids, num_segments)
+        seen.append(None)
+        with torch.no_grad():
+            m = messages.detach()
+            if calls is None:
+                ids = segment_ids.long()
+                keep = ids < num_segments
+                v = torch.zeros(out.shape, dtype=torch.float64, device=out.device).index_add_(
+                    0, ids[keep], m[keep].double()).to(out.dtype)
+            elif len(seen) - 1 in calls:
+                v = sorted_segment_sum(m, segment_ids, num_segments)
+            else:
+                return out
+        # the values v (a one-ulp difference is exact in f32), out's graph
+        return out + (v - out).detach()
+
+    return summed
+
+
+def f64_sums():
+    """Within the block, the model's segment sums (K1's and K2's call sites
+    and the graph pooling) add in their inputs' dtype by ``index_add_``,
+    where the port's plain versions accumulate in f32: the sums of an f64
+    reference step."""
+    import torch
+
+    import hydragnn_tpu_torch.ops.segment as segment
+
+    def sum_in_dtype(messages, segment_ids, num_segments):
+        out = messages.new_zeros((num_segments,) + tuple(messages.shape[1:]))
+        return out.index_add(0, segment_ids.long(), messages)
+
+    def edge_sum(node_recv, edge_in, weights, bias, segment_ids, num_segments):
+        pre = node_recv[segment_ids.long()] + edge_in
+        return sum_in_dtype(torch.relu(torch.relu(pre) @ weights + bias), segment_ids,
+                            num_segments)
+
+    return swapped([(segment, name, sum_in_dtype) for name in
+                    ("sorted_segment_sum", "sorted_segment_sum_plain", "segment_sum_plain")]
+                   + [(segment, "_fused_edge_message_sum", edge_sum)])
+
+
+def _grads(state):
+    return {n: p.grad.detach().float().clone() for n, p in state.model.named_parameters()}
+
+
+def grad_reading(got, want):
+    """Per parameter ``max|g - g_want| / max|g_want|``, the denominator
+    floored at ``GRAD_FLOOR`` of the largest gradient of any parameter:
+    (largest, its parameter, median, largest without the floor)."""
+    import numpy as np
+
+    top = max(float(w.abs().max()) for w in want.values())
+    err = {n: float((got[n] - w).abs().max()) for n, w in want.items()}
+    raw = {n: e / max(float(want[n].abs().max()), 1e-30) for n, e in err.items()}
+    rel = {n: e / max(float(want[n].abs().max()), GRAD_FLOOR * top) for n, e in err.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst, float(np.median(list(rel.values()))), max(raw.values())
+
+
+def grad_gate(label: str, got, want, limit, controls) -> None:
+    """Per parameter ``max|g - g_plain| / max|g_plain|``, the denominator
+    floored at ``GRAD_FLOOR`` of the largest gradient of any parameter (a
+    parameter whose gradient is zero in exact arithmetic, such as the bias
+    of a dense layer that feeds a batch norm, holds rounding noise in both
+    routes): the largest (and which parameter) and the median against
+    ``limit`` (largest, median); the largest without the floor is printed
+    too, and the same reading for each of ``controls`` (name -> gradients:
+    ``train_routes``'s other routes)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    largest, worst, median, raw = grad_reading(got, want)
+    print(f"egnn_train: {label}: per-parameter max|g - g_plain| / max|g_plain| over "
+          f"{len(want)} parameters (floor {GRAD_FLOOR} x {top:.6g}): largest {largest:.6g} "
+          f"({worst}), median {median:.6g} (limits {limit}); without the floor largest "
+          f"{raw:.6g}" + "".join(
+              "; {}: largest {:.6g} ({}), median {:.6g}".format(name, *grad_reading(g, want)[:3])
+              for name, g in controls.items()), flush=True)
+    check(largest <= limit[0] and median <= limit[1],
+          f"egnn_train: {label}: gradients through the kernels disagree with the plain route")
+
+
+def run_egnn_train(graphs, serve_graphs, device, per_step):
+    """Phase 7: the SC25-shaped EGNN trained at full width through K1 and K2
+    with gradients (``make_train_step``), against the same steps through
+    the kernels' plain versions; one epoch of ``api.run_training``; one
+    energy-force step. Returns the launches by (kernel, case) of the kernel
+    route's trajectory, the epoch and the energy-force step."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import GraphLoader, split_dataset
+    from hydragnn_tpu_torch.data.pipeline import _pack_spec
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import compute_loss, make_train_step
+
+    label = "egnn_train"
+    wrappers = _wrappers()
+    config = train_config()
+    tr, va, te = split_dataset(graphs, 0.9, seed=0)
+    config = update_config(config, tr, va, te)
+    arch, training = config["NeuralNetwork"]["Architecture"], config["NeuralNetwork"]["Training"]
+    # the serving cell's packed budget, so the kernels run at the shapes
+    # the kernel phase checked and timed
+    spec = _pack_spec(serve_graphs, int(training["batch_size"]))
+    loader = GraphLoader(tr, int(training["batch_size"]), spec=spec, pack=True,
+                         shuffle=True, seed=0, sort_edges=True)
+    batches = list(loader)
+    steps = len(batches)
+    check(steps >= 20, f"{label}: {steps} packed batches, fewer than 20 steps")
+    print(f"{label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, {arch['num_conv_layers']} "
+          f"conv layers, heads {arch['output_heads']['graph']['dim_headlayers']} / "
+          f"{arch['output_heads']['node']['dim_headlayers']}, task weights "
+          f"{arch['task_weights']}, AdamW lr 1e-3 (optax defaults), MAE, packed batch "
+          f"{training['batch_size']} ({spec}), bf16 mixed precision, guard on, sorted "
+          f"aggregation {arch['use_sorted_aggregation']}, fused edge "
+          f"{arch['use_fused_edge_kernel']}; {len(tr)} training graphs, {steps} steps, "
+          f"random weights (seed {SEED})", flush=True)
+    model = create_model(config, device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # 1-2. one step's gradients through K1/K2 against the plain versions,
+    # from the same weights on the same batch, in f32 and in bf16; every
+    # parameter's gradient finite and nonzero
+    routes = train_routes()
+    for mp in (False, True):
+        dname = "bf16" if mp else "f32"
+        grads = {}
+        for route, (swap, k1) in routes.items():
+            state = _train_copy(model, device)
+            with plain_versions(swap, k1):
+                make_train_step(state.model, mixed_precision=mp)(state, batches[0])
+            grads[route] = _grads(state)
+        torch.cuda.synchronize()
+        bad = [n for n, g in grads["kernels"].items()
+               if not bool(torch.isfinite(g).all()) or float(g.norm()) == 0.0]
+        print(f"{label}: {dname} step-0 gradients of {len(grads["kernels"])} parameters "
+              f"({n_params} values): {len(bad)} not finite or zero {bad[:5]}", flush=True)
+        check(not bad, f"{label}: parameters without a finite nonzero gradient: {bad[:5]}")
+        grad_gate(f"{dname} gradients vs plain route", grads["kernels"], grads["plain"],
+                  TRAIN_RTOL[f"{dname} gradients"],
+                  {r: g for r, g in grads.items() if r not in ("kernels", "plain")})
+        del grads, state
+
+    # 3-5. the trajectories: every step through the kernels (the main path:
+    # launch counts from 0, read right after) and through the plain versions
+    losses = {}
+    for plain in (False, True):
+        state = _train_copy(model, device)
+        step = make_train_step(state.model, mixed_precision=True)
+        torch.cuda.synchronize()
+        if not plain:
+            _zero_launches(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+        out, t0 = [], None
+        with plain_versions(PLAIN if plain else ()):
+            for i, b in enumerate(batches):
+                if i == 3:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out.append(step(state, b)[1])
+            torch.cuda.synchronize()
+        if not plain:
+            wall = time.perf_counter() - t0
+            launched = _check_launches(label, wrappers, per_step, steps)
+            peak = torch.cuda.max_memory_allocated()
+            real = sum(int(b.graph_mask.sum()) for b in batches[3:])
+            skipped = int(state.skipped_steps)
+            kernel_state = state
+        losses[plain] = torch.stack(out).float().cpu().numpy()
+    lk, lp = losses[False], losses[True]
+    rel = np.abs(lk - lp) / np.abs(lp)
+    print(f"{label}: losses through the kernels {lk[0]:.6g} -> {lk[-1]:.6g}, through the plain "
+          f"versions {lp[0]:.6g} -> {lp[-1]:.6g} over {steps} steps; per-step relative "
+          f"difference largest {float(rel.max()):.6g} (step {int(rel.argmax())}), median "
+          f"{float(np.median(rel)):.6g} (limit {TRAIN_RTOL['trajectory']}); guard skips "
+          f"{skipped}", flush=True)
+    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{label}: a non-finite loss")
+    check(float(rel.max()) <= TRAIN_RTOL["trajectory"], f"{label}: the trajectories part")
+    check(skipped == 0, f"{label}: the guard skipped {skipped} steps")
+    ms = wall * 1e3 / (steps - 3)
+    print(f"{label}: {ms:.2f} ms per step, {real / wall:.1f} graphs/s trained (steps 4-{steps}, "
+          f"{real} real graphs); peak memory {peak / 2**20:.1f} MiB", flush=True)
+    step = make_train_step(kernel_state.model, mixed_precision=True)
+    profile_forward(label, f"one train step of {int(batches[0].graph_mask.sum())} graphs "
+                           "(forward, backward, guard and AdamW)",
+                    lambda: step(kernel_state, batches[0]), noun="step", groups={
+                        "K1 (forward)": ["sorted_segment_sum_"],
+                        "K2 (forward, with its row-pointer and W-layout kernels)":
+                            ["fused_edge_kernel", "rowptr_kernel", "prep_w_kernel"],
+                        "f32 GEMMs (cuBLAS and CUTLASS, forward and backward)":
+                            ["gemm_f32f32", "sgemm"],
+                        "bf16 GEMMs": ["bf16_s16816gemm"],
+                        "AdamW and the guard's copy (multi-tensor kernels)":
+                            ["multi_tensor_apply"],
+                        "the guard's merge and other selects (where)": ["where"],
+                        "gathers' backwards (index_add_, indexing backward)":
+                            ["indexing_backward", "indexFuncLargeIndex", "index_add"],
+                    })
+    del kernel_state, state, step
+
+    # the user's entry point: run_training with no device (the current CUDA
+    # device), one epoch on the egnn cell's split (its budget, so the
+    # kernels' shapes again): every train step and every val/test batch
+    # launches the step's table, none in a backward
+    from hydragnn_tpu_torch.api import prepare_data, run_training
+
+    splits = split_dataset(serve_graphs, 0.9, seed=0)
+    _, loaders, _ = prepare_data(train_config(), splits)
+    units = sum(len(loader) for loader in loaders)
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    _, rt_state, hist = run_training(train_config(), datasets=splits, seed=SEED)
+    torch.cuda.synchronize()
+    rt_s = time.perf_counter() - t0
+    rt_launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
+                                  "steps and eval batches")
+    print(f"{label}: run_training (no device given: {rt_state.step.device}), 1 epoch in "
+          f"{rt_s:.2f} s: {int(rt_state.step)} steps, history {hist}, guard skips "
+          f"{int(rt_state.skipped_steps)}", flush=True)
+    check(rt_state.step.device.type == "cuda" and int(rt_state.step) == len(loaders[0])
+          and int(rt_state.skipped_steps) == 0
+          and all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k]),
+          f"{label}: run_training did not train on the card")
+    del rt_state
+
+    # 6. one energy-force step at full width: forces -dE/dpos and the
+    # parameter gradients (a double backward through K1 and K2) against the
+    # plain route, f32, from the same weights on the same batch
+    import dataclasses
+
+    ef_graphs = [dataclasses.replace(g, x=g.x[:, :1]) for g in serve_graphs]
+    tr, va, te = split_dataset(ef_graphs, 0.9, seed=0)
+    ef_config = update_config(train_config(energy_force=True), tr, va, te)
+    ef_model = create_model(ef_config, device=device, seed=SEED)
+    batch = next(iter(GraphLoader(tr, 32, spec=spec, pack=True, shuffle=False,
+                                  sort_edges=True))).to(device)
+    res = {}
+    for route, (swap, k1) in routes.items():
+        m = copy.deepcopy(ef_model).train()
+        if route == "kernels":
+            torch.cuda.synchronize()
+            _zero_launches(wrappers)
+        with plain_versions(swap, k1):
+            tot, tasks, preds = compute_loss(m, batch, m.cfg, True)
+            tot.backward()
+            torch.cuda.synchronize()
+        if route == "kernels":
+            ef_launched = _check_launches(f"{label} energy-force", wrappers, EF_PER_STEP, 1)
+        res[route] = (tot.item(), preds["forces"].detach(),
+                      {n: p.grad.detach().clone() for n, p in m.named_parameters()})
+        del m, tot, tasks, preds
+    # the same step in f64 (weights, inputs and sums): how far each f32
+    # route lies from the exact forces and gradients
+    m = copy.deepcopy(ef_model).double().train()
+    b64 = batch.replace(**{f: getattr(batch, f).double() for f in ("x", "pos", "edge_attr",
+                                                                    "edge_shifts")
+                           if getattr(batch, f) is not None})
+    with f64_sums():
+        tot, tasks, preds = compute_loss(m, b64, m.cfg, True)
+        tot.backward()
+    f64 = (preds["forces"].detach(), {n: p.grad.detach() for n, p in m.named_parameters()})
+    del m, b64, tot, tasks, preds
+    # K1's sums on this step's data against f64 (the forward, with forces)
+    readings = []
+    with k1_against_f64(readings):
+        compute_loss(copy.deepcopy(ef_model).train(), batch, ef_model.cfg, True)
+    torch.cuda.synchronize()
+    for i, (case, errs) in enumerate(readings):
+        print(f"{label}: energy-force K1 call {i} ({case}) against an f64 sum, (largest, rms) "
+              "relative: " + ", ".join(f"{k} ({a:.3g}, {r:.3g})" for k, (a, r) in errs.items()),
+              flush=True)
+        check(all(k <= p for k, p in zip(errs["kernel"], errs["fixed order"])),
+              f"{label}: K1's sums in call {i} lie further from f64 than its plain version's")
+    (tk, fk, gk), (tp, fp, gp) = res["kernels"], res["plain"]
+    mask = batch.node_mask
+    scale = float(fp[mask].abs().max())
+
+    def rows(f):
+        return (f - fp)[mask].abs().max(dim=1).values / scale
+
+    frow = rows(fk)
+    controls = [r for r in routes if r not in ("kernels", "plain")]
+    lim = TRAIN_RTOL["energy-force forces"]
+    print(f"{label}: energy-force step (f32, {int(mask.sum())} atoms): loss {tk:.6g} vs plain "
+          f"{tp:.6g}; forces largest row {float(frow.max()):.6g}, median row "
+          f"{float(frow.median()):.6g} of max |F_plain| {scale:.6g} (limits {lim})" + "".join(
+              f"; {r}: largest row {float(rows(res[r][1]).max()):.6g}, median row "
+              f"{float(rows(res[r][1]).median()):.6g}" for r in controls),
+          flush=True)
+    print(f"{label}: energy-force loss relative difference {abs(tk - tp) / abs(tp):.6g} "
+          f"(limit {TRAIN_RTOL['energy-force loss']})" + "".join(
+              f"; {r}: {abs(res[r][0] - tp) / abs(tp):.6g}" for r in controls), flush=True)
+    check(math.isfinite(tk) and abs(tk - tp) <= TRAIN_RTOL["energy-force loss"] * abs(tp),
+          f"{label}: the energy-force loss disagrees with the plain route")
+    check(float(frow.max()) <= lim[0] and float(frow.median()) <= lim[1],
+          f"{label}: the forces disagree with the plain route")
+    bad = [n for n, g in gk.items() if not bool(torch.isfinite(g).all()) or float(g.norm()) == 0.0]
+    check(not bad, f"{label}: energy-force parameters without a finite nonzero gradient: {bad[:5]}")
+    grad_gate("energy-force gradients vs plain route", gk, gp, TRAIN_RTOL["energy-force gradients"],
+              {r: res[r][2] for r in controls})
+    # every route, and rounding draws (the plain route's graph with other
+    # f32 values of K1's sums: its kernel's in some calls), against the f64
+    # step: no gate, as one ulp in one sum can move the whole step (PERF.md)
+    for draw, calls in (("K1's sums correctly rounded", None),
+                        ("K1's kernel values in every call", set(range(6))),
+                        *((f"K1's kernel values in call {c} only", {c}) for c in range(6)),
+                        ("K1's kernel values in calls 1, 3 and 5 (C = 866)", {1, 3, 5})):
+        m = copy.deepcopy(ef_model).train()
+        with plain_versions(PLAIN, k1_values(calls)):
+            tot, tasks, preds = compute_loss(m, batch, m.cfg, True)
+            tot.backward()
+        res[f"the plain route with {draw}"] = (
+            tot.item(), preds["forces"].detach(),
+            {n: p.grad.detach().clone() for n, p in m.named_parameters()})
+        del m, tot, tasks, preds
+    f_scale = float(f64[0][mask].abs().max())
+
+    def from_f64(f, g):
+        frows = (f - f64[0])[mask].abs().max(dim=1).values / f_scale
+        return float(frows.max()), float(frows.median()), grad_reading(g, f64[1])[2]
+
+    print(f"{label}: energy-force step against the same step in f64, (largest force row, median "
+          f"force row, median parameter gradient) relative: " + "; ".join(
+              "{} ({:.3g}, {:.3g}, {:.3g})".format(r, *from_f64(f, g))
+              for r, (_, f, g) in res.items()), flush=True)
+    merged = collections.Counter(launched)
+    merged.update(rt_launched)
+    merged.update(ef_launched)
+    return merged
 
 
 def main() -> None:
+    t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only (no serving phase)")
@@ -1246,7 +1873,7 @@ def main() -> None:
     torch.cuda.synchronize()
     library_report(LIBRARIES)
 
-    launched = {}
+    launched = collections.Counter()
     if not args.kernels:
         per_batch_cases = {
             "egnn": {"K1": {"bfloat16/C866": 1, "float32/C866": 2,
@@ -1261,17 +1888,20 @@ def main() -> None:
             launched.update(run_serving(label, config, graphs, device, N_REQUESTS,
                                         per_batch_cases[label]))
         launched.update(run_gin_ring(topology, topology_s, device, GIN_RING_REQUESTS))
+        launched.update(run_egnn_train(oc20_shaped_dataset(TRAIN_GRAPHS),
+                                       paths["egnn"][1], device, TRAIN_PER_STEP))
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a
     # path (the last EGNN conv and the SP path run in f32), so they stay out
-    # of the kernels line
+    # of the kernels line; launches count every path, training included
     on_path = [k for k in kernels if args.kernels or k["launches"] > 0]
     off_path = [k for k in kernels if k not in on_path]
     for k in off_path:
         print(f"measured off the served path: {json.dumps(k)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in on_path]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

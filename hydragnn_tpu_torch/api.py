@@ -1,7 +1,7 @@
-"""Config-driven entry points: ``prepare_data``, ``run_prediction`` and
-``run_server`` (single host).
+"""Config-driven entry points: ``prepare_data``, ``run_training``,
+``run_prediction`` and ``run_server`` (single host).
 
-Counterpart of the serving side of ``hydragnn_tpu/api.py``. Checkpoint
+Counterpart of ``hydragnn_tpu/api.py``. Checkpoint
 restore comes with a later slice, so the model's weights come from the
 caller: ``variables`` (a JAX package checkpoint tree as numpy arrays, loaded
 by ``bridge.load_jax_variables``), or else the seeded fresh initialization.
@@ -71,6 +71,30 @@ def _model(config, variables, device, seed):
     return model
 
 
+def run_training(config, datasets=None, variables=None, device: DeviceLike = None,
+                 seed: int = 0):
+    """Train on the train split, validating and testing every epoch:
+    ``(model, state, history)``. The initial weights are ``variables`` (a
+    JAX checkpoint tree), else the seeded initialization."""
+    from .train.loop import train_validate_test
+    from .train.optimizer import make_optimizer
+    from .train.state import TrainState
+
+    config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
+    model = _model(config, variables, resolve_device(device), seed)
+    training = config["NeuralNetwork"]["Training"]
+    optimizer = make_optimizer(
+        model, training["Optimizer"],
+        freeze_conv=bool(config["NeuralNetwork"]["Architecture"].get("freeze_conv_layers", False)),
+    )
+    state = TrainState.create(model, optimizer)
+    state, hist = train_validate_test(
+        model, state, train_loader, val_loader, test_loader, config,
+        log_name=get_log_name_config(config), verbosity=config["Verbosity"].get("level", 0),
+    )
+    return model, state, hist
+
+
 def run_prediction(config, variables=None, datasets=None, device: DeviceLike = None,
                    seed: int = 0):
     """Evaluate on the test split: ``(loss, per-task losses, predictions,
@@ -80,9 +104,11 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
 
     config, (_, _, test_loader), _ = prepare_data(config, datasets)
     model = _model(config, variables, resolve_device(device), seed)
+    training = config["NeuralNetwork"]["Training"]
     return test_model(
         model, test_loader,
-        mixed_precision=bool(config["NeuralNetwork"]["Training"].get("mixed_precision", False)),
+        mixed_precision=bool(training.get("mixed_precision", False)),
+        compute_grad_energy=bool(training.get("compute_grad_energy", False)),
     )
 
 

@@ -70,11 +70,14 @@ def update_config(
     """Complete a user config from the data; returns a new dict.
 
     Derived here: ``graph_size_variable``, ``max_nodes_per_graph``, the GPS
-    defaults, ``num_pad_buckets``, output dims and types, ``num_nodes``,
-    ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), the
+    defaults, ``num_pad_buckets``, output dims and types (under
+    ``compute_grad_energy`` the dims from ``Variables_of_interest``),
+    ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), the
     measured ``max_in_degree`` (a supplied bound below the data's raises),
-    and the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
-    ``use_flash_attention`` defaults."""
+    the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
+    ``use_flash_attention`` defaults, and the Training section's defaults
+    (``num_epoch``, ``Optimizer``, ``EarlyStopping``, ``patience``,
+    ``mixed_precision``, ``loss_function_type``)."""
     config = copy.deepcopy(config)
     arch = config["NeuralNetwork"]["Architecture"]
     training = config["NeuralNetwork"]["Training"]
@@ -92,29 +95,35 @@ def update_config(
     arch.setdefault("pe_dim", 0)
 
     training.setdefault("compute_grad_energy", False)
-    if training["compute_grad_energy"]:
-        raise NotImplementedError(
-            "Training.compute_grad_energy (energy-force) comes with the "
-            "training slice of the port"
-        )
     training.setdefault("num_pad_buckets", 4 if graph_size_variable else 1)
 
     voi = voi_from_config(config)
     sample = trainset[0]
     output_dim: List[int] = []
-    for t, idx in zip(voi.output_types, voi.output_index):
-        if t == "graph":
-            output_dim.append(int(voi.graph_feature_dims[idx]))
-        elif t == "node":
-            dim = int(voi.node_feature_dims[idx])
-            node_head = arch["output_heads"].get("node", {})
-            if isinstance(node_head, list):  # multibranch list form
-                node_head = node_head[0].get("architecture", {}) if node_head else {}
-            if not graph_size_variable and node_head.get("type") == "mlp_per_node":
-                dim *= sample.num_nodes
-            output_dim.append(dim)
-        else:
-            raise ValueError(f"output type {t!r} not graph or node")
+    if training["compute_grad_energy"]:
+        # energy-force training: the nodal-energy head's dims come from the
+        # config, as they cannot be derived from the data
+        if "output_dim" not in var:
+            raise KeyError(
+                "Training.compute_grad_energy requires "
+                "Variables_of_interest.output_dim (the nodal-energy head "
+                "dims, usually [1]) since they cannot be derived from data"
+            )
+        output_dim = [int(d) for d in var["output_dim"]]
+    else:
+        for t, idx in zip(voi.output_types, voi.output_index):
+            if t == "graph":
+                output_dim.append(int(voi.graph_feature_dims[idx]))
+            elif t == "node":
+                dim = int(voi.node_feature_dims[idx])
+                node_head = arch["output_heads"].get("node", {})
+                if isinstance(node_head, list):  # multibranch list form
+                    node_head = node_head[0].get("architecture", {}) if node_head else {}
+                if not graph_size_variable and node_head.get("type") == "mlp_per_node":
+                    dim *= sample.num_nodes
+                output_dim.append(dim)
+            else:
+                raise ValueError(f"output type {t!r} not graph or node")
     arch["output_dim"] = output_dim
     arch["output_type"] = list(voi.output_types)
     arch["num_nodes"] = sample.num_nodes
@@ -194,6 +203,9 @@ def update_config(
     training.setdefault("batch_size", 32)
     training.setdefault("num_epoch", 1)
     training.setdefault("perc_train", 0.7)
+    training.setdefault("patience", 10)
+    training.setdefault("EarlyStopping", False)
+    training.setdefault("mixed_precision", False)
     training.setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
     training["Optimizer"].setdefault("type", "AdamW")
     training["Optimizer"].setdefault("learning_rate", 1e-3)

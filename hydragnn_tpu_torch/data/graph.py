@@ -92,6 +92,10 @@ class GraphBatch:
     z: Optional[torch.Tensor] = None
     graph_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     node_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # node_graph ascends (each graph's nodes contiguous): true where the
+    # host built the batch (batch_graphs), so the pooling can sum in node
+    # order without checking the ids on the device
+    graphs_contiguous: bool = False
 
     @property
     def num_nodes(self) -> int:
@@ -125,11 +129,12 @@ class GraphBatch:
         kw = {
             f.name: mv(getattr(self, f.name))
             for f in dataclasses.fields(self)
-            if f.name not in ("graph_targets", "node_targets")
+            if f.name not in ("graph_targets", "node_targets", "graphs_contiguous")
         }
         return GraphBatch(
             graph_targets={k: mv(v) for k, v in self.graph_targets.items()},
             node_targets={k: mv(v) for k, v in self.node_targets.items()},
+            graphs_contiguous=self.graphs_contiguous,
             **kw,
         )
 
@@ -336,7 +341,8 @@ _INDEX_FIELDS = ("senders", "receivers", "node_graph", "dataset_id", "z")
 
 
 def graph_batch_from_np(arrs: Dict[str, np.ndarray]) -> GraphBatch:
-    """Assemble a CPU ``GraphBatch`` from ``batch_graphs_np`` output."""
+    """Assemble a CPU ``GraphBatch`` from ``batch_graphs_np`` output (whose
+    graphs are contiguous along the node axis)."""
 
     def t(k, v):
         v = torch.from_numpy(np.ascontiguousarray(v))
@@ -351,7 +357,8 @@ def graph_batch_from_np(arrs: Dict[str, np.ndarray]) -> GraphBatch:
         if k.startswith("node_targets/")
     }
     kwargs = {k: t(k, v) for k, v in arrs.items() if "/" not in k}
-    return GraphBatch(graph_targets=graph_targets, node_targets=node_targets, **kwargs)
+    return GraphBatch(graph_targets=graph_targets, node_targets=node_targets,
+                      graphs_contiguous=True, **kwargs)
 
 
 def batch_graphs(

@@ -239,14 +239,14 @@ class HydraModel(nn.Module):
         equiv = batch.pos
         for conv, bn in zip(self.graph_convs, self.feature_layers):
             inv, equiv = conv(inv, equiv, batch)
-            inv = self.act(bn(inv, batch.node_mask))
+            inv = self.act(bn(inv, batch.node_mask, train=self.training))
         return inv, equiv
 
     def forward(self, batch) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         x, _ = self.encode(batch)
         x_graph = masked_global_mean_pool(x, batch.node_graph, batch.num_graphs,
-                                          batch.node_mask)
+                                          batch.node_mask, batch.graphs_contiguous)
         outputs: Dict[str, torch.Tensor] = {}
         for ihead, (name, t, d) in enumerate(
             zip(cfg.output_names, cfg.output_type, cfg.output_dim)

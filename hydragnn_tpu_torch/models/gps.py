@@ -191,8 +191,8 @@ class GPSConv(nn.Module):
     def forward(self, inv, equiv, batch):
         drop = lambda t: F.dropout(t, self.dropout, self.training)  # noqa: E731
         h, equiv = self.conv(inv, equiv, batch)
-        local = self.MaskedBatchNorm_0(drop(h) + inv, batch.node_mask)
+        local = self.MaskedBatchNorm_0(drop(h) + inv, batch.node_mask, self.training)
         h = drop(getattr(self, self.attn_name)(inv, batch)) + inv
-        out = local + self.MaskedBatchNorm_1(h, batch.node_mask)
+        out = local + self.MaskedBatchNorm_1(h, batch.node_mask, self.training)
         out = out + drop(self.Dense_1(drop(torch.relu(self.Dense_0(out)))))
-        return self.MaskedBatchNorm_2(out, batch.node_mask), equiv
+        return self.MaskedBatchNorm_2(out, batch.node_mask, self.training), equiv

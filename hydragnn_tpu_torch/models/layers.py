@@ -185,10 +185,13 @@ class MLP(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over real nodes, eval path: normalizes with the running
-    statistics (buffers ``mean``, ``var``, ``count``, as in the flax
-    ``batch_stats`` collection). The training update comes with the
-    training slice."""
+    """Batch norm over real nodes. Training normalizes with the batch's
+    masked statistics and updates the running ones (buffers ``mean``,
+    ``var``, ``count``, as in the flax ``batch_stats`` collection) by the
+    JAX module's count-weighted EMA; eval normalizes with the running
+    statistics."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -206,12 +209,32 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask=None, train: bool = False):
         if train:
-            raise NotImplementedError(
-                "MaskedBatchNorm training statistics come with the training "
-                "slice of the port; this slice serves (eval) only"
-            )
-        y = (x - self.mean) / torch.sqrt(self.var + self.epsilon)
+            # the statistics over the rows of ``mask``, in the activations'
+            # dtype, as the JAX module computes them
+            m = mask[:, None].to(x.dtype)
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=0) / n
+            var = (((x - mean) ** 2) * m).sum(dim=0) / n
+            self._update_running(n, mean, var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) / torch.sqrt(var + self.epsilon)
         return y * self.scale + self.bias
+
+    @torch.no_grad()
+    def _update_running(self, n, mean, var) -> None:
+        """Count-weighted EMA: a batch with few real rows moves the running
+        statistics proportionally less (for constant batch sizes the torch
+        BatchNorm1d update). The buffers keep their own dtype (f32 under
+        mixed precision, whatever the activations')."""
+        count = self.count.float()
+        # (1 - momentum) * n in n's dtype, then widened, as jnp promotes it
+        c_new = self.momentum * count + ((1 - self.momentum) * n).float()
+        w_old = self.momentum * count / torch.clamp(c_new, min=1e-8)
+        w_new = 1.0 - w_old
+        self.mean.copy_(w_old * self.mean.float() + w_new * mean.float())
+        self.var.copy_(w_old * self.var.float() + w_new * var.float())
+        self.count.copy_(c_new)
 
 
 def pair_message_factored(recv, send, inv, batch, terms=()):

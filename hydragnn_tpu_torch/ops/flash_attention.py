@@ -25,7 +25,9 @@ block, which ``parallel/ring_attention.py`` merges across ring steps;
 ``reference_block_summary`` is its plain version.
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
-CUDA tensor; anything else raises. Unlike the TPU kernel, K4 needs no
+CUDA tensor; anything else raises. The kernels have no backward yet: asked
+for a gradient on the card, the wrappers raise (the plain versions are
+differentiable). Unlike the TPU kernel, K4 needs no
 static node bound: each q tile's key window is derived on the card from
 ``node_graph``. ``<wrapper>.launches`` counts kernel launches
 (``launches_by_case`` splits them by dtype and head shape).
@@ -40,7 +42,7 @@ import math
 import torch
 
 from . import _build
-from .sorted_segment import _DTYPE_CODES, _check_current_device
+from .sorted_segment import _DTYPE_CODES, _check_current_device, refuse_grad
 
 # both entries: q, k, v, three row strides, four pointers, four sizes,
 # scale_log2, dtype code, stream
@@ -159,6 +161,7 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, node_graph, node_mask)
     _check_heads("flash_self_attention", q)
+    refuse_grad("flash_self_attention", q, k, v)
     dtype = q.dtype
     n, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -209,6 +212,7 @@ def flash_block_summary(q, k, v, key_mask):
         return reference_block_summary(q, k, v, key_mask)
     fn = "flash_block_summary"
     _check_heads(fn, q)
+    refuse_grad(fn, q, k, v)
     dtype = q.dtype
     nq, h, d = q.shape
     nk = k.shape[0] if k.dim() == 3 else -1

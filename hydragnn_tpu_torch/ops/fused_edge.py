@@ -14,6 +14,13 @@ The wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor; anything else raises. ``fused_edge_message_sum.launches``
 counts kernel launches (``launches_by_case`` splits them by dtype and
 widths).
+
+The kernel's route is differentiable to any order, as the JAX kernel's
+``custom_jvp`` (whose tangent rule is the dense reference, rematerialized)
+is: one ``torch.autograd.Function`` saves only its inputs, and its
+backward recomputes the messages through ``reference_edge_message_sum``
+and differentiates that, so the backward launches no kernel. The plain
+version is ordinary autograd.
 """
 
 from __future__ import annotations
@@ -95,6 +102,40 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     check_ids(segment_ids, e, edge_in.device)
     if max(edge_in.numel(), node_recv.numel(), num_segments * co, ci * co) >= 2**31:
         raise ValueError("fused_edge_message_sum: more than 2**31 elements")
+    inputs = (node_recv, edge_in, weights, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedEdgeMessageSum.apply(*inputs, segment_ids, num_segments)
+    return _launch(*inputs, segment_ids, num_segments)
+
+
+class _FusedEdgeMessageSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, node_recv, edge_in, weights, bias, segment_ids, num_segments):
+        ctx.save_for_backward(node_recv, edge_in, weights, bias, segment_ids)
+        ctx.num_segments = num_segments
+        return _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, dout):
+        *inputs, segment_ids = ctx.saved_tensors
+        want = ctx.needs_input_grad[:4]
+        create = torch.is_grad_enabled()  # a double backward is asked for
+        with torch.enable_grad():
+            # under a double backward the recompute hangs off the saved
+            # inputs (through fresh views, so each gradient is the partial
+            # of this op alone); otherwise off detached leaves
+            leaves = [t.view_as(t) if create and t.requires_grad
+                      else t.detach().requires_grad_(w) for t, w in zip(inputs, want)]
+            out = reference_edge_message_sum(*leaves, segment_ids, ctx.num_segments)
+            wanted = [t for t, w in zip(leaves, want) if w]
+            grads = iter(torch.autograd.grad(out, wanted, dout, create_graph=create))
+        return (*(next(grads) if w else None for w in want), None, None)
+
+
+def _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments: int):
+    dtype = edge_in.dtype
+    e, ci = edge_in.shape
+    co = weights.shape[1]
     out = torch.empty((num_segments, co), dtype=dtype, device=edge_in.device)
     if out.numel() == 0:
         return out

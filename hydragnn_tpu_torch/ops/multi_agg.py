@@ -12,7 +12,9 @@ ascend; unlike the TPU kernel, every row is exact whatever its degree, the
 dummy padding row included.
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor (one launch, one scratch tensor); anything else raises.
+CUDA tensor (one launch, one scratch tensor); anything else raises. The
+kernel has no backward yet: asked for a gradient on the card, the wrapper
+raises (the plain version is differentiable).
 ``fused_multi_agg.launches`` counts kernel launches (``launches_by_case``
 splits them by dtype and width).
 """
@@ -25,7 +27,7 @@ import ctypes
 import torch
 
 from . import _build
-from .sorted_segment import _DTYPE_CODES, _check_current_device, check_ids
+from .sorted_segment import _DTYPE_CODES, _check_current_device, check_ids, refuse_grad
 
 _SIGNATURES = {
     "hg_multi_agg": (
@@ -98,6 +100,7 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
         return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
     if edge_in.device.type != "cuda":
         raise ValueError(f"fused_multi_agg: unsupported device {edge_in.device}")
+    refuse_grad("fused_multi_agg", node_recv, edge_in, gate)
     dtype = edge_in.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_multi_agg: dtype {dtype} not supported")

@@ -127,12 +127,20 @@ def segment_std(messages, segment_ids, num_segments: int, mask=None, eps: float 
     return torch.sqrt(var + eps).to(messages.dtype)
 
 
-def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask):
-    """Per-graph mean over real nodes. ``node_graph`` ascends (graphs are
-    contiguous along the node axis, as ``batch_graphs`` lays them out), so
-    each graph's nodes are summed in node order: the same bits on every run,
-    where ``index_add_`` on the card adds in the order its atomics land."""
-    s = sorted_segment_sum_plain(_mask_messages(x, node_mask), node_graph, num_graphs)
+def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask,
+                            contiguous: bool = False):
+    """Per-graph mean over real nodes, differentiable to any order. Where
+    the caller knows ``node_graph`` ascends (``contiguous``: graphs
+    contiguous along the node axis, as ``batch_graphs`` lays them out and
+    records in ``GraphBatch.graphs_contiguous``), each graph's nodes are
+    summed in node order: the same bits on every run, where ``index_add_``
+    on the card adds in the order its atomics land. Any other order takes
+    ``index_add_``."""
+    msg = _mask_messages(x, node_mask)
+    if contiguous:
+        s = sorted_segment_sum_plain(msg, node_graph, num_graphs)
+    else:
+        s = segment_sum_plain(msg, node_graph, num_graphs)
     n = torch.clamp(segment_count(node_graph, num_graphs, node_mask), min=1.0)
     # f32 counts promote a bf16 sum to f32, as jnp does
     return s / n.reshape(n.shape + (1,) * (s.dim() - 1))

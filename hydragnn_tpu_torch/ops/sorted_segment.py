@@ -13,6 +13,13 @@ CUDA tensor (one launch: the kernel finds each row's edges itself, with no
 row-pointer scratch); anything else raises. ``sorted_segment_sum.launches``
 counts kernel launches (``launches_by_case`` splits them by dtype and
 width).
+
+Both are differentiable to any order, as the JAX kernel's ``custom_jvp``
+is: one ``torch.autograd.Function`` whose backward is the gather
+``dout[ids]`` in differentiable torch ops (the TPU kernel has no backward
+kernel, so neither has this one). Edges whose id lies outside
+``[0, num_segments)`` are dropped by the forward and get a zero gradient.
+With no gradient asked for, the forward runs without the Function.
 """
 
 from __future__ import annotations
@@ -34,13 +41,9 @@ _SIGNATURES = {
 }
 
 
-def sorted_segment_sum_plain(messages, segment_ids, num_segments: int):
-    """The same function as the kernel, for CPU tensors and for comparison:
-    ``torch.segment_reduce`` in f32 over the row lengths of the ascending
-    ids, returned in the messages' dtype. Each row is summed in edge order,
-    so two calls give the same bits on the card too (``index_add_`` adds in
-    the order its atomics land). Edges whose id lies outside
-    ``[0, num_segments)`` are dropped."""
+def _fixed_order_sum(messages, segment_ids, num_segments: int):
+    """``torch.segment_reduce`` in f32 over the row lengths of the ascending
+    ids, returned in the messages' dtype."""
     ids = segment_ids.long()
     bounds = torch.searchsorted(
         ids, torch.arange(num_segments + 1, dtype=torch.int64, device=ids.device)
@@ -50,6 +53,46 @@ def sorted_segment_sum_plain(messages, segment_ids, num_segments: int):
         unsafe=True,
     )
     return out.to(messages.dtype)
+
+
+def _gather_rows(dout, segment_ids, num_segments: int):
+    """The backward of every segment sum here: ``dout[ids]``, zero for ids
+    outside ``[0, num_segments)``, in differentiable torch ops (its own
+    backward is ``index_add_``)."""
+    ids = segment_ids.long()
+    padded = torch.cat([dout, dout.new_zeros((1,) + tuple(dout.shape[1:]))])
+    return padded.index_select(0, torch.where((ids >= 0) & (ids < num_segments), ids,
+                                              num_segments))
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, messages, segment_ids, num_segments, forward):
+        ctx.save_for_backward(segment_ids)
+        ctx.num_segments = num_segments
+        return forward(messages, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (segment_ids,) = ctx.saved_tensors
+        return _gather_rows(dout, segment_ids, ctx.num_segments), None, None, None
+
+
+def _differentiable(forward, messages, segment_ids, num_segments: int):
+    if torch.is_grad_enabled() and messages.requires_grad:
+        return _SortedSegmentSum.apply(messages, segment_ids, num_segments, forward)
+    return forward(messages, segment_ids, num_segments)
+
+
+def sorted_segment_sum_plain(messages, segment_ids, num_segments: int):
+    """The same function as the kernel, for CPU tensors and for comparison:
+    ``torch.segment_reduce`` in f32 over the row lengths of the ascending
+    ids, returned in the messages' dtype. Each row is summed in edge order,
+    so two calls give the same bits on the card too (``index_add_`` adds in
+    the order its atomics land). Edges whose id lies outside
+    ``[0, num_segments)`` are dropped. Differentiable to any order through
+    the kernel's Function."""
+    return _differentiable(_fixed_order_sum, messages, segment_ids, num_segments)
 
 
 def segment_sum_plain(messages, segment_ids, num_segments: int):
@@ -84,6 +127,20 @@ def check_ids(segment_ids, n_edges: int, device) -> None:
         )
 
 
+def refuse_grad(fn: str, *tensors) -> None:
+    """Raise where a kernel without a backward is asked for a gradient (on
+    the card, grad mode on, a float input that requires grad), rather than
+    return a result outside the autograd graph."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise NotImplementedError(
+            f"{fn}: the kernel has no backward yet (it comes with a later "
+            "slice of the port); run it under torch.no_grad(), or on CPU "
+            "tensors, whose plain version is differentiable"
+        )
+
+
 def sorted_segment_sum(messages, segment_ids, num_segments: int):
     """``out[i] = sum_{e: ids[e] == i} messages[e]`` over ascending ids.
     ``messages`` [E, C] float32/bfloat16; returns [num_segments, C]."""
@@ -99,6 +156,11 @@ def sorted_segment_sum(messages, segment_ids, num_segments: int):
     check_ids(segment_ids, e, messages.device)
     if messages.numel() >= 2**31 or num_segments * c >= 2**31:
         raise ValueError("sorted_segment_sum: more than 2**31 elements")
+    return _differentiable(_launch, messages, segment_ids, num_segments)
+
+
+def _launch(messages, segment_ids, num_segments: int):
+    e, c = messages.shape
     out = torch.empty((num_segments, c), dtype=messages.dtype, device=messages.device)
     if out.numel() == 0:
         return out

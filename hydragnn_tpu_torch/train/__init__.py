@@ -1,1 +1,17 @@
-from .loop import cast_batch_bf16, mp_cast_eval, mp_cast_model, test_model
+from .guard import guarded_update, step_ok
+from .loop import (
+    BestCheckpoint,
+    EarlyStopping,
+    cast_batch_bf16,
+    evaluate,
+    make_eval_step,
+    make_train_step,
+    mp_cast_eval,
+    mp_cast_model,
+    test_model,
+    train_epoch,
+    train_validate_test,
+)
+from .loss import compute_loss, energy_force_loss, predict_energy_forces
+from .optimizer import ReduceLROnPlateau, clip_grad_norm, make_optimizer, optimizer_step
+from .state import TrainState

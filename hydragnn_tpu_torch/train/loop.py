@@ -1,21 +1,37 @@
-"""Evaluation loop and the mixed-precision eval cast.
+"""Training and evaluation loops, and the mixed-precision casts.
 
-Counterpart of the eval side of ``hydragnn_tpu/train/loop.py``
-(``cast_batch_bf16``, ``mp_cast_eval``, ``test_model``). The training step
-and its epoch loop come with the training slice.
+Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
+``make_eval_step``, ``train_epoch``, ``evaluate``, ``EarlyStopping``,
+``BestCheckpoint``, ``train_validate_test`` and ``test_model``, without
+the JAX package's numerics and fault-injection hooks, compile plane,
+telemetry and tracing planes, preemption and ``HYDRAGNN_*`` knobs.
+
+Under ``mixed_precision`` a train step runs the model on bf16 copies of
+its parameters made inside the differentiated function
+(``torch.func.functional_call``), so the gradients land on the f32
+masters; the batch-norm buffers stay f32 and take the EMA in f32, as
+``mp_cast`` and ``mp_restore_stats`` do. The eval cast also rounds the
+running statistics, as ``mp_cast_eval`` does.
+
+The losses of a step stay on the device; ``train_epoch`` and ``evaluate``
+read them once, at the end of the epoch.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Tuple
+import sys
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.graph import GraphBatch
 from ..device import module_device
-from .loss import multitask_loss
+from .guard import guarded_update, step_ok
+from .loss import compute_loss
+from .optimizer import ReduceLROnPlateau, optimizer_step
+from .state import TrainState
 
 # float batch fields cast to bfloat16 under mixed precision (targets and
 # masks stay f32/bool)
@@ -47,6 +63,89 @@ def mp_cast_eval(model: torch.nn.Module, batch: GraphBatch,
     return mp_cast_model(model), cast_batch_bf16(batch, keep_pos=compute_grad_energy)
 
 
+def _apply_fn(model, mixed_precision: bool, cast_buffers: bool) -> Callable:
+    """``batch -> outputs`` of ``model``; under mixed precision on bf16
+    casts of its parameters (and, for eval, of its float buffers) made
+    inside the call, so autograd carries the gradients to the f32
+    masters."""
+    if not mixed_precision:
+        return model
+
+    def apply(batch):
+        cast = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        if cast_buffers:
+            cast.update({n: b.to(torch.bfloat16) for n, b in model.named_buffers()
+                         if b.is_floating_point()})
+        return torch.func.functional_call(model, cast, (batch,))
+
+    return apply
+
+
+def make_train_step(model, compute_grad_energy: bool = False,
+                    mixed_precision: bool = False):
+    """``train_step(state, batch) -> (state, loss, per-task losses)``: one
+    optimizer step of ``state`` (updated in place) on ``batch``, the losses
+    as device tensors. ``compute_grad_energy`` trains the energy-force
+    objective. Where ``state.guard`` is set (``TrainState.create``'s
+    default) a step whose loss or global gradient norm is not finite is
+    skipped on the device (train/guard.py). The update is
+    ``optimizer_step`` (the optimizer's clip, then its step)."""
+    cfg = model.cfg
+    apply = _apply_fn(model, mixed_precision, cast_buffers=False)
+    params = list(model.parameters())
+
+    def train_step(state: TrainState, batch: GraphBatch):
+        opt = state.optimizer
+        batch = batch.to(module_device(model), non_blocking=True)
+        if mixed_precision:
+            batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
+        model.train()
+        if state.guard is not None:
+            # what the step may change, as it was before the forward (the
+            # forward updates the batch-norm buffers)
+            state.guard.save()
+        for p in params:
+            p.grad = None
+        tot, tasks, _ = compute_loss(apply, batch, cfg, compute_grad_energy)
+        tot = tot.float()
+        tot.backward()
+        with torch.no_grad():
+            for p in params:  # an unused parameter gets a zero gradient, as in optax
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if state.guard is not None:
+                guarded_update(state, step_ok(tot, grads), lambda: optimizer_step(opt, grads))
+            else:
+                optimizer_step(opt, grads)
+                state.step.add_(1)
+        return state, tot.detach(), {k: v.detach() for k, v in tasks.items()}
+
+    return train_step
+
+
+def make_eval_step(model, compute_grad_energy: bool = False,
+                   mixed_precision: bool = False):
+    """``eval_step(state, batch) -> (loss, per-task losses, outputs)`` with
+    the model in eval mode (running statistics), on the bf16 eval cast
+    under ``mixed_precision``. ``state`` may be None."""
+    cfg = model.cfg
+    apply = _apply_fn(model, mixed_precision, cast_buffers=True)
+
+    def eval_step(state, batch: GraphBatch):
+        batch = batch.to(module_device(model), non_blocking=True)
+        if mixed_precision:
+            batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
+        model.eval()
+        with torch.no_grad():  # the energy-force loss turns grad on for dE/dpos
+            tot, tasks, outputs = compute_loss(apply, batch, cfg, compute_grad_energy,
+                                               create_graph=False)
+        return (tot.detach(), {k: v.detach() for k, v in tasks.items()},
+                {k: v.detach() for k, v in outputs.items()})
+
+    return eval_step
+
+
 def _weighted_avg(entries: List[Tuple[float, Dict[str, float], int]]):
     total_n = sum(n for _, _, n in entries) or 1
     tot = sum(l * n for l, _, n in entries) / total_n
@@ -55,33 +154,160 @@ def _weighted_avg(entries: List[Tuple[float, Dict[str, float], int]]):
     return tot, tasks
 
 
-@torch.no_grad()
-def test_model(model, loader, mixed_precision: bool = False
+def _read_entries(entries):
+    """The epoch's device losses read back in one transfer."""
+    if not entries:
+        return []
+    names = list(entries[0][1])
+    flat = torch.stack([torch.stack([t.float()] + [d[k].float() for k in names])
+                        for t, d, _ in entries]).cpu().tolist()
+    return [(row[0], dict(zip(names, row[1:])), n) for row, (_, _, n) in zip(flat, entries)]
+
+
+def train_epoch(loader, step_fn, state: TrainState):
+    """One training epoch: ``(state, mean loss, mean per-task losses)``,
+    averaged over real graphs. A guarded-and-skipped step's non-finite loss
+    is left out of the means unless every step was non-finite."""
+    entries = []
+    for batch in loader:
+        state, tot, tasks = step_fn(state, batch)
+        # graph_mask is host data: reading it never waits on the device
+        entries.append((tot, tasks, int(batch.graph_mask.sum())))
+    entries = _read_entries(entries)
+    finite = [e for e in entries if np.isfinite(e[0])]
+    if finite and len(finite) < len(entries):
+        entries = finite
+    tot, tasks = _weighted_avg(entries)
+    return state, tot, tasks
+
+
+def evaluate(loader, eval_fn, state: Optional[TrainState] = None):
+    entries = []
+    for batch in loader:
+        tot, tasks, _ = eval_fn(state, batch)
+        entries.append((tot, tasks, int(batch.graph_mask.sum())))
+    return _weighted_avg(_read_entries(entries))
+
+
+class EarlyStopping:
+    def __init__(self, patience: int = 10, min_delta: float = 0.0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.best = float("inf")
+        self.count = 0
+
+    def __call__(self, val_loss: float) -> bool:
+        if val_loss < self.best - self.min_delta:
+            self.best = val_loss
+            self.count = 0
+            return False
+        self.count += 1
+        return self.count > self.patience
+
+
+class BestCheckpoint:
+    """Best-validation checkpointing: ``save_fn(state, epoch)`` on each new
+    best validation loss (the checkpoint files themselves come with a later
+    slice of the port)."""
+
+    def __init__(self, save_fn: Callable[..., None]):
+        self.save_fn = save_fn
+        self.best = float("inf")
+
+    def __call__(self, state: TrainState, val_loss: float, epoch: int) -> bool:
+        if val_loss >= self.best:
+            return False
+        self.best = val_loss
+        self.save_fn(state, epoch)
+        return True
+
+
+def _guard_report(state: TrainState, seen: int, epoch: int, log_name: str) -> int:
+    """The epoch's guard skips, read once at its end and printed. Returns
+    the total so far."""
+    skipped = int(state.skipped_steps)
+    if skipped > seen:
+        print(f"[{log_name}] epoch {epoch}: {skipped - seen} non-finite step(s) skipped "
+              f"by the train-step guard (total {skipped}, {int(state.consecutive_skips)} "
+              "consecutive at epoch end)", file=sys.stderr)
+    return skipped
+
+
+def train_validate_test(model, state: TrainState, train_loader, val_loader, test_loader,
+                        config: Dict[str, Any], log_name: str = "run", verbosity: int = 0,
+                        save_fn: Optional[Callable[..., None]] = None
+                        ) -> Tuple[TrainState, Dict[str, List[float]]]:
+    """The epoch loop: train, the guard's epoch report, validate and test,
+    the plateau scheduler on the validation loss, optional early stopping
+    and, given ``save_fn``, best-validation checkpointing
+    (``save_fn(state, epoch)``). Returns the final state (the best one when
+    early stopping or checkpointing is on) and the loss history
+    ``{"train", "val", "test", "lr"}``."""
+    training = config["NeuralNetwork"]["Training"]
+    compute_grad_energy = bool(training.get("compute_grad_energy", False))
+    mixed_precision = bool(training.get("mixed_precision", False))
+    step_fn = make_train_step(model, compute_grad_energy, mixed_precision)
+    eval_fn = make_eval_step(model, compute_grad_energy, mixed_precision)
+    scheduler = ReduceLROnPlateau()
+    stopper = (EarlyStopping(patience=training.get("patience", 10))
+               if training.get("EarlyStopping", False) else None)
+    checkpointer = BestCheckpoint(save_fn) if save_fn is not None else None
+    return_best = stopper is not None or checkpointer is not None
+    hist: Dict[str, List[float]] = {"train": [], "val": [], "test": [], "lr": []}
+    best_val, best_state = float("inf"), None
+    skipped = int(state.skipped_steps)
+    for epoch in range(int(training["num_epoch"])):
+        train_loader.set_epoch(epoch)
+        state, tr_loss, _ = train_epoch(train_loader, step_fn, state)
+        skipped = _guard_report(state, skipped, epoch, log_name)
+        va_loss, _ = evaluate(val_loader, eval_fn, state)
+        te_loss, _ = evaluate(test_loader, eval_fn, state)
+        for k, v in (("train", tr_loss), ("val", va_loss), ("test", te_loss)):
+            hist[k].append(v)
+        state = state.with_learning_rate(scheduler.step(va_loss, state.learning_rate))
+        hist["lr"].append(state.learning_rate)
+        if verbosity > 0:
+            print(f"[{log_name}] epoch {epoch}: train {tr_loss:.5f} val {va_loss:.5f} "
+                  f"test {te_loss:.5f} lr {state.learning_rate:.2e}")
+        if return_best and va_loss < best_val:
+            best_val, best_state = va_loss, state.state_dict()
+        if checkpointer is not None:
+            checkpointer(state, va_loss, epoch)
+        if stopper is not None and stopper(va_loss):
+            break
+    if best_state is not None:
+        state.load_state_dict(best_state)
+    return state, hist
+
+
+def test_model(model, loader, mixed_precision: bool = False,
+               compute_grad_energy: bool = False
                ) -> Tuple[float, Dict[str, float], Dict[str, np.ndarray], Dict[str, np.ndarray]]:
     """Full-dataset evaluation: (loss, per-task losses, predictions,
-    targets), the last two flattened over real rows per head."""
+    targets), the last two flattened over real rows per head (under
+    ``compute_grad_energy`` the graph energies and the forces)."""
     cfg = model.cfg
-    device = module_device(model)
-    run = mp_cast_model(model) if mixed_precision else model
-    names_types = list(zip(cfg.output_names, cfg.output_type))
+    eval_fn = make_eval_step(model, compute_grad_energy, mixed_precision)
+    if compute_grad_energy:
+        names_types = [(cfg.output_names[0], "graph"), ("forces", "node")]
+    else:
+        names_types = list(zip(cfg.output_names, cfg.output_type))
     entries = []
     preds: Dict[str, List[np.ndarray]] = {n: [] for n, _ in names_types}
     trues: Dict[str, List[np.ndarray]] = {n: [] for n, _ in names_types}
     for batch in loader:
-        batch = batch.to(device)
-        inputs = cast_batch_bf16(batch) if mixed_precision else batch
-        outputs = run(inputs)
-        tot, tasks = multitask_loss(outputs, batch, cfg)
-        n = int(batch.graph_mask.sum())
-        entries.append((float(tot), {k: float(v) for k, v in tasks.items()}, n))
+        tot, tasks, outputs = eval_fn(None, batch)
+        entries.append((float(tot), {k: float(v) for k, v in tasks.items()},
+                        int(batch.graph_mask.sum())))
         for name, t in names_types:
             if t == "graph":
-                mask, target = batch.graph_mask, batch.graph_targets[name]
+                mask = batch.graph_mask
+                target = batch.graph_targets["energy" if compute_grad_energy else name]
             else:
                 mask, target = batch.node_mask, batch.node_targets[name]
-            pred = outputs[name].float().reshape(target.shape)
-            preds[name].append(pred[mask].cpu().numpy())
-            trues[name].append(target[mask].cpu().numpy())
+            pred = outputs[name].float().cpu().reshape(target.shape)
+            preds[name].append(pred[mask].numpy())
+            trues[name].append(target[mask].numpy())
     tot, tasks = _weighted_avg(entries)
     return (tot, tasks,
             {k: np.concatenate(v) for k, v in preds.items()},

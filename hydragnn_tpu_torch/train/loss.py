@@ -1,32 +1,44 @@
-"""Masked multi-task losses (eval side). Counterpart of
-``hydragnn_tpu/train/loss.py``: every reduction runs over real rows only
-(``graph_mask`` / ``node_mask``). Branch-weighted losses and variance heads
-come with the training slice."""
+"""Masked multi-task losses and the energy-force objective.
+
+Counterpart of ``hydragnn_tpu/train/loss.py``: every reduction runs over
+real rows only (``graph_mask`` / ``node_mask``). ``compute_loss`` is the one
+entry point of the train and eval steps; with ``compute_grad_energy`` the
+model's single node head predicts per-node energy, the graph energy is its
+masked sum per graph and the forces are ``-dE/dpos``, taken with
+``create_graph=True`` so a loss on them trains the parameters (a double
+backward through every op of the forward). Variance heads (Gaussian NLL)
+come with a later slice.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 
 def _elementwise(loss_type: str, err):
     lt = loss_type.lower()
-    if lt in ("mse", "rmse"):
+    if lt in ("mse", "rmse"):  # rmse takes its root at the head level
         return err**2
     if lt in ("mae", "l1"):
         return torch.abs(err)
     raise ValueError(f"unknown loss_function_type {loss_type!r}")
 
 
-def masked_mean(values, mask):
+def masked_mean(values, mask, row_weights=None):
+    """Mean over real rows; ``row_weights`` (per row) makes it the weighted
+    mean sum(w m v) / sum(w m C)."""
     m = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim())).to(values.dtype)
+    if row_weights is not None:
+        w = row_weights.reshape(row_weights.shape + (1,) * (values.dim() - row_weights.dim()))
+        m = m * w.to(values.dtype)
     denom = torch.clamp(torch.sum(m) * values.shape[-1], min=1.0)
     return torch.sum(values * m) / denom
 
 
-def head_loss(pred, target, mask, loss_type: str):
-    loss = masked_mean(_elementwise(loss_type, pred - target), mask)
+def head_loss(pred, target, mask, loss_type: str, row_weights=None):
+    loss = masked_mean(_elementwise(loss_type, pred - target), mask, row_weights)
     if loss_type.lower() == "rmse":
         loss = torch.sqrt(loss)
     return loss
@@ -49,3 +61,65 @@ def multitask_loss(outputs: Dict[str, torch.Tensor], batch, cfg
         tasks[name] = task
         tot = tot + w * task
     return tot, tasks
+
+
+def _graph_energies(apply_outputs: Callable, batch, cfg, create_graph: bool):
+    """(graph energies [G], forces [N, 3]) of the batch: the node head's
+    per-node energy summed per graph over real nodes, and ``-dE/dpos`` of
+    the sum over real graphs."""
+    if len(cfg.output_type) != 1 or cfg.output_type[0] != "node":
+        raise ValueError(
+            "energy-force training needs exactly one node head predicting "
+            "nodal energy"
+        )
+    pos = batch.pos.detach().requires_grad_(True)
+    node_mask_f = batch.node_mask.to(pos.dtype)
+    with torch.enable_grad():
+        outputs = apply_outputs(batch.replace(pos=pos))
+        node_e = outputs[cfg.output_names[0]][:, 0] * node_mask_f
+        graph_e = torch.zeros(batch.num_graphs, dtype=node_e.dtype,
+                              device=node_e.device).index_add(0, batch.node_graph, node_e)
+        e_sum = torch.sum(graph_e * batch.graph_mask.to(pos.dtype))
+        (de_dpos,) = torch.autograd.grad(e_sum, pos, create_graph=create_graph)
+    return graph_e, -de_dpos
+
+
+def energy_force_loss(apply_outputs: Callable, batch, cfg, create_graph: bool = True):
+    """Energy + autograd-force loss: ``(total, per-task losses,
+    predictions)``, the predictions the graph energies [G, 1] and the
+    masked forces [N, 3]. The force term's weight balances the two in the
+    units of the data: ``e_w mean|E| / (mean|F| + 1e-8)``. Targets:
+    ``graph_targets['energy']`` [G, 1] and ``node_targets['forces']``
+    [N, 3]."""
+    graph_e, forces = _graph_energies(apply_outputs, batch, cfg, create_graph)
+    e_true = batch.graph_targets["energy"].reshape(-1)
+    f_true = batch.node_targets["forces"]
+    energy_loss = head_loss(graph_e[:, None], e_true[:, None], batch.graph_mask,
+                            cfg.loss_function_type)
+    force_loss = head_loss(forces, f_true, batch.node_mask, cfg.loss_function_type)
+    e_w = cfg.normalized_task_weights[0]
+    mean_abs_e = masked_mean(torch.abs(e_true)[:, None], batch.graph_mask)
+    mean_abs_f = masked_mean(torch.abs(f_true), batch.node_mask)
+    f_w = e_w * mean_abs_e / (mean_abs_f + 1e-8)
+    tot = e_w * energy_loss + f_w * force_loss
+    name = cfg.output_names[0]
+    preds = {name: graph_e[:, None],
+             "forces": forces * batch.node_mask.to(forces.dtype)[:, None]}
+    return tot, {name: energy_loss, "forces": force_loss}, preds
+
+
+def predict_energy_forces(apply_outputs: Callable, batch, cfg):
+    """Inference-side graph energies [G] and masked forces [N, 3]."""
+    graph_e, forces = _graph_energies(apply_outputs, batch, cfg, create_graph=False)
+    return graph_e.detach(), (forces * batch.node_mask.to(forces.dtype)[:, None]).detach()
+
+
+def compute_loss(apply_outputs: Callable, batch, cfg, compute_grad_energy: bool,
+                 create_graph: bool = True):
+    """The one loss of the train and eval steps: ``(total, per-task losses,
+    outputs)``. ``apply_outputs(batch) -> outputs`` runs the model."""
+    if compute_grad_energy:
+        return energy_force_loss(apply_outputs, batch, cfg, create_graph)
+    outputs = apply_outputs(batch)
+    tot, tasks = multitask_loss(outputs, batch, cfg)
+    return tot, tasks, outputs

@@ -608,3 +608,139 @@ def pytest_k1_plain_version_gives_the_same_bits_twice_on_card(cuda):
     # rounding, 1e-5 of the largest sum
     other = t_sorted.segment_sum_plain(msg, ids, 3000)
     assert float((a - other).abs().max()) <= 1e-5 * float(other.abs().max())
+
+
+def _ascending_ids(cuda, n, mean_degree, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    deg = torch.randint(0, 2 * mean_degree + 1, (n,), generator=gen, device=cuda)
+    return torch.repeat_interleave(torch.arange(n, device=cuda), deg), gen
+
+
+# gradients of the kernels' Functions against their plain versions' autograd
+# (they see the forwards' rounding through tanh'): f32 1e-4, bf16 3e-2 of the
+# largest value of each gradient
+_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _assert_grads_close(got, want, dtype):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        scale = max(float(b.float().abs().max()), 1e-12)
+        assert float((a.float() - b.float()).abs().max()) <= _GRAD_TOL[dtype] * scale, i
+
+
+def _first_and_second(fn, inputs, w, v):
+    """d/dinputs of L = sum(w tanh(fn(inputs))), then d/dinputs of
+    <dL/dinputs[0], v> (a double backward, as the energy-force loss takes)."""
+    out = fn(*inputs)
+    g = torch.autograd.grad(torch.sum(w * torch.tanh(out.float())), inputs, create_graph=True)
+    gg = torch.autograd.grad(torch.sum(g[0].float() * v), inputs, allow_unused=True)
+    return [t.detach() for t in g], [torch.zeros_like(x) if t is None else t for t, x in zip(gg, inputs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plain", ["sorted_segment_sum_plain", "segment_sum_plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(300, 33), (2272, 866), (2272, 3)])
+def pytest_k1_function_gradients_match_plain_on_card(cuda, dtype, n, c, plain):
+    """K1's Function, first and second order, at a small and at the EGNN
+    path's shapes (about 16 edges per row), against the fixed-order plain
+    version (the same Function, another forward) and against
+    ``index_add_`` through ordinary autograd (none of K1's code): one
+    forward launch, none in either backward."""
+    ids, gen = _ascending_ids(cuda, n, 16, c)
+    msg = torch.randn(ids.shape[0], c, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(n, c, generator=gen, device=cuda)
+    v = torch.randn(ids.shape[0], c, generator=gen, device=cuda)
+    before = t_sorted.sorted_segment_sum.launches
+    got = _first_and_second(lambda m: t_sorted.sorted_segment_sum(m, ids, n),
+                            [msg.clone().requires_grad_(True)], w, v)
+    torch.cuda.synchronize()
+    assert t_sorted.sorted_segment_sum.launches == before + 1
+    want = _first_and_second(lambda m: getattr(t_sorted, plain)(m, ids, n),
+                             [msg.clone().requires_grad_(True)], w, v)
+    for a, b in zip(got, want):
+        _assert_grads_close(a, b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,ci,co", [(300, 64, 64), (2272, 866, 866)])
+def pytest_k2_function_gradients_match_plain_on_card(cuda, dtype, n, ci, co):
+    """K2's Function (backward: the recompute through the dense plain
+    version), first and second order, for all four float inputs, against
+    the plain version's own autograd; one forward launch, none in either
+    backward."""
+    ids, gen = _ascending_ids(cuda, n, 16, ci)
+    e = ids.shape[0]
+    inputs = [torch.randn(n, ci, generator=gen, device=cuda),
+              torch.randn(e, ci, generator=gen, device=cuda),
+              torch.randn(ci, co, generator=gen, device=cuda) / ci**0.5,
+              0.1 * torch.randn(co, generator=gen, device=cuda)]
+    inputs = [t.to(dtype) for t in inputs]
+    w = torch.randn(n, co, generator=gen, device=cuda)
+    v = torch.randn(n, ci, generator=gen, device=cuda)
+    before = t_fused.fused_edge_message_sum.launches
+    got = _first_and_second(lambda *a: t_fused.fused_edge_message_sum(*a, ids, n),
+                            [t.clone().requires_grad_(True) for t in inputs], w, v)
+    torch.cuda.synchronize()
+    assert t_fused.fused_edge_message_sum.launches == before + 1
+    want = _first_and_second(lambda *a: t_fused.reference_edge_message_sum(*a, ids, n),
+                             [t.clone().requires_grad_(True) for t in inputs], w, v)
+    for a, b in zip(got, want):
+        _assert_grads_close(a, b, dtype)
+
+
+@pytest.mark.gpu
+def pytest_kernels_without_a_backward_raise_when_asked_for_a_gradient_on_card(cuda):
+    """K3, K4 and K4b have no backward yet: asked for a gradient on the card
+    they raise; under no_grad, or on inputs that need none, they run."""
+    ids, gen = _ascending_ids(cuda, 64, 4, 0)
+    e = ids.shape[0]
+    nr, ei = (torch.randn(r, 32, generator=gen, device=cuda) for r in (64, e))
+    q, k, v = (torch.randn(64, 2, 16, generator=gen, device=cuda) for _ in range(3))
+    node_graph = torch.arange(64, device=cuda) // 16
+    node_mask = torch.ones(64, dtype=torch.bool, device=cuda)
+    calls = {
+        "fused_multi_agg": lambda a, b: t_multi.fused_multi_agg(a, b, None, ids, 64),
+        "flash_self_attention": lambda a, b: t_flash.flash_self_attention(
+            a, b, v, node_graph, node_mask, 4),
+        "flash_block_summary": lambda a, b: t_flash.flash_block_summary(a, b, v, node_mask),
+    }
+    operands = {"fused_multi_agg": (nr, ei), "flash_self_attention": (q, k),
+                "flash_block_summary": (q, k)}
+    for name, call in calls.items():
+        a, b = operands[name]
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call(a, b.clone().requires_grad_(True))
+        with torch.no_grad():
+            call(a, b.clone().requires_grad_(True))
+        with torch.inference_mode():
+            call(a, b)
+        call(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def pytest_pool_routes_agree_on_card(cuda):
+    """The graph mean pool's fixed-order route (contiguous graphs) and its
+    index_add_ route agree on ascending ids (f32 sums in another order,
+    1e-6 of the largest mean), and an unsorted layout pools as on the CPU."""
+    from hydragnn_tpu_torch.ops.segment import masked_global_mean_pool
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    node_graph = torch.repeat_interleave(torch.arange(33, device=cuda),
+                                         torch.randint(10, 120, (33,), generator=gen,
+                                                       device=cuda))
+    n = node_graph.shape[0]
+    x = torch.randn(n, 866, generator=gen, device=cuda)
+    mask = torch.rand(n, generator=gen, device=cuda) < 0.95
+    a = masked_global_mean_pool(x, node_graph, 33, mask, contiguous=True)
+    b = masked_global_mean_pool(x, node_graph, 33, mask, contiguous=False)
+    torch.cuda.synchronize()
+    assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    perm = torch.randperm(n, generator=gen, device=cuda)
+    c = masked_global_mean_pool(x[perm], node_graph[perm], 33, mask[perm])
+    d = masked_global_mean_pool(x[perm].cpu(), node_graph[perm].cpu(), 33, mask[perm].cpu())
+    assert float((c.cpu() - d).abs().max()) <= 1e-6 * float(d.abs().max())
+    assert float((c - b).abs().max()) <= 1e-6 * float(b.abs().max())
