@@ -437,7 +437,7 @@ def gin_ring_spec(graph):
 
 
 def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, shape,
-          check_exact=None, scale=None, backward=None, gradients=None):
+          check_exact=None, scale=None, backward=None, gradients=None, library_backward=None):
     source, replaces = {
         "K1": ("hydragnn_tpu_torch/csrc/sorted_segment_sum.cu",
                "hydragnn_tpu/ops/pallas_segment.py:173"),
@@ -453,40 +453,98 @@ def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, 
     return dict(kernel=kernel, dtype=str(dtype)[6:], name=name, case=case, fn=fn, plain=plain,
                 library=library, nbytes=nbytes, ops_ms=ops_ms, iters=iters, shape=shape,
                 source=source, replaces=replaces, check_exact=check_exact, scale=scale,
-                backward=backward, gradients=gradients)
+                backward=backward, gradients=gradients, library_backward=library_backward)
 
 
 def backward_call(fn, kw, names):
     """A zero-argument call of the backward of ``fn(**kw)`` with respect to
     the inputs ``names`` (the kernel's Function: its backward is torch ops,
     no kernel), for timing: the forward runs once, here, and each call
-    takes the gradients again from the kept graph."""
+    takes the gradients of its differentiable outputs again from the kept
+    graph."""
     import torch
 
     leaves = {k: (v.detach().clone().requires_grad_(True) if k in names else v)
               for k, v in kw.items()}
     with torch.enable_grad():
-        out = fn(**leaves)
-    dout = torch.ones_like(out)
+        outs = [o for o in _outputs(fn(**leaves)) if o.requires_grad]
+    douts = [torch.ones_like(o) for o in outs]
     inputs = [leaves[k] for k in names]
-    return lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)
+    return lambda: torch.autograd.grad(outs, inputs, douts, retain_graph=True)
 
 
-def first_and_second(fn, messages, seed: int):
-    """The first and second derivatives of ``fn`` in ``messages``:
-    ``g = d/dm sum(w tanh(fn(m)))``, then ``d/dm <g, v>`` (a double
-    backward, as the energy-force loss takes), ``w`` and ``v`` from a
-    seed."""
+def sdpa_backward_call(q, k, v, mask):
+    """A zero-argument call of ``scaled_dot_product_attention``'s forward
+    and backward on ``[H, N, d]`` operands with the boolean ``mask``: the
+    library yardstick of K4's and K4b's backwards."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    dout = torch.ones_like(q)
+
+    def call():
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        return torch.autograd.grad(out, leaves, dout)
+
+    return call
+
+
+def first_and_second(fn, inputs, seed: int, scales=None):
+    """The first and second derivatives of ``fn`` in each of ``inputs``:
+    ``g = d/dx sum_i sum(w_i tanh(out_i / s_i))`` over its differentiable
+    outputs, then ``d/dx sum_j <g_j, v_j>`` (a double backward, as the
+    energy-force loss takes); ``w`` and ``v`` from a seed. ``s_i`` is the
+    power of two at or above ``max |out_i|`` (so that tanh does not
+    saturate), or ``scales[i]`` where given. Returns (first, second,
+    scales), the first two lists over ``inputs``."""
     import torch
 
-    m = messages.detach().clone().requires_grad_(True)
-    out = fn(m)
-    gen = torch.Generator(device=m.device).manual_seed(seed)
-    w = torch.randn(out.shape, generator=gen, device=m.device)
-    v = torch.randn(m.shape, generator=gen, device=m.device)
-    (g,) = torch.autograd.grad(torch.sum(w * torch.tanh(out.float())), m, create_graph=True)
-    (gg,) = torch.autograd.grad(torch.sum(g.float() * v), m)
-    return g.detach(), gg
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = [o for o in _outputs(fn(*xs)) if o.requires_grad]
+    if scales is None:
+        scales = [2.0 ** math.ceil(math.log2(max(float(o.detach().float().abs().max()), 1e-30)))
+                  for o in outs]
+    dev = xs[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loss = sum(torch.sum(torch.randn(o.shape, generator=gen, device=dev)
+                         * torch.tanh(o.float() / s)) for o, s in zip(outs, scales))
+    g = torch.autograd.grad(loss, xs, create_graph=True)
+    vs = [torch.randn(x.shape, generator=gen, device=dev) for x in xs]
+    gg = torch.autograd.grad(sum(torch.sum(a.float() * v) for a, v in zip(g, vs)), xs)
+    return [t.detach() for t in g], list(gg), scales
+
+
+def dense_attention(q, k, v, valid):
+    """Softmax attention of ``q [n_q, H, d]`` over ``k``/``v [n_k, H, d]``
+    restricted to ``valid [n_q, n_k]``, in f32 with ``torch.softmax`` and
+    ordinary autograd: a route that shares no code with K4's Function or
+    its references. Rows with no valid key give 0."""
+    import torch
+
+    scores = torch.einsum("qhd,khd->hqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~valid[None], float("-inf"))
+    some = valid.any(dim=-1)  # [n_q]
+    p = torch.softmax(torch.where(some[None, :, None], scores, 0.0), dim=-1)
+    out = torch.einsum("hqk,khd->qhd", p, v.float())
+    return torch.where(some[:, None, None], out, 0.0)
+
+
+def dense_block_summary(q, k, v, key_mask):
+    """K4b's function, ``(m, l, acc)`` of ``q [n_q, H, d]`` against the
+    keys where ``key_mask [n_k]`` holds, in f32 with ordinary autograd and
+    ``-inf`` masking: a route that shares no code with K4b's Function or
+    its reference. With no valid key: ``(-1e30, 0, 0)``."""
+    import torch
+
+    scores = torch.einsum("qhd,khd->qhk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~key_mask, float("-inf"))
+    some = bool(key_mask.any())
+    m = scores.amax(dim=-1) if some else torch.full(scores.shape[:-1], -1.0e30,
+                                                     device=q.device)
+    p = torch.exp(scores - m[..., None])  # 0 at masked keys
+    return m, p.sum(dim=-1), torch.einsum("qhk,khd->qhd", p, v.float())
 
 
 def egnn_kernel_cases(batch, device):
@@ -529,10 +587,9 @@ def egnn_kernel_cases(batch, device):
                 backward=lambda kw=kw: backward_call(sorted_segment_sum, kw, ("messages",)),
                 # an independent route: index_add_ through ordinary autograd
                 # (the fixed-order plain version shares K1's Function)
-                gradients=(lambda kw=kw, c=c: first_and_second(
-                               lambda m: sorted_segment_sum(m, ids, n), kw["messages"], c),
-                           lambda kw=kw, c=c: first_and_second(
-                               lambda m: segment_sum_plain(m, ids, n), kw["messages"], c)),
+                gradients=(lambda m: sorted_segment_sum(m, ids, n),
+                           ("index_add_'s autograd", lambda m: segment_sum_plain(m, ids, n)),
+                           [kw["messages"]], c),
             ))
         ci = co = 866
         kw = dict(
@@ -560,10 +617,12 @@ def egnn_kernel_cases(batch, device):
     return cases
 
 
-def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
+def gps_kernel_cases(batch, device, nmax: int, channels: int = 256, heads: int = 8):
     """K3 and K4 at the GPS-PNA serving shapes, inputs from a seed: the
     real batch's receiver ids for K3 (no mask: padding edges land on the
-    dummy row, as on the served path), its graph layout for K4."""
+    dummy row, as on the served path), its graph layout for K4 and the
+    config's node bound ``nmax`` for K4's gradient. The path cases also
+    carry their Functions' gradients and backwards."""
     import torch
     import torch.nn.functional as F
 
@@ -582,6 +641,10 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
     sizes = batch.nodes_per_graph[batch.graph_mask].double()
     pairs = float((sizes * sizes).sum())  # same-graph (query, key) pairs per head
     same = (node_graph[:, None] == node_graph[None, :]) & node_mask[None, :] & node_mask[:, None]
+
+    def real_rows(moments):
+        return tuple(m[node_mask] for m in moments)
+
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
@@ -599,6 +662,14 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
             6 * e * c / PEAK_FLOPS["float32"] * 1e3,
             50, dict(E=e, N=n, C=c),
             check_exact=(1, 2, 3),  # count, min, max
+            backward=lambda kw=kw: backward_call(fused_multi_agg, kw, ("node_recv", "edge_in")),
+            # the moments of the real rows, as the path masks the dummy row
+            # downstream: in bf16 that row's node_recv gradient is a bf16 sum
+            # over ~17k padding edges, in an order the atomics pick
+            gradients=(lambda nr, ei: real_rows(fused_multi_agg(nr, ei, None, ids, n)),
+                       ("reference_multi_agg's autograd",
+                        lambda nr, ei: real_rows(reference_multi_agg(nr, ei, None, ids, n))),
+                       [kw["node_recv"], kw["edge_in"]], 3),
         ))
         # off the kernels line: the same batch padded as the serving ladder's
         # top level pads it, with LONG_ROW_EDGES more padding edges, all on
@@ -625,7 +696,7 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
         cases.append(_case(
             "K4", dtype, f"flash_self_attention ({dname}, H={heads}, d={d})",
             f"{dname}/H{heads}xd{d}",
-            lambda kw=kw: flash_self_attention(**kw, num_graphs=g),
+            lambda kw=kw: flash_self_attention(**kw, num_graphs=g, max_nodes_per_graph=nmax),
             lambda kw=kw: reference_masked_attention(**kw),
             lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh,
                                                                         attn_mask=same),
@@ -638,6 +709,15 @@ def gps_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
             / PEAK_FLOPS[MMA_PASSES[dname][0]] * 1e3,
             50, dict(N=n, H=heads, d=d, G=int(batch.graph_mask.sum()), pairs_per_head=pairs),
             scale=float(v.float().abs().max()),  # the largest value an output can take
+            backward=lambda kw=kw: backward_call(
+                lambda **a: flash_self_attention(**a, num_graphs=g, max_nodes_per_graph=nmax),
+                kw, ("q", "k", "v")),
+            gradients=(lambda q_, k_, v_: flash_self_attention(q_, k_, v_, node_graph, node_mask,
+                                                               g, nmax),
+                       ("masked softmax attention's autograd",
+                        lambda q_, k_, v_: dense_attention(q_, k_, v_, same)),
+                       [q, k, v], 4),
+            library_backward=lambda qh=qh, kh=kh, vh=vh: sdpa_backward_call(qh, kh, vh, same),
         ))
     return cases
 
@@ -654,7 +734,11 @@ def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
         flash_block_summary,
         reference_block_summary,
     )
-    from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum, sorted_segment_sum_plain
+    from hydragnn_tpu_torch.ops.sorted_segment import (
+        segment_sum_plain,
+        sorted_segment_sum,
+        sorted_segment_sum_plain,
+    )
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     ids = batch.receivers.to(device)
@@ -675,6 +759,10 @@ def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
         (e * c + n * c) * 4 + e * 4,
         e * c / PEAK_FLOPS["float32"] * 1e3,
         50, dict(E=e, N=n, C=c),
+        backward=lambda: backward_call(sorted_segment_sum, kw, ("messages",)),
+        gradients=(lambda m: sorted_segment_sum(m, ids, n),
+                   ("index_add_'s autograd", lambda m: segment_sum_plain(m, ids, n)),
+                   [kw["messages"]], 5),
     )]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype)[6:]
@@ -699,6 +787,16 @@ def gin_ring_kernel_cases(batch, device, channels: int = 256, heads: int = 8):
             MMA_PASSES[dname][1] * 4 * heads * d * n * valid
             / PEAK_FLOPS[MMA_PASSES[dname][0]] * 1e3,
             10, dict(n_q=n, n_k=n, valid_keys=valid, H=heads, d=d),
+            # the path's dtype (f32) only: the bf16 case is off the path
+            **(dict(backward=lambda kw4=kw4: backward_call(flash_block_summary, kw4,
+                                                           ("q", "k", "v")),
+                    gradients=(lambda q_, k_, v_: flash_block_summary(q_, k_, v_, key_mask),
+                               ("masked softmax attention's autograd",
+                                lambda q_, k_, v_: dense_block_summary(q_, k_, v_, key_mask)),
+                               [q, k, v], 6),
+                    library_backward=lambda qh=qh, kh=kh, vh=vh: sdpa_backward_call(
+                        qh, kh, vh, key_mask[None, :]))
+               if dtype == torch.float32 else {}),
         ))
     return cases
 
@@ -786,9 +884,12 @@ TOLERANCES = {
 }
 
 
-# K1's first- and second-order gradients at the path's shapes against
-# index_add_'s autograd (the forwards' f32 sums in another order reach the
-# gradients through tanh'), relative to each gradient's largest value
+# Each Function's first- and second-order gradients at the path's shapes
+# against an independent route through ordinary autograd (K1: index_add_;
+# K3: reference_multi_agg; K4, K4b: softmax attention written here),
+# relative to each gradient's largest value: in f32 the forwards' sums in
+# another order reach the gradients through tanh'; in bf16 K4 and its
+# recompute round p to bf16 where the independent route keeps f32
 GRAD_TOLERANCES = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -888,6 +989,46 @@ TRAIN_PER_STEP = {"K1": {"bfloat16/C866": 1, "float32/C866": 2,
 EF_PER_STEP = {"K1": {"float32/C866": 3, "float32/C3": 3}, "K2": {"float32/866x866": 1}}
 
 
+# gps_pna_train: the gps_pna cell's model trained with the same Training
+# block (its config is the JAX bench's: AdamW lr 1e-3, MAE, task weights
+# [1, 100], bf16 mixed precision; the step guard on) on the train split of
+# GPS_TRAIN_GRAPHS OC20-shaped graphs, batch 16, not packed. K3 and K4 run
+# forward as in serving (conv layer 0 bf16, the rest promoted to f32); their
+# backwards are torch ops. Limits: gradients per parameter (largest,
+# median) and the per-step relative difference of the two trajectories,
+# against the same steps through K3's and K4's plain versions. Readings
+# from this script on an H100 (NVIDIA H100 80GB HBM3, 700 W) at seed 0,
+# three runs: f32 gradients (0.0708 to 0.0709, 1.2e-5 to 1.6e-3) beside the
+# plain route again (0.031, 7.9e-4 to 9.8e-4: its index_add_ atomics); bf16
+# gradients (0.163 to 0.164, 0.049), which K4's kernel alone reproduces (in
+# bf16 it rounds p against a running maximum, its plain version against
+# the row's final one), beside the plain route again (0.027 to 0.089,
+# 2.0e-3 to 3.6e-3); trajectories 3.5e-3 to 5.0e-3. Limits at about three
+# times each.
+GPS_TRAIN_GRAPHS = 384
+GPS_TRAIN_PER_STEP = {"K3": {"bfloat16/C256": 1, "float32/C256": 3},
+                      "K4": {"bfloat16/H8xd32": 1, "float32/H8xd32": 3}}
+GPS_TRAIN_RTOL = {"f32 gradients": (0.2, 5e-3), "bf16 gradients": (0.5, 0.15),
+                  "trajectory": 0.015}
+# gin_ring_train: the gin_ring cell's model (f32) trained through
+# make_sp_train_step on a ring of one rank, AdamW lr 3e-3 (the mesoscale
+# example's), over the gin_ring phase's requests for GIN_RING_EPOCHS epochs.
+# K1 and K4b run forward four times a step. Limits: gradients against the
+# K1/K4b plain route and against the dense fallback (no SP context), and the
+# trajectories' per-step difference, in the first epoch, relative to its
+# mean loss. Readings from this script on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W) at seed 0, two runs: gradients against the plain route (8.0e-3,
+# 5.5e-4), against the dense fallback (9.6e-3, 5.9e-4), the plain route
+# against the dense fallback (8.7e-3, 6.9e-4); the first epoch's steps up to
+# 8.8e-3 (later steps up to 0.94, and the plain route with K1 summing in
+# index_add_'s order up to 0.41: with one graph per step a rounding
+# difference grows). Limits at about three times each.
+GIN_RING_EPOCHS = 4
+GIN_RING_TRAIN_PER_STEP = {"K1": {"float32/C256": 4}, "K4b": {"float32/H8xd32": 4}}
+GIN_RING_TRAIN_RTOL = {"plain route": (0.03, 2e-3), "dense fallback": (0.03, 2e-3),
+                       "trajectory": 0.03}
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -922,22 +1063,28 @@ def run_kernels(cases):
                   f"{name}: kernel output {i} disagrees with its plain version")
             err = max(err, err_i)
         if kc["gradients"] is not None:
+            fn, (route, independent), inputs, seed = kc["gradients"]
+            want_1, want_2, scales = first_and_second(independent, inputs, seed)
             launches = _wrappers()[kc["kernel"]].launches
-            got, want = (f() for f in kc["gradients"])
+            got_1, got_2, _ = first_and_second(fn, inputs, seed, scales)
             torch.cuda.synchronize()
             check(_wrappers()[kc["kernel"]].launches == launches + 1,
                   f"{name}: the gradients launched {_wrappers()[kc['kernel']].launches - launches}"
                   " kernels, not the forward's one")
             rtol = GRAD_TOLERANCES[kc["dtype"]]
-            for order, a, b in zip(("first", "second"), got, want):
-                err_g = float((a.float() - b.float()).abs().max())
-                scale = float(b.float().abs().max())
-                print(f"check {name}: {order}-order gradient against index_add_'s autograd: "
-                      f"max_abs_err {err_g:.6g} (tolerance {rtol} x scale {scale:.6g})",
-                      flush=True)
-                check(math.isfinite(err_g) and err_g <= rtol * scale,
-                      f"{name}: the {order}-order gradient disagrees with index_add_'s")
-            del got, want
+            for order, got, want in (("first", got_1, want_1), ("second", got_2, want_2)):
+                for i, (a, b) in enumerate(zip(got, want)):
+                    check(a.dtype == b.dtype and a.shape == b.shape,
+                          f"{name}: {order}-order gradient {i} {a.dtype} {tuple(a.shape)} vs "
+                          f"{b.dtype} {tuple(b.shape)}")
+                    err_g = float((a.float() - b.float()).abs().max())
+                    scale = float(b.float().abs().max())
+                    print(f"check {name}: {order}-order gradient {i} against {route}: "
+                          f"max_abs_err {err_g:.6g} (tolerance {rtol} x scale {scale:.6g})",
+                          flush=True)
+                    check(math.isfinite(err_g) and err_g <= rtol * scale,
+                          f"{name}: the {order}-order gradient {i} disagrees with {route}")
+            del got_1, got_2, want_1, want_2
         iters = kc["iters"]
         ms = cuda_ms(kc["fn"], iters)
         plain_ms = cuda_ms(kc["plain"], max(iters // 5, 2))
@@ -966,20 +1113,39 @@ def run_kernels(cases):
               flush=True)
         if kc["kernel"] == "K3":  # one launch per call: no row-pointer or long-row kernel
             check(len(split["fn"]) == 1, f"{name}: {len(split['fn'])} device kernels per call")
+        results[-1].update(backward_ms=None, backward_library_ms=None)
         if kc["backward"] is not None:
             launches = _wrappers()[kc["kernel"]].launches
             bwd = kc["backward"]()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            bwd()
+            torch.cuda.synchronize()
+            bwd_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
             bwd_ms = cuda_ms(bwd, max(iters // 5, 2))
             bwd_dev, bwd_split = device_ms(bwd, 5)
             check(_wrappers()[kc["kernel"]].launches == launches + 1,
                   f"{name}: the backward launched a kernel")
-            results[-1].update(backward_ms=bwd_ms, backward_device_ms=bwd_dev)
-            print(f"time {name} backward (torch ops, no kernel): {bwd_ms:.4f} ms, device "
-                  f"{'not measured' if bwd_dev is None else f'{bwd_dev:.4f} ms'}; by name: "
-                  + ", ".join(f"{_short(key, 60)} {ms:.4f} ms"
-                              for key, ms in sorted(bwd_split.items(), key=lambda kv: -kv[1])[:6]),
-                  flush=True)
             del bwd
+            lib_ms = lib_dev = None
+            if kc["library_backward"] is not None:
+                lib = kc["library_backward"]()
+                lib_ms = cuda_ms(lib, max(iters // 5, 2))
+                lib_dev, _ = device_ms(lib, 5)
+                del lib
+            results[-1].update(backward_ms=bwd_ms, backward_device_ms=bwd_dev,
+                               backward_library_ms=lib_ms)
+            print(f"time {name} backward (torch ops, no kernel): {bwd_ms:.4f} ms, device "
+                  f"{'not measured' if bwd_dev is None else f'{bwd_dev:.4f} ms'}, peak memory "
+                  f"above its start {bwd_peak:.1f} MiB; library "
+                  + ("n/a" if lib_ms is None else
+                     f"(SDPA forward + backward) {lib_ms:.4f} ms, device "
+                     + ("not measured" if lib_dev is None else f"{lib_dev:.4f} ms"))
+                  + "; by name: " + ", ".join(
+                      f"{_short(key, 60)} {ms:.4f} ms"
+                      for key, ms in sorted(bwd_split.items(), key=lambda kv: -kv[1])[:6]),
+                  flush=True)
         del out_k, out_p
     return results
 
@@ -1113,7 +1279,7 @@ def plain_versions(swap=PLAIN, k1=None):
 
     swaps = {
         "K4": (gps, "flash_self_attention",
-               lambda q, k, v, ng, nm, g: reference_masked_attention(q, k, v, ng, nm)),
+               lambda q, k, v, ng, nm, g, nmax: reference_masked_attention(q, k, v, ng, nm)),
         "K3": (segment, "fused_multi_agg", reference_multi_agg),
         "K1": (segment, "sorted_segment_sum", k1 or sorted_segment_sum_plain),
         "K2": (segment, "_fused_edge_message_sum", reference_edge_message_sum),
@@ -1259,7 +1425,8 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
 def run_gin_ring(topology, topology_s: float, device, n_requests: int):
     """SP evaluation of one spanning graph per request through
     ``parallel.make_sp_eval_step`` (a ring of one rank) and its checks.
-    Returns the launches by (kernel, case)."""
+    Returns the launches by (kernel, case), the completed config and the
+    requests' batches (on the host)."""
     import numpy as np
     import torch
 
@@ -1366,7 +1533,7 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
           f"{', '.join(f'{w:.2f}' for w in walls)}), {n_atoms / ms * 1e3:.1f} nodes/s, peak "
           f"memory above the resident {resident / 2**20:.1f} MiB: ring route "
           f"{ring_peak / 2**20:.1f} MiB, dense fallback {dense_peak / 2**20:.1f} MiB", flush=True)
-    return launched
+    return launched, config, batches
 
 
 def train_config(energy_force: bool = False, **kw):
@@ -1390,13 +1557,75 @@ def train_config(energy_force: bool = False, **kw):
     return config
 
 
-def _train_copy(model, device):
+def _train_copy(model, device, lr: float = 1e-3, guard: bool = True):
     """A copy of ``model`` (weights and batch-norm statistics) with a fresh
-    optimizer of the cell: two routes start from one init."""
+    AdamW of the cell (``lr``, the step guard's copies where ``guard``):
+    two routes start from one init."""
     from hydragnn_tpu_torch.train import TrainState, make_optimizer
 
     m = copy.deepcopy(model).to(device)
-    return TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+    return TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": lr}),
+                             guard=guard)
+
+
+def route_gradients(model, batch, device, routes, make_step, **copy_kw):
+    """route -> every parameter's gradient of one train step on ``batch``
+    from ``model``'s weights, each route with its kernels swapped for their
+    plain versions (``routes``: route -> (kernels to swap, K1's
+    replacement)); ``make_step(state)`` is the step as a call of one
+    batch."""
+    grads = {}
+    for route, (swap, k1) in routes.items():
+        state = _train_copy(model, device, **copy_kw)
+        with plain_versions(swap, k1):
+            make_step(state)(batch)
+        grads[route] = _grads(state)
+        del state
+    return grads
+
+
+def trajectories(label, model, batches, device, make_step, swap, per_step, controls=None,
+                 **copy_kw):
+    """Train a copy of ``model`` over ``batches`` through the kernels (the
+    main path: every launch count from 0 and the peak memory reset just
+    before, read just after), another through the plain versions of
+    ``swap``, and one through each of ``controls`` (name -> (kernels to
+    swap, K1's replacement)), all from one init. Returns (losses through
+    the kernels, through the plain versions, the wall seconds of steps 4
+    on, the launches by (kernel, case), the peak memory in bytes, the
+    kernels' final state, the controls' losses by name)."""
+    import torch
+
+    wrappers = _wrappers()
+    routes = {"kernels": ((), None), "plain": (swap, None), **(controls or {})}
+    losses, walls, peaks = {}, {}, {}
+    for route, (swapped_out, k1) in routes.items():
+        state = _train_copy(model, device, **copy_kw)
+        step = make_step(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if route == "kernels":
+            _zero_launches(wrappers)
+        out, t0 = [], None
+        with plain_versions(swapped_out, k1):
+            for i, b in enumerate(batches):
+                if i == 3:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out.append(step(b)[1])
+            torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        peaks[route] = torch.cuda.max_memory_allocated()
+        if route == "kernels":
+            launched = _check_launches(label, wrappers, per_step, len(batches))
+            kernel_state = state
+        losses[route] = torch.stack(out).float().cpu().numpy()
+        del state, step
+    print(f"{label}: by route, ms per step (steps 4-{len(batches)}) and peak memory: " + ", ".join(
+        f"{r} {walls[r] * 1e3 / (len(batches) - 3):.2f} ms, {peaks[r] / 2**20:.1f} MiB"
+        for r in routes), flush=True)
+    return (losses.pop("kernels"), losses.pop("plain"), walls["kernels"], launched,
+            peaks["kernels"], kernel_state, losses)
 
 
 def train_routes():
@@ -1528,7 +1757,7 @@ def grad_reading(got, want):
     return rel[worst], worst, float(np.median(list(rel.values()))), max(raw.values())
 
 
-def grad_gate(label: str, got, want, limit, controls) -> None:
+def grad_gate(label: str, got, want, limit, controls, cell: str = "egnn_train") -> None:
     """Per parameter ``max|g - g_plain| / max|g_plain|``, the denominator
     floored at ``GRAD_FLOOR`` of the largest gradient of any parameter (a
     parameter whose gradient is zero in exact arithmetic, such as the bias
@@ -1536,17 +1765,76 @@ def grad_gate(label: str, got, want, limit, controls) -> None:
     routes): the largest (and which parameter) and the median against
     ``limit`` (largest, median); the largest without the floor is printed
     too, and the same reading for each of ``controls`` (name -> gradients:
-    ``train_routes``'s other routes)."""
+    the cell's other routes)."""
     top = max(float(w.abs().max()) for w in want.values())
     largest, worst, median, raw = grad_reading(got, want)
-    print(f"egnn_train: {label}: per-parameter max|g - g_plain| / max|g_plain| over "
+    print(f"{cell}: {label}: per-parameter max|g - g_ref| / max|g_ref| over "
           f"{len(want)} parameters (floor {GRAD_FLOOR} x {top:.6g}): largest {largest:.6g} "
           f"({worst}), median {median:.6g} (limits {limit}); without the floor largest "
           f"{raw:.6g}" + "".join(
               "; {}: largest {:.6g} ({}), median {:.6g}".format(name, *grad_reading(g, want)[:3])
               for name, g in controls.items()), flush=True)
     check(largest <= limit[0] and median <= limit[1],
-          f"egnn_train: {label}: gradients through the kernels disagree with the plain route")
+          f"{cell}: {label}: gradients through the kernels disagree")
+
+
+def gradients_present(label: str, grads, reference) -> None:
+    """Every parameter that has a gradient in ``reference`` (the plain
+    route's: a parameter the loss does not reach has none there either) has
+    a finite, nonzero one in ``grads``."""
+    import torch
+
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
+           or (float(g.norm()) == 0.0 and float(reference[n].norm()) != 0.0)]
+    unused = [n for n, g in reference.items() if float(g.norm()) == 0.0]
+    print(f"{label}: gradients of {len(grads)} parameters: {len(bad)} not finite, or zero where "
+          f"the plain route's is not {bad[:5]}; zero on the plain route too (no path to the "
+          f"loss): {unused}", flush=True)
+    check(not bad, f"{label}: parameters without a finite nonzero gradient: {bad[:5]}")
+
+
+def trajectory_gate(label: str, lk, lp, limit: float, extra: str = "") -> None:
+    """The two routes' loss trajectories: every loss finite, and each
+    step's relative difference within ``limit``."""
+    import numpy as np
+
+    rel = np.abs(lk - lp) / np.abs(lp)
+    print(f"{label}: losses through the kernels {lk[0]:.6g} -> {lk[-1]:.6g}, through the plain "
+          f"versions {lp[0]:.6g} -> {lp[-1]:.6g} over {len(lk)} steps; per-step relative "
+          f"difference largest {float(rel.max()):.6g} (step {int(rel.argmax())}), median "
+          f"{float(np.median(rel)):.6g} (limit {limit}){extra}", flush=True)
+    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{label}: a non-finite loss")
+    check(float(rel.max()) <= limit, f"{label}: the trajectories part")
+
+
+def run_training_epoch(label: str, config, splits, per_step):
+    """``api.run_training`` for one epoch with no device given (the
+    current CUDA device): every train step and every val/test batch
+    launches the step's table ``per_step``, none in a backward; the state
+    on the card, every step taken and every loss finite. Returns the
+    launches by (kernel, case)."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data, run_training
+
+    wrappers = _wrappers()
+    _, loaders, _ = prepare_data(copy.deepcopy(config), splits)
+    units = sum(len(loader) for loader in loaders)
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    _, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
+                               "steps and eval batches")
+    print(f"{label}: run_training (no device given: {state.step.device}), 1 epoch in "
+          f"{seconds:.2f} s: {int(state.step)} steps, history {hist}, guard skips "
+          f"{int(state.skipped_steps)}", flush=True)
+    check(state.step.device.type == "cuda" and int(state.step) == len(loaders[0])
+          and int(state.skipped_steps) == 0
+          and all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k]),
+          f"{label}: run_training did not train on the card")
+    return launched
 
 
 def run_egnn_train(graphs, serve_graphs, device, per_step):
@@ -1555,7 +1843,6 @@ def run_egnn_train(graphs, serve_graphs, device, per_step):
     the kernels' plain versions; one epoch of ``api.run_training``; one
     energy-force step. Returns the launches by (kernel, case) of the kernel
     route's trajectory, the epoch and the energy-force step."""
-    import numpy as np
     import torch
 
     from hydragnn_tpu_torch.config import update_config
@@ -1595,12 +1882,8 @@ def run_egnn_train(graphs, serve_graphs, device, per_step):
     routes = train_routes()
     for mp in (False, True):
         dname = "bf16" if mp else "f32"
-        grads = {}
-        for route, (swap, k1) in routes.items():
-            state = _train_copy(model, device)
-            with plain_versions(swap, k1):
-                make_train_step(state.model, mixed_precision=mp)(state, batches[0])
-            grads[route] = _grads(state)
+        grads = route_gradients(model, batches[0], device, routes, lambda st, mp=mp: (
+            lambda b: make_train_step(st.model, mixed_precision=mp)(st, b)))
         torch.cuda.synchronize()
         bad = [n for n, g in grads["kernels"].items()
                if not bool(torch.isfinite(g).all()) or float(g.norm()) == 0.0]
@@ -1610,44 +1893,18 @@ def run_egnn_train(graphs, serve_graphs, device, per_step):
         grad_gate(f"{dname} gradients vs plain route", grads["kernels"], grads["plain"],
                   TRAIN_RTOL[f"{dname} gradients"],
                   {r: g for r, g in grads.items() if r not in ("kernels", "plain")})
-        del grads, state
+        del grads
 
     # 3-5. the trajectories: every step through the kernels (the main path:
     # launch counts from 0, read right after) and through the plain versions
-    losses = {}
-    for plain in (False, True):
-        state = _train_copy(model, device)
-        step = make_train_step(state.model, mixed_precision=True)
-        torch.cuda.synchronize()
-        if not plain:
-            _zero_launches(wrappers)
-            torch.cuda.reset_peak_memory_stats()
-        out, t0 = [], None
-        with plain_versions(PLAIN if plain else ()):
-            for i, b in enumerate(batches):
-                if i == 3:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                out.append(step(state, b)[1])
-            torch.cuda.synchronize()
-        if not plain:
-            wall = time.perf_counter() - t0
-            launched = _check_launches(label, wrappers, per_step, steps)
-            peak = torch.cuda.max_memory_allocated()
-            real = sum(int(b.graph_mask.sum()) for b in batches[3:])
-            skipped = int(state.skipped_steps)
-            kernel_state = state
-        losses[plain] = torch.stack(out).float().cpu().numpy()
-    lk, lp = losses[False], losses[True]
-    rel = np.abs(lk - lp) / np.abs(lp)
-    print(f"{label}: losses through the kernels {lk[0]:.6g} -> {lk[-1]:.6g}, through the plain "
-          f"versions {lp[0]:.6g} -> {lp[-1]:.6g} over {steps} steps; per-step relative "
-          f"difference largest {float(rel.max()):.6g} (step {int(rel.argmax())}), median "
-          f"{float(np.median(rel)):.6g} (limit {TRAIN_RTOL['trajectory']}); guard skips "
-          f"{skipped}", flush=True)
-    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{label}: a non-finite loss")
-    check(float(rel.max()) <= TRAIN_RTOL["trajectory"], f"{label}: the trajectories part")
+    lk, lp, wall, launched, peak, kernel_state, _ = trajectories(
+        label, model, batches, device,
+        lambda st: (lambda b: make_train_step(st.model, mixed_precision=True)(st, b)),
+        PLAIN, per_step)
+    skipped = int(kernel_state.skipped_steps)
+    trajectory_gate(label, lk, lp, TRAIN_RTOL["trajectory"], f"; guard skips {skipped}")
     check(skipped == 0, f"{label}: the guard skipped {skipped} steps")
+    real = sum(int(b.graph_mask.sum()) for b in batches[3:])
     ms = wall * 1e3 / (steps - 3)
     print(f"{label}: {ms:.2f} ms per step, {real / wall:.1f} graphs/s trained (steps 4-{steps}, "
           f"{real} real graphs); peak memory {peak / 2**20:.1f} MiB", flush=True)
@@ -1667,32 +1924,14 @@ def run_egnn_train(graphs, serve_graphs, device, per_step):
                         "gathers' backwards (index_add_, indexing backward)":
                             ["indexing_backward", "indexFuncLargeIndex", "index_add"],
                     })
-    del kernel_state, state, step
+    del kernel_state, step
 
     # the user's entry point: run_training with no device (the current CUDA
     # device), one epoch on the egnn cell's split (its budget, so the
     # kernels' shapes again): every train step and every val/test batch
     # launches the step's table, none in a backward
-    from hydragnn_tpu_torch.api import prepare_data, run_training
-
-    splits = split_dataset(serve_graphs, 0.9, seed=0)
-    _, loaders, _ = prepare_data(train_config(), splits)
-    units = sum(len(loader) for loader in loaders)
-    _zero_launches(wrappers)
-    t0 = time.perf_counter()
-    _, rt_state, hist = run_training(train_config(), datasets=splits, seed=SEED)
-    torch.cuda.synchronize()
-    rt_s = time.perf_counter() - t0
-    rt_launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
-                                  "steps and eval batches")
-    print(f"{label}: run_training (no device given: {rt_state.step.device}), 1 epoch in "
-          f"{rt_s:.2f} s: {int(rt_state.step)} steps, history {hist}, guard skips "
-          f"{int(rt_state.skipped_steps)}", flush=True)
-    check(rt_state.step.device.type == "cuda" and int(rt_state.step) == len(loaders[0])
-          and int(rt_state.skipped_steps) == 0
-          and all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k]),
-          f"{label}: run_training did not train on the card")
-    del rt_state
+    rt_launched = run_training_epoch(label, train_config(),
+                                     split_dataset(serve_graphs, 0.9, seed=0), per_step)
 
     # 6. one energy-force step at full width: forces -dE/dpos and the
     # parameter gradients (a double backward through K1 and K2) against the
@@ -1800,6 +2039,199 @@ def run_egnn_train(graphs, serve_graphs, device, per_step):
     return merged
 
 
+def run_gps_pna_train(graphs, device, per_step):
+    """GPS-PNA trained at full width through K3 and K4 with gradients
+    (``make_train_step``), against the same steps through their plain
+    versions; one epoch of ``api.run_training``. Returns the launches by
+    (kernel, case) of the kernel route's trajectory and the epoch."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "gps_pna_train"
+    splits = split_dataset(graphs, 0.9, seed=0)
+    config, (loader, _, _), _ = prepare_data(gps_pna_config(), splits)
+    arch, training = config["NeuralNetwork"]["Architecture"], config["NeuralNetwork"]["Training"]
+    loader.set_epoch(0)
+    batches = list(loader)
+    steps = len(batches)
+    check(steps >= 20, f"{label}: {steps} batches, fewer than 20 steps")
+    print(f"{label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, {arch['num_conv_layers']} "
+          f"conv layers, GPS {arch['global_attn_type']} x{arch['global_attn_heads']} heads, PE "
+          f"{arch['pe_dim']}, heads {arch['output_heads']['graph']['dim_headlayers']} / "
+          f"{arch['output_heads']['node']['dim_headlayers']}, task weights "
+          f"{arch['task_weights']}, AdamW lr 1e-3, {training['loss_function_type']}, batch "
+          f"{training['batch_size']} (not packed, node bound {arch['max_nodes_per_graph']}), "
+          f"bf16 mixed precision, guard on, sorted aggregation "
+          f"{arch['use_sorted_aggregation']}, multi-moment {arch['use_fused_edge_kernel']}, "
+          f"flash {arch['use_flash_attention']}; {len(splits[0])} training graphs, {steps} "
+          f"steps, random weights (seed {SEED})", flush=True)
+    check(arch["use_sorted_aggregation"] and arch["use_fused_edge_kernel"]
+          and arch["use_flash_attention"],
+          f"{label}: config completion did not turn the kernels on")
+    model = create_model(config, device=device, seed=SEED)
+    swap = ("K3", "K4")
+
+    # one step's gradients through K3/K4 against their plain versions, from
+    # the same weights on the same batch, in f32 and in bf16, beside the
+    # plain route again; every parameter the loss reaches has a finite,
+    # nonzero gradient
+    routes = {"kernels": ((), None), "plain": (swap, None), "the plain route again": (swap, None),
+              "K3's kernel, K4 plain": (("K4",), None), "K4's kernel, K3 plain": (("K3",), None)}
+    for mp in (False, True):
+        dname = "bf16" if mp else "f32"
+        grads = route_gradients(model, batches[0], device, routes, lambda st, mp=mp: (
+            lambda b: make_train_step(st.model, mixed_precision=mp)(st, b)))
+        torch.cuda.synchronize()
+        gradients_present(f"{label}: {dname} step 0", grads["kernels"], grads["plain"])
+        grad_gate(f"{dname} gradients vs plain route", grads["kernels"], grads["plain"],
+                  GPS_TRAIN_RTOL[f"{dname} gradients"],
+                  {r: g for r, g in grads.items() if r not in ("kernels", "plain")}, cell=label)
+        del grads
+
+    # the trajectories, through the kernels (the main path) and through the
+    # plain versions, from one init
+    lk, lp, wall, launched, peak, kernel_state, _ = trajectories(
+        label, model, batches, device,
+        lambda st: (lambda b: make_train_step(st.model, mixed_precision=True)(st, b)),
+        swap, per_step)
+    skipped = int(kernel_state.skipped_steps)
+    trajectory_gate(label, lk, lp, GPS_TRAIN_RTOL["trajectory"], f"; guard skips {skipped}")
+    check(skipped == 0, f"{label}: the guard skipped {skipped} steps")
+    real = sum(int(b.graph_mask.sum()) for b in batches[3:])
+    ms = wall * 1e3 / (steps - 3)
+    print(f"{label}: {ms:.2f} ms per step, {real / wall:.1f} graphs/s trained (steps 4-{steps}, "
+          f"{real} real graphs); peak memory {peak / 2**20:.1f} MiB", flush=True)
+    step = make_train_step(kernel_state.model, mixed_precision=True)
+    profile_forward(label, f"one train step of {int(batches[0].graph_mask.sum())} graphs "
+                           "(forward, backward, guard and AdamW)",
+                    lambda: step(kernel_state, batches[0]), noun="step", groups={
+                        "K3 (forward)": ["multi_agg_kernel"],
+                        "K4 (forward, with its graph row-pointer kernel)":
+                            ["flash_attention_kernel", "graph_ptr"],
+                        "f32 GEMMs (cuBLAS and CUTLASS, forward and backward)":
+                            ["gemm_f32f32", "sgemm"],
+                        "bf16 GEMMs": ["bf16_s16816gemm"],
+                        "AdamW and the guard's copy (multi-tensor kernels)":
+                            ["multi_tensor_apply"],
+                        "scatter and gather backwards (K3's min/max, the gathers)":
+                            ["scatter", "indexing_backward", "indexFuncLargeIndex",
+                             "index_add"],
+                    })
+    del kernel_state, step
+    rt_launched = run_training_epoch(label, gps_pna_config(), splits, per_step)
+    merged = collections.Counter(launched)
+    merged.update(rt_launched)
+    return merged
+
+
+def run_gin_ring_train(config, batches, device, per_step):
+    """The gin_ring cell's model trained through ``make_sp_train_step`` (a
+    ring of one rank) on the gin_ring phase's requests, so K1 and K4b carry
+    gradients; held against the K1/K4b plain route and against the dense
+    fallback (no SP context). Returns the launches by (kernel, case) of the
+    kernel route's trajectory."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.sorted_segment import segment_sum_plain
+    from hydragnn_tpu_torch.parallel import make_sp_train_step
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "gin_ring_train"
+    n_atoms = int(batches[0].node_mask.sum())
+    print(f"{label}: the gin_ring model, f32, AdamW lr 3e-3 (the mesoscale example's), no step "
+          f"guard, through make_sp_train_step on a ring of one rank; {len(batches)} requests "
+          f"of {n_atoms} atoms ({batches[0].num_nodes} nodes), {GIN_RING_EPOCHS} epochs, random "
+          f"weights (seed {SEED})", flush=True)
+    model = create_model(config, device=device, seed=SEED)
+    copy_kw = dict(lr=3e-3, guard=False)
+
+    def sp_step(state):
+        return make_sp_train_step(state.model, state)
+
+    # one step's gradients through K1/K4b against their plain versions, the
+    # plain route again beside; then against the dense fallback outside the
+    # SP context (its [8, N, N] f32 scores in every layer: one step, its
+    # memory freed before the trajectories)
+    swap = ("K1", "K4b")
+    routes = {"kernels": ((), None), "plain": (swap, None), "the plain route again": (swap, None)}
+    grads = route_gradients(model, batches[0], device, routes, sp_step, **copy_kw)
+    torch.cuda.synchronize()
+    gradients_present(f"{label}: step 0", grads["kernels"], grads["plain"])
+    grad_gate("gradients vs plain route", grads["kernels"], grads["plain"],
+              GIN_RING_TRAIN_RTOL["plain route"],
+              {"the plain route again": grads["the plain route again"]}, cell=label)
+    torch.cuda.reset_peak_memory_stats()
+    state = _train_copy(model, device, **copy_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    make_train_step(state.model)(state, batches[0])
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_peak = torch.cuda.max_memory_allocated()
+    dense = _grads(state)
+    del state
+    torch.cuda.empty_cache()
+    print(f"{label}: the dense-fallback step: {dense_ms:.2f} ms (one step), peak memory "
+          f"allocated {dense_peak / 2**20:.1f} MiB", flush=True)
+    grad_gate("gradients vs dense fallback", grads["kernels"], dense,
+              GIN_RING_TRAIN_RTOL["dense fallback"],
+              {"the plain route": grads["plain"]}, cell=label)
+    del grads, dense
+
+    # the trajectories over the epochs, through the kernels (the main path),
+    # through the plain versions and through the plain versions with K1
+    # summing in index_add_'s order (a rounding control), from one init. A
+    # step's loss is one request's, and they range over orders of
+    # magnitude, so each step's difference is read against the plain
+    # route's mean loss of the first epoch. With one graph per step and lr
+    # 3e-3, a rounding difference grows within the second epoch (the
+    # control's shows it), so the first epoch is gated and the rest printed
+    steps = batches * GIN_RING_EPOCHS
+    control = "the plain route with K1 in index_add_'s order"
+    lk, lp, wall, launched, peak, kernel_state, others = trajectories(
+        label, model, steps, device, sp_step, swap, per_step,
+        {control: (swap, segment_sum_plain)}, **copy_kw)
+    ms = wall * 1e3 / (len(steps) - 3)
+    print(f"{label}: {ms:.2f} ms per step (steps 4-{len(steps)}), {n_atoms / ms * 1e3:.1f} "
+          f"nodes/s trained; peak memory allocated: ring route {peak / 2**20:.1f} MiB, dense "
+          f"fallback step {dense_peak / 2**20:.1f} MiB", flush=True)
+    first = float(np.abs(lp[:len(batches)]).mean())
+    diff = np.abs(lk - lp) / first
+    drift = np.abs(others[control] - lp) / first
+    epochs = lk.reshape(GIN_RING_EPOCHS, len(batches)).mean(axis=1)
+    limit = GIN_RING_TRAIN_RTOL["trajectory"]
+    print(f"{label}: losses through the kernels " + ", ".join(f"{x:.6g}" for x in lk)
+          + "; through the plain versions " + ", ".join(f"{x:.6g}" for x in lp)
+          + f"; difference per step of the first epoch's mean {first:.6g}: first epoch "
+          + ", ".join(f"{x:.3g}" for x in diff[:len(batches)]) + f" (limit {limit}), largest "
+          f"over all steps {float(diff.max()):.6g} (step {int(diff.argmax())}); {control}: "
+          f"first epoch largest {float(drift[:len(batches)].max()):.3g}, all steps largest "
+          f"{float(drift.max()):.6g} (step {int(drift.argmax())}); mean loss per epoch through "
+          "the kernels " + ", ".join(f"{x:.6g}" for x in epochs), flush=True)
+    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{label}: a non-finite loss")
+    check(float(diff[:len(batches)].max()) <= limit,
+          f"{label}: the first epoch's trajectories part")
+    check(epochs[-1] < epochs[0], f"{label}: the last epoch's loss is not below the first's")
+    step = sp_step(kernel_state)
+    profile_forward(label, f"one train step of one spanning graph of {n_atoms} atoms "
+                           "(forward, backward and AdamW)",
+                    lambda: step(batches[0]), noun="step", groups={
+                        "K4b (forward)": ["flash_attention_kernel"],
+                        "K1 (forward)": ["sorted_segment_sum_"],
+                        "f32 GEMMs (cuBLAS and CUTLASS, forward and backward)":
+                            ["gemm_f32f32", "sgemm"],
+                        "AdamW (multi-tensor kernels)": ["multi_tensor_apply"],
+                    })
+    del kernel_state, step
+    return launched
+
+
 def main() -> None:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1850,14 +2282,18 @@ def main() -> None:
              "gps_pna": (gps_pna_config(), gps_pna_dataset(128))}
     cases = []
     for label, (config, graphs) in paths.items():
-        _, (train_loader, _, _), _ = prepare_data(
+        done, (train_loader, _, _), _ = prepare_data(
             copy.deepcopy(config), datasets=split_dataset(graphs, 0.9, seed=0)
         )
         batch = next(iter(train_loader))
         print(f"batch {label}: {int(batch.graph_mask.sum())} graphs, "
               f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
               f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
-        cases += (egnn_kernel_cases if label == "egnn" else gps_kernel_cases)(batch, device)
+        if label == "egnn":
+            cases += egnn_kernel_cases(batch, device)
+        else:
+            nmax = int(done["NeuralNetwork"]["Architecture"]["max_nodes_per_graph"])
+            cases += gps_kernel_cases(batch, device, nmax)
     t0 = time.perf_counter()
     topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
     topology_s = time.perf_counter() - t0
@@ -1887,9 +2323,15 @@ def main() -> None:
         for label, (config, graphs) in paths.items():
             launched.update(run_serving(label, config, graphs, device, N_REQUESTS,
                                         per_batch_cases[label]))
-        launched.update(run_gin_ring(topology, topology_s, device, GIN_RING_REQUESTS))
+        ring_launched, ring_config, ring_batches = run_gin_ring(topology, topology_s, device,
+                                                                GIN_RING_REQUESTS)
+        launched.update(ring_launched)
         launched.update(run_egnn_train(oc20_shaped_dataset(TRAIN_GRAPHS),
                                        paths["egnn"][1], device, TRAIN_PER_STEP))
+        launched.update(run_gps_pna_train(gps_pna_dataset(GPS_TRAIN_GRAPHS), device,
+                                          GPS_TRAIN_PER_STEP))
+        launched.update(run_gin_ring_train(ring_config, ring_batches, device,
+                                           GIN_RING_TRAIN_PER_STEP))
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a
@@ -1900,7 +2342,8 @@ def main() -> None:
     for k in off_path:
         print(f"measured off the served path: {json.dumps(k)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "backward_ms",
+            "backward_library_ms")
     print(f"chip_smoke: every phase in {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: v[k] for k in keys} for v in on_path]}), flush=True)

@@ -82,7 +82,7 @@ class MultiheadSelfAttention(nn.Module):
         if self.use_flash_attention and nmax > 0 and not prob_dropout:
             out = flash_self_attention(
                 q.view(n, H, d), k.view(n, H, d), v.view(n, H, d),
-                batch.node_graph, batch.node_mask, batch.num_graphs,
+                batch.node_graph, batch.node_mask, batch.num_graphs, nmax,
             ).reshape(n, C)
             out = _poison_overflow(out, batch, nmax)
         elif nmax > 0:

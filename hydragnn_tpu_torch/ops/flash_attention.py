@@ -25,12 +25,22 @@ block, which ``parallel/ring_attention.py`` merges across ring steps;
 ``reference_block_summary`` is its plain version.
 
 Each wrapper runs its plain version for a CPU tensor and its kernel for a
-CUDA tensor; anything else raises. The kernels have no backward yet: asked
-for a gradient on the card, the wrappers raise (the plain versions are
-differentiable). Unlike the TPU kernel, K4 needs no
-static node bound: each q tile's key window is derived on the card from
-``node_graph``. ``<wrapper>.launches`` counts kernel launches
+CUDA tensor; anything else raises. Unlike the TPU kernel, K4's forward
+needs no static node bound: each q tile's key window is derived on the
+card from ``node_graph``. ``<wrapper>.launches`` counts kernel launches
 (``launches_by_case`` splits them by dtype and head shape).
+
+Both kernels' routes are differentiable to any order, as the JAX kernels'
+``custom_jvp``s are: a ``torch.autograd.Function`` each, saving only the
+inputs, whose backward recomputes through a plain version and
+differentiates it, so no backward launches a kernel. K4's recompute is
+``reference_gathered_attention`` over ``max_nodes_per_graph`` slots per
+graph (G * Nmax^2 work, the JAX tangent rule's), not the flat N^2 one;
+K4b's is ``reference_block_summary`` in blocks of query rows of at most
+``_RECOMPUTE_BYTES`` of f32 scores each (each row's arithmetic is the
+same; the key and value gradients sum over the blocks). Fully masked rows
+get zero gradients. With no gradient asked for, the forwards run without
+the Functions.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import math
 import torch
 
 from . import _build
-from .sorted_segment import _DTYPE_CODES, _check_current_device, refuse_grad
+from .sorted_segment import _DTYPE_CODES, _check_current_device, needs_grad, recompute_backward
 
 # both entries: q, k, v, three row strides, four pointers, four sizes,
 # scale_log2, dtype code, stream
@@ -58,6 +68,9 @@ HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 # masking constant of the JAX references (finite, so exp of differences
 # never overflows)
 _NEG = -1.0e30
+# f32 scores per block of query rows in K4b's backward recompute: 256 MiB
+# (a 8,194-key block with 8 heads: 1,023 rows a block)
+_RECOMPUTE_BYTES = 2**28
 
 
 def _softmax_apply(logits, valid, v, eq: str, dtype):
@@ -96,7 +109,10 @@ def reference_gathered_attention(q, k, v, node_graph, node_mask, num_graphs: int
     slot = torch.arange(nmax, device=q.device)
     valid = slot[None, :] < counts[:, None]  # [G, Nmax]
     idx = torch.where(valid, starts[:, None] + slot[None, :], n - 1)
-    qg, kg, vg = q[idx], k[idx], v[idx]  # [G, Nmax, H, d]
+    # index_select, not q[idx]: its backward is index_add_, where advanced
+    # indexing's sorts the (many duplicate) slot indices
+    qg, kg, vg = (t.index_select(0, idx.reshape(-1)).view(idx.shape + t.shape[1:])
+                  for t in (q, k, v))  # [G, Nmax, H, d]
     logits = torch.einsum("gihd,gjhd->ghij", qg.float(), kg.float()) * (1.0 / math.sqrt(d))
     acc, l, _ = _softmax_apply(logits, valid[:, None, None, :], vg, "ghij,gjhd->ghid",
                                q.dtype)
@@ -152,16 +168,18 @@ def _check_heads(fn, q):
         raise ValueError(f"{fn}: head dim {q.shape[2]} not in {HEAD_DIMS}")
 
 
-def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
+def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int,
+                         max_nodes_per_graph: int):
     """Same-graph softmax attention over ``q``/``k``/``v`` [N, H, d] (one
     dtype, float32 or bfloat16; each may be a row-strided view, such as a
     slice of a fused QKV projection). ``node_graph`` [N] ascending in
-    ``[0, num_graphs)``, ``node_mask`` [N] bool. Returns a contiguous
+    ``[0, num_graphs)``, ``node_mask`` [N] bool; ``max_nodes_per_graph``
+    bounds a real graph's nodes (the gradient's recompute gathers that many
+    slots per graph; the forward needs no bound). Returns a contiguous
     [N, H, d] in the operand dtype."""
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, node_graph, node_mask)
     _check_heads("flash_self_attention", q)
-    refuse_grad("flash_self_attention", q, k, v)
     dtype = q.dtype
     n, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -175,6 +193,33 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int):
         raise ValueError("flash_self_attention: more than 2**31 elements")
     if num_graphs < 1:
         raise ValueError("flash_self_attention: num_graphs must be positive")
+    if needs_grad(q, k, v):
+        if max_nodes_per_graph < 1:
+            raise ValueError("flash_self_attention: a gradient needs max_nodes_per_graph >= 1")
+        return _FlashSelfAttention.apply(q, k, v, node_graph, node_mask, num_graphs,
+                                         max_nodes_per_graph)
+    return _launch_attention(q, k, v, node_graph, node_mask, num_graphs)
+
+
+class _FlashSelfAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, node_graph, node_mask, num_graphs, max_nodes_per_graph):
+        ctx.save_for_backward(q, k, v, node_graph, node_mask)
+        ctx.shape = (num_graphs, max_nodes_per_graph)
+        return _launch_attention(q, k, v, node_graph, node_mask, num_graphs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, node_graph, node_mask = ctx.saved_tensors
+        grads = recompute_backward(
+            ctx, lambda *a: reference_gathered_attention(*a, node_graph, node_mask, *ctx.shape),
+            (q, k, v), dout)
+        return (*grads, None, None, None, None)
+
+
+def _launch_attention(q, k, v, node_graph, node_mask, num_graphs: int):
+    dtype = q.dtype
+    n, h, d = q.shape
     out = torch.empty((n, h, d), dtype=dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -212,7 +257,6 @@ def flash_block_summary(q, k, v, key_mask):
         return reference_block_summary(q, k, v, key_mask)
     fn = "flash_block_summary"
     _check_heads(fn, q)
-    refuse_grad(fn, q, k, v)
     dtype = q.dtype
     nq, h, d = q.shape
     nk = k.shape[0] if k.dim() == 3 else -1
@@ -224,6 +268,38 @@ def flash_block_summary(q, k, v, key_mask):
                          f"{tuple(key_mask.shape)} {key_mask.dtype} on {key_mask.device}")
     if max(nq * q.stride(0), nk * max(k.stride(0), v.stride(0))) >= 2**31:
         raise ValueError(f"{fn}: more than 2**31 elements")
+    if needs_grad(q, k, v):
+        return _FlashBlockSummary.apply(q, k, v, key_mask)
+    return _launch_summary(q, k, v, key_mask)
+
+
+class _FlashBlockSummary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        ctx.save_for_backward(q, k, v, key_mask)
+        return _launch_summary(q, k, v, key_mask)
+
+    @staticmethod
+    def backward(ctx, dm, dl, dacc):
+        q, k, v, key_mask = ctx.saved_tensors
+        rows = max(1, _RECOMPUTE_BYTES // (4 * q.shape[1] * max(k.shape[0], 1)))
+        grads = None
+        # one recompute per block of query rows (its scores alone alive):
+        # its rows' q gradients, and its share of k's and v's
+        for i in range(0, max(q.shape[0], 1), rows):
+            sl = slice(i, i + rows)
+            part = recompute_backward(
+                ctx, lambda q_, k_, v_: reference_block_summary(q_[sl], k_, v_, key_mask),
+                (q, k, v), (dm[sl], dl[sl], dacc[sl]))
+            grads = part if grads is None else [
+                None if a is None else a + b for a, b in zip(grads, part)]
+        return (*grads, None)
+
+
+def _launch_summary(q, k, v, key_mask):
+    dtype = q.dtype
+    nq, h, d = q.shape
+    nk = k.shape[0]
     out = torch.empty((nq, h, d), dtype=dtype, device=q.device)
     m = torch.empty((nq, h), dtype=torch.float32, device=q.device)
     l = torch.empty((nq, h), dtype=torch.float32, device=q.device)

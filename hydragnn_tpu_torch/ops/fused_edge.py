@@ -35,6 +35,8 @@ from .sorted_segment import (
     _DTYPE_CODES,
     _check_current_device,
     check_ids,
+    needs_grad,
+    recompute_backward,
     segment_sum_plain,
 )
 
@@ -103,7 +105,7 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     if max(edge_in.numel(), node_recv.numel(), num_segments * co, ci * co) >= 2**31:
         raise ValueError("fused_edge_message_sum: more than 2**31 elements")
     inputs = (node_recv, edge_in, weights, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    if needs_grad(*inputs):
         return _FusedEdgeMessageSum.apply(*inputs, segment_ids, num_segments)
     return _launch(*inputs, segment_ids, num_segments)
 
@@ -118,18 +120,10 @@ class _FusedEdgeMessageSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         *inputs, segment_ids = ctx.saved_tensors
-        want = ctx.needs_input_grad[:4]
-        create = torch.is_grad_enabled()  # a double backward is asked for
-        with torch.enable_grad():
-            # under a double backward the recompute hangs off the saved
-            # inputs (through fresh views, so each gradient is the partial
-            # of this op alone); otherwise off detached leaves
-            leaves = [t.view_as(t) if create and t.requires_grad
-                      else t.detach().requires_grad_(w) for t, w in zip(inputs, want)]
-            out = reference_edge_message_sum(*leaves, segment_ids, ctx.num_segments)
-            wanted = [t for t, w in zip(leaves, want) if w]
-            grads = iter(torch.autograd.grad(out, wanted, dout, create_graph=create))
-        return (*(next(grads) if w else None for w in want), None, None)
+        grads = recompute_backward(
+            ctx, lambda *a: reference_edge_message_sum(*a, segment_ids, ctx.num_segments),
+            inputs, dout)
+        return (*grads, None, None)
 
 
 def _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments: int):

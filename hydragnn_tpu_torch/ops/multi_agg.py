@@ -12,11 +12,19 @@ ascend; unlike the TPU kernel, every row is exact whatever its degree, the
 dummy padding row included.
 
 The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor (one launch, one scratch tensor); anything else raises. The
-kernel has no backward yet: asked for a gradient on the card, the wrapper
-raises (the plain version is differentiable).
+CUDA tensor (one launch, one scratch tensor); anything else raises.
 ``fused_multi_agg.launches`` counts kernel launches (``launches_by_case``
 splits them by dtype and width).
+
+The kernel's route is differentiable to any order, as the JAX kernel's
+``custom_jvp`` (whose tangent rule is ``reference_multi_agg``) is: one
+``torch.autograd.Function`` saves only its inputs, and its backward
+recomputes the messages through ``reference_multi_agg`` and differentiates
+that, so the backward launches no kernel. ``count`` has no gradient. min
+and max split a row's gradient evenly over the edges that tie for it
+(``scatter_reduce``'s rule, as JAX's scatter-min/max JVP averages over
+ties); an empty row's 0 has none. With no gradient asked for, the forward
+runs without the Function.
 """
 
 from __future__ import annotations
@@ -25,9 +33,16 @@ import collections
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from .sorted_segment import _DTYPE_CODES, _check_current_device, check_ids, refuse_grad
+from .sorted_segment import (
+    _DTYPE_CODES,
+    _check_current_device,
+    check_ids,
+    needs_grad,
+    recompute_backward,
+)
 
 _SIGNATURES = {
     "hg_multi_agg": (
@@ -66,7 +81,10 @@ def reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int
     ways; ``mask`` drops edges from every moment. Returns ``(sum [N, C],
     count [N], min [N, C], max [N, C], sumsq [N, C])``, all f32."""
     ids = segment_ids.long()
-    msg = edge_in if node_recv is None else node_recv[ids] + edge_in
+    # embedding's backward sorts the ids and sums each row in f32, in a
+    # fixed order; advanced indexing's walks the dummy row's run of padding
+    # edges one at a time, index_select's adds bf16 rows by atomics
+    msg = edge_in if node_recv is None else F.embedding(ids, node_recv) + edge_in
     if gate is not None:
         msg = msg * gate
     msg = msg.float()
@@ -100,7 +118,6 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
         return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
     if edge_in.device.type != "cuda":
         raise ValueError(f"fused_multi_agg: unsupported device {edge_in.device}")
-    refuse_grad("fused_multi_agg", node_recv, edge_in, gate)
     dtype = edge_in.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_multi_agg: dtype {dtype} not supported")
@@ -123,6 +140,34 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
     check_ids(segment_ids, e, edge_in.device)
     if max(edge_in.numel(), num_segments * c) >= 2**31:
         raise ValueError("fused_multi_agg: more than 2**31 elements")
+    if needs_grad(node_recv, edge_in, gate):
+        return _FusedMultiAgg.apply(node_recv, edge_in, gate, segment_ids, num_segments)
+    return _launch(node_recv, edge_in, gate, segment_ids, num_segments)
+
+
+class _FusedMultiAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, node_recv, edge_in, gate, segment_ids, num_segments):
+        ctx.save_for_backward(node_recv, edge_in, gate, segment_ids)
+        ctx.num_segments = num_segments
+        s, cnt, mn, mx, ssq = _launch(node_recv, edge_in, gate, segment_ids, num_segments)
+        ctx.mark_non_differentiable(cnt)
+        return s, cnt, mn, mx, ssq
+
+    @staticmethod
+    def backward(ctx, ds, dcnt, dmn, dmx, dssq):
+        *inputs, segment_ids = ctx.saved_tensors
+
+        def moments(*a):  # the four differentiable moments
+            s, _, mn, mx, ssq = reference_multi_agg(*a, segment_ids, ctx.num_segments)
+            return s, mn, mx, ssq
+
+        return (*recompute_backward(ctx, moments, inputs, (ds, dmn, dmx, dssq)), None, None)
+
+
+def _launch(node_recv, edge_in, gate, segment_ids, num_segments: int):
+    e, c = edge_in.shape
+    dtype = edge_in.dtype
     dev = edge_in.device
     s, mn, mx, ssq = (torch.empty((num_segments, c), dtype=torch.float32, device=dev)
                       for _ in range(4))

@@ -78,8 +78,15 @@ class _SortedSegmentSum(torch.autograd.Function):
         return _gather_rows(dout, segment_ids, ctx.num_segments), None, None, None
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether a call takes part in autograd: grad mode on and an input
+    (None for an absent optional one) that requires grad. The wrappers run
+    their kernel's Function only then."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def _differentiable(forward, messages, segment_ids, num_segments: int):
-    if torch.is_grad_enabled() and messages.requires_grad:
+    if needs_grad(messages):
         return _SortedSegmentSum.apply(messages, segment_ids, num_segments, forward)
     return forward(messages, segment_ids, num_segments)
 
@@ -127,18 +134,24 @@ def check_ids(segment_ids, n_edges: int, device) -> None:
         )
 
 
-def refuse_grad(fn: str, *tensors) -> None:
-    """Raise where a kernel without a backward is asked for a gradient (on
-    the card, grad mode on, a float input that requires grad), rather than
-    return a result outside the autograd graph."""
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            f"{fn}: the kernel has no backward yet (it comes with a later "
-            "slice of the port); run it under torch.no_grad(), or on CPU "
-            "tensors, whose plain version is differentiable"
-        )
+def recompute_backward(ctx, plain, inputs, douts):
+    """The backward of a kernel's Function whose JAX counterpart's tangent
+    rule is its plain reference: ``plain(*inputs)`` recomputed in torch ops
+    from the saved ``inputs`` (None where an optional input is absent) and
+    differentiated against ``douts``. Returns one gradient per input, None
+    where none is needed; launches no kernel. Under a double backward (grad
+    mode on) the recompute hangs off the saved inputs through fresh views,
+    so each gradient is the partial of this op alone and differentiable in
+    turn; otherwise off detached leaves."""
+    want = ctx.needs_input_grad[:len(inputs)]
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        leaves = [None if t is None else t.view_as(t) if create and t.requires_grad
+                  else t.detach().requires_grad_(w) for t, w in zip(inputs, want)]
+        outs = plain(*leaves)
+        wanted = [t for t, w in zip(leaves, want) if w]
+        grads = iter(torch.autograd.grad(outs, wanted, douts, create_graph=create))
+    return [next(grads) if w else None for w in want]
 
 
 def sorted_segment_sum(messages, segment_ids, num_segments: int):

@@ -8,7 +8,10 @@ blocks and their key mask rotate around the ring (rank ``i`` receives from
 and the softmax is accumulated online (running max, denominator and
 accumulator), so no rank ever holds the ``[N, N]`` scores. After ``n_ranks``
 blocks each query has attended to every key. ``group=None`` is a ring of
-one rank: one block, no rotation.
+one rank: one block, no rotation. The rotation is differentiable: its
+backward sends the key and value gradients back round the ring to the
+ranks that own the blocks, so every rank's ``k`` and ``v`` gradients hold
+every rank's queries' terms.
 
 ``use_flash`` computes each block's partial with the block-summary kernel
 (K4b, ``ops/flash_attention.flash_block_summary``) and merges it here in
@@ -50,13 +53,15 @@ def _block_attend(q, k, v, kmask, m, denom, acc, scale, use_flash: bool = False)
     return new_m, denom, acc
 
 
-def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
-    """Send each tensor to the previous rank of the ring and receive the
-    next rank's, in one batch of point-to-point operations."""
+def _send_recv(tensors: List[torch.Tensor], group, shift: int) -> List[torch.Tensor]:
+    """Send each tensor ``shift`` ranks along the ring and receive the ones
+    sent to this rank, in one batch of point-to-point operations: rank
+    ``i`` receives rank ``i - shift``'s."""
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    send_to = dist.get_global_rank(group, (rank - 1) % world)
-    recv_from = dist.get_global_rank(group, (rank + 1) % world)
+    send_to = dist.get_global_rank(group, (rank + shift) % world)
+    recv_from = dist.get_global_rank(group, (rank - shift) % world)
+    tensors = [t.contiguous() for t in tensors]
     received = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, r in zip(tensors, received):
@@ -65,6 +70,31 @@ def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return received
+
+
+class _Rotate(torch.autograd.Function):
+    """``_send_recv`` of float tensors inside the autograd graph, as JAX's
+    ``ppermute`` transposes: the gradient of what a rank received belongs
+    to the rank that sent it, so the backward sends the incoming gradients
+    the other way round the ring (itself a ``_Rotate``, so differentiable
+    to any order)."""
+
+    @staticmethod
+    def forward(ctx, group, shift, *tensors):
+        ctx.group, ctx.shift = group, shift
+        return tuple(_send_recv(list(tensors), group, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_Rotate.apply(ctx.group, -ctx.shift, *grads))
+
+
+def _rotate(k, v, key_mask, group):
+    """Rank ``i`` gets rank ``i + 1``'s key block, value block and key
+    mask (each rank sends its own to ``i - 1``)."""
+    k, v = _Rotate.apply(group, -1, k, v)
+    (key_mask,) = _send_recv([key_mask], group, -1)
+    return k, v, key_mask
 
 
 def ring_self_attention(q, k, v, key_mask: Optional[torch.Tensor], group=None,
@@ -84,9 +114,8 @@ def ring_self_attention(q, k, v, key_mask: Optional[torch.Tensor], group=None,
     # n_ranks - 1 attend + rotate steps, then the last block without the
     # rotation that would only bring the first block back
     if n_ranks > 1:
-        k, v, key_mask = k.contiguous(), v.contiguous(), key_mask.contiguous()
         for _ in range(n_ranks - 1):
             m, denom, acc = _block_attend(q, k, v, key_mask, m, denom, acc, scale, use_flash)
-            k, v, key_mask = _rotate([k, v, key_mask], group)
+            k, v, key_mask = _rotate(k, v, key_mask, group)
     m, denom, acc = _block_attend(q, k, v, key_mask, m, denom, acc, scale, use_flash)
     return acc / torch.clamp(denom, min=1e-30)[..., None]

@@ -1,7 +1,9 @@
-"""Sequence (node) parallel evaluation: one spanning graph per batch.
+"""Sequence (node) parallel training and evaluation: one spanning graph per
+batch.
 
 Counterpart of ``hydragnn_tpu/parallel/sp.py`` (``sp_context``,
-``current_sp``, ``shard_sp_batch``, ``make_sp_eval_step``). Inside an SP
+``current_sp``, ``shard_sp_batch``, ``make_sp_train_step``,
+``make_sp_eval_step``). Inside an SP
 context, GPS global attention with ``global_attn_type: "ring"`` computes
 exact softmax attention over every real node of the batch through
 ``parallel/ring_attention.py``; outside one, the same module falls back to
@@ -24,7 +26,8 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, module_device, resolve_device
+from ..train.loop import step_on
 from ..train.loss import multitask_loss
 
 _ctx = threading.local()
@@ -59,6 +62,26 @@ def shard_sp_batch(batch, group=None, device: DeviceLike = None):
             "this slice runs the ring on one rank (group=None)"
         )
     return batch.to(resolve_device(device))
+
+
+def make_sp_train_step(model, state, group=None, compute_grad_energy: bool = False):
+    """``step(batch) -> (state, loss, per-task losses)`` for one spanning
+    graph per batch: the batch placed by ``shard_sp_batch`` on the model's
+    device, the train-mode forward and its loss inside ``sp_context(group)``
+    (ring attention over the group), the backward, and one step of
+    ``state``'s optimizer; the batch-norm statistics are the train-mode
+    forward's. As in the JAX package, no step guard (``state``'s guard
+    copies, if any, are not used: ``TrainState.create(..., guard=False)``
+    makes none). ``state`` is updated in place."""
+    dev = module_device(model)
+
+    def step(batch):
+        batch = shard_sp_batch(batch, group, dev)
+        with sp_context(group):
+            return step_on(state, model, batch, compute_grad_energy=compute_grad_energy,
+                           guard=False)
+
+    return step
 
 
 def make_sp_eval_step(model, group=None, device: DeviceLike = None):

@@ -90,38 +90,48 @@ def make_train_step(model, compute_grad_energy: bool = False,
     default) a step whose loss or global gradient norm is not finite is
     skipped on the device (train/guard.py). The update is
     ``optimizer_step`` (the optimizer's clip, then its step)."""
-    cfg = model.cfg
     apply = _apply_fn(model, mixed_precision, cast_buffers=False)
-    params = list(model.parameters())
 
     def train_step(state: TrainState, batch: GraphBatch):
-        opt = state.optimizer
         batch = batch.to(module_device(model), non_blocking=True)
         if mixed_precision:
             batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
-        model.train()
-        if state.guard is not None:
-            # what the step may change, as it was before the forward (the
-            # forward updates the batch-norm buffers)
-            state.guard.save()
-        for p in params:
-            p.grad = None
-        tot, tasks, _ = compute_loss(apply, batch, cfg, compute_grad_energy)
-        tot = tot.float()
-        tot.backward()
-        with torch.no_grad():
-            for p in params:  # an unused parameter gets a zero gradient, as in optax
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
-            if state.guard is not None:
-                guarded_update(state, step_ok(tot, grads), lambda: optimizer_step(opt, grads))
-            else:
-                optimizer_step(opt, grads)
-                state.step.add_(1)
-        return state, tot.detach(), {k: v.detach() for k, v in tasks.items()}
+        return step_on(state, model, batch, apply, compute_grad_energy, guard=True)
 
     return train_step
+
+
+def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callable] = None,
+            compute_grad_energy: bool = False, guard: bool = True):
+    """One optimizer step of ``state`` on ``batch`` (placed and cast): the
+    train-mode forward of ``apply`` (``model`` when None) and its loss, the
+    backward into ``model``'s parameters, then the update, skipped on the
+    device for a non-finite step where ``guard`` is set and the state has
+    the guard's copies. Returns ``(state, loss, per-task losses)``."""
+    params = list(model.parameters())
+    opt = state.optimizer
+    guarded = guard and state.guard is not None
+    model.train()
+    if guarded:
+        # what the step may change, as it was before the forward (the
+        # forward updates the batch-norm buffers)
+        state.guard.save()
+    for p in params:
+        p.grad = None
+    tot, tasks, _ = compute_loss(apply or model, batch, model.cfg, compute_grad_energy)
+    tot = tot.float()
+    tot.backward()
+    with torch.no_grad():
+        for p in params:  # an unused parameter gets a zero gradient, as in optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if guarded:
+            guarded_update(state, step_ok(tot, grads), lambda: optimizer_step(opt, grads))
+        else:
+            optimizer_step(opt, grads)
+            state.step.add_(1)
+    return state, tot.detach(), {k: v.detach() for k, v in tasks.items()}
 
 
 def make_eval_step(model, compute_grad_energy: bool = False,

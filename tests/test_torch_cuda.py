@@ -203,7 +203,7 @@ def pytest_k4_kernel_matches_plain_on_card(cuda, dtype, h, d):
     sizes = [1, 40, 225, 3, 70, 1, 128, 17]
     qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, h, d, sizes, 37, d)
     before = t_flash.flash_self_attention.launches
-    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g, max(sizes))
     want = t_flash.reference_masked_attention(*qkv, node_graph, node_mask)
     gathered = t_flash.reference_gathered_attention(*qkv, node_graph, node_mask, g, max(sizes))
     torch.cuda.synchronize()
@@ -222,12 +222,13 @@ def pytest_k4_kernel_takes_row_strided_views_of_a_fused_projection(cuda):
     fused = torch.cat([t.reshape(t.shape[0], -1) for t in qkv], dim=1)  # [N, 3 * H * d]
     views = [t.view(-1, 4, 16) for t in fused.split(64, dim=1)]
     assert views[0].stride(0) == 192
-    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g)
-    want = t_flash.flash_self_attention(*[t.contiguous() for t in qkv], node_graph, node_mask, g)
+    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g, 50)
+    want = t_flash.flash_self_attention(*[t.contiguous() for t in qkv], node_graph, node_mask,
+                                        g, 50)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="head dim"):
-        t_flash.flash_self_attention(*[t[..., :12] for t in qkv], node_graph, node_mask, g)
+        t_flash.flash_self_attention(*[t[..., :12] for t in qkv], node_graph, node_mask, g, 50)
 
 
 @pytest.mark.gpu
@@ -379,8 +380,6 @@ def pytest_k1_narrow_rows_match_plain_on_card(cuda, dtype, c):
 def pytest_k1_is_deterministic_and_one_launch_on_card(cuda, c):
     """Two calls give bitwise-equal sums (no atomics, fixed order), and each
     call is one device kernel: no row-pointer kernel before it."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=cuda).manual_seed(c)
     deg = torch.randint(0, 30, (2000,), generator=gen, device=cuda)
     deg[-1] = 700
@@ -389,13 +388,26 @@ def pytest_k1_is_deterministic_and_one_launch_on_card(cuda, c):
     first = t_sorted.sorted_segment_sum(msg, ids, 2000)
     torch.cuda.synchronize()
     before = t_sorted.sorted_segment_sum.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        second = t_sorted.sorted_segment_sum(msg, ids, 2000)
-        torch.cuda.synchronize()
-    assert t_sorted.sorted_segment_sum.launches == before + 1
-    kernels = [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")]
+    kernels, second = _recorded_kernels(lambda: t_sorted.sorted_segment_sum(msg, ids, 2000))
+    assert t_sorted.sorted_segment_sum.launches == before + 2
     assert sum(ev.count for ev in kernels) == 1, [ev.key for ev in kernels]
     assert torch.equal(first, second)
+
+
+def _recorded_kernels(fn):
+    """The device kernels of one call of ``fn`` under torch.profiler, after
+    one call profiled to warm the profiler up and not recorded (a cold
+    profile can drop a call's kernels), and the recorded call's result."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        out = fn()
+        torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")], out
 
 
 def _check_summary(got, want, dtype):
@@ -414,7 +426,7 @@ def pytest_flash_kernels_every_head_dim_on_card(cuda, dtype, d):
     zero-padded, d = 64 and 128 on shorter key tiles)."""
     sizes = [1, 40, 130, 3, 70]
     qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, 2, d, sizes, 11, d + 1)
-    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    got = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g, max(sizes))
     want = t_flash.reference_masked_attention(*qkv, node_graph, node_mask)
     q, k, v, key_mask = _block_case(cuda, dtype, 150, 170, 2, d, seed=d)
     got_b = t_flash.flash_block_summary(q, k, v, key_mask)
@@ -470,8 +482,8 @@ def pytest_flash_kernels_take_misaligned_row_strided_views_on_card(cuda, dtype, 
              for i in range(3)]
     size = fused.element_size()
     assert any(t.data_ptr() % 16 or t.stride(0) * size % 16 for t in views)
-    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g)
-    want = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g)
+    got = t_flash.flash_self_attention(*views, node_graph, node_mask, g, 80)
+    want = t_flash.flash_self_attention(*qkv, node_graph, node_mask, g, 80)
     got_b = t_flash.flash_block_summary(*views, node_mask)
     want_b = t_flash.flash_block_summary(*qkv, node_mask)
     torch.cuda.synchronize()
@@ -539,8 +551,6 @@ def pytest_k2_and_k3_give_the_same_bits_twice_on_card(cuda, dtype):
 def pytest_k3_is_one_launch_on_card(cuda, dtype):
     """One device kernel per call, with a split dummy row: no row-pointer
     kernel, no separate long-row pass, no memset."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=cuda).manual_seed(8)
     deg = torch.randint(0, 30, (1000,), generator=gen, device=cuda)
     deg[-1] = 2000
@@ -550,11 +560,8 @@ def pytest_k3_is_one_launch_on_card(cuda, dtype):
     first = t_multi.fused_multi_agg(nr, ei, None, ids, 1000)
     torch.cuda.synchronize()
     before = t_multi.fused_multi_agg.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        second = t_multi.fused_multi_agg(nr, ei, None, ids, 1000)
-        torch.cuda.synchronize()
-    assert t_multi.fused_multi_agg.launches == before + 1
-    kernels = [ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA")]
+    kernels, second = _recorded_kernels(lambda: t_multi.fused_multi_agg(nr, ei, None, ids, 1000))
+    assert t_multi.fused_multi_agg.launches == before + 2
     assert sum(ev.count for ev in kernels) == 1, [ev.key for ev in kernels]
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -616,9 +623,10 @@ def _ascending_ids(cuda, n, mean_degree, seed):
     return torch.repeat_interleave(torch.arange(n, device=cuda), deg), gen
 
 
-# gradients of the kernels' Functions against their plain versions' autograd
-# (they see the forwards' rounding through tanh'): f32 1e-4, bf16 3e-2 of the
-# largest value of each gradient
+# gradients of the kernels' Functions against their plain versions' or an
+# independent route's autograd (they see the forwards' rounding through
+# tanh'; in bf16 K4 rounds p to bf16 where the independent route keeps f32):
+# f32 1e-4, bf16 3e-2 of the largest value of each gradient
 _GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
@@ -691,34 +699,89 @@ def pytest_k2_function_gradients_match_plain_on_card(cuda, dtype, n, ci, co):
         _assert_grads_close(a, b, dtype)
 
 
-@pytest.mark.gpu
-def pytest_kernels_without_a_backward_raise_when_asked_for_a_gradient_on_card(cuda):
-    """K3, K4 and K4b have no backward yet: asked for a gradient on the card
-    they raise; under no_grad, or on inputs that need none, they run."""
-    ids, gen = _ascending_ids(cuda, 64, 4, 0)
-    e = ids.shape[0]
-    nr, ei = (torch.randn(r, 32, generator=gen, device=cuda) for r in (64, e))
-    q, k, v = (torch.randn(64, 2, 16, generator=gen, device=cuda) for _ in range(3))
-    node_graph = torch.arange(64, device=cuda) // 16
-    node_mask = torch.ones(64, dtype=torch.bool, device=cuda)
-    calls = {
-        "fused_multi_agg": lambda a, b: t_multi.fused_multi_agg(a, b, None, ids, 64),
-        "flash_self_attention": lambda a, b: t_flash.flash_self_attention(
-            a, b, v, node_graph, node_mask, 4),
-        "flash_block_summary": lambda a, b: t_flash.flash_block_summary(a, b, v, node_mask),
-    }
-    operands = {"fused_multi_agg": (nr, ei), "flash_self_attention": (q, k),
-                "flash_block_summary": (q, k)}
-    for name, call in calls.items():
-        a, b = operands[name]
-        with pytest.raises(NotImplementedError, match="no backward"):
-            call(a, b.clone().requires_grad_(True))
-        with torch.no_grad():
-            call(a, b.clone().requires_grad_(True))
-        with torch.inference_mode():
-            call(a, b)
-        call(a, b)
+def _function_against(fn, independent, inputs, wrapper, dtype, seed):
+    """First- and second-order gradients of ``fn`` (a kernel's Function)
+    against ``independent`` (ordinary autograd, none of the kernel's code)
+    through chip_smoke's ``first_and_second``: one forward launch, none in
+    either backward; each gradient within ``_GRAD_TOL``."""
+    from chip_smoke import first_and_second
+
+    want_1, want_2, scales = first_and_second(independent, inputs, seed)
+    before = wrapper.launches
+    got_1, got_2, _ = first_and_second(fn, inputs, seed, scales)
     torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for got, want in ((got_1, want_1), (got_2, want_2)):
+        _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,deg,c,gate", [(64, 4, 32, True), (1100, 16, 256, False)])
+def pytest_k3_function_gradients_match_autograd_on_card(cuda, dtype, n, deg, c, gate):
+    """K3's Function (its backward the recompute through
+    ``reference_multi_agg``) at a small shape with a gate and at the GPS-PNA
+    path's (C = 256, about 16 edges per row), against
+    ``reference_multi_agg``'s own autograd; under no_grad the wrapper runs
+    without it."""
+    ids, gen = _ascending_ids(cuda, n, deg, c)
+    e = ids.shape[0]
+    inputs = [torch.randn(r, c, generator=gen, device=cuda).to(dtype)
+              for r in ((n, e, e) if gate else (n, e))]
+
+    def call(fn):
+        return lambda nr, ei, g=None: fn(nr, ei, g, ids, n)
+
+    _function_against(call(t_multi.fused_multi_agg), call(t_multi.reference_multi_agg), inputs,
+                      t_multi.fused_multi_agg, dtype, c)
+    with torch.no_grad():
+        out = t_multi.fused_multi_agg(*inputs[:2], None, ids, n)
+    assert not any(o.requires_grad for o in out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,h,d", [([1, 40, 3, 17], 2, 16), ("path", 8, 32)])
+def pytest_k4_function_gradients_match_autograd_on_card(cuda, dtype, sizes, h, d):
+    """K4's Function (its backward the recompute through
+    ``reference_gathered_attention``) with padding rows, at a small shape
+    and at the GPS-PNA path's (16 graphs of 20 to 130 nodes, 8 heads of
+    32), against softmax attention written with ordinary autograd."""
+    from chip_smoke import dense_attention
+
+    if sizes == "path":
+        gen = torch.Generator().manual_seed(16)
+        sizes = torch.randint(20, 131, (16,), generator=gen).tolist()
+    qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, h, d, sizes, 9, len(sizes))
+    valid = ((node_graph[:, None] == node_graph[None, :]) & node_mask[:, None]
+             & node_mask[None, :])
+    nmax = max(sizes)
+    _function_against(
+        lambda q, k, v: t_flash.flash_self_attention(q, k, v, node_graph, node_mask, g, nmax),
+        lambda q, k, v: dense_attention(q, k, v, valid), qkv, t_flash.flash_self_attention,
+        dtype, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_q,n_k,h,d,p_mask", [(150, 170, 2, 16, 0.2), (40, 60, 2, 16, 1.0),
+                                                (8194, 8194, 8, 32, 0.0)])
+def pytest_k4b_function_gradients_match_autograd_on_card(cuda, n_q, n_k, h, d, p_mask):
+    """K4b's Function (its backward the recompute through
+    ``reference_block_summary`` in blocks of query rows), f32 as on the SP
+    path: some keys masked, every key masked (fully masked rows: zero
+    gradients), and the gin_ring path's 8,194 x 8,194 block (several row
+    blocks), against the block summary written with ordinary autograd."""
+    from chip_smoke import dense_block_summary
+
+    q, k, v, key_mask = _block_case(cuda, torch.float32, n_q, n_k, h, d, seed=n_q, p_mask=p_mask)
+    if n_k == 8194:
+        key_mask[-2:] = False  # the spanning batch's two padding nodes
+    _function_against(
+        lambda q_, k_, v_: t_flash.flash_block_summary(q_, k_, v_, key_mask),
+        lambda q_, k_, v_: dense_block_summary(q_, k_, v_, key_mask), [q, k, v],
+        t_flash.flash_block_summary, torch.float32, d)
+    with torch.inference_mode():
+        assert not any(o.requires_grad for o in t_flash.flash_block_summary(q, k, v, key_mask))
 
 
 @pytest.mark.gpu

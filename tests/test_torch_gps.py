@@ -74,7 +74,7 @@ def pytest_attention_plain_matches_jax_kernel(sizes, h, d):
     want_kernel = np.asarray(j_flash(*j, jg, jm, g, nmax, interpret=True))
     t = [torch.from_numpy(a) for a in qkv]
     tg, tm = torch.from_numpy(node_graph), torch.from_numpy(node_mask)
-    got = t_flash.flash_self_attention(*t, tg, tm, g).numpy()
+    got = t_flash.flash_self_attention(*t, tg, tm, g, nmax).numpy()
     np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(got, np.asarray(j_masked(*j, jg, jm)), rtol=2e-5, atol=2e-5)
     gathered = t_flash.reference_gathered_attention(*t, tg, tm, g, nmax).numpy()
@@ -90,7 +90,7 @@ def pytest_attention_plain_bf16_matches_jax_kernel():
                               interpret=True), np.float32)
     t = [torch.from_numpy(a).to(torch.bfloat16) for a in qkv]
     got = t_flash.flash_self_attention(*t, torch.from_numpy(node_graph),
-                                       torch.from_numpy(node_mask), g)
+                                       torch.from_numpy(node_mask), g, 21)
     assert got.dtype == torch.bfloat16
     scale = float(np.abs(qkv[2]).max())
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-2 * scale)
@@ -100,7 +100,7 @@ def pytest_cpu_attention_wrapper_counts_nothing():
     qkv, node_graph, node_mask, g = _attention_inputs([3, 5], 2, 2, 4, 0)
     before = t_flash.flash_self_attention.launches
     t_flash.flash_self_attention(*[torch.from_numpy(a) for a in qkv],
-                                 torch.from_numpy(node_graph), torch.from_numpy(node_mask), g)
+                                 torch.from_numpy(node_graph), torch.from_numpy(node_mask), g, 5)
     assert t_flash.flash_self_attention.launches == before
 
 

@@ -162,7 +162,7 @@ def pytest_k3_k4_cpu_wrappers_take_the_plain_versions_and_count_nothing(dtype):
     node_mask = torch.arange(12) < 9
     qkv = [torch.from_numpy(rng.normal(size=(12, 2, 4)).astype(np.float32)).to(dtype)
            for _ in range(3)]
-    out = t_flash.flash_self_attention(*qkv, node_graph, node_mask, 3)
+    out = t_flash.flash_self_attention(*qkv, node_graph, node_mask, 3, 6)
     assert out.dtype == dtype and out.shape == (12, 2, 4)
     torch.testing.assert_close(out, t_flash.reference_masked_attention(*qkv, node_graph, node_mask),
                                rtol=0, atol=0)
