@@ -82,11 +82,51 @@ Phases, each fatal on failure (exit code 1):
    calls, or correctly rounded sums) are printed against the same step in
    f64, and each K1 sum of that step against an f64 sum beside its plain
    version's (K1 no further from it, or it fails). The kernel checks of
-   phase 3 also time K1's and K2's backwards.
+   phase 3 also time K1's and K2's backwards;
+8. ``gps_pna_train``: the gps_pna cell's model trained at full width
+   through K3 and K4 with gradients (22 steps of 16 OC20-shaped graphs with
+   PE 4, bf16 mixed precision, AdamW lr 1e-3, the guard on): one step's
+   gradients against the plain versions in f32 and in bf16 beside
+   controls, the two loss trajectories, launches per step (K3 and K4 once
+   in bf16 and three times in f32, none in a backward), ms per step, peak
+   memory, one profiled step, and one ``api.run_training`` epoch;
+9. ``gin_ring_train``: the gin_ring cell's model trained through
+   ``parallel.make_sp_train_step`` on a ring of one rank over phase 6's
+   requests (4 epochs, AdamW lr 3e-3, f32): gradients against the K1/K4b
+   plain route and against one step of the dense fallback, the
+   trajectories' first epoch, launches per step (K1 and K4b four times
+   each), ms per step, nodes/s, peak memory, and the last epoch's mean
+   loss below the first's;
+10. ``egnn_ckpt``: checkpointed training of phase 7's model and Training
+   block on phase 4's graphs through ``api.run_training`` with
+   ``Training.Checkpoint`` (3 epochs, retention 2), no device given, under
+   ``./logs`` of a temporary directory: the checkpoint restored into a
+   fresh model and AdamW bit for bit (parameters, buffers, moments,
+   counters, LR); the files on disk as retention and the ``latest``
+   pointer say, each payload against its sha256 sidecar; ``run_prediction``
+   restored from disk against ``test_model`` on the in-memory state, and
+   ``run_server`` restored from disk against servers of the in-memory
+   weights over 192 requests (exactly, when two in-memory runs agree bit
+   for bit; else within 4x their spread), its launches per served batch;
+   a byte of the newest payload flipped: the server walks back to the
+   previous epoch's file, reports it, and answers as its weights do; a
+   SIGTERM sent as the loader hands out batch 1 of epoch 1: the run
+   checkpoints with a loader-state sidecar and stops, ``continue: true``
+   replays the rest of that epoch (the same graphs in the same order as an
+   uninterrupted run), and those steps' losses are held against the
+   uninterrupted run's on the same terms against a second uninterrupted
+   run; every batch of epoch 1 poisoned (NaN features) under
+   ``non_finite_policy: rollback``: one rollback, the restored state equal
+   to the checkpoint file's bit for bit, the LR backed off by
+   ``non_finite_lr_backoff``. It prints the seconds of every save and
+   restore and the payload's bytes.
 
 Each path sets every launch count to 0 just before its requests (or steps)
-and reads them just after, and prints one ``profile:`` block. The last
-three lines are the card, the kernels JSON line and the result line.
+and reads them just after, and prints one ``profile:`` block (the
+``egnn_ckpt`` phase prints none). Every path runs in a temporary directory
+under ``build/``, so its ``./logs`` (checkpoints written by
+``run_training``, read by the servers) starts empty. The last three lines
+are the card, the kernels JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -99,6 +139,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2232,7 +2273,425 @@ def run_gin_ring_train(config, batches, device, per_step):
     return launched
 
 
+# egnn_ckpt: the egnn_train cell's model and Training block on the egnn
+# cell's graphs (its 90% train split, 4 packed steps an epoch), with
+# best-validation checkpoints kept to the newest CKPT_RETENTION, trained,
+# stopped and resumed through api.run_training, restored by run_prediction
+# and run_server, under ./logs of a temporary directory. Gates: the round
+# trip bit for bit; prediction and serving restored from disk against the
+# in-memory weights, exactly when two in-memory runs agree bit for bit,
+# else within CKPT_REPEAT times their spread; the walk-back after a byte
+# flip; the replayed steps of a SIGTERM stop against an uninterrupted run,
+# on the same terms; the rollback bit for bit, its LR backed off.
+CKPT_EPOCHS = 3
+CKPT_RETENTION = 2
+CKPT_KILL = (1, 1)  # SIGTERM as batch 1 of epoch 1 is handed out
+CKPT_WALKBACK_REQUESTS = 64
+CKPT_REPEAT = 4.0
+CKPT_ROLLBACK = {"non_finite_policy": "rollback", "non_finite_rollback_after": 2,
+                 "non_finite_lr_backoff": 0.5}
+
+
+@contextlib.contextmanager
+def ckpt_probes(log=None, kill_at=None, poison=(), losses=None, saves=None, restores=None,
+                policies=None):
+    """Within the block, each ``run_training`` / ``run_prediction`` /
+    ``run_server`` call records what the arguments ask for: ``log`` gets
+    each train batch handed out as ((epoch, index), graph ids); the process
+    gets SIGTERM as batch ``kill_at`` is handed out; the batches of the
+    epochs in ``poison`` have NaN features; ``losses`` gets each train
+    step's loss (on the device); ``saves`` (file, seconds, bytes) of each
+    checkpoint save; ``restores`` (file, seconds, payload right after) of
+    each full restore; ``policies`` the epoch loop's ``NonFinitePolicy``."""
+    import os
+    import signal
+
+    import torch
+
+    import hydragnn_tpu_torch.api as api
+    import hydragnn_tpu_torch.train.checkpoint as ck
+    import hydragnn_tpu_torch.train.loop as loop
+
+    base, make_step = api.GraphLoader, loop.make_train_step
+    save, load, policy = ck.save_model, ck.load_existing_model, loop.NonFinitePolicy
+
+    class Loader(base):
+        def __iter__(self):
+            groups = self._groups()[self.start_batch:]
+            for k, (grp, batch) in enumerate(zip(groups, super().__iter__())):
+                if self.shuffle:  # the train split
+                    pos = (self.epoch, self.start_batch + k)
+                    if log is not None:
+                        log.append((pos, tuple(int(i) for i in grp)))
+                    if pos == kill_at:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    if self.epoch in poison:
+                        batch = batch.replace(x=torch.full_like(batch.x, float("nan")))
+                yield batch
+
+    def recording_step(model, *a, **kw):
+        step = make_step(model, *a, **kw)
+
+        def run(state, batch):
+            out = step(state, batch)
+            if losses is not None:
+                losses.append(out[1].clone())
+            return out
+
+        return run
+
+    def timed_save(state, log_name, path="./logs", epoch=None, retention=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fname = save(state, log_name, path, epoch, retention)
+        if saves is not None:
+            saves.append((os.path.basename(fname), time.perf_counter() - t0,
+                          os.path.getsize(fname)))
+        return fname
+
+    def timed_load(template, log_name, path="./logs", loaded_entry=None):
+        names = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = load(template, log_name, path, names)
+        torch.cuda.synchronize()
+        if restores is not None:
+            restores.append((names[0], time.perf_counter() - t0, state.to_payload()))
+        if loaded_entry is not None:
+            loaded_entry.extend(names)
+        return state
+
+    class Policy(policy):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if policies is not None:
+                policies.append(self)
+
+    with swapped([(api, "GraphLoader", Loader), (loop, "make_train_step", recording_step),
+                  (ck, "save_model", timed_save), (ck, "load_existing_model", timed_load),
+                  (loop, "NonFinitePolicy", Policy)]):
+        yield
+
+
+def payload_mismatches(a, b, prefix=""):
+    """Keys where two checkpoint payloads (or parts) differ: tensors by
+    dtype, shape and bits, everything else by value."""
+    import torch
+
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        same = (torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+        return [] if same else [prefix]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{prefix}: keys"]
+        return [m for k in a for m in payload_mismatches(a[k], b[k], f"{prefix}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        return [m for i, (x, y) in enumerate(zip(a, b))
+                for m in payload_mismatches(x, y, f"{prefix}[{i}]")]
+    return [] if a == b else [prefix]
+
+
+def relative_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|, across a list of
+    per-head dicts (served answers) or one dict of arrays (predictions)."""
+    import numpy as np
+
+    got = got if isinstance(got, list) else [got]
+    want = want if isinstance(want, list) else [want]
+    err = max(float(np.abs(np.asarray(g[k]) - np.asarray(w[k])).max())
+              for g, w in zip(got, want) for k in w)
+    scale = max(float(np.abs(np.asarray(w[k])).max()) for w in want for k in w)
+    return err / max(scale, 1e-30)
+
+
+def repeat_gate(label: str, gap: float, spread: float, what: str) -> None:
+    """``gap`` exactly 0 when two reference runs agree bit for bit
+    (``spread`` 0), else within CKPT_REPEAT times their spread."""
+    limit = CKPT_REPEAT * spread
+    print(f"egnn_ckpt: {label}: {gap:.6g} relative to the largest value; two reference runs "
+          f"{spread:.6g} apart, limit {limit:.6g} ({'exact' if spread == 0 else f'{CKPT_REPEAT}x'})",
+          flush=True)
+    check(gap <= limit, f"egnn_ckpt: {label}: {what}")
+
+
+def serve_requests(server, requests, wrappers=None, per_batch=None):
+    """Serve ``requests`` (all submitted at once) and close the server;
+    with ``wrappers``, every launch count from 0 just before and checked
+    per served batch just after. Returns (answers, checkpoint label)."""
+    import torch
+
+    check(server.wait_ready(timeout=600), f"egnn_ckpt: server warm-up failed: {server.failed}")
+    batches0 = server.stats()["batches"]
+    if wrappers is not None:
+        _zero_launches(wrappers)
+    handles = [server.submit(g) for g in requests]
+    answers = [h.result(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    stats = server.stats()
+    server.close()
+    check(stats["failed_batches"] == 0 and stats["rejected"] == 0, f"egnn_ckpt: serving {stats}")
+    launched = None
+    if wrappers is not None:
+        launched = _check_launches("egnn_ckpt run_server (restored)", wrappers, per_batch,
+                                   stats["batches"] - batches0, "batches")
+    return answers, stats["current_checkpoint"], launched
+
+
+def run_egnn_ckpt(graphs, device, per_step):
+    """Phase 10: checkpointed training of the egnn_train cell's model on the
+    egnn cell's graphs: ``run_training`` with ``Training.Checkpoint``, the
+    round trip into a fresh model and optimizer, ``run_prediction`` and
+    ``run_server`` restored from disk, the walk-back past a corrupt file, a
+    SIGTERM stop mid-epoch and its resume, and a rollback. Returns the
+    launches by (kernel, case) of the training run, the prediction and the
+    restored server."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data, run_prediction, run_server, run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.data import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serve import GraphServer, ServeConfig
+    from hydragnn_tpu_torch.train import (InferenceState, TrainState, latest_checkpoint_entry,
+                                          load_existing_model, load_inference_entry,
+                                          load_loader_state, make_optimizer, test_model)
+    from hydragnn_tpu_torch.utils import preemption
+
+    label = "egnn_ckpt"
+    wrappers = _wrappers()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    config = train_config()
+    config["NeuralNetwork"]["Training"].update(num_epoch=CKPT_EPOCHS, Checkpoint=True,
+                                               checkpoint_retention=CKPT_RETENTION)
+    # a batch window far longer than the submissions take: every batch is
+    # cut by the graph cap or the pad budget, in request order, so two
+    # servers form the same batches
+    config["Serving"] = {"batch_window_s": 1.0}
+    done, loaders, _ = prepare_data(copy.deepcopy(config), splits)
+    name = get_log_name_config(done)
+    per_epoch = []
+    for e in range(CKPT_EPOCHS):
+        loaders[0].set_epoch(e)
+        per_epoch.append(len(loaders[0]))
+    evals = len(loaders[1]) + len(loaders[2])
+    arch, training = done["NeuralNetwork"]["Architecture"], done["NeuralNetwork"]["Training"]
+    print(f"{label}: the egnn_train cell's model (hidden {arch['hidden_dim']}, "
+          f"{arch['num_conv_layers']} conv layers, heads "
+          f"{arch['output_heads']['graph']['dim_headlayers']}, mixed precision "
+          f"{training['mixed_precision']}, AdamW, the guard on), {len(splits[0])} training "
+          f"graphs, {per_epoch} packed steps of {training['batch_size']} per epoch, "
+          f"{CKPT_EPOCHS} epochs, Checkpoint true, retention {CKPT_RETENTION}, ./logs/{name}/ "
+          "under a temporary directory", flush=True)
+
+    # 1. the round trip: run_training with checkpoints (launch counts from 0
+    # just before, read just after), then the checkpoint into a fresh model
+    # and optimizer
+    log_a, losses_a, saves = [], [], []
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    with ckpt_probes(log=log_a, losses=losses_a, saves=saves):
+        model, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = collections.Counter(_check_launches(
+        f"{label} run_training", wrappers, per_step, sum(per_epoch) + CKPT_EPOCHS * evals,
+        "steps and eval batches"))
+    losses_a = torch.stack(losses_a).float().cpu().numpy()
+    print(f"{label}: run_training (no device given: {state.step.device}), {CKPT_EPOCHS} epochs in "
+          f"{seconds:.2f} s, history {hist}; saves (file, seconds, bytes): {saves}", flush=True)
+    check(state.step.device.type == "cuda" and int(state.skipped_steps) == 0
+          and bool(np.isfinite(losses_a).all()), f"{label}: run_training did not train on the card")
+    run_dir = os.path.join("logs", name)
+    saved = [int(f.split("_epoch")[1].split(".")[0]) for f, _, _ in saves]
+    kept = sorted(set(saved))[-CKPT_RETENTION:]
+    want_files = sorted([f"{name}_epoch{e}.pt{s}" for e in kept for s in ("", ".sha256")]
+                        + ["latest"])
+    files = sorted(os.listdir(run_dir))
+    latest = latest_checkpoint_entry(name)
+    print(f"{label}: on disk {files}, latest -> {latest}, payload "
+          f"{os.path.getsize(os.path.join(run_dir, latest))} bytes", flush=True)
+    check(files == want_files and latest == f"{name}_epoch{saved[-1]}.pt",
+          f"{label}: the files on disk are not what retention and the pointer say ({want_files})")
+    for f in files:
+        if f.endswith(".pt"):
+            with open(os.path.join(run_dir, f), "rb") as fh:
+                digest = hashlib.sha256(fh.read()).hexdigest()
+            with open(os.path.join(run_dir, f + ".sha256")) as fh:
+                check(fh.read().strip() == digest, f"{label}: {f}'s sidecar does not match it")
+    fresh_model = create_model(done, device=device, seed=SEED + 1)
+    fresh = TrainState.create(fresh_model, make_optimizer(
+        fresh_model, done["NeuralNetwork"]["Training"]["Optimizer"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_existing_model(fresh, name)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = payload_mismatches(state.to_payload(), fresh.to_payload())
+    print(f"{label}: round trip into a fresh model and AdamW: restore {restore_s:.3f} s, "
+          f"{len(bad)} of the parameters, buffers, moments, counters and LR differ {bad[:5]}",
+          flush=True)
+    check(not bad, f"{label}: the round trip is not bit-exact: {bad[:5]}")
+    del fresh, fresh_model
+
+    # 2. run_prediction restored from disk against test_model on the
+    # in-memory state (twice: the card's spread)
+    test_loader = loaders[2]
+    mem = [test_model(state.model, test_loader, mixed_precision=True)[2] for _ in range(2)]
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    disk = run_prediction(copy.deepcopy(config), datasets=splits)[2]
+    torch.cuda.synchronize()
+    print(f"{label}: run_prediction restored from disk in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launched.update(_check_launches(f"{label} run_prediction", wrappers, per_step,
+                                    len(test_loader), "eval batches"))
+    repeat_gate("prediction restored from disk vs test_model in memory",
+                relative_gap(disk, mem[0]), relative_gap(mem[1], mem[0]),
+                "run_prediction disagrees with the in-memory model")
+
+    # 3. run_server restored from disk against servers of the in-memory
+    # weights (twice: the card's spread), N_REQUESTS requests each
+    requests = [graphs[i % len(graphs)] for i in range(N_REQUESTS)]
+
+    def memory_server(m):
+        return GraphServer(m, test_loader.ladder, ServeConfig.from_config(done),
+                           template_graphs=test_loader.graphs, mixed_precision=True,
+                           sort_edges=True, device=device, log_name=name)
+
+    t0 = time.perf_counter()
+    server = run_server(copy.deepcopy(config), datasets=splits)
+    print(f"{label}: run_server restored from disk and started in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    served, served_label, served_launched = serve_requests(server, requests, wrappers,
+                                                           per_step)
+    launched.update(served_launched)
+    mem_served = [serve_requests(memory_server(state.model).start(), requests)[0]
+                  for _ in range(2)]
+    check(served_label == latest, f"{label}: the server reports {served_label}, not {latest}")
+    serve_spread = relative_gap(mem_served[1], mem_served[0])
+    repeat_gate(f"{N_REQUESTS} requests served from disk ({served_label}) vs the in-memory "
+                "weights", relative_gap(served, mem_served[0]), serve_spread,
+                "run_server disagrees with the in-memory model")
+
+    # 4. the walk-back: a byte of the newest payload flipped; the server
+    # restores the previous retained epoch, says so, and answers as that
+    # epoch's weights do
+    check(len(kept) == CKPT_RETENTION, f"{label}: {kept} retained, no previous epoch")
+    previous = f"{name}_epoch{kept[-2]}.pt"
+    with open(os.path.join(run_dir, latest), "r+b") as fh:
+        fh.seek(os.path.getsize(os.path.join(run_dir, latest)) // 2)
+        b = fh.read(1)
+        fh.seek(-1, os.SEEK_CUR)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    some = requests[:CKPT_WALKBACK_REQUESTS]
+    walked, walked_label, _ = serve_requests(run_server(copy.deepcopy(config), datasets=splits),
+                                             some)
+    prev_model = create_model(done, device=device, seed=SEED + 2)
+    load_inference_entry(InferenceState(prev_model), name, previous)
+    prev_answers = serve_requests(memory_server(prev_model).start(), some)[0]
+    moved = relative_gap(prev_answers, mem_served[0][:CKPT_WALKBACK_REQUESTS])
+    print(f"{label}: {latest} flipped: the server restored {walked_label} (want {previous}); "
+          f"that epoch's answers lie {moved:.6g} from the newest's", flush=True)
+    check(walked_label == previous, f"{label}: the walk-back restored {walked_label}")
+    repeat_gate(f"{CKPT_WALKBACK_REQUESTS} requests served after the walk-back vs {previous} "
+                "in memory", relative_gap(walked, prev_answers), serve_spread,
+                "the walked-back server does not answer as the previous epoch")
+    del prev_model, server
+    model.cpu()
+    del model, state
+
+    # 5. SIGTERM mid-epoch: a second uninterrupted run (the spread), the
+    # stopped run, and its resume, each under ./logs of its own directory
+    two = copy.deepcopy(config)
+    two["NeuralNetwork"]["Training"].update(num_epoch=2, Checkpoint=False)
+    steps = per_epoch[0] + per_epoch[1]
+    name_two = get_log_name_config(prepare_data(copy.deepcopy(two), splits)[0])
+    losses_b = []
+    os.makedirs("uninterrupted")
+    with contextlib.chdir("uninterrupted"), ckpt_probes(losses=losses_b):
+        run_training(copy.deepcopy(two), datasets=splits, seed=SEED)
+    losses_b = torch.stack(losses_b).float().cpu().numpy()
+    spread = float(np.max(np.abs(losses_b - losses_a[:steps]) / np.abs(losses_a[:steps])))
+    os.makedirs("sigterm")
+    with contextlib.chdir("sigterm"):
+        log_k, saves_k = [], []
+        with ckpt_probes(log=log_k, kill_at=CKPT_KILL, saves=saves_k):
+            _, _, hist_k = run_training(copy.deepcopy(two), datasets=splits, seed=SEED)
+        stopped = preemption.global_stop_noted()
+        ls = load_loader_state(name_two)
+        files_k = sorted(os.listdir(os.path.join("logs", name_two)))
+        print(f"{label}: SIGTERM as batch {CKPT_KILL[1]} of epoch {CKPT_KILL[0]} was handed out: "
+              f"{len(log_k)} batches stepped, history {hist_k}, loader state "
+              f"{ls.to_dict() if ls else None}, saves {saves_k}, on disk {files_k}", flush=True)
+        cursor = CKPT_KILL[1] + 1
+        check(stopped and len(hist_k["train"]) == 2 and ls is not None
+              and ls.to_dict() == {"epoch": 1, "next_batch": cursor, "seed": 0,
+                                   "num_batches": per_epoch[1]}
+              and "loader_state.json" in files_k and len(saves_k) == 1,
+              f"{label}: the SIGTERM stop did not checkpoint with its loader state")
+        resumed = copy.deepcopy(two)
+        resumed["NeuralNetwork"]["Training"]["continue"] = True
+        log_r, losses_r = [], []
+        with ckpt_probes(log=log_r, losses=losses_r):
+            _, state_r, _ = run_training(resumed, datasets=splits, seed=SEED)
+    n_tail = per_epoch[1] - cursor
+    want = [e for e in log_a if e[0][0] == 1 and e[0][1] >= cursor]
+    replay_ok = log_r[:n_tail] == want
+    losses_r = torch.stack(losses_r).float().cpu().numpy()
+    start = per_epoch[0] + cursor
+    gap = float(np.max(np.abs(losses_r[:n_tail] - losses_a[start:start + n_tail])
+                       / np.abs(losses_a[start:start + n_tail])))
+    print(f"{label}: resumed: replayed {[p for p, _ in log_r[:n_tail]]} (graph ids "
+          f"{'the same, in the same order' if replay_ok else 'DIFFERENT'} as the uninterrupted "
+          f"run's), then {len(log_r) - n_tail} batches; losses {losses_r[:n_tail].tolist()} "
+          f"against {losses_a[start:start + n_tail].tolist()}; the second uninterrupted run "
+          f"lies {spread:.6g} from the first over {steps} steps", flush=True)
+    check(replay_ok and int(state_r.step) == start + n_tail + per_epoch[1],
+          f"{label}: the resumed run did not replay the rest of epoch {CKPT_KILL[0]}")
+    repeat_gate("the resumed steps' losses vs the uninterrupted run's", gap, spread,
+                "the resumed steps part from the uninterrupted run")
+    del state_r
+
+    # 6. rollback: every batch of epoch 1 poisoned (NaN features), so
+    # rollback_after consecutive skips restore epoch 0's checkpoint
+    rb = copy.deepcopy(config)
+    rb["NeuralNetwork"]["Training"].update(CKPT_ROLLBACK)
+    os.makedirs("rollback")
+    with contextlib.chdir("rollback"):
+        restores, policies = [], []
+        with ckpt_probes(poison=(1,), restores=restores, policies=policies):
+            _, state_rb, hist_rb = run_training(rb, datasets=splits, seed=SEED)
+        check(len(restores) == 1, f"{label}: {len(restores)} restores, expected 1")
+        entry, restore_rb_s, got = restores[0]
+        want_payload = torch.load(os.path.join("logs", name, entry), weights_only=True)
+    bad = payload_mismatches(got, want_payload)
+    backoff = CKPT_ROLLBACK["non_finite_lr_backoff"]
+    print(f"{label}: rollback: epoch 1's {per_epoch[1]} batches poisoned; restored {entry} in "
+          f"{restore_rb_s:.3f} s, {len(bad)} tensors or values differ from the file {bad[:5]}; "
+          f"rollbacks_done {policies[0].rollbacks_done}; LR {hist_rb['lr']} (checkpoint "
+          f"{want_payload['lr']} x {backoff}); history {hist_rb}", flush=True)
+    check(not bad and policies[0].rollbacks_done == 1
+          and math.isclose(hist_rb["lr"][1], want_payload["lr"] * backoff, rel_tol=1e-12)
+          and all(math.isfinite(v) for v in hist_rb["val"]),
+          f"{label}: the rollback did not restore the checkpoint and back the LR off")
+    del state_rb
+    print(f"{label}: save seconds {[round(s, 3) for _, s, _ in saves]} for "
+          f"{saves[-1][2]} bytes each; restore {restore_s:.3f} s (round trip), "
+          f"{restore_rb_s:.3f} s (rollback)", flush=True)
+    return launched
+
+
 def main() -> None:
+    with contextlib.ExitStack() as stack:
+        run_smoke(stack)
+
+
+def run_smoke(stack: contextlib.ExitStack) -> None:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2311,6 +2770,12 @@ def main() -> None:
 
     launched = collections.Counter()
     if not args.kernels:
+        # every path's ./logs (run_training's checkpoints, the servers'
+        # restores) lies in a temporary directory under the checkout's build/
+        (REPO / "build").mkdir(exist_ok=True)
+        work = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                                               dir=REPO / "build"))
+        stack.enter_context(contextlib.chdir(work))
         per_batch_cases = {
             "egnn": {"K1": {"bfloat16/C866": 1, "float32/C866": 2,
                             "bfloat16/C3": 1, "float32/C3": 2},
@@ -2332,6 +2797,7 @@ def main() -> None:
                                           GPS_TRAIN_PER_STEP))
         launched.update(run_gin_ring_train(ring_config, ring_batches, device,
                                            GIN_RING_TRAIN_PER_STEP))
+        launched.update(run_egnn_ckpt(paths["egnn"][1], device, TRAIN_PER_STEP))
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

@@ -1,12 +1,16 @@
 """Config-driven entry points: ``prepare_data``, ``run_training``,
 ``run_prediction`` and ``run_server`` (single host).
 
-Counterpart of ``hydragnn_tpu/api.py``. Checkpoint
-restore comes with a later slice, so the model's weights come from the
-caller: ``variables`` (a JAX package checkpoint tree as numpy arrays, loaded
-by ``bridge.load_jax_variables``), or else the seeded fresh initialization.
-Every entry point runs on the current CUDA device unless ``device`` says
-otherwise, and raises when no GPU is present and none was given.
+Counterpart of ``hydragnn_tpu/api.py``. ``run_training`` checkpoints to
+``./logs/<log name>/`` (train/checkpoint.py: every save verified and
+atomic, the end of the run always saved), resumes a run under
+``Training.continue`` (mid-epoch after a SIGTERM stop) and wires the
+rollback policy's restore. ``run_prediction`` and ``run_server`` restore
+the newest verified checkpoint of the run; explicit ``variables`` (a JAX
+package checkpoint tree as numpy arrays, loaded by
+``bridge.load_jax_variables``) win over the disk. Every entry point runs on
+the current CUDA device unless ``device`` says otherwise, and raises when
+no GPU is present and none was given.
 """
 
 from __future__ import annotations
@@ -71,14 +75,53 @@ def _model(config, variables, device, seed):
     return model
 
 
+def _resume(state, train_loader, startfrom: str, log_name: str, verbosity: int) -> None:
+    """``Training.continue``: restore run ``startfrom``'s newest verified
+    checkpoint into ``state`` and, when it stopped mid-epoch (a loader-state
+    sidecar), arm ``train_loader`` to replay the rest of that epoch in the
+    same order, unless the recipe (seed, batch count) changed: then the run
+    resumes at epoch granularity, with a warning."""
+    import warnings
+
+    from .train.checkpoint import load_existing_model, load_loader_state
+
+    load_existing_model(state, startfrom)
+    ls = load_loader_state(startfrom)
+    if ls is None:
+        return
+    recipe_ok = ls.seed == int(train_loader.seed)
+    if recipe_ok:
+        train_loader.resume(ls.epoch, ls.next_batch)
+        # after arming: a packed loader's batch count depends on the epoch
+        if ls.num_batches and ls.num_batches != len(train_loader):
+            train_loader.resume(0, 0)  # disarm: a fresh epoch-0 start
+            recipe_ok = False
+    if not recipe_ok:
+        warnings.warn(
+            f"loader-state sidecar of run {startfrom!r} does not match the current "
+            "loader (seed/batch-count drift); resuming at epoch granularity "
+            "instead of mid-epoch", stacklevel=3)
+    elif verbosity > 0:
+        print(f"[{log_name}] resuming mid-epoch: replaying epoch {ls.epoch} from batch "
+              f"{ls.next_batch}")
+
+
 def run_training(config, datasets=None, variables=None, device: DeviceLike = None,
                  seed: int = 0):
     """Train on the train split, validating and testing every epoch:
     ``(model, state, history)``. The initial weights are ``variables`` (a
-    JAX checkpoint tree), else the seeded initialization."""
+    JAX checkpoint tree), else the seeded initialization; under
+    ``Training.continue`` the newest verified checkpoint of run
+    ``Training.startfrom`` (default: this run) is restored over them.
+    Checkpoints go to ``./logs/<log name>/``: the best validation epochs
+    under ``Training.Checkpoint``, the SIGTERM stop, and the end of the
+    run."""
+    from .train.checkpoint import (clear_loader_state, load_existing_model, save_loader_state,
+                                   save_model)
     from .train.loop import train_validate_test
     from .train.optimizer import make_optimizer
-    from .train.state import TrainState
+    from .train.state import LoaderState, TrainState
+    from .utils import preemption
 
     config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
     model = _model(config, variables, resolve_device(device), seed)
@@ -88,22 +131,61 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
         freeze_conv=bool(config["NeuralNetwork"]["Architecture"].get("freeze_conv_layers", False)),
     )
     state = TrainState.create(model, optimizer)
+    log_name = get_log_name_config(config)
+    verbosity = config["Verbosity"].get("level", 0)
+    if training.get("continue"):
+        _resume(state, train_loader, training.get("startfrom") or log_name, log_name, verbosity)
+    retention = int(training.get("checkpoint_retention", 0) or 0)
+
+    def save_fn(s, e=None):
+        out = save_model(s, log_name, epoch=e, retention=retention)
+        # a committed save makes an older mid-epoch cursor stale; the
+        # mid-epoch stop writes its own right after (loader_state_fn)
+        clear_loader_state(log_name)
+        return out
+
+    def loader_state_fn(d):
+        save_loader_state(LoaderState.from_dict(d), log_name)
+
+    def restore_fn(template):
+        # the rollback policy: the last verified checkpoint of this run
+        return load_existing_model(template, log_name)
+
     state, hist = train_validate_test(
         model, state, train_loader, val_loader, test_loader, config,
-        log_name=get_log_name_config(config), verbosity=config["Verbosity"].get("level", 0),
+        log_name=log_name, verbosity=verbosity, save_fn=save_fn, restore_fn=restore_fn,
+        loader_state_fn=loader_state_fn,
     )
+    # the end-of-run save, unless the SIGTERM stop has just saved this state
+    if not preemption.global_stop_noted():
+        final_epoch = len(hist["train"]) - 1
+        save_fn(state, final_epoch if final_epoch >= 0 else None)
     return model, state, hist
 
 
-def run_prediction(config, variables=None, datasets=None, device: DeviceLike = None,
-                   seed: int = 0):
+def _restore_for_inference(model, config) -> str:
+    """Restore the run's newest verified checkpoint into ``model`` through
+    an optimizer-free ``InferenceState`` (``FileNotFoundError`` when there
+    is none, the model untouched). Returns the file restored: it may be
+    older than ``latest`` names, after a walk-back past a corrupt file."""
+    from .train.checkpoint import load_inference_state
+    from .train.state import InferenceState
+
+    _, entry = load_inference_state(InferenceState(model), get_log_name_config(config))
+    return entry
+
+
+def run_prediction(config, variables=None, datasets=None, device: DeviceLike = None):
     """Evaluate on the test split: ``(loss, per-task losses, predictions,
-    targets)``. The weights are ``variables`` (a JAX checkpoint tree),
-    else the seeded initialization."""
+    targets)``. The weights are ``variables`` (a JAX checkpoint tree), else
+    the run's newest verified checkpoint; with neither it raises
+    ``FileNotFoundError``."""
     from .train.loop import test_model
 
     config, (_, _, test_loader), _ = prepare_data(config, datasets)
-    model = _model(config, variables, resolve_device(device), seed)
+    model = _model(config, variables, resolve_device(device), 0)
+    if variables is None:
+        _restore_for_inference(model, config)
     training = config["NeuralNetwork"]["Training"]
     return test_model(
         model, test_loader,
@@ -116,12 +198,31 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
                seed: int = 0):
     """Start a ``GraphServer`` over the run's pad-bucket ladder, warmed on
     the test split's template graphs, and return it (started; callers
-    submit requests and ``close()`` it, or use it as a context manager)."""
+    submit requests and ``close()`` it, or use it as a context manager).
+    The weights are ``variables`` (a JAX checkpoint tree), else the run's
+    newest verified checkpoint (``stats()["current_checkpoint"]`` names the
+    file); with no checkpoint file on disk it warns and serves the seeded
+    initialization, and with checkpoint files of which none verifies and
+    loads it raises ``FileNotFoundError``."""
+    import warnings
+
     from .serve import GraphServer, ServeConfig
+    from .train.checkpoint import has_checkpoint
 
     config, (_, _, test_loader), _ = prepare_data(config, datasets)
     dev = resolve_device(device)
+    log_name = get_log_name_config(config)
     model = _model(config, variables, dev, seed)
+    entry = None
+    if variables is None:
+        if has_checkpoint(log_name):
+            entry = _restore_for_inference(model, config)
+        else:
+            warnings.warn(
+                f"run {log_name!r} has no checkpoint on disk; serving the fresh "
+                "model initialization (train first for real predictions)",
+                stacklevel=2,
+            )
     training = config["NeuralNetwork"]["Training"]
     arch = config["NeuralNetwork"]["Architecture"]
     server = GraphServer(
@@ -132,6 +233,7 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
         mixed_precision=bool(training.get("mixed_precision", False)),
         sort_edges=bool(arch.get("use_sorted_aggregation", False)),
         device=dev,
-        log_name=get_log_name_config(config),
+        log_name=log_name,
+        checkpoint_label=entry,
     )
     return server.start()

@@ -77,7 +77,11 @@ def update_config(
     the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
     ``use_flash_attention`` defaults, and the Training section's defaults
     (``num_epoch``, ``Optimizer``, ``EarlyStopping``, ``patience``,
-    ``mixed_precision``, ``loss_function_type``)."""
+    ``mixed_precision``, ``loss_function_type``, the checkpoint keys
+    ``Checkpoint``, ``checkpoint_warmup``, ``checkpoint_retention``, the
+    guard's ``non_finite_*`` policy keys, ``warmup_epochs``, ``continue``
+    and ``startfrom``). ``checkpoint_backend: "orbax"`` raises
+    ``NotImplementedError``."""
     config = copy.deepcopy(config)
     arch = config["NeuralNetwork"]["Architecture"]
     training = config["NeuralNetwork"]["Training"]
@@ -206,6 +210,41 @@ def update_config(
     training.setdefault("patience", 10)
     training.setdefault("EarlyStopping", False)
     training.setdefault("mixed_precision", False)
+    # checkpoints and fault tolerance: best-validation checkpointing after
+    # ``checkpoint_warmup`` epochs, the per-epoch chain pruned to its newest
+    # ``checkpoint_retention`` files (0 keeps all), the guard's policy for
+    # skipped steps, the LR ramp, and resuming a run from its checkpoint
+    training.setdefault("Checkpoint", False)
+    training.setdefault("checkpoint_warmup", 0)
+    training.setdefault("checkpoint_retention", 0)
+    if training.get("checkpoint_backend") == "orbax":
+        raise NotImplementedError(
+            "Training.checkpoint_backend 'orbax' (sharded checkpoints) comes with the "
+            "multi-GPU slice of the port (a later slice); this slice writes the "
+            "single-host file chain (the JAX package's default 'msgpack' backend)"
+        )
+    training.setdefault("non_finite_policy", "warn_skip")
+    if training["non_finite_policy"] not in ("error", "warn_skip", "rollback"):
+        raise ValueError(
+            f"Training.non_finite_policy {training['non_finite_policy']!r} "
+            "must be 'error', 'warn_skip' or 'rollback'"
+        )
+    training.setdefault("non_finite_rollback_after", 3)
+    training.setdefault("non_finite_lr_backoff", 0.5)
+    training.setdefault("non_finite_max_rollbacks", 3)
+    if training["non_finite_policy"] == "rollback" and not training["Checkpoint"]:
+        # rollback restores the last verified checkpoint; without best-val
+        # checkpointing a fresh run has none until its end
+        print(
+            "[hydragnn_tpu_torch.config] non_finite_policy=rollback without "
+            "Training.Checkpoint: enable checkpointing or the first "
+            "rollback of a fresh run will fail with no checkpoint to "
+            "restore",
+            file=sys.stderr,
+        )
+    training.setdefault("warmup_epochs", 0)
+    training.setdefault("continue", False)
+    training.setdefault("startfrom", None)
     training.setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
     training["Optimizer"].setdefault("type", "AdamW")
     training["Optimizer"].setdefault("learning_rate", 1e-3)

@@ -215,9 +215,37 @@ class GraphLoader:
         if sort_edges and max_in_degree:
             check_in_degree(graphs, max_in_degree)
         self.epoch = 0
+        # mid-epoch resume: the first ``start_batch`` batches of the epoch
+        # are skipped without being built. The epoch's order is a pure
+        # function of (seed, epoch), so (epoch, cursor) is the loader's
+        # whole state and the remaining batches replay in the order an
+        # uninterrupted run would have seen
+        self.start_batch = 0
+        self._resume: Optional[Tuple[int, int]] = None
 
     def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
+        """Reseed the shuffle for ``epoch``. The first call after
+        ``resume()`` keeps the armed (epoch, cursor) instead, so the resumed
+        run's first epoch replays the interrupted epoch's tail."""
+        if self._resume is not None:
+            self.epoch, self.start_batch = self._resume
+            self._resume = None
+        else:
+            self.epoch = epoch
+            self.start_batch = 0
+
+    def resume(self, epoch: int, next_batch: int) -> None:
+        """Arm mid-epoch resume at (``epoch``, ``next_batch``): applied now
+        and kept through the next ``set_epoch``, once."""
+        self.epoch = int(epoch)
+        self.start_batch = int(next_batch)
+        self._resume = (int(epoch), int(next_batch))
+
+    def state_dict(self, next_batch: int = 0) -> Dict[str, int]:
+        """The loader's position for a checkpoint (``LoaderState``): these
+        four ints fix the remaining batch stream."""
+        return {"seed": int(self.seed), "epoch": int(self.epoch),
+                "next_batch": int(next_batch), "num_batches": int(len(self))}
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.graphs))
@@ -266,10 +294,11 @@ class GraphLoader:
         return groups
 
     def __len__(self) -> int:
+        """The epoch's batch count, the skipped ones of a resume included."""
         return len(self._groups())
 
     def __iter__(self) -> Iterator[GraphBatch]:
-        for grp in self._groups():
+        for grp in self._groups()[max(int(self.start_batch), 0):]:
             graphs = [self.graphs[i] for i in grp]
             spec = self.spec if self.pack else self.ladder.select_for(graphs)
             yield batch_graphs(graphs, spec, sort_edges=self.sort_edges)

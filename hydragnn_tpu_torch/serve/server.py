@@ -134,13 +134,16 @@ class GraphServer:
     raises when there is none) and served in eval mode; with
     ``mixed_precision`` the server keeps a bfloat16 copy of it and casts the
     input channels, as the JAX package's eval step does. ``sort_edges``
-    must match the model's ``sorted_aggregation``."""
+    must match the model's ``sorted_aggregation``. ``checkpoint_label`` names
+    the checkpoint file the weights were restored from (``run_server``
+    passes the file its walk-back actually restored); ``stats()`` reports
+    it as ``current_checkpoint``."""
 
     def __init__(self, model: torch.nn.Module, ladder: SpecLadder,
                  serve_config: Optional[ServeConfig] = None, *,
                  template_graphs: Sequence[Graph], mixed_precision: bool = False,
                  sort_edges: bool = False, device: DeviceLike = None,
-                 log_name: str = "serve"):
+                 log_name: str = "serve", checkpoint_label: Optional[str] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mixed_precision = bool(mixed_precision)
@@ -149,6 +152,8 @@ class GraphServer:
         self.ladder = ladder
         self.sort_edges = sort_edges
         self.log_name = log_name
+        # the checkpoint file the weights came from (None: given in memory)
+        self.current_checkpoint = checkpoint_label
         clean = [g for g in map(_strip_targets, template_graphs)
                  if validate_graph(g) is None]
         if not clean:
@@ -536,5 +541,6 @@ class GraphServer:
             warmed_specializations=len(self.warmup_compiled),
             device=str(self.device),
             mixed_precision=self.mixed_precision,
+            current_checkpoint=self.current_checkpoint,
         )
         return out

@@ -1,4 +1,14 @@
-from .guard import guarded_update, step_ok
+from .checkpoint import (
+    clear_loader_state,
+    latest_checkpoint_entry,
+    load_existing_model,
+    load_inference_entry,
+    load_inference_state,
+    load_loader_state,
+    save_loader_state,
+    save_model,
+)
+from .guard import NonFinitePolicy, guarded_update, step_ok
 from .loop import (
     BestCheckpoint,
     EarlyStopping,
@@ -14,4 +24,4 @@ from .loop import (
 )
 from .loss import compute_loss, energy_force_loss, predict_energy_forces
 from .optimizer import ReduceLROnPlateau, clip_grad_norm, make_optimizer, optimizer_step
-from .state import TrainState
+from .state import InferenceState, LoaderState, TrainState

@@ -11,12 +11,16 @@ good step keeps exactly the values the unguarded update wrote. The copies
 live in ``StepCopies``, flat buffers made once, so saving and restoring
 take a few multi-tensor launches and one ``torch.where`` per dtype. The
 skip counters advance on the device; the training loop reads them once
-per epoch.
+per epoch, where ``NonFinitePolicy`` (the epoch-boundary half,
+``Training.non_finite_policy``) raises, warns or rolls back to the last
+verified checkpoint. Not ported: the JAX package's guard events and
+flight-recorder trigger (they go with the observability planes).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import sys
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,3 +86,77 @@ def guarded_update(state, ok, do_update: Callable[[], None]) -> None:
     state.step.add_(1)
     state.skipped_steps.add_(bad)
     state.consecutive_skips.add_(bad).mul_(bad)
+
+
+class NonFinitePolicy:
+    """The epoch-boundary half of ``Training.non_finite_policy``.
+
+    The training loop calls ``after_epoch(state, epoch)`` once per epoch.
+    It reads the state's skip counters (one host read; the loop waits for
+    the epoch's losses there anyway) and, when the epoch skipped steps:
+    ``error`` raises; ``warn_skip`` prints the tally to stderr; ``rollback``
+    prints it and, once ``rollback_after`` consecutive steps were skipped,
+    restores the last verified checkpoint through ``restore_fn(state)`` and
+    sets the learning rate to the restored one times
+    ``lr_backoff ** rollbacks_done`` (compounded: sustained divergence
+    keeps restoring the same checkpoint). Past ``max_rollbacks``, or with
+    no ``restore_fn``, a rollback raises. ``skipped`` is the incoming
+    state's skip total (a resumed run's earlier skips are not this run's).
+    ``policy`` is one of the values config completion admits."""
+
+    def __init__(self, policy: str = "warn_skip", rollback_after: int = 3,
+                 lr_backoff: float = 0.5, max_rollbacks: int = 3,
+                 restore_fn: Optional[Callable] = None, log_name: str = "run",
+                 skipped: int = 0):
+        self.policy = policy
+        self.rollback_after = int(rollback_after)
+        self.lr_backoff = float(lr_backoff)
+        self.max_rollbacks = int(max_rollbacks)
+        self.restore_fn = restore_fn
+        self.log_name = log_name
+        self._prev_skipped = int(skipped)
+        self.rollbacks_done = 0
+
+    def after_epoch(self, state, epoch: int):
+        """Apply the policy; returns the (possibly restored) state."""
+        skipped = int(state.skipped_steps)
+        consec = int(state.consecutive_skips)
+        new_skips = skipped - self._prev_skipped
+        self._prev_skipped = skipped
+        if new_skips <= 0:
+            return state
+        msg = (f"[{self.log_name}] epoch {epoch}: {new_skips} non-finite step(s) skipped by "
+               f"the train-step guard (total {skipped}, {consec} consecutive at epoch end)")
+        if self.policy == "error":
+            raise RuntimeError(
+                msg + "; Training.non_finite_policy is 'error'. Inspect the "
+                "data/LR, or set 'warn_skip'/'rollback' to ride through."
+            )
+        print(msg, file=sys.stderr)
+        if self.policy != "rollback" or consec < self.rollback_after:
+            return state
+        # K consecutive bad steps: the trajectory is lost, not one cosmic ray
+        self.rollbacks_done += 1
+        if self.rollbacks_done > self.max_rollbacks:
+            raise RuntimeError(
+                f"[{self.log_name}] non_finite_policy=rollback exceeded "
+                f"Training.non_finite_max_rollbacks={self.max_rollbacks}: "
+                "the run keeps diverging after restore+LR-backoff. Lower "
+                "the learning rate or inspect the data."
+            )
+        if self.restore_fn is None:
+            raise RuntimeError(
+                f"[{self.log_name}] non_finite_policy=rollback triggered "
+                f"({consec} consecutive skips) but no checkpoint restore "
+                "path is wired. Enable Training.Checkpoint so a verified "
+                "checkpoint exists to roll back to."
+            )
+        state = self.restore_fn(state)
+        lr = float(state.learning_rate) * self.lr_backoff**self.rollbacks_done
+        state = state.with_learning_rate(lr)
+        # the restored checkpoint carries its own (older) counters
+        self._prev_skipped = int(state.skipped_steps)
+        print(f"[{self.log_name}] rollback {self.rollbacks_done}/{self.max_rollbacks}: "
+              f"restored last verified checkpoint, learning rate backed off to {lr:.3e}",
+              file=sys.stderr)
+        return state

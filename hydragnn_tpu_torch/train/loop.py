@@ -2,9 +2,12 @@
 
 Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
 ``make_eval_step``, ``train_epoch``, ``evaluate``, ``EarlyStopping``,
-``BestCheckpoint``, ``train_validate_test`` and ``test_model``, without
-the JAX package's numerics and fault-injection hooks, compile plane,
-telemetry and tracing planes, preemption and ``HYDRAGNN_*`` knobs.
+``BestCheckpoint``, ``train_validate_test`` and ``test_model``, with the
+JAX package's recovery plane (the non-finite policy, the warmup ramp, the
+SIGTERM stop mid-epoch and at the epoch boundary, mid-epoch resume, and
+``HYDRAGNN_VALTEST`` / ``HYDRAGNN_MAX_NUM_BATCH``), without its numerics
+and fault-injection hooks, compile plane, and telemetry and tracing
+planes.
 
 Under ``mixed_precision`` a train step runs the model on bf16 copies of
 its parameters made inside the differentiated function
@@ -20,7 +23,6 @@ read them once, at the end of the epoch.
 from __future__ import annotations
 
 import copy
-import sys
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,7 +30,8 @@ import torch
 
 from ..data.graph import GraphBatch
 from ..device import module_device
-from .guard import guarded_update, step_ok
+from ..utils import envflags, preemption
+from .guard import NonFinitePolicy, guarded_update, step_ok
 from .loss import compute_loss
 from .optimizer import ReduceLROnPlateau, optimizer_step
 from .state import TrainState
@@ -175,20 +178,34 @@ def _read_entries(entries):
 
 
 def train_epoch(loader, step_fn, state: TrainState):
-    """One training epoch: ``(state, mean loss, mean per-task losses)``,
-    averaged over real graphs. A guarded-and-skipped step's non-finite loss
-    is left out of the means unless every step was non-finite."""
+    """One training epoch: ``(state, mean loss, mean per-task losses,
+    cursor)``, the means over real graphs. A guarded-and-skipped step's
+    non-finite loss is left out of the means unless every step was
+    non-finite. ``cursor`` is None when the epoch ran to its end, or the
+    next batch's index in the epoch when SIGTERM arrived (checked after
+    every step): the loop then checkpoints it for a mid-epoch resume. A
+    loader armed with ``resume()`` skips its first batches itself, and its
+    ``start_batch`` offsets the cursor. ``HYDRAGNN_MAX_NUM_BATCH`` > 0
+    caps the batches of the epoch."""
+    offset = int(getattr(loader, "start_batch", 0) or 0)
+    max_batches = envflags.env_int("HYDRAGNN_MAX_NUM_BATCH", 0)
     entries = []
-    for batch in loader:
+    cursor = None
+    for i, batch in enumerate(loader):
         state, tot, tasks = step_fn(state, batch)
         # graph_mask is host data: reading it never waits on the device
         entries.append((tot, tasks, int(batch.graph_mask.sum())))
+        if preemption.preempted():
+            cursor = offset + i + 1
+            break
+        if max_batches > 0 and i + 1 >= max_batches:
+            break
     entries = _read_entries(entries)
     finite = [e for e in entries if np.isfinite(e[0])]
     if finite and len(finite) < len(entries):
         entries = finite
     tot, tasks = _weighted_avg(entries)
-    return state, tot, tasks
+    return state, tot, tasks, cursor
 
 
 def evaluate(loader, eval_fn, state: Optional[TrainState] = None):
@@ -217,43 +234,42 @@ class EarlyStopping:
 
 class BestCheckpoint:
     """Best-validation checkpointing: ``save_fn(state, epoch)`` on each new
-    best validation loss (the checkpoint files themselves come with a later
-    slice of the port)."""
+    best validation loss from epoch ``warmup`` on."""
 
-    def __init__(self, save_fn: Callable[..., None]):
+    def __init__(self, save_fn: Callable[..., None], warmup: int = 0):
         self.save_fn = save_fn
+        self.warmup = warmup
         self.best = float("inf")
 
     def __call__(self, state: TrainState, val_loss: float, epoch: int) -> bool:
-        if val_loss >= self.best:
+        if epoch < self.warmup or val_loss >= self.best:
             return False
         self.best = val_loss
         self.save_fn(state, epoch)
         return True
 
 
-def _guard_report(state: TrainState, seen: int, epoch: int, log_name: str) -> int:
-    """The epoch's guard skips, read once at its end and printed. Returns
-    the total so far."""
-    skipped = int(state.skipped_steps)
-    if skipped > seen:
-        print(f"[{log_name}] epoch {epoch}: {skipped - seen} non-finite step(s) skipped "
-              f"by the train-step guard (total {skipped}, {int(state.consecutive_skips)} "
-              "consecutive at epoch end)", file=sys.stderr)
-    return skipped
-
-
 def train_validate_test(model, state: TrainState, train_loader, val_loader, test_loader,
                         config: Dict[str, Any], log_name: str = "run", verbosity: int = 0,
-                        save_fn: Optional[Callable[..., None]] = None
+                        save_fn: Optional[Callable[..., None]] = None,
+                        restore_fn: Optional[Callable[[TrainState], TrainState]] = None,
+                        loader_state_fn: Optional[Callable[[Dict[str, int]], None]] = None,
                         ) -> Tuple[TrainState, Dict[str, List[float]]]:
-    """The epoch loop: train, the guard's epoch report, validate and test,
-    the plateau scheduler on the validation loss, optional early stopping
-    and, given ``save_fn``, best-validation checkpointing
-    (``save_fn(state, epoch)``). Returns the final state (the best one when
-    early stopping or checkpointing is on) and the loss history
-    ``{"train", "val", "test", "lr"}``."""
+    """The epoch loop: the ``warmup_epochs`` LR ramp, train, the
+    non-finite policy (``NonFinitePolicy``: a rollback restores through
+    ``restore_fn(state)``), validate and test (skipped under
+    ``HYDRAGNN_VALTEST=0``: the train loss stands in), the plateau
+    scheduler on the validation loss after the ramp, best-validation
+    checkpointing (``save_fn(state, epoch)``, when ``Training.Checkpoint``
+    is set), optional early stopping, and the SIGTERM stop: after a step it
+    saves the state and, through ``loader_state_fn``, the loader's cursor
+    (``train_loader.state_dict(cursor)``), with a history row that carries
+    the last measured val/test losses; at an epoch boundary it saves the
+    state. Returns the final state (the best one when early stopping or
+    checkpointing is on, unless ``Training.return_best`` says otherwise)
+    and the loss history ``{"train", "val", "test", "lr"}``."""
     training = config["NeuralNetwork"]["Training"]
+    do_valtest = envflags.env_flag("HYDRAGNN_VALTEST") is not False
     compute_grad_energy = bool(training.get("compute_grad_energy", False))
     mixed_precision = bool(training.get("mixed_precision", False))
     step_fn = make_train_step(model, compute_grad_energy, mixed_precision)
@@ -261,30 +277,85 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     scheduler = ReduceLROnPlateau()
     stopper = (EarlyStopping(patience=training.get("patience", 10))
                if training.get("EarlyStopping", False) else None)
-    checkpointer = BestCheckpoint(save_fn) if save_fn is not None else None
-    return_best = stopper is not None or checkpointer is not None
+    checkpointer = (BestCheckpoint(save_fn, warmup=int(training.get("checkpoint_warmup", 0)))
+                    if training.get("Checkpoint", False) and save_fn is not None else None)
+    nf_policy = NonFinitePolicy(
+        policy=training.get("non_finite_policy", "warn_skip"),
+        rollback_after=int(training.get("non_finite_rollback_after", 3)),
+        lr_backoff=float(training.get("non_finite_lr_backoff", 0.5)),
+        max_rollbacks=int(training.get("non_finite_max_rollbacks", 3)),
+        restore_fn=restore_fn, log_name=log_name, skipped=int(state.skipped_steps),
+    )
+    return_best = bool(training.get("return_best", stopper is not None
+                                    or checkpointer is not None)) and do_valtest
+    # Training.warmup_epochs: a linear LR ramp over the first epochs, ending
+    # at the base LR; the plateau scheduler engages after it
+    warmup_epochs = int(training.get("warmup_epochs", 0))
+    base_lr = state.learning_rate
     hist: Dict[str, List[float]] = {"train": [], "val": [], "test": [], "lr": []}
     best_val, best_state = float("inf"), None
-    skipped = int(state.skipped_steps)
-    for epoch in range(int(training["num_epoch"])):
-        train_loader.set_epoch(epoch)
-        state, tr_loss, _ = train_epoch(train_loader, step_fn, state)
-        skipped = _guard_report(state, skipped, epoch, log_name)
-        va_loss, _ = evaluate(val_loader, eval_fn, state)
-        te_loss, _ = evaluate(test_loader, eval_fn, state)
-        for k, v in (("train", tr_loss), ("val", va_loss), ("test", te_loss)):
-            hist[k].append(v)
-        state = state.with_learning_rate(scheduler.step(va_loss, state.learning_rate))
-        hist["lr"].append(state.learning_rate)
-        if verbosity > 0:
-            print(f"[{log_name}] epoch {epoch}: train {tr_loss:.5f} val {va_loss:.5f} "
-                  f"test {te_loss:.5f} lr {state.learning_rate:.2e}")
-        if return_best and va_loss < best_val:
-            best_val, best_state = va_loss, state.state_dict()
-        if checkpointer is not None:
-            checkpointer(state, va_loss, epoch)
-        if stopper is not None and stopper(va_loss):
-            break
+    preemption.install()
+    try:
+        for epoch in range(int(training["num_epoch"])):
+            if warmup_epochs and epoch < warmup_epochs:
+                state = state.with_learning_rate(base_lr * (epoch + 1) / warmup_epochs)
+            train_loader.set_epoch(epoch)
+            state, tr_loss, _, cursor = train_epoch(train_loader, step_fn, state)
+            hist["train"].append(tr_loss)
+            if cursor is not None:
+                # SIGTERM between steps: save the state and the loader's
+                # cursor now (the grace window is ticking: no val/test, no
+                # policy) and stop. The history row carries the last
+                # measured val/test losses (the train loss in epoch 0)
+                hist["val"].append(hist["val"][-1] if hist["val"] else tr_loss)
+                hist["test"].append(hist["test"][-1] if hist["test"] else tr_loss)
+                hist["lr"].append(state.learning_rate)
+                preemption.note_global_stop()
+                if save_fn is not None:
+                    save_fn(state, epoch)
+                    if loader_state_fn is not None:
+                        loader_state_fn(train_loader.state_dict(cursor))
+                if verbosity > 0:
+                    print(f"[{log_name}] SIGTERM: checkpointed mid-epoch {epoch} at batch "
+                          f"{cursor}, stopping")
+                break
+            # the policy before val/test, so a rollback epoch evaluates the
+            # restored state
+            rollbacks_before = nf_policy.rollbacks_done
+            state = nf_policy.after_epoch(state, epoch)
+            if nf_policy.rollbacks_done > rollbacks_before:
+                # the ramp recomputes the LR from base_lr: scale it too, or
+                # the next ramp epoch would erase the backoff
+                base_lr *= nf_policy.lr_backoff ** (nf_policy.rollbacks_done - rollbacks_before)
+            if do_valtest:
+                va_loss, _ = evaluate(val_loader, eval_fn, state)
+                te_loss, _ = evaluate(test_loader, eval_fn, state)
+            else:
+                va_loss = te_loss = tr_loss
+            hist["val"].append(va_loss)
+            hist["test"].append(te_loss)
+            if epoch >= warmup_epochs:
+                state = state.with_learning_rate(scheduler.step(va_loss, state.learning_rate))
+            hist["lr"].append(state.learning_rate)
+            if verbosity > 0:
+                print(f"[{log_name}] epoch {epoch}: train {tr_loss:.5f} val {va_loss:.5f} "
+                      f"test {te_loss:.5f} lr {state.learning_rate:.2e}")
+            if return_best and va_loss < best_val:
+                best_val, best_state = va_loss, state.state_dict()
+            if checkpointer is not None:
+                checkpointer(state, va_loss, epoch)
+            if stopper is not None and stopper(va_loss):
+                break
+            if preemption.preempted():
+                # SIGTERM during val/test: checkpoint at the epoch boundary
+                preemption.note_global_stop()
+                if save_fn is not None:
+                    save_fn(state, epoch)
+                if verbosity > 0:
+                    print(f"[{log_name}] SIGTERM: checkpointed at epoch {epoch}, stopping")
+                break
+    finally:
+        preemption.uninstall()
     if best_state is not None:
         state.load_state_dict(best_state)
     return state, hist

@@ -807,3 +807,50 @@ def pytest_pool_routes_agree_on_card(cuda):
     d = masked_global_mean_pool(x[perm].cpu(), node_graph[perm].cpu(), 33, mask[perm].cpu())
     assert float((c.cpu() - d).abs().max()) <= 1e-6 * float(d.abs().max())
     assert float((c - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def pytest_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A checkpoint of a state trained on the card (AdamW capturable, its
+    step counts on the card) restores bit for bit into a state on the CPU,
+    and one saved on the CPU restores into a state on the card: the
+    payload holds CPU tensors and a restore copies them in place."""
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
+    from hydragnn_tpu_torch.models import create_model
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from hydragnn_tpu_torch.train import checkpoint as ck
+
+    import chip_smoke
+
+    graphs = oc20_shaped_dataset(16, mean_atoms=20, min_atoms=10, max_atoms=40)
+    config, (loader, _, _), _ = prepare_data(chip_smoke.train_config(batch_size=4, hidden=32,
+                                                                     head=16),
+                                             split_dataset(graphs, 0.75))
+
+    def state_on(device, seed):
+        m = create_model(config, device=device, seed=seed)
+        return TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+
+    def tensors(state):
+        out = dict(state.model.state_dict())
+        for i, st in state.optimizer.state_dict()["state"].items():
+            out.update({f"opt.{i}.{k}": v for k, v in st.items()})
+        return {k: v.cpu() for k, v in out.items()}, (int(state.step), state.learning_rate)
+
+    card = state_on(cuda, 1)
+    step = make_train_step(card.model, mixed_precision=True)
+    for b in list(loader)[:2]:
+        step(card, b)
+    ck.save_model(card, "card", path=str(tmp_path))
+    host = state_on("cpu", 2)
+    ck.load_existing_model(host, "card", path=str(tmp_path))
+    (want, wm), (got, gm) = tensors(card), tensors(host)
+    assert wm == gm and set(want) == set(got)
+    assert all(torch.equal(want[k], got[k]) for k in want)
+    ck.save_model(host, "host", path=str(tmp_path))
+    back = state_on(cuda, 3)
+    ck.load_existing_model(back, "host", path=str(tmp_path))
+    got, gm = tensors(back)
+    assert gm == wm and all(torch.equal(want[k], got[k]) for k in want)
+    assert all(t.device.type == "cuda" for t in back.held)

@@ -228,11 +228,14 @@ def pytest_gps_pna_mixed_precision_eval_matches_jax(flash):
         assert float(np.abs(a[mask] - np.asarray(f32[name])[mask]).max()) > BF16_RTOL * scale, name
 
 
-def pytest_run_server_serves_gps_pna_on_cpu():
+def pytest_run_server_serves_gps_pna_on_cpu(tmp_path, monkeypatch):
     """The slice as a whole at a tiny width: ``api.run_server`` on the
     chip smoke's GPS-PNA configuration (flash and multi-moment routes on,
     mixed precision) answers every request, each equal to a direct
-    forward of the server's own bf16 model on the same graphs."""
+    forward of the server's own bf16 model on the same graphs. The run has
+    no checkpoint under ``./logs``, so the server warns and serves the
+    seeded initialization."""
+    monkeypatch.chdir(tmp_path)
     import chip_smoke
     from hydragnn_tpu_torch.api import run_server
     from hydragnn_tpu_torch.data import add_dataset_pe, split_dataset
@@ -244,7 +247,8 @@ def pytest_run_server_serves_gps_pna_on_cpu():
     config = chip_smoke.gps_pna_config(batch_size=4, hidden=16, head=8, heads=2, layers=2)
     arch = config["NeuralNetwork"]["Architecture"]
     arch.update(use_flash_attention=True)
-    server = run_server(config, datasets=split_dataset(graphs, 0.5), device="cpu", seed=3)
+    with pytest.warns(UserWarning, match="no checkpoint on disk"):
+        server = run_server(config, datasets=split_dataset(graphs, 0.5), device="cpu", seed=3)
     try:
         assert server.wait_ready(timeout=120)
         convs = server.model.graph_convs

@@ -27,6 +27,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith(("jax.", "flax.", "jaxlib.", "hydragnn_tpu.")))
 print(len(names), bad)
 assert len(names) >= 20, names
+assert {"hydragnn_tpu_torch.train.checkpoint", "hydragnn_tpu_torch.utils.envflags",
+        "hydragnn_tpu_torch.utils.preemption"} <= set(names), names
 assert not bad, bad
 """
 
@@ -84,6 +86,24 @@ def pytest_later_slices_raise_not_implemented(later):
     arch.update(input_dim=4, output_dim=[1, 3], output_type=["graph", "node"], **later)
     with pytest.raises(NotImplementedError, match="later slice"):
         model_config_from(c)
+
+
+def pytest_orbax_checkpoint_backend_raises_not_implemented():
+    """``Training.checkpoint_backend: "orbax"`` (sharded checkpoints) comes
+    with the multi-GPU slice; the JAX package's default ("msgpack") names
+    the single-host file chain the port writes."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
+    from test_torch_serve import _config
+
+    splits = split_dataset(oc20_shaped_dataset(8, mean_atoms=20, min_atoms=10, max_atoms=40,
+                                               max_neighbours=10), 0.5)
+    c = _config()
+    c["NeuralNetwork"]["Training"]["checkpoint_backend"] = "orbax"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        update_config(c, *splits)
+    c["NeuralNetwork"]["Training"]["checkpoint_backend"] = "msgpack"
+    assert update_config(c, *splits)["NeuralNetwork"]["Training"]["Checkpoint"] is False
 
 
 def pytest_sp_ring_over_two_ranks_raises_not_implemented(monkeypatch):

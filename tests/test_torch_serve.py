@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from hydragnn_tpu_torch.api import prepare_data, run_prediction, run_server
+from hydragnn_tpu_torch.api import prepare_data, run_prediction, run_server, run_training
 from hydragnn_tpu_torch.data import (
     GraphLoader,
     PadSpec,
@@ -93,13 +93,18 @@ def pytest_graph_server_answers_equal_a_direct_forward(pack):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
-def pytest_run_server_and_run_prediction_on_cpu():
+def pytest_run_server_and_run_prediction_on_cpu(tmp_path, monkeypatch):
+    """Both entry points restore the run's checkpoint from ``./logs`` (here
+    written by one epoch of ``run_training``) and answer from it."""
+    monkeypatch.chdir(tmp_path)
     graphs = _graphs()
     splits = split_dataset(graphs, 0.5)
+    run_training(_config(), datasets=splits, device="cpu", seed=2)
     server = run_server(_config(mixed_precision=True), datasets=splits, device="cpu", seed=2)
     try:
         assert server.wait_ready(timeout=120)
         assert server.mixed_precision and server.stats()["warmed_specializations"] == 1
+        assert server.stats()["current_checkpoint"].endswith("_epoch0.pt")
         handles = [server.submit(g) for g in graphs[:6]]
         for g, h in zip(graphs[:6], handles):
             r = h.result(timeout=120)
@@ -109,7 +114,7 @@ def pytest_run_server_and_run_prediction_on_cpu():
     finally:
         server.close()
     assert server.stats()["closed"]
-    tot, tasks, preds, trues = run_prediction(_config(), datasets=splits, device="cpu", seed=2)
+    tot, tasks, preds, trues = run_prediction(_config(), datasets=splits, device="cpu")
     assert np.isfinite(tot) and preds["forces"].shape == trues["forces"].shape
 
 

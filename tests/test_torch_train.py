@@ -502,13 +502,14 @@ def pytest_best_checkpoint_saves_each_new_best():
 
 
 def pytest_train_validate_test_returns_the_best_checkpointed_state(cases):
-    """``train_validate_test`` with a ``save_fn``: it is called on every new
-    best validation epoch, and the state returned is the one it saw at the
-    last of them (its tensors, counters and learning rate), not the last
-    epoch's; the guard still restores a NaN step of the returned state."""
+    """``train_validate_test`` with a ``save_fn`` and ``Training.Checkpoint``
+    set: it is called on every new best validation epoch, and the state
+    returned is the one it saw at the last of them (its tensors, counters
+    and learning rate), not the last epoch's; the guard still restores a
+    NaN step of the returned state."""
     c = cases(fused=True)
     raw = copy.deepcopy(c.raw)
-    raw["NeuralNetwork"]["Training"]["num_epoch"] = 3
+    raw["NeuralNetwork"]["Training"].update(num_epoch=3, Checkpoint=True)
     config, (tl, vl, tel), _ = t_prepare(raw, c.splits)
     tm = c.torch_model()
     ts = TrainState.create(tm, make_optimizer(tm, config["NeuralNetwork"]["Training"]["Optimizer"]))
