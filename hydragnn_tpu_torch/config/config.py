@@ -19,6 +19,10 @@ import torch
 from ..data.graph import Graph
 from ..data.pipeline import VariablesOfInterest
 
+# Architecture keys of the radial bases, None when absent
+_ARCH_NONE_DEFAULTS = ("radius", "num_gaussians", "num_filters", "num_radial",
+                       "envelope_exponent")
+
 EQUIVARIANT_MODELS = ("EGNN", "SchNet", "PNAEq", "PAINN", "MACE")
 PNA_MODELS = ("PNA", "PNAPlus", "PNAEq")
 
@@ -72,7 +76,10 @@ def update_config(
     Derived here: ``graph_size_variable``, ``max_nodes_per_graph``, the GPS
     defaults, ``num_pad_buckets``, output dims and types (under
     ``compute_grad_energy`` the dims from ``Variables_of_interest``),
-    ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), the
+    ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), CGCNN's
+    ``hidden_dim`` (its input width without global attention) and ``edge_dim``, the radial
+    keys (``radius``, ``num_gaussians``, ``num_filters``, ``num_radial``,
+    ``envelope_exponent``: None when absent), the
     measured ``max_in_degree`` (a supplied bound below the data's raises),
     the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
     ``use_flash_attention`` defaults, and the Training section's defaults
@@ -194,6 +201,15 @@ def update_config(
                 file=sys.stderr,
             )
 
+    # CGCNN's conv is dimension-preserving: without global attention the
+    # hidden width is the input width
+    if arch["mpnn_type"] == "CGCNN" and not arch["global_attn_engine"]:
+        arch["hidden_dim"] = arch["input_dim"]
+    for key in _ARCH_NONE_DEFAULTS:
+        arch.setdefault(key, None)
+    if arch["mpnn_type"] == "CGCNN" and not arch.get("edge_dim"):
+        arch["edge_dim"] = 0
+
     if arch.get("equivariance"):
         assert arch["mpnn_type"] in EQUIVARIANT_MODELS, (
             "E(3) equivariance can only be ensured for "
@@ -201,6 +217,7 @@ def update_config(
         )
     arch.setdefault("equivariance", False)
     arch.setdefault("edge_dim", None)
+    arch.setdefault("max_neighbours", None)
     arch.setdefault("activation_function", "relu")
     arch.setdefault("num_conv_layers", 1)
     training.setdefault("loss_function_type", "mse")

@@ -19,4 +19,10 @@ from .pipeline import (
     spec_template_batches,
     split_dataset,
 )
-from .synthetic import bcc_supercell, deterministic_graph_dataset, oc20_shaped_dataset
+from .synthetic import (
+    bcc_supercell,
+    deterministic_graph_dataset,
+    lennard_jones_dataset,
+    md17_shaped_dataset,
+    oc20_shaped_dataset,
+)

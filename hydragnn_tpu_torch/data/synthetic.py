@@ -9,7 +9,12 @@ port's slices use; for the same seed both packages return the same arrays.
   ~73 atoms clipped to [20, 225], FCC packing, capped ~20-degree radius
   graphs, Lennard-Jones energy and force targets) — the serving main path;
 - ``bcc_supercell``: one periodic BCC supercell (the mesoscale example's
-  spanning graph) — the SP evaluation path.
+  spanning graph) — the SP evaluation path;
+- ``md17_shaped_dataset``: thermal perturbations of one 21-atom
+  (aspirin-composition) molecule with Lennard-Jones energy and force
+  targets — the MD17 energy-force recipe (examples/md17);
+- ``lennard_jones_dataset``: perturbed cubic lattices with exact
+  Lennard-Jones energies and forces (examples/LennardJones).
 """
 
 from __future__ import annotations
@@ -197,3 +202,109 @@ def bcc_supercell(cells: int, jitter: float, seed: int) -> Graph:
         edge_shifts=shifts.astype(np.float32),
         graph_y=target,
     )
+
+
+def md17_shaped_dataset(
+    number_configurations: int = 256,
+    jitter: float = 0.12,
+    radius: float = 5.0,
+    max_neighbours: int = 32,
+    seed: int = 7,
+) -> List[Graph]:
+    """MD17-(aspirin)-shaped workload: one fixed 21-atom molecule (C9 H8 O4)
+    whose configurations are thermal perturbations of a common template,
+    with Lennard-Jones energy (centred on the dataset mean) and force
+    targets. Draws whose largest per-atom force component exceeds 5 are
+    rejected (a thermal ensemble rarely visits the repulsive wall), so the
+    force distribution stays near equilibrium; a jitter so large that
+    almost every draw is rejected raises."""
+    rng = np.random.default_rng(seed)
+    z = np.array([6] * 9 + [1] * 8 + [8] * 4, np.int32)
+    n = z.shape[0]
+    # the template: min-distance rejection sampling inside a molecule-size ball
+    template = np.zeros((n, 3))
+    placed = 1
+    while placed < n:
+        cand = rng.uniform(-3.2, 3.2, 3)
+        if np.linalg.norm(cand) > 3.4:
+            continue
+        if np.min(np.linalg.norm(template[:placed] - cand, axis=1)) > 1.25:
+            template[placed] = cand
+            placed += 1
+    graphs: List[Graph] = []
+    force_cap = 5.0
+    attempts = 0
+    max_attempts = 100 * number_configurations
+    while len(graphs) < number_configurations:
+        attempts += 1
+        if attempts > max_attempts:
+            raise ValueError(
+                f"md17_shaped_dataset: acceptance rate {len(graphs)}/{attempts} too low "
+                f"for jitter={jitter} (force cap {force_cap}); reduce jitter"
+            )
+        pos = template + rng.normal(0.0, jitter, (n, 3))
+        senders, receivers = radius_graph(pos, radius, max_neighbours)
+        senders, receivers = _symmetrize_edges(senders, receivers)
+        energy, forces = _lj_targets(pos, senders, receivers, 0.2, 1.1)
+        if float(np.abs(forces).max()) > force_cap:
+            continue
+        graphs.append(Graph(
+            x=z[:, None].astype(np.float32),
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            graph_targets={"energy": np.asarray([energy], np.float32)},
+            node_targets={"forces": forces.astype(np.float32)},
+            z=z.copy(),
+        ))
+    # reference-energy centring (forces are invariant to it)
+    e_mean = float(np.mean([g.graph_targets["energy"][0] for g in graphs]))
+    for g in graphs:
+        g.graph_targets["energy"] = (g.graph_targets["energy"] - e_mean).astype(np.float32)
+    return graphs
+
+
+def lennard_jones_dataset(
+    number_configurations: int = 200,
+    supercell: Sequence[int] = (2, 2, 2),
+    spacing: float = 1.2,
+    jitter: float = 0.08,
+    radius: float = 2.5,
+    max_neighbours: int = 32,
+    epsilon: float = 1.0,
+    sigma: float = 1.0,
+    seed: int = 17,
+    center_energies: bool = True,
+) -> List[Graph]:
+    """Perturbed cubic-lattice configurations with exact Lennard-Jones
+    energies (graph target ``energy``) and analytic forces (node target
+    ``forces``) for energy-force training. ``center_energies`` subtracts
+    the dataset-mean per-atom energy times each graph's atom count."""
+    rng = np.random.default_rng(seed)
+    graphs: List[Graph] = []
+    for _ in range(number_configurations):
+        base = np.array(
+            [(x, y, z) for x in range(supercell[0]) for y in range(supercell[1])
+             for z in range(supercell[2])],
+            np.float64,
+        )
+        pos = base * spacing + rng.uniform(-jitter, jitter, base.shape)
+        senders, receivers = radius_graph(pos, radius, max_neighbours)
+        senders, receivers = _symmetrize_edges(senders, receivers)
+        energy, forces = _lj_targets(pos, senders, receivers, epsilon, sigma)
+        graphs.append(Graph(
+            x=np.ones((pos.shape[0], 1), np.float32),
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            graph_targets={"energy": np.asarray([energy], np.float32)},
+            node_targets={"forces": forces.astype(np.float32)},
+            z=np.ones((pos.shape[0],), np.int32),
+        ))
+    if center_energies:
+        e_per_atom = float(np.mean([g.graph_targets["energy"][0] / g.num_nodes for g in graphs]))
+        for g in graphs:
+            g.graph_targets["energy"] = (
+                g.graph_targets["energy"] - e_per_atom * g.num_nodes
+            ).astype(np.float32)
+    return graphs

@@ -60,6 +60,14 @@ class ModelConfig:
     loss_function_type: str = "mse"
     edge_dim: int = 0
     equivariance: bool = False
+    # geometry and radial bases (None: the conv's own default)
+    radius: Optional[float] = None
+    num_gaussians: Optional[int] = None
+    num_filters: Optional[int] = None
+    num_radial: Optional[int] = None
+    envelope_exponent: Optional[int] = None
+    # MFC's degree cap
+    max_neighbours: Optional[int] = None
     # GPS global attention
     global_attn_engine: str = ""
     global_attn_type: str = ""
@@ -149,14 +157,18 @@ class HydraModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.is_edge_model, ctor = get_conv_ctor(cfg.mpnn_type)
-        embed_dim = cfg.hidden_dim if cfg.use_global_attn else cfg.input_dim
-        convs = []
+        in_dim = cfg.hidden_dim if cfg.use_global_attn else cfg.input_dim
+        convs, widths = [], []
         for i in range(cfg.num_conv_layers):
-            in_dim = embed_dim if i == 0 else cfg.hidden_dim
             # under GPS every conv output must match the residual's width, so
             # every conv takes its final-layer form
             final_form = cfg.use_global_attn or i == cfg.num_conv_layers - 1
             mpnn = ctor(cfg, in_dim, cfg.hidden_dim, final_form)
+            # a conv wider than hidden_dim (GAT's concatenated heads) says
+            # so: the next conv and this layer's batch norm take its width,
+            # as flax infers it
+            in_dim = getattr(mpnn, "out_width", cfg.hidden_dim)
+            widths.append(in_dim)
             if cfg.use_global_attn:
                 mpnn = GPSConv(
                     cfg.hidden_dim, mpnn, heads=cfg.global_attn_heads, dropout=cfg.dropout,
@@ -166,9 +178,7 @@ class HydraModel(nn.Module):
                 )
             convs.append(mpnn)
         self.graph_convs = nn.ModuleList(convs)
-        self.feature_layers = nn.ModuleList(
-            MaskedBatchNorm(cfg.hidden_dim) for _ in range(cfg.num_conv_layers)
-        )
+        self.feature_layers = nn.ModuleList(MaskedBatchNorm(w) for w in widths)
         self.act = get_activation(cfg.activation)
 
         # learnable embeddings of GPS

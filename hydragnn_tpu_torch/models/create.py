@@ -1,9 +1,10 @@
 """Model factory: completed JSON config -> ``HydraModel`` on a device.
 
-Counterpart of ``hydragnn_tpu/models/create.py``. EGNN, PNA and GIN are
-registered, with GPS global attention ("multihead", or "ring" for one
-spanning graph) around any of them; the other convs and the "performer"
-attention of the JAX package come with later slices of the port.
+Counterpart of ``hydragnn_tpu/models/create.py``. Eleven convs are
+registered (CGCNN, EGNN, GAT, GIN, MFC, PAINN, PNA, PNAEq, PNAPlus, SAGE,
+SchNet), with GPS global attention ("multihead", or "ring" for one spanning
+graph) around any of them; DimeNet, MACE and the "performer" attention of
+the JAX package come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,13 +18,20 @@ from .base import GraphHeadConfig, HydraModel, ModelConfig, NodeHeadConfig
 from .layers import reset_parameters
 
 # import model files for their registry side effects
+from . import cgcnn as _cgcnn  # noqa: F401
 from . import egnn as _egnn  # noqa: F401
+from . import gat as _gat  # noqa: F401
 from . import gin as _gin  # noqa: F401
+from . import mfc as _mfc  # noqa: F401
+from . import painn as _painn  # noqa: F401
 from . import pna as _pna  # noqa: F401
+from . import pna_eq as _pna_eq  # noqa: F401
+from . import pna_plus as _pna_plus  # noqa: F401
+from . import sage as _sage  # noqa: F401
+from . import schnet as _schnet  # noqa: F401
 
 # convs of the JAX package that this port does not carry yet
-_LATER_SLICES = ("CGCNN", "DimeNet", "GAT", "MACE", "MFC", "PAINN",
-                 "PNAEq", "PNAPlus", "SAGE", "SchNet")
+_LATER_SLICES = ("DimeNet", "MACE")
 
 
 def normalize_output_heads(heads: Dict[str, Any]) -> Dict[str, List[Dict[str, Any]]]:
@@ -47,7 +55,7 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
     if arch["mpnn_type"] in _LATER_SLICES:
         raise NotImplementedError(
             f"mpnn_type {arch['mpnn_type']!r} comes with a later slice of the "
-            "PyTorch port; this slice carries EGNN, PNA and GIN"
+            "PyTorch port; this slice carries every other conv of the JAX package"
         )
     if arch.get("global_attn_engine") and arch.get("global_attn_type") == "performer":
         raise NotImplementedError(
@@ -94,6 +102,12 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
         activation=arch.get("activation_function", "relu"),
         loss_function_type=loss_type,
         edge_dim=int(arch.get("edge_dim") or 0),
+        radius=None if arch.get("radius") is None else float(arch["radius"]),
+        num_gaussians=arch.get("num_gaussians"),
+        num_filters=arch.get("num_filters"),
+        num_radial=arch.get("num_radial"),
+        envelope_exponent=arch.get("envelope_exponent"),
+        max_neighbours=arch.get("max_neighbours"),
         global_attn_engine=arch.get("global_attn_engine") or "",
         global_attn_type=arch.get("global_attn_type") or "",
         global_attn_heads=int(arch.get("global_attn_heads") or 0),

@@ -24,16 +24,17 @@ from .base import register_conv
 from .layers import MLP, Dense, fused_pair_dense_sum, hoisted_pair_dense
 
 
-def coordinate_displacement(layer, unit, gate_feat, batch):
+def coordinate_displacement(gate_mlp, gate_out, unit, gate_feat, batch, tanh: bool = False,
+                            sorted_agg: bool = False, max_in_degree: int = 0):
     """Mean-aggregated coordinate displacement along normalized edge
-    vectors, gated by ``layer.MLP_0`` -> ``layer.Dense_0`` (final gain
-    0.001)."""
-    coef = layer.Dense_0(layer.MLP_0(gate_feat))
-    if layer.tanh:
+    vectors, gated by ``gate_mlp`` -> ``gate_out`` (final gain 0.001;
+    ``tanh`` bounds it). Shared by EGNN and equivariant SchNet."""
+    coef = gate_out(gate_mlp(gate_feat))
+    if tanh:
         coef = torch.tanh(coef)
     trans = torch.clamp(unit * coef, -100.0, 100.0)
     return segment_mean(trans, batch.receivers, batch.num_nodes, batch.edge_mask,
-                        sorted_ids=layer.sorted_agg, max_degree=layer.max_in_degree)
+                        sorted_ids=sorted_agg, max_degree=max_in_degree)
 
 
 class EGCL(nn.Module):
@@ -84,10 +85,12 @@ class EGCL(nn.Module):
             agg = fused_pair_dense_sum(self, inv, batch, terms,
                                        max_in_degree=self.max_in_degree)
         else:
-            pre = hoisted_pair_dense(self, inv, batch, terms)
+            pre = hoisted_pair_dense(self.edge_lin_recv, self.edge_lin_send, inv, batch, terms)
             edge_feat = torch.relu(self.edge_lin2(torch.relu(pre)))
             if self.equivariant:
-                delta = coordinate_displacement(self, unit, edge_feat, batch)
+                delta = coordinate_displacement(
+                    self.MLP_0, self.Dense_0, unit, edge_feat, batch, tanh=self.tanh,
+                    sorted_agg=self.sorted_agg, max_in_degree=self.max_in_degree)
                 if self.tanh:
                     delta = delta * self.coords_range * 3.0
                 pos = pos + delta

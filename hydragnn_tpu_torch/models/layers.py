@@ -124,8 +124,13 @@ class BankedDense(nn.Module):
         return torch.einsum(eq, x.to(dt), w) + b[:, None, :]
 
 
-def _leaky_relu_flax(v):
-    return F.leaky_relu(v, 0.01)
+def leaky_relu(v, negative_slope: float = 0.01):
+    """flax's ``leaky_relu``: ``where(v >= 0, v, slope * v)``, whose
+    gradient at 0 is 1 (PyTorch's ``F.leaky_relu`` takes the slope there).
+    A ReLU layer's zero outputs (a dead unit, a zero bias) meet it at
+    exactly 0."""
+    return torch.where(v >= 0, v, torch.tensor(negative_slope, dtype=v.dtype,
+                                                device=v.device) * v)
 
 
 ACTIVATIONS = {
@@ -136,7 +141,7 @@ ACTIVATIONS = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "elu": F.elu,
-    "leaky_relu": _leaky_relu_flax,
+    "leaky_relu": leaky_relu,
     "softplus": F.softplus,
     "identity": lambda v: v,
 }
@@ -164,7 +169,7 @@ class MLP(nn.Module):
         self.final_activation = final_activation
         act = get_activation(activation)
         if recovery_slope and activation.lower() == "relu":
-            act = lambda v, s=recovery_slope: F.leaky_relu(v, s)
+            act = lambda v, s=recovery_slope: leaky_relu(v, s)
         self.act = act
         d = in_dim
         for i, f in enumerate(self.features):
@@ -250,11 +255,12 @@ def pair_message_factored(recv, send, inv, batch, terms=()):
     return node_recv, edge_in
 
 
-def hoisted_pair_dense(layer, inv, batch, terms=()):
+def hoisted_pair_dense(recv, send, inv, batch, terms=()):
     """``Dense(concat[x_i, x_j, e...])`` computed on node-sized operands
-    before the edge gather: ``node_recv[receivers] + edge_in``."""
-    node_recv, edge_in = pair_message_factored(layer.edge_lin_recv, layer.edge_lin_send,
-                                               inv, batch, terms)
+    before the edge gather: ``node_recv[receivers] + edge_in``, with the
+    receiver projection ``recv`` (carrying the bias) and the bias-free
+    sender projection ``send``."""
+    node_recv, edge_in = pair_message_factored(recv, send, inv, batch, terms)
     return node_recv[batch.receivers] + edge_in
 
 
@@ -274,9 +280,27 @@ def fused_pair_dense_sum(layer, inv, batch, terms=(), max_in_degree: int = 0):
     )
 
 
+def glorot_uniform_(w, gen: torch.Generator) -> None:
+    """flax's ``glorot_uniform`` in place on a parameter laid out as in the
+    flax tree: the last two axes are (fan in, fan out), any leading axes
+    multiply both fans (a bank of ``w.shape[0]`` matrices counts as one
+    receptive field of that size)."""
+    receptive = w.numel() // (w.shape[-2] * w.shape[-1])
+    fan_in, fan_out = w.shape[-2] * receptive, w.shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-limit, limit, generator=gen)
+
+
+class OwnInit:
+    """Marks a module holding parameters of its own beside its layers (a
+    weight bank, an attention vector): its ``reset_parameters(gen)``
+    initializes those, and its layers are initialized as layers."""
+
+
 def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:
     """Initialize every layer of ``module`` from ``gen``, in registration
     order (deterministic for a given seed)."""
     for m in module.modules():
-        if isinstance(m, (Dense, BankedDense, MaskedBatchNorm)):
+        if isinstance(m, (Dense, BankedDense, MaskedBatchNorm, OwnInit)):
             m.reset_parameters(gen)

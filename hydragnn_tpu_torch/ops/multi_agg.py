@@ -14,7 +14,9 @@ dummy padding row included.
 The wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor (one launch, one scratch tensor); anything else raises.
 ``fused_multi_agg.launches`` counts kernel launches (``launches_by_case``
-splits them by dtype and width).
+splits them by dtype and width, and by variant where it is not PNA's
+``node_recv`` without a gate: ``/gate`` with one, ``/edge_in only``
+without ``node_recv`` and gate).
 
 The kernel's route is differentiable to any order, as the JAX kernel's
 ``custom_jvp`` (whose tangent rule is ``reference_multi_agg``) is: one
@@ -193,7 +195,9 @@ def _launch(node_recv, edge_in, gate, segment_ids, num_segments: int):
     if rc != 0:
         raise RuntimeError(f"fused_multi_agg kernel launch failed: CUDA error {rc}")
     fused_multi_agg.launches += 1
-    fused_multi_agg.launches_by_case[f"{str(dtype)[6:]}/C{c}"] += 1
+    variant = ("" if node_recv is not None or gate is not None else "/edge_in only") + (
+        "/gate" if gate is not None else "")
+    fused_multi_agg.launches_by_case[f"{str(dtype)[6:]}/C{c}{variant}"] += 1
     return s, cnt, mn, mx, ssq
 
 

@@ -69,7 +69,13 @@ def multi_moment_agg(edge_in, segment_ids, num_segments: int, node_recv=None,
     downstream. Otherwise the dense plain version runs and honours
     ``mask``."""
     if sorted_ids and max_degree and edge_in.dim() == 2:
-        return fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
+        # the kernel takes one operand dtype, edge_in's: node_recv and gate
+        # are cast to it, as the JAX kernel casts them
+        def operand(t):
+            return None if t is None else t.to(edge_in.dtype).contiguous()
+
+        return fused_multi_agg(operand(node_recv), edge_in.contiguous(), operand(gate),
+                               segment_ids, num_segments)
     return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments,
                                mask=mask)
 
@@ -125,6 +131,27 @@ def segment_std(messages, segment_ids, num_segments: int, mask=None, eps: float 
     mean_sq = segment_mean(m * m, segment_ids, num_segments, mask)
     var = torch.clamp(mean_sq - mean**2, min=0.0)
     return torch.sqrt(var + eps).to(messages.dtype)
+
+
+def segment_softmax(logits, segment_ids, num_segments: int, mask=None):
+    """Numerically stable softmax of ``logits`` [E, ...] within each segment
+    (GAT's attention): masked entries are filled with the dtype's finfo min
+    before the segment max and get weight 0; an empty segment's max is 0;
+    the denominator is clamped at 1e-16."""
+    neg = torch.finfo(logits.dtype).min
+    masked = _mask_messages(logits, mask, neg)
+    ids = segment_ids.long()
+    idx = ids.reshape(ids.shape + (1,) * (masked.dim() - 1)).expand_as(masked)
+    seg_max = torch.full((num_segments,) + tuple(masked.shape[1:]), float("-inf"),
+                         dtype=masked.dtype, device=masked.device)
+    seg_max = seg_max.scatter_reduce(0, idx, masked, "amax")
+    zero = torch.zeros((), dtype=masked.dtype, device=masked.device)
+    seg_max = torch.where(seg_max <= neg / 2, zero, seg_max)
+    exp = torch.exp(masked - seg_max[ids])
+    if mask is not None:
+        exp = _mask_messages(exp, mask, 0.0)
+    denom = segment_sum_plain(exp, ids, num_segments)
+    return exp / torch.clamp(denom[ids], min=1e-16)
 
 
 def masked_global_mean_pool(x, node_graph, num_graphs: int, node_mask,

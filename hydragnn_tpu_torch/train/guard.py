@@ -100,21 +100,22 @@ class NonFinitePolicy:
     sets the learning rate to the restored one times
     ``lr_backoff ** rollbacks_done`` (compounded: sustained divergence
     keeps restoring the same checkpoint). Past ``max_rollbacks``, or with
-    no ``restore_fn``, a rollback raises. ``skipped`` is the incoming
-    state's skip total (a resumed run's earlier skips are not this run's).
-    ``policy`` is one of the values config completion admits."""
+    no ``restore_fn``, a rollback raises. The tally counts from 0 in every
+    run, as the JAX package's does: a run resumed from a state with
+    earlier skips reports them at its first epoch boundary (and raises
+    under ``error``). ``policy`` is one of the values config completion
+    admits."""
 
     def __init__(self, policy: str = "warn_skip", rollback_after: int = 3,
                  lr_backoff: float = 0.5, max_rollbacks: int = 3,
-                 restore_fn: Optional[Callable] = None, log_name: str = "run",
-                 skipped: int = 0):
+                 restore_fn: Optional[Callable] = None, log_name: str = "run"):
         self.policy = policy
         self.rollback_after = int(rollback_after)
         self.lr_backoff = float(lr_backoff)
         self.max_rollbacks = int(max_rollbacks)
         self.restore_fn = restore_fn
         self.log_name = log_name
-        self._prev_skipped = int(skipped)
+        self._prev_skipped = 0
         self.rollbacks_done = 0
 
     def after_epoch(self, state, epoch: int):

@@ -284,7 +284,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
         rollback_after=int(training.get("non_finite_rollback_after", 3)),
         lr_backoff=float(training.get("non_finite_lr_backoff", 0.5)),
         max_rollbacks=int(training.get("non_finite_max_rollbacks", 3)),
-        restore_fn=restore_fn, log_name=log_name, skipped=int(state.skipped_steps),
+        restore_fn=restore_fn, log_name=log_name,
     )
     return_best = bool(training.get("return_best", stopper is not None
                                     or checkpointer is not None)) and do_valtest

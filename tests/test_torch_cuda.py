@@ -854,3 +854,200 @@ def pytest_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
     got, gm = tensors(back)
     assert gm == wm and all(torch.equal(want[k], got[k]) for k in want)
     assert all(t.device.type == "cuda" for t in back.held)
+
+
+# ---------------------------------------------------------------------------
+# the message-passing zoo's shapes: K1 at C = 4 (SAGE's and MFC's first
+# layer, CGCNN at the OC20 input width), 126 (SchNet's filters on MD17) and
+# 1,536 (GAT's six concatenated heads of 256); K3 with edge_in alone
+# (PNAEq) and with node_recv and a gate (PNAPlus) at C = 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(2272, 4), (700, 126), (400, 1536)])
+def pytest_k1_zoo_widths_match_plain_on_card(cuda, dtype, n, c):
+    """K1's forward against its fixed-order plain version, and its
+    Function's first- and second-order gradients against ``index_add_``
+    through ordinary autograd, at about 16 edges per row; one forward
+    launch, none in either backward."""
+    ids, gen = _ascending_ids(cuda, n, 16, c)
+    msg = torch.randn(ids.shape[0], c, generator=gen, device=cuda).to(dtype)
+    got = t_sorted.sorted_segment_sum(msg, ids, n)
+    want = t_sorted.sorted_segment_sum_plain(msg, ids, n)
+    torch.cuda.synchronize()
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=atol)
+    _function_against(lambda m: t_sorted.sorted_segment_sum(m, ids, n),
+                      lambda m: t_sorted.segment_sum_plain(m, ids, n), [msg],
+                      t_sorted.sorted_segment_sum, dtype, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["edge_in only", "node_recv and gate"])
+def pytest_k3_zoo_variants_match_plain_on_card(cuda, dtype, variant):
+    """K3 at the zoo's shapes (C = 256, 16 OC20-shaped graphs' worth of
+    rows at about 16 edges each, a long dummy last row): the moments
+    against ``reference_multi_agg`` (count, min and max exactly), then the
+    Function's first- and second-order gradients against its autograd; the
+    launch counted under the variant's case."""
+    n, c = 1100, 256
+    ids, gen = _ascending_ids(cuda, n, 16, 7)
+    ids = torch.cat([ids, torch.full((3000,), n - 1, dtype=ids.dtype, device=cuda)])
+    e = ids.shape[0]
+    full = variant != "edge_in only"
+    inputs = [torch.randn(r, c, generator=gen, device=cuda).to(dtype)
+              for r in ((n, e, e) if full else (e,))]
+
+    def call(fn):
+        if full:
+            return lambda nr, ei, g: fn(nr, ei, g, ids, n)
+        return lambda ei: fn(None, ei, None, ids, n)
+
+    case = f"{str(dtype)[6:]}/C{c}/" + ("gate" if full else "edge_in only")
+    before = t_multi.fused_multi_agg.launches_by_case[case]
+    got = call(t_multi.fused_multi_agg)(*inputs)
+    want = call(t_multi.reference_multi_agg)(*inputs)
+    torch.cuda.synchronize()
+    assert t_multi.fused_multi_agg.launches_by_case[case] == before + 1
+    for name, a, b in zip(("sum", "count", "min", "max", "sumsq"), got, want):
+        if name in ("count", "min", "max"):
+            assert torch.equal(a, b), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0), name
+    _function_against(call(t_multi.fused_multi_agg), call(t_multi.reference_multi_agg), inputs,
+                      t_multi.fused_multi_agg, dtype, 11)
+
+
+# launches of one forward of each zoo conv's model (2 conv layers) through
+# the kernels, f32: kernel -> count
+ZOO_LAUNCHES = {
+    "SAGE": {"K1": 2}, "MFC": {"K1": 2}, "CGCNN": {"K1": 2}, "GAT": {"K1": 2},
+    "SchNet": {"K1": 2}, "PAINN": {"K1": 2}, "PNAPlus": {"K3": 2}, "PNAEq": {"K3": 2},
+}
+
+
+def _zoo_models(device, model, layers):
+    """A zoo conv's model (hidden 64, f32) on the sorted route, the same
+    weights on the unsorted plain route (no kernel), and one batch of 8
+    OC20-shaped graphs."""
+    import copy
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import GraphLoader, oc20_shaped_dataset, split_dataset
+    from hydragnn_tpu_torch.models import create_model
+
+    graphs = oc20_shaped_dataset(16, mean_atoms=20, min_atoms=10, max_atoms=40)
+    splits = split_dataset(graphs, 0.75)
+    arch = {"mpnn_type": model, "radius": 5.0, "max_neighbours": 20, "hidden_dim": 64,
+            "num_conv_layers": layers, "use_sorted_aggregation": True,
+            "task_weights": [1.0, 1.0],
+            "output_heads": {
+                "graph": {"num_sharedlayers": 1, "dim_sharedlayers": 16,
+                          "num_headlayers": 1, "dim_headlayers": [16]},
+                "node": {"num_headlayers": 1, "dim_headlayers": [16], "type": "mlp"}}}
+    cfg = {"Dataset": {"node_features": {"dim": [1, 3, 3]}, "graph_features": {"dim": [1]}},
+           "NeuralNetwork": {"Architecture": arch,
+                             "Training": {"batch_size": 8, "loss_function_type": "mae"},
+                             "Variables_of_interest": {
+                                 "input_node_features": [0, 1],
+                                 "output_names": ["energy", "forces"],
+                                 "output_index": [0, 2], "type": ["graph", "node"]}}}
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["NeuralNetwork"]["Architecture"].update(use_sorted_aggregation=False,
+                                                      use_fused_edge_kernel=False)
+    kernels = create_model(update_config(cfg, *splits), device=device)
+    plain = create_model(update_config(plain_cfg, *splits), device=device)
+    plain.load_state_dict(kernels.state_dict())
+    batch = next(iter(GraphLoader(splits[0], 8, sort_edges=True))).to(device)
+    return kernels, plain, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", list(ZOO_LAUNCHES))
+def pytest_zoo_conv_kernels_match_the_plain_route_on_card(cuda, model):
+    """Each conv of the zoo (2 conv layers, hidden 64, f32) through the
+    kernels against the same weights on the unsorted plain route (no
+    kernel): real rows to 1e-4 of each head's largest value (GAT's and
+    PNAEq's to 1e-3: their softmax and degree scalers carry a summation
+    order's rounding further), and the launches per forward."""
+    model_k, plain, batch = _zoo_models(cuda, model, 2)
+    wrappers = {"K1": t_sorted.sorted_segment_sum, "K3": t_multi.fused_multi_agg}
+    before = {k: w.launches for k, w in wrappers.items()}
+    with torch.no_grad():
+        got = model_k(batch)
+        mid = {k: w.launches for k, w in wrappers.items()}
+        want = plain(batch)
+    torch.cuda.synchronize()
+    launched = {k: mid[k] - before[k] for k in wrappers}
+    assert launched == {k: ZOO_LAUNCHES[model].get(k, 0) for k in wrappers}, launched
+    assert all(w.launches == mid[k] for k, w in wrappers.items())  # the plain route: none
+    rtol = 1e-3 if model in ("GAT", "PNAEq") else 1e-4
+    for k in want:
+        m = batch.graph_mask if want[k].shape[0] == batch.num_graphs else batch.node_mask
+        scale = float(want[k][m].abs().max())
+        assert torch.isfinite(got[k][m]).all()
+        assert float((got[k][m] - want[k][m]).abs().max()) <= rtol * scale, k
+
+
+def _assert_zoo_step_gradients_match(device, model, layers=1, clamps=None):
+    """One MAE training step's gradients (batch statistics) of a zoo model
+    of ``layers`` conv layers through the kernels against the plain
+    route's: every parameter's to 1e-3 of its largest gradient, floored at
+    1e-3 of the largest anywhere. With ``clamps`` (a ``monkeypatch``) the
+    PaiNN update block's +-1e6 clamp saturates on the kernel route exactly
+    the elements it saturated on the plain route; returns how many
+    elements each of those clamp calls saturated."""
+    import hydragnn_tpu_torch.models.painn as painn
+    from hydragnn_tpu_torch.train import compute_loss
+
+    kernels, plain, batch = _zoo_models(device, model, layers)
+    decisions = []
+
+    def record(t):
+        decisions.append(t.abs() > 1e6)
+        return torch.clamp(t, -1e6, 1e6)
+
+    def replay(t, calls=iter(decisions)):
+        return torch.where(next(calls), torch.clamp(t, -1e6, 1e6).detach(), t)
+
+    grads = {}
+    for route, m, clamp in (("plain", plain, record), ("kernels", kernels, replay)):
+        if clamps is not None:
+            clamps.setattr(painn, "update_clamp", clamp)
+        m.train()
+        tot, _, _ = compute_loss(m, batch, m.cfg, False)
+        tot.backward()
+        grads[route] = {n: p.grad for n, p in m.named_parameters()}
+    got, want = grads["kernels"], grads["plain"]
+    top = max(float(g.abs().max()) for g in want.values() if g is not None)
+    for n, w in want.items():
+        if w is None:
+            assert got[n] is None, n
+            continue
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        assert float((got[n] - w).abs().max()) <= 1e-3 * scale, n
+    return [int(d.sum()) for d in decisions]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", list(ZOO_LAUNCHES))
+def pytest_zoo_conv_gradients_match_the_plain_route_on_card(cuda, model):
+    """One conv layer of each zoo conv (hidden 64, f32): one training step's
+    gradients through K1's or K3's Function against the plain route's."""
+    _assert_zoo_step_gradients_match(cuda, model)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["PAINN", "PNAEq"])
+def pytest_zoo_vector_update_gradients_match_the_plain_route_on_card(cuda, model, monkeypatch):
+    """Three conv layers of PAINN and PNAEq (hidden 64, f32), so that two
+    run the update block's vector form: one training step's gradients
+    through K1's or K3's Function against the plain route's, the kernel
+    route held to the plain route's clamp decisions (deeper stacks
+    saturate the +-1e6 clamp at random init, where one rounding can flip
+    an element). The first layer's two clamps saturate nothing, so the
+    vector update's gradient reaches K1 or K3 unclamped."""
+    saturated = _assert_zoo_step_gradients_match(cuda, model, layers=3, clamps=monkeypatch)
+    assert len(saturated) == 5 and saturated[:2] == [0, 0], saturated

@@ -73,8 +73,8 @@ def pytest_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("later", [
-    dict(mpnn_type="SAGE"),
-    dict(mpnn_type="MFC"),
+    dict(mpnn_type="DimeNet"),
+    dict(mpnn_type="MACE"),
     dict(mpnn_type="PNA", global_attn_engine="GPS", global_attn_type="performer"),
 ])
 def pytest_later_slices_raise_not_implemented(later):

@@ -129,11 +129,13 @@ def _ids(batch) -> str:
     return hashlib.sha1(x.tobytes()).hexdigest()[:16]
 
 
-def _jax_run(case, d, log_name="run", poison=(), kill_after=None, restore=True, **training):
+def _jax_run(case, d, log_name="run", poison=(), kill_after=None, restore=True, skipped=0,
+             **training):
     """``train_validate_test`` of the JAX package from the case's
     variables; ``poison`` holds the global step indices whose batch gets
     NaN features, ``kill_after`` the step count after which this process
-    gets SIGTERM. Returns (state, history, the batches stepped, the
+    gets SIGTERM, ``skipped`` the skip total the state starts with (a
+    resumed run's). Returns (state, history, the batches stepped, the
     rollbacks, the restored states' params)."""
     jc, (tl, vl, tel), _ = j_prepare(case.config(**training), case.splits)
     seen, restored = [], []
@@ -154,6 +156,8 @@ def _jax_run(case, d, log_name="run", poison=(), kill_after=None, restore=True, 
         return st
 
     js = JState.create(jax.tree_util.tree_map(jnp.asarray, case.v), case.tx)
+    if skipped:
+        js = js.replace(skipped_steps=skipped)
     js, hist = j_tvt(
         case.jm, js, case.tx, tl, vl, tel, jc, log_name=log_name, step_fn=step,
         eval_fn=case.jeval, save_fn=lambda s, e=None: jck.save_model(s, log_name, path=d, epoch=e),
@@ -163,7 +167,7 @@ def _jax_run(case, d, log_name="run", poison=(), kill_after=None, restore=True, 
     return js, hist, seen, restored
 
 
-def _torch_run(case, d, log_name="run", poison=(), restore=True, **training):
+def _torch_run(case, d, log_name="run", poison=(), restore=True, skipped=0, **training):
     """The port's ``train_validate_test`` on the same terms (no kill: the
     port's SIGTERM runs go through ``run_training``). Returns (state,
     history, the batches stepped, and per rollback the file restored and
@@ -173,6 +177,7 @@ def _torch_run(case, d, log_name="run", poison=(), restore=True, **training):
     load_jax_variables(model, case.v)
     state = TrainState.create(model, make_optimizer(model, tc["NeuralNetwork"]["Training"]
                                                     ["Optimizer"]))
+    state.skipped_steps.fill_(skipped)
     seen, restored = [], []
 
     def restore_fn(t):
@@ -432,6 +437,33 @@ def pytest_non_finite_policy_matches_jax(name, case, tmp_path, monkeypatch):
         assert fname.endswith("run_epoch0.pt")
         want = torch.load(fname, weights_only=True)["model"]
         assert set(got) == set(want) and all(torch.equal(got[k], v) for k, v in want.items())
+
+
+@pytest.mark.parametrize("policy", ["warn_skip", "error"])
+def pytest_resumed_skip_tally_matches_jax(policy, case, tmp_path, capsys):
+    """A run resumed from a state with 2 earlier skips and no bad step of
+    its own: both packages count the tally from 0 in every run, so both
+    report the 2 at the first epoch boundary (the same line on stderr)
+    under ``warn_skip`` and raise the same error under ``error``."""
+    out = {}
+    for side, run in (("jax", _jax_run), ("torch", _torch_run)):
+        try:
+            st, hist, _, _ = run(case, str(tmp_path / side), skipped=2, num_epoch=1,
+                                 non_finite_policy=policy)
+            result = (int(np.asarray(st.skipped_steps)), hist)
+        except RuntimeError as e:
+            result = str(e)
+        said = [ln for ln in capsys.readouterr().err.splitlines() if "non-finite step(s)" in ln]
+        out[side] = (result, said)
+    (tres, tsaid), (jres, jsaid) = out["torch"], out["jax"]
+    want = "[run] epoch 0: 2 non-finite step(s) skipped by the train-step guard (total 2"
+    if policy == "error":
+        assert isinstance(tres, str) and tres == jres and tres.startswith(want)
+        assert "non_finite_policy is 'error'" in tres
+    else:
+        assert tres[0] == jres[0] == 2
+        _same_history(tres[1], jres[1])
+        assert len(tsaid) == len(jsaid) == 1 and tsaid == jsaid and tsaid[0].startswith(want)
 
 
 @pytest.mark.parametrize("return_best", [False, True])
