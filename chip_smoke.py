@@ -145,7 +145,27 @@ Phases, each fatal on failure (exit code 1):
    K1 or its plain version, with or without deterministic algorithms,
    ungated). The kernel checks of phase 3 also
    hold K1 at C = 4, 256 and 1,536 (bf16) and 126 (f32) and K3's two
-   variants at the zoo's and the MD17 recipe's shapes.
+   variants at the zoo's and the MD17 recipe's shapes;
+12. DimeNet (the spherical basis, the triplet channel), MACE (the O(3)
+   algebra) and GPS performer attention. ``dimenet`` and ``mace`` (served
+   with phases 4-5 and ``pnaplus``): the JAX bench's model cells with
+   sorted aggregation (``model_cell_config``: 2 conv layers, OC20-shaped
+   data, heads [256, 256], batch 16 not packed, bf16; DimeNet hidden 128,
+   MACE hidden 256 at max_ell 2 and correlation 3), 192 requests each
+   through ``api.run_server`` against the same bf16 cast through K1's
+   plain version and against f32 plain ops; K1 per batch: DimeNet once at
+   C = 4 and once at 128 in f32 (its spherical basis is f32), MACE twice in
+   bf16 at C = 2,304 (256 channels x 9 irrep components).
+   ``dimenet_train`` and ``mace_train`` (after ``pnaplus_train``): each cell
+   trained through ``run_cell_train`` (step-0 gradients in f32 and bf16
+   against K1's plain version, 22-step trajectories, ms per step, peak
+   memory, a profiled step, one ``run_training`` epoch), then one
+   energy-force step (forces by a double backward through K1, f32) against
+   the plain route; DimeNet first takes a bf16 step on a batch with padding
+   triplets (every gradient finite). ``performer`` (in ``zoo``): the JAX
+   bench's performer cell (GIN hidden 256, 4 layers, 8 heads, PE 4), GIN's
+   sums through K1 (bf16, C = 256). The kernel checks of phase 3 hold K1
+   at C = 2,304 (bf16 and f32), 128 and 4 (f32) too.
 
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
@@ -257,13 +277,16 @@ def device_ms(fn, iters: int):
     a cold profile can drop its first kernels), and the same split by
     kernel (or copy) name. Unlike ``cuda_ms`` it leaves out the host's time
     between launches, which is most of a wrapper's call time when its
-    kernel takes microseconds. A profile that caught no device event is
-    taken again, up to five times; (None, {}) if none caught one."""
+    kernel takes microseconds. A profile that dropped device events (one
+    that caught none, or caught some kernel fewer times than ``fn`` was
+    called) is taken again, up to five times; then the time is None (not
+    measured), beside the names the last profile caught."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
+    by_name = {}
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
@@ -273,11 +296,11 @@ def device_ms(fn, iters: int):
                 torch.cuda.synchronize()
                 if warm:  # a step after the recorded calls would drop them
                     prof.step()
-        by_name = {ev.key: _device_us(ev) / iters / 1e3 for ev in _device_events(prof)
-                   if _device_us(ev) > 0}
-        if by_name:
+        events = [ev for ev in _device_events(prof) if _device_us(ev) > 0]
+        by_name = {ev.key: _device_us(ev) / iters / 1e3 for ev in events}
+        if events and all(ev.count >= iters for ev in events):
             return sum(by_name.values()), by_name
-    return None, {}
+    return None, by_name
 
 
 def _device_events(prof):
@@ -501,6 +524,15 @@ def gin_ring_spec(graph):
     from hydragnn_tpu_torch.data.graph import PadSpec
 
     return PadSpec(n_nodes=graph.num_nodes + 2, n_edges=graph.num_edges + 2, n_graphs=2)
+
+
+def exact_spec(graphs):
+    """The smallest pad spec holding ``graphs`` in one batch."""
+    from hydragnn_tpu_torch.data.graph import PadSpec, _round_up
+
+    return PadSpec(n_nodes=_round_up(sum(g.num_nodes for g in graphs) + 1, 8),
+                   n_edges=_round_up(sum(g.num_edges for g in graphs), 128),
+                   n_graphs=len(graphs) + 1)
 
 
 def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, shape,
@@ -951,12 +983,36 @@ SERVE_RTOL = {  # reference -> head -> (largest row, median row)
     # (8.4e-4, 1.3e-4); f32 plain ops (0.13, 3.2e-2), (0.11, 2.2e-2); the
     # served route through K3's plain version (4.2e-6, 6.4e-7), (2.7e-6,
     # 3.4e-7); f32 through K3 (1.9e-6, 5.2e-7), (2.1e-6, 3.0e-7). Limits at
-    # about four times, as the plain ops' index_add_ varies from run to run
+    # about four times, as the plain ops' index_add_ varies from run to run.
+    # Every reference runs the server's own micro-batches, each at the
+    # ladder level the server took for it: against fixed chunks of 32, one
+    # graph's bf16 rounding flipped a ReLU in some of the server's
+    # compositions (1.8e-4 from the reference, the server running K3's plain
+    # version too), which no kernel causes
     "pnaplus": {"bf16 plain ops": {"energy": (5e-3, 1e-3), "forces": (5e-3, 1e-3)},
                 "f32 plain ops": {"energy": (0.4, 0.1), "forces": (0.4, 0.1)},
                 "bf16 served route, plain versions": {"energy": (2e-5, 3e-6),
                                                       "forces": (2e-5, 3e-6)},
                 "f32 through the kernels": {"energy": (1e-5, 3e-6), "forces": (1e-5, 3e-6)}},
+    # DimeNet (four runs): bf16 plain ops energy (3.5e-6 to 3.8e-6, 5.9e-7
+    # to 7.4e-7), forces (1.0e-6 to 1.1e-6, 1.0e-7); f32 plain ops (0.117,
+    # 3.5e-2), (0.129, 1.7e-2); the served route through K1's plain version
+    # (3.6e-6 to 4.4e-6, 6.6e-7 to 9.1e-7), (1.0e-6 to 1.1e-6, 1.0e-7); f32
+    # through K1 (1.9e-6 to 3.7e-6, 5.1e-7 to 6.4e-7), (9.8e-7 to 1.2e-6,
+    # 1.1e-7). MACE (four runs): bf16 plain ops and the served route through
+    # K1's plain version (5.3e-7, 1.2e-7), forces 0; f32 plain ops (1.0e-2,
+    # 6.0e-3), (6.3e-3, 1.6e-3); f32 through K1 (1.0e-7 to 1.7e-7, 4.0e-8),
+    # (1.7e-7, 2.1e-8). Limits at about three to five times
+    "dimenet": {"bf16 plain ops": {"energy": (2e-5, 3e-6), "forces": (5e-6, 5e-7)},
+                "f32 plain ops": {"energy": (0.35, 0.1), "forces": (0.4, 0.05)},
+                "bf16 served route, plain versions": {"energy": (2e-5, 3e-6),
+                                                      "forces": (5e-6, 5e-7)},
+                "f32 through the kernels": {"energy": (1e-5, 2e-6), "forces": (5e-6, 5e-7)}},
+    "mace": {"bf16 plain ops": {"energy": (3e-6, 6e-7), "forces": (3e-6, 6e-7)},
+             "f32 plain ops": {"energy": (0.05, 0.02), "forces": (0.03, 5e-3)},
+             "bf16 served route, plain versions": {"energy": (3e-6, 6e-7),
+                                                   "forces": (3e-6, 6e-7)},
+             "f32 through the kernels": {"energy": (1e-6, 2e-7), "forces": (1e-6, 2e-7)}},
 }
 
 
@@ -1328,7 +1384,7 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
 
     from hydragnn_tpu_torch.api import run_server
     from hydragnn_tpu_torch.config import update_config
-    from hydragnn_tpu_torch.data.graph import PadSpec, _round_up, batch_graphs
+    from hydragnn_tpu_torch.data.graph import batch_graphs
     from hydragnn_tpu_torch.data.pipeline import split_dataset
     from hydragnn_tpu_torch.models.create import create_model
     from hydragnn_tpu_torch.train.loop import cast_batch_bf16, mp_cast_model
@@ -1381,8 +1437,10 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
         check(all(np.isfinite(v).all() for v in r.values()), "non-finite served output")
 
     # the served answers against the same weights through the plain ops
-    # (unsorted route, dense attention, no kernels) on the card: with the
-    # server's bf16 cast (for EGNN the same function in another summation
+    # (unsorted route, dense attention, no kernels) on the card, batch by
+    # served batch: the same graphs at the same pad level, so the kernels
+    # are the only difference from the plain versions. With the server's
+    # bf16 cast (for EGNN the same function in another summation
     # order; GPS's dense attention takes its softmax in bf16 where K4 keeps
     # f32) and in f32 (what mixed precision costs). With GPS also against
     # the served route itself with the wrappers swapped for the kernels'
@@ -1408,16 +1466,14 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
     rtol = {(a, r): SERVE_RTOL[label][r if a == "served" else a] for a, r in pairs}
     errs = {(a, r, k): [] for a, r in pairs for k in rtol[a, r]}  # per output row
     scale = dict.fromkeys(errs, 0.0)
-    chunk = 32
+    served_batches = {}
+    for i, h in enumerate(handles):
+        served_batches.setdefault(h.batch_index, []).append(i)
     with torch.inference_mode():
-        for s in range(0, min(len(graphs), n_requests), chunk):
-            gs = requests[s:min(s + chunk, len(graphs), n_requests)]
-            spec = PadSpec(
-                n_nodes=_round_up(sum(g.num_nodes for g in gs) + 1, 8),
-                n_edges=_round_up(sum(g.num_edges for g in gs), 128),
-                n_graphs=len(gs) + 1,
-            )
-            batch = batch_graphs(gs, spec, sort_edges=True).to(device)
+        for idx in served_batches.values():
+            gs = [requests[i] for i in idx]
+            batch = batch_graphs(gs, server.ladder.select_for(gs),
+                                 sort_edges=server.sort_edges).to(device)
             outs = {"served": None}
             for r, (model, cast) in models.items():
                 with plain_versions(PLAIN if r.endswith("plain versions") else ()):
@@ -1429,7 +1485,7 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
                 off += g.num_nodes
                 for a, r in pairs:
                     for k in rtol[a, r]:
-                        got = results[s + i][k] if a == "served" else outs[a][k][rows[k]]
+                        got = results[idx[i]][k] if a == "served" else outs[a][k][rows[k]]
                         want = outs[r][k][rows[k]].reshape(got.shape)
                         errs[a, r, k].append(np.abs(got - want).reshape(got.shape[0], -1)
                                              .max(axis=1))
@@ -1577,14 +1633,21 @@ def train_config(energy_force: bool = False, **kw):
     in f32, as the OC20 example trains it
     (examples/open_catalyst_2020/open_catalyst_2020.json)."""
     config = serving_config(**kw)
-    if energy_force:
-        nn_cfg = config["NeuralNetwork"]
-        nn_cfg["Architecture"].update(task_weights=[1.0], output_heads={
-            "node": nn_cfg["Architecture"]["output_heads"]["node"]})
-        nn_cfg["Variables_of_interest"] = {
-            "input_node_features": [0], "output_names": ["graph_energy"],
-            "output_index": [0], "output_dim": [1], "type": ["node"]}
-        nn_cfg["Training"].update(compute_grad_energy=True, mixed_precision=False)
+    return energy_force_config(config) if energy_force else config
+
+
+def energy_force_config(config):
+    """``config`` turned to the energy-force objective: one node head of
+    nodal energy, forces ``-dE/dpos`` (``compute_grad_energy``), the atomic
+    number as the only node input, in f32."""
+    config = copy.deepcopy(config)
+    nn_cfg = config["NeuralNetwork"]
+    nn_cfg["Architecture"].update(task_weights=[1.0], output_heads={
+        "node": nn_cfg["Architecture"]["output_heads"]["node"]})
+    nn_cfg["Variables_of_interest"] = {
+        "input_node_features": [0], "output_names": ["graph_energy"],
+        "output_index": [0], "output_dim": [1], "type": ["node"]}
+    nn_cfg["Training"].update(compute_grad_energy=True, mixed_precision=False)
     return config
 
 
@@ -1772,6 +1835,31 @@ def pinned_clamps(masks: list, flips=None):
         return torch.where(phi, t.new_full((), 1e6), torch.where(plo, t.new_full((), -1e6), t))
 
     return swapped([(painn, "update_clamp", clamp)])
+
+
+def pinned_act(mlp, masks: list, flips=None):
+    """Within the block, the activation of the MLP ``mlp`` (a ReLU or a
+    leaky ReLU) records, call by call, which elements it passes (input > 0)
+    into the empty list ``masks``; given a filled ``masks`` (``flips`` a
+    list), it passes exactly those elements and scales the rest by its
+    slope, whatever their sign, and ``flips`` gets per call how many
+    decisions its own input would have made otherwise (as
+    ``pinned_clamps``)."""
+    import torch
+
+    act = mlp.act
+    slope = -float(act(torch.tensor(-1.0)))
+    replay = iter(list(masks))
+
+    def pinned(t):
+        if flips is None:
+            masks.append(t > 0)
+            return act(t)
+        passed = next(replay)
+        flips.append(int((passed != (t > 0)).sum()))
+        return torch.where(passed, t, slope * t)
+
+    return swapped([(mlp, "act", pinned)])
 
 
 def f64_sums():
@@ -2774,6 +2862,9 @@ ZOO_PER_UNIT = {
     "GAT": {"K1": {"bfloat16/C1536": 4}},
     "MFC": {"K1": {"bfloat16/C4": 1, "bfloat16/C256": 3}},
     "CGCNN": {"K1": {"bfloat16/C4": 4}},
+    # GIN's four sums under GPS performer attention, all bf16 (the
+    # attention's per-graph moments are plain segment sums)
+    "performer": {"K1": {"bfloat16/C256": 4}},
 }
 # schnet_md17: one energy-force step or eval batch (f32): K1 once per
 # SchNet layer at its 126 filters
@@ -2829,6 +2920,13 @@ ZOO_RTOL = {
     "GAT": {"served": {"energy": (0.02, 5e-3), "forces": (0.04, 1e-2)}},
     "MFC": {"served": {"energy": (1e-3, 1e-5), "forces": (1e-3, 1e-5)}},
     "CGCNN": {"served": {"energy": (1e-3, 1e-5), "forces": (1e-3, 1e-5)}},
+    # GIN under performer attention: the served answers equal the plain
+    # versions' bit for bit (five runs); the f32 step-0 gradients read
+    # (0.021 to 0.034, 6.5e-4 to 2.6e-3), the plain route again (0.020 to
+    # 0.034, 1.6e-4 to 1.8e-3), at the last layers' projections, where the
+    # relu feature map's zero crossings carry the summation order's rounding
+    "performer": {"served": {"energy": (1e-3, 1e-5), "forces": (1e-3, 1e-5)},
+                  "gradients": (0.1, 8e-3)},
 }
 # f32 step-0 gradients: (largest, median), but for the convs whose update
 # blocks saturate at random init (below)
@@ -2879,6 +2977,42 @@ def pna_cell_config(mpnn_type: str = "PNAPlus", batch_size: int = 16, hidden: in
     if mpnn_type == "PNAPlus":
         arch.update(num_radial=5, envelope_exponent=5)
     config["NeuralNetwork"]["Training"]["pack_batches"] = False
+    return config
+
+
+def model_cell_config(mpnn_type: str):
+    """The JAX package's MACE and DimeNet bench cells (bench.py
+    ``_model_cell_workload``) with sorted aggregation on (its
+    ``BENCH_CELL_SORTED=1``, the ``mace_sorted`` cell): 2 conv layers, radius
+    5, 20 neighbours, graph head [256, 256] over a shared 2 x 50, node head
+    [256, 256], task weights [1, 100], batch 16 not packed, bf16 mixed
+    precision, the bench's Training block (AdamW lr 1e-3, MAE). MACE: hidden
+    256, 8 Bessel radial functions, max_ell and node_max_ell 2, correlation
+    3, envelope exponent 5. DimeNet: hidden 128, 6 radial and 7 spherical
+    functions, basis 8, interaction 64, output 256, 1 residual before the
+    skip and 2 after, envelope exponent 5."""
+    per_model = {
+        "MACE": dict(hidden_dim=256, num_radial=8, max_ell=2, node_max_ell=2, correlation=3,
+                     radial_type="bessel", envelope_exponent=5),
+        "DimeNet": dict(hidden_dim=128, num_radial=6, num_spherical=7, basis_emb_size=8,
+                        int_emb_size=64, out_emb_size=256, num_before_skip=1,
+                        num_after_skip=2, envelope_exponent=5),
+    }
+    config = pna_cell_config(mpnn_type, layers=2)
+    config["NeuralNetwork"]["Architecture"].update(per_model[mpnn_type])
+    return config
+
+
+def performer_cell_config():
+    """The JAX package's GPS performer bench cell (bench.py
+    ``_gps_cell_workload("performer")``): GIN hidden 256, 4 conv layers, GPS
+    performer attention with 8 heads, PE 4, dropout 0, graph head [256,
+    256] over a shared 2 x 50, node head [256, 256], batch 16, bf16 mixed
+    precision, with sorted aggregation on (so GIN's sums take K1)."""
+    config = pna_cell_config("GIN")
+    config["NeuralNetwork"]["Architecture"].update(
+        global_attn_engine="GPS", global_attn_type="performer", global_attn_heads=8, pe_dim=4,
+        dropout=0.0)
     return config
 
 
@@ -2977,10 +3111,13 @@ def _k3_case(ids, node_mask, n, c, dtype, gen, with_recv_and_gate: bool, seed):
 
 
 def zoo_kernel_cases(batch, md17_batch, device):
-    """K1 and K3 at the zoo's and the MD17 recipe's shapes, inputs from a
-    seed: the PNA-family cell's batch of 16 OC20-shaped graphs for K1 at
-    C = 4 (SAGE's, MFC's and CGCNN's input width), 256 and 1,536 (GAT's six
-    heads) in bf16 and for K3's two variants (PNAPlus's at C = 4 in bf16 and
+    """K1 and K3 at the zoo's, the model cells' and the MD17 recipe's
+    shapes, inputs from a seed: the PNA-family cell's batch of 16
+    OC20-shaped graphs (the DimeNet and MACE cells batch the same graphs)
+    for K1 at C = 4 (SAGE's, MFC's and CGCNN's input width), 256 (GIN's
+    under the performer too), 1,536 (GAT's six heads) and 2,304 (MACE's 256
+    channels x 9 irrep components) in bf16, at C = 4 and 128 (DimeNet's) and
+    2,304 in f32, and for K3's two variants (PNAPlus's at C = 4 in bf16 and
     256 in f32, PNAEq's at 256 in both); the MD17 batch of 32 molecules for
     K1 at SchNet's 126 filters in f32."""
     import torch
@@ -2990,7 +3127,12 @@ def zoo_kernel_cases(batch, md17_batch, device):
     edge_mask = batch.edge_mask.to(device)
     node_mask = batch.node_mask.to(device)
     n = batch.num_nodes
-    cases = [_k1_case(ids, edge_mask, n, c, torch.bfloat16, gen, 7 + c) for c in (4, 256, 1536)]
+    cases = [_k1_case(ids, edge_mask, n, c, torch.bfloat16, gen, 7 + c)
+             for c in (4, 256, 1536, 2304)]
+    # DimeNet's output-block sums (f32: its spherical basis is f32) at its
+    # layer-0 width (4, the input's) and its hidden width; MACE's in f32
+    # (gradients, energy-force)
+    cases += [_k1_case(ids, edge_mask, n, c, torch.float32, gen, 11 + c) for c in (4, 128, 2304)]
     cases.append(_k1_case(md17_batch.receivers.to(device), md17_batch.edge_mask.to(device),
                           md17_batch.num_nodes, 126, torch.float32, gen, 8))
     for dtype, c, full in ((torch.bfloat16, 4, True), (torch.float32, 256, True),
@@ -3190,32 +3332,32 @@ def zoo_carried_gate(label, kernel, model, batch, grads, clamps) -> None:
               f"{ZOO_VALUES_FACTOR}x its plain version's")
 
 
-def run_zoo(graphs, device, per_unit):
-    """Each conv of ``ZOO_CELL`` at the PNA-family cell's widths and data
-    (hidden 256, 4 conv layers, batch 16 of ``graphs``, bf16 mixed
-    precision, sorted, fused where the conv has a fused route): one batch
-    of 16 requests served through ``api.run_server`` against the same bf16
-    cast through the kernels' plain versions, then two train steps through
-    the kernels against the same steps through the plain versions (step-0
+def run_zoo(cells, device, per_unit):
+    """Each cell of ``cells`` (name -> (config, graphs): each conv of
+    ``ZOO_CELL`` at the PNA-family cell's widths and data, hidden 256, 4
+    conv layers, batch 16, bf16 mixed precision, sorted, fused where the
+    conv has a fused route; and the GPS performer cell): one batch of 16
+    requests served through ``api.run_server`` against the same bf16 cast
+    through the kernels' plain versions, then two train steps through the
+    kernels against the same steps through the plain versions (step-0
     gradients, both losses); launches per served batch and per step; one
     profiled step. Returns the launches by (kernel, case)."""
     import numpy as np
     import torch
 
     from hydragnn_tpu_torch.api import prepare_data, run_server
-    from hydragnn_tpu_torch.data.graph import PadSpec, _round_up, batch_graphs
+    from hydragnn_tpu_torch.data.graph import batch_graphs
     from hydragnn_tpu_torch.data.pipeline import split_dataset
     from hydragnn_tpu_torch.ops.sorted_segment import segment_sum_plain
     from hydragnn_tpu_torch.train import make_train_step
     from hydragnn_tpu_torch.train.loop import cast_batch_bf16, mp_cast_model
 
     wrappers = _wrappers()
-    splits = split_dataset(graphs, 0.9, seed=0)
-    requests = graphs[:16]
     launched = collections.Counter()
-    for name in ZOO_CELL:
+    for name, (config, graphs) in cells.items():
         label = f"zoo {name}"
-        config = pna_cell_config(name)
+        splits = split_dataset(graphs, 0.9, seed=0)
+        requests = graphs[:16]
         done, (loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
         arch = done["NeuralNetwork"]["Architecture"]
         check(arch["use_sorted_aggregation"], f"{label}: sorted aggregation is off")
@@ -3233,17 +3375,17 @@ def run_zoo(graphs, device, per_unit):
         served = server.stats()["batches"] - batches0
         launched.update(_check_launches(f"{label} served", wrappers, per_unit[name], served,
                                         "batches"))
-        print(f"{label}: {name} hidden {arch['hidden_dim']}, {arch['num_conv_layers']} conv "
-              f"layers, {n_params} parameters, fused {arch['use_fused_edge_kernel']}; server "
+        attn = (f", GPS {arch['global_attn_type']} x{arch['global_attn_heads']} heads"
+                if arch.get("global_attn_engine") else "")
+        print(f"{label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, "
+              f"{arch['num_conv_layers']} conv layers{attn}, {n_params} parameters, fused "
+              f"{arch['use_fused_edge_kernel']}; server "
               f"ready in {ready_s:.2f} s; {len(requests)} requests in {served} batches, "
               f"{serve_ms:.2f} ms", flush=True)
         check(all(isinstance(r, dict) and set(r) == {"energy", "forces"} for r in results),
               f"{label}: served {results[:1]}")
         # the same bf16 cast through the kernels' plain versions
-        spec = PadSpec(n_nodes=_round_up(sum(g.num_nodes for g in requests) + 1, 8),
-                       n_edges=_round_up(sum(g.num_edges for g in requests), 128),
-                       n_graphs=len(requests) + 1)
-        batch = batch_graphs(requests, spec, sort_edges=True).to(device)
+        batch = batch_graphs(requests, exact_spec(requests), sort_edges=True).to(device)
         with torch.inference_mode(), plain_versions(PLAIN):
             ref = mp_cast_model(server.model)(cast_batch_bf16(batch))
         ref = {k: v.float().cpu().numpy() for k, v in ref.items()}
@@ -3282,8 +3424,9 @@ def run_zoo(graphs, device, per_unit):
                              dict(zip(routes, clamps)))
         else:
             grad_gate("f32 step-0 gradients vs plain route", grads["kernels"], grads["plain"],
-                      ZOO_GRAD_RTOL, {r: g for r, g in grads.items()
-                                      if r not in ("kernels", "plain")}, cell=label)
+                      ZOO_RTOL[name].get("gradients", ZOO_GRAD_RTOL),
+                      {r: g for r, g in grads.items() if r not in ("kernels", "plain")},
+                      cell=label)
         del grads, clamps
         # two bf16 train steps through the kernels (the main path) and
         # through the plain versions, from the served weights: the losses
@@ -3491,6 +3634,232 @@ def run_md17_route(graphs, route: str) -> None:
     print(f"md17 readings: {json.dumps({'route': route, **readings})}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the model cells: DimeNet (spherical basis, triplet channel) and MACE (O(3)
+# algebra), served (dimenet, mace) and trained (dimenet_train, mace_train)
+
+MODEL_CELLS = ("DimeNet", "MACE")
+MODEL_TRAIN_GRAPHS = 384
+# K1 launches of one served batch or bf16 train step, by case. DimeNet's
+# spherical basis is f32 (its Bessel zeros are f32 constants), which
+# promotes each layer's interaction and output block to f32: its output
+# block sums at the layer-0 width (the hidden width is the input's, 4) and
+# at 128. MACE sums its [E, 256 x 9] messages once per layer, in bf16
+MODEL_PER_UNIT = {"DimeNet": {"K1": {"float32/C4": 1, "float32/C128": 1}},
+                  "MACE": {"K1": {"bfloat16/C2304": 2}}}
+# the energy-force step (f32; the atomic number is the only input, so
+# DimeNet's layer 0 takes the hidden width too)
+MODEL_EF_PER_STEP = {"DimeNet": {"K1": {"float32/C128": 2}},
+                     "MACE": {"K1": {"float32/C2304": 2}}}
+# limits of the model cells' training phases against K1's plain version,
+# at about three times the readings of this script on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W) at seed 0, as pnaplus_train's are read. DimeNet's
+# energy-force step has an ill-conditioned atom: the node head's first
+# layer meets a pre-activation of 2.64e-7 there in the f64 step (the
+# smallest of any atom), so a rounding decides that leaky ReLU, and every
+# f32 route's force at that atom read 1.78e-2 of the largest from the f64
+# step's (the loss 2.0e-5, the gradients (2.5e-2, 1.8e-3)). Which side a
+# route lands on hangs on roundings: in one of six runs the kernel route's
+# largest force row read 5.7e-3 from the plain route's. So the kernel route
+# takes the plain route's decisions in the node head's activations
+# (``pinned_act``), and its limits are about three times the readings of
+# the runs where both routes decided alike. Readings by route against the
+# plain route, the plain route again beside them, over six runs: DimeNet
+# f32 gradients (4.7e-6 to 1.5e-5, 1.5e-6 to 1.8e-6), again
+# (6.6e-6 to 1.9e-5, 1.2e-6 to 1.7e-6); bf16 (5.5e-3 to 3.6e-2, 0 to
+# 1.1e-5), again (4.5e-3 to 4.2e-2, 0 to 1.1e-5), and in a seventh run
+# (2.2e-2, 3.5e-3), again (2.2e-2, 3.2e-3): one bf16 ulp is 3.9e-3 of a
+# value, and a rounding that lands the other way early in the step (the
+# triplet sum's index_add_ atomics, on either route) reaches most
+# gradients, so the bf16 median limit is about three times that run's;
+# trajectories 1.1e-3 to 3.0e-3; the energy-force step when both routes agree: loss 0 to 1.6e-7,
+# forces (2.2e-6 to 3.6e-6, 1.7e-7 to 1.9e-7), gradients (5.9e-5 to
+# 8.0e-5, 1.5e-6 to 2.4e-6). MACE: f32 gradients (1.2e-7 to 1.8e-7, 4.7e-9
+# to 5.4e-9), again (7.5e-8 to 1.2e-7, below 1e-18); bf16 (6.2e-5 to
+# 3.9e-3, 0 to 1.3e-11), again (0 to 3.9e-3, below 1e-14); trajectories
+# 2.3e-4 to 4.5e-4; the energy-force step: loss 0, forces (8.7e-7 to
+# 1.1e-6, 2.4e-7), gradients (1.2e-7, 3.9e-10 to 6.9e-10)
+MODEL_RTOL = {
+    "DimeNet": {"f32 gradients": (5e-5, 6e-6), "bf16 gradients": (0.12, 1.2e-2),
+                "trajectory": 0.01, "energy-force loss": 5e-7,
+                "energy-force forces": (1e-5, 6e-7), "energy-force gradients": (3e-4, 8e-6)},
+    "MACE": {"f32 gradients": (1e-6, 3e-8), "bf16 gradients": (0.015, 1e-6),
+             "trajectory": 2e-3, "energy-force loss": 1e-6,
+             "energy-force forces": (5e-6, 1e-6), "energy-force gradients": (6e-7, 5e-9)},
+}
+MODEL_GROUPS = {
+    "K1 (forward)": ["sorted_segment_sum"],
+    "f32 GEMMs (forward and backward)": ["gemm_f32f32", "sgemm"],
+    "bf16 GEMMs": ["bf16_s16816gemm"],
+    "AdamW and the guard's copy (multi-tensor kernels)": ["multi_tensor_apply"],
+    "scatter and gather backwards": ["scatter", "indexing_backward", "indexFuncLargeIndex",
+                                     "index_add"],
+}
+
+
+def run_energy_force_step(label, config, graphs, device, per_step, limits):
+    """One energy-force step of the cell's model (``energy_force_config``:
+    forces ``-dE/dpos`` by a double backward through K1, f32) from seeded
+    weights on the first batch of the split, through K1 against the same
+    step through K1's plain version, beside the plain route again: the
+    loss, the forces per atom, every parameter's gradient (finite and
+    nonzero where the plain route's is), and K1's launches. Where the node
+    head is an MLP (DimeNet), the other routes take the plain route's
+    decisions in its activations (``pinned_act``), and how many each would
+    have flipped is printed; every route against the same step in f64 (its
+    own decisions) is printed beside them. Returns the launches by (kernel, case)."""
+    import dataclasses
+
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import compute_loss
+
+    wrappers = _wrappers()
+    ef_graphs = [dataclasses.replace(g, x=g.x[:, :1]) for g in graphs]
+    done, (loader, _, _), _ = prepare_data(energy_force_config(config),
+                                           split_dataset(ef_graphs, 0.9, seed=0))
+    model = create_model(done, device=device, seed=SEED)
+    loader.set_epoch(0)
+    batch = next(iter(loader)).to(device)
+    res, decisions, flips = {}, [], {}
+    for route, swap in (("plain", ("K1",)), ("kernels", ()), ("the plain route again", ("K1",))):
+        m = copy.deepcopy(model).train()
+        torch.cuda.synchronize()
+        if route == "kernels":
+            _zero_launches(wrappers)
+        if hasattr(m, "heads_NN"):
+            flips[route] = None if route == "plain" else []
+            pin = pinned_act(m.heads_NN[0].MLP_0, decisions, flips[route])
+        else:
+            pin = contextlib.nullcontext()
+        with plain_versions(swap), pin:
+            tot, _, preds = compute_loss(m, batch, m.cfg, True)
+            tot.backward()
+            torch.cuda.synchronize()
+        if route == "kernels":
+            launched = _check_launches(f"{label} energy-force", wrappers, per_step, 1)
+        res[route] = (tot.item(), preds["forces"].detach(),
+                      {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                       for n, p in m.named_parameters()})
+        del m, tot, preds
+    (tk, fk, gk), (tp, fp, gp), (ta, fa, ga) = (res[r] for r in ("kernels", "plain",
+                                                                   "the plain route again"))
+    mask = batch.node_mask
+    scale = float(fp[mask].abs().max())
+
+    def rows(f, ref=fp):
+        return (f - ref)[mask].abs().max(dim=1).values / scale
+
+    frow, again = rows(fk), rows(fa)
+    # the same step in f64 (weights, inputs and sums): where each f32 route
+    # lies from it, and the node head's first layer's smallest
+    # |pre-activation| per atom (a leaky ReLU decision there hangs on a
+    # rounding), printed, ungated
+    m64 = copy.deepcopy(model).double().train()
+    b64 = batch.replace(**{f: getattr(batch, f).double() for f in ("x", "pos", "edge_attr",
+                                                                    "edge_shifts")
+                           if getattr(batch, f) is not None})
+    head = dict(m64.named_modules())["heads_NN.0.MLP_0.Dense_0" if hasattr(m64, "heads_NN")
+                                     else f"readout{m64.cfg.num_conv_layers}_head0.Dense_0"]
+    pre = []
+    hook = head.register_forward_hook(lambda mod, i, o: pre.append(o.detach()[0]))
+    with f64_sums():
+        tot64, _, preds64 = compute_loss(m64, b64, m64.cfg, True)
+        tot64.backward()
+    hook.remove()
+    f64 = (preds64["forces"].detach().float(), {n: p.grad.detach().float()
+                                                for n, p in m64.named_parameters()})
+    margin = pre[0].abs().min(dim=1).values.float()
+    atoms = torch.nonzero(mask).flatten()
+    part = int(atoms[int(frow[:].argmax())])
+    least = int(atoms[int(margin[mask].argmin())])
+    print(f"{label}: energy-force step against the same step in f64 (weights, inputs, sums): "
+          f"loss {abs(float(tot64) - tk) / abs(float(tot64)):.3g} (kernels), "
+          f"{abs(float(tot64) - tp) / abs(float(tot64)):.3g} (plain); (largest force row, its "
+          f"atom, median row; largest and median gradient) " + "; ".join(
+              "{} ({:.3g}, {}, {:.3g}; {:.3g}, {:.3g})".format(
+                  r, float(rows(f, f64[0]).max()), int(atoms[int(rows(f, f64[0]).argmax())]),
+                  float(rows(f, f64[0]).median()), *grad_reading(g, f64[1])[::2])
+              for r, (_, f, g) in res.items())
+          + f"; the node head's first layer in f64: smallest |pre-activation| of any atom "
+          f"{float(margin[mask].min()):.3g} (atom {least}), at atom {part} (where the kernel "
+          f"route's forces part most from the plain route's) {float(margin[part]):.3g}",
+          flush=True)
+    del m64, b64, tot64, preds64, f64, pre
+    if flips:
+        print(f"{label}: energy-force step: the node head's activations held to the plain "
+              f"route's decisions; decisions each route's own input would have flipped, per "
+              f"layer: kernels {flips['kernels']}, the plain route again "
+              f"{flips['the plain route again']}", flush=True)
+    lim = limits["energy-force forces"]
+    print(f"{label}: energy-force step (f32, {int(mask.sum())} atoms): loss {tk:.6g} vs plain "
+          f"{tp:.6g}, relative {abs(tk - tp) / abs(tp):.6g} (limit "
+          f"{limits['energy-force loss']}; the plain route again {abs(ta - tp) / abs(tp):.6g}); "
+          f"forces largest row {float(frow.max()):.6g}, median row {float(frow.median()):.6g} "
+          f"of max |F_plain| {scale:.6g} (limits {lim}; the plain route again "
+          f"{float(again.max()):.6g}, {float(again.median()):.6g})", flush=True)
+    check(math.isfinite(tk) and abs(tk - tp) <= limits["energy-force loss"] * abs(tp),
+          f"{label}: the energy-force loss disagrees with the plain route")
+    check(bool(torch.isfinite(fk).all()) and float(frow.max()) <= lim[0]
+          and float(frow.median()) <= lim[1], f"{label}: the forces disagree with the plain route")
+    gradients_present(f"{label}: energy-force step", gk, gp)
+    grad_gate("energy-force gradients vs plain route", gk, gp, limits["energy-force gradients"],
+              {"the plain route again": ga}, cell=label)
+    return launched
+
+
+def padding_triplets_check(label, model, batch, device) -> None:
+    """A bf16 mixed-precision train step of DimeNet on a batch with padding
+    triplets: every gradient finite (padding edges have eps-clamped
+    lengths, where the spherical basis's recurrence would reach ~1e38
+    without its mask, and a backward NaN), no step skipped."""
+    import torch
+
+    from hydragnn_tpu_torch.train import make_train_step
+
+    pad = int((~batch.trip_mask).sum())
+    state = _train_copy(model, device)
+    make_train_step(state.model, mixed_precision=True)(state, batch)
+    bad = [n for n, g in _grads(state).items() if not bool(torch.isfinite(g).all())]
+    print(f"{label}: bf16 step with {pad} padding triplets of {batch.trip_mask.numel()} (on "
+          f"{int((~batch.edge_mask).sum())} padding edges): {len(bad)} non-finite gradients "
+          f"{bad[:5]}, guard skips {int(state.skipped_steps)}", flush=True)
+    check(pad > 0, f"{label}: the batch holds no padding triplet")
+    check(not bad and int(state.skipped_steps) == 0,
+          f"{label}: non-finite gradients with padding triplets")
+
+
+def run_model_cell_train(mpnn_type, graphs, device):
+    """``<model>_train``: the cell trained as ``pnaplus_train`` (through
+    ``run_cell_train``: step-0 gradients in f32 and bf16 against K1's plain
+    version, the two 22-step trajectories, ms per step, peak memory, one
+    profiled step, one ``run_training`` epoch), then one energy-force step
+    against the plain route; for DimeNet a bf16 step with padding triplets
+    first. Returns the launches by (kernel, case)."""
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+
+    label = f"{mpnn_type.lower()}_train"
+    config = model_cell_config(mpnn_type)
+    t0 = time.perf_counter()
+    if mpnn_type == "DimeNet":
+        done, (loader, _, _), _ = prepare_data(copy.deepcopy(config),
+                                               split_dataset(graphs, 0.9, seed=0))
+        loader.set_epoch(0)
+        padding_triplets_check(label, create_model(done, device=device, seed=SEED),
+                               next(iter(loader)).to(device), device)
+    launched = run_cell_train(label, config, graphs, device, MODEL_PER_UNIT[mpnn_type],
+                              ("K1",), MODEL_RTOL[mpnn_type], MODEL_GROUPS)
+    launched.update(run_energy_force_step(label, config, graphs, device,
+                                          MODEL_EF_PER_STEP[mpnn_type], MODEL_RTOL[mpnn_type]))
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         run_smoke(stack)
@@ -3565,7 +3934,8 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
     oc20 = oc20_shaped_dataset(128)
     paths = {"egnn": (serving_config(), oc20),
              "gps_pna": (gps_pna_config(), gps_pna_dataset(128)),
-             "pnaplus": (pna_cell_config(), oc20)}
+             "pnaplus": (pna_cell_config(), oc20),
+             **{m.lower(): (model_cell_config(m), oc20) for m in MODEL_CELLS}}
     t0 = time.perf_counter()
     md17 = md17_shaped_dataset(MD17_SAMPLES)
     print(f"md17_shaped_dataset({MD17_SAMPLES}) in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -3617,10 +3987,13 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
             "gps_pna": {"K3": {"bfloat16/C256": 1, "float32/C256": 3},
                         "K4": {"bfloat16/H8xd32": 1, "float32/H8xd32": 3}},
             "pnaplus": PNAPLUS_PER_UNIT,
+            **{m.lower(): MODEL_PER_UNIT[m] for m in MODEL_CELLS},
         }
         for label, (config, graphs) in paths.items():
+            t0 = time.perf_counter()
             launched.update(run_serving(label, config, graphs, device, N_REQUESTS,
                                         per_batch_cases[label]))
+            print(f"serve {label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
         ring_launched, ring_config, ring_batches = run_gin_ring(topology, topology_s, device,
                                                                 GIN_RING_REQUESTS)
         launched.update(ring_launched)
@@ -3641,7 +4014,14 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                 "scatter and gather backwards (K3's min/max, the gathers)":
                     ["scatter", "indexing_backward", "indexFuncLargeIndex", "index_add"],
             }))
-        launched.update(run_zoo(oc20, device, ZOO_PER_UNIT))
+        for m in MODEL_CELLS:
+            launched.update(run_model_cell_train(m, oc20_shaped_dataset(MODEL_TRAIN_GRAPHS),
+                                                 device))
+        t0 = time.perf_counter()
+        launched.update(run_zoo({**{name: (pna_cell_config(name), oc20) for name in ZOO_CELL},
+                                 "performer": (performer_cell_config(), paths["gps_pna"][1])},
+                                device, ZOO_PER_UNIT))
+        print(f"zoo: phase in {time.perf_counter() - t0:.1f} s", flush=True)
         launched.update(run_schnet_md17(md17, device, MD17_PER_UNIT, MD17_EPOCHS))
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)

@@ -37,6 +37,8 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
 
     ``datasets`` is the (train, val, test) split of model-ready graphs.
     Loading raw datasets from ``Dataset.path`` comes with a later slice."""
+    from .models.create import conv_needs_triplets
+
     config = _as_config(config)
     if datasets is None:
         raise NotImplementedError(
@@ -50,12 +52,15 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
     batch_size = int(training["batch_size"])
     pack = bool(training.get("pack_batches", False))
     everything: List[Graph] = trainset + valset + testset
+    # a conv that reads triplets (DimeNet) has them budgeted in the pad specs
+    with_triplets = conv_needs_triplets(arch["mpnn_type"])
     if pack:
         # one budget over all three splits: eval reuses the train shapes
-        spec = _pack_spec(everything, batch_size)
+        spec = _pack_spec(everything, batch_size, with_triplets=with_triplets)
     else:
         spec = SpecLadder.for_dataset(
-            everything, batch_size, num_buckets=int(training["num_pad_buckets"])
+            everything, batch_size, num_buckets=int(training["num_pad_buckets"]),
+            with_triplets=with_triplets,
         )
     kw = dict(spec=spec, pack=pack,
               sort_edges=bool(arch.get("use_sorted_aggregation", False)))

@@ -3,14 +3,18 @@
 ``load_jax_variables(model, variables)`` takes the flax
 ``{"params": ..., "batch_stats": ...}`` tree as numpy arrays (for example
 ``jax.device_get(variables)`` exported by the JAX package) and fills the
-port's ``HydraModel`` in place. The mapping is by name:
+port's ``HydraModel`` or ``MACEModel`` in place. The mapping is by name:
 
 - ``graph_convs_<i>`` / ``feature_layers_<i>`` / ``heads_NN_<i>`` become the
   ``ModuleList`` entries ``graph_convs.<i>`` / ...;
 - a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (a branch bank's
   [B, in, out] becomes [B, out, in]: the bank axis is kept);
 - every other leaf keeps its name (``bias``, ``scale``, ``coords_range``,
-  the batch-norm ``mean``/``var``/``count`` buffers).
+  the batch-norm ``mean``/``var``/``count`` buffers, MACE's ``w<l>``,
+  ``b0`` and ``w<k>_<l>``).
+
+Module names are the flax ones: an auto-named layer (``Dense_<k>``,
+numbered in call order) has the same name in the port.
 
 It is strict: a leaf with no matching tensor, a shape that disagrees, or a
 tensor of the model left unfilled raises ``ValueError``.
@@ -46,8 +50,9 @@ def torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
-    targets: Dict[str, torch.Tensor] = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    # the parameters and persistent buffers (constants a module builds
+    # itself, such as MACE's CG tensors, are not part of the tree)
+    targets: Dict[str, torch.Tensor] = dict(model.state_dict(keep_vars=True))
     filled = set()
     unknown = sorted(set(variables) - {"params", "batch_stats"})
     if unknown:

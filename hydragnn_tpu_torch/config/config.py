@@ -19,9 +19,13 @@ import torch
 from ..data.graph import Graph
 from ..data.pipeline import VariablesOfInterest
 
-# Architecture keys of the radial bases, None when absent
-_ARCH_NONE_DEFAULTS = ("radius", "num_gaussians", "num_filters", "num_radial",
-                       "envelope_exponent")
+# Architecture keys of the radial bases and of DimeNet's and MACE's blocks,
+# None when absent
+_ARCH_NONE_DEFAULTS = ("radius", "radial_type", "distance_transform", "num_gaussians",
+                       "num_filters", "envelope_exponent", "num_after_skip",
+                       "num_before_skip", "basis_emb_size", "int_emb_size", "out_emb_size",
+                       "num_radial", "num_spherical", "correlation", "max_ell",
+                       "node_max_ell")
 
 EQUIVARIANT_MODELS = ("EGNN", "SchNet", "PNAEq", "PAINN", "MACE")
 PNA_MODELS = ("PNA", "PNAPlus", "PNAEq")
@@ -41,6 +45,13 @@ def degree_histogram(graphs: Sequence[Graph], max_deg: int = 64) -> List[int]:
         hist[: h.shape[0]] += h
         top = max(top, int(deg.max(initial=0)))
     return hist[: top + 1].tolist()
+
+
+def average_degree(graphs: Sequence[Graph]) -> float:
+    """Average in-degree over the graphs (MACE's ``avg_num_neighbors``)."""
+    e = sum(g.num_edges for g in graphs)
+    n = sum(g.num_nodes for g in graphs)
+    return float(e) / max(n, 1)
 
 
 def voi_from_config(config: Dict[str, Any]) -> VariablesOfInterest:
@@ -76,10 +87,10 @@ def update_config(
     Derived here: ``graph_size_variable``, ``max_nodes_per_graph``, the GPS
     defaults, ``num_pad_buckets``, output dims and types (under
     ``compute_grad_energy`` the dims from ``Variables_of_interest``),
-    ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models), CGCNN's
-    ``hidden_dim`` (its input width without global attention) and ``edge_dim``, the radial
-    keys (``radius``, ``num_gaussians``, ``num_filters``, ``num_radial``,
-    ``envelope_exponent``: None when absent), the
+    ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models),
+    MACE's ``avg_num_neighbors``, CGCNN's ``hidden_dim`` (its input width without global
+    attention) and ``edge_dim``, the keys of the radial bases and of DimeNet's and MACE's
+    blocks (``_ARCH_NONE_DEFAULTS``: None when absent), the
     measured ``max_in_degree`` (a supplied bound below the data's raises),
     the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
     ``use_flash_attention`` defaults, and the Training section's defaults
@@ -142,13 +153,16 @@ def update_config(
     arch["input_dim"] = voi.input_dim
 
     # PNA degree histogram over the training split; the neighbour cap
-    # follows the largest degree seen there
+    # follows the largest degree seen there. MACE normalizes its messages
+    # by the training split's average degree
     if arch["mpnn_type"] in PNA_MODELS:
         deg = degree_histogram(trainset)
         arch["pna_deg"] = deg
         arch["max_neighbours"] = len(deg) - 1
     else:
         arch["pna_deg"] = None
+    arch["avg_num_neighbors"] = (average_degree(trainset) if arch["mpnn_type"] == "MACE"
+                                 else None)
 
     # sorted aggregation: ON by default where the CUDA kernels run; a static
     # in-degree bound is measured over EVERY split. The CUDA kernels are

@@ -11,6 +11,10 @@ padding convention:
   batched receivers come out globally sorted and every padding edge lands
   on the final node, whose output rows the model masks downstream.
 
+A pad spec with ``n_triplets`` also carries DimeNet's triplet channel:
+every k->j->i pair of real edges (k != i) as edge ids ``trip_kj`` /
+``trip_ji``, padded with the last edge slot and masked by ``trip_mask``.
+
 ``GraphBatch`` is the device-side batch: a dataclass of tensors with
 ``.to(device)``.
 """
@@ -18,6 +22,7 @@ padding convention:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +60,13 @@ class Graph:
     def num_edges(self) -> int:
         return int(self.senders.shape[0])
 
+    @functools.cached_property
+    def num_triplets(self) -> int:
+        """DimeNet's k->j->i triplets of this graph (``_triplet_count``),
+        counted once: every triplet budget (pad specs, the loader's packing,
+        the server's admission and batch forming) reads it here."""
+        return _triplet_count(self)
+
     def float_channels(self):
         """``(name, array)`` for every numeric payload channel (the serving
         admission check reads this to reject non-finite requests)."""
@@ -90,6 +102,10 @@ class GraphBatch:
     pe: Optional[torch.Tensor] = None
     rel_pe: Optional[torch.Tensor] = None
     z: Optional[torch.Tensor] = None
+    # DimeNet's triplets k->j->i as edge ids (a pad spec with n_triplets)
+    trip_kj: Optional[torch.Tensor] = None  # [T] int64 edge id of k->j
+    trip_ji: Optional[torch.Tensor] = None  # [T] int64 edge id of j->i
+    trip_mask: Optional[torch.Tensor] = None  # [T] bool
     graph_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     node_targets: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # node_graph ascends (each graph's nodes contiguous): true where the
@@ -146,7 +162,32 @@ class PadSpec:
     n_nodes: int
     n_edges: int
     n_graphs: int  # includes the +1 dummy graph slot
-    n_triplets: int = 0  # kept for layout parity; no triplet channel here
+    n_triplets: int = 0  # 0 = no triplet channel
+
+    @staticmethod
+    def for_dataset(graphs: List[Graph], batch_size: int, node_multiple: int = 8,
+                    edge_multiple: int = 128, slack: float = 1.0,
+                    with_triplets: bool = False) -> "PadSpec":
+        """One spec covering any ``batch_size`` graphs of ``graphs``: the sum
+        of the largest sizes (times ``slack``), rounded up; with
+        ``with_triplets`` the exact triplet counts too."""
+        if not graphs:
+            raise ValueError("empty dataset")
+        n_sizes = sorted((g.num_nodes for g in graphs), reverse=True)
+        e_sizes = sorted((g.num_edges for g in graphs), reverse=True)
+        k = min(batch_size, len(n_sizes))
+        n_bound = int(sum(n_sizes[:k]) * slack) + 1
+        e_bound = int(sum(e_sizes[:k]) * slack) + 1
+        n_triplets = 0
+        if with_triplets:
+            t_sizes = sorted((g.num_triplets for g in graphs), reverse=True)
+            n_triplets = _round_up(int(sum(t_sizes[:k]) * slack) + 1, edge_multiple)
+        return PadSpec(
+            n_nodes=_round_up(n_bound + 1, node_multiple),
+            n_edges=_round_up(e_bound, edge_multiple),
+            n_graphs=batch_size + 1,
+            n_triplets=n_triplets,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,16 +205,21 @@ class SpecLadder:
         num_buckets: int = 4,
         node_multiple: int = 8,
         edge_multiple: int = 128,
+        with_triplets: bool = False,
         num_sim: int = 256,
         seed: int = 0,
     ) -> "SpecLadder":
         n_sizes = np.asarray([g.num_nodes for g in graphs])
         e_sizes = np.asarray([g.num_edges for g in graphs])
+        t_sizes = (np.asarray([g.num_triplets for g in graphs]) if with_triplets
+                   else None)
         k = min(batch_size, len(graphs))
         worst = PadSpec(
             n_nodes=_round_up(int(np.sort(n_sizes)[-k:].sum()) + 2, node_multiple),
             n_edges=_round_up(int(np.sort(e_sizes)[-k:].sum()) + 1, edge_multiple),
             n_graphs=batch_size + 1,
+            n_triplets=(_round_up(int(np.sort(t_sizes)[-k:].sum()) + 1, edge_multiple)
+                        if t_sizes is not None else 0),
         )
         if num_buckets <= 1 or len(graphs) <= batch_size:
             return SpecLadder((worst,))
@@ -183,38 +229,92 @@ class SpecLadder:
         )
         node_tot = n_sizes[picks].sum(axis=1)
         edge_tot = e_sizes[picks].sum(axis=1)
+        trip_tot = t_sizes[picks].sum(axis=1) if t_sizes is not None else None
         # tail-halving quantiles (50, 75, 87.5, ...) plus a level just above
         # the largest simulated batch
         qs = [100.0 * (1.0 - 0.5 ** (i + 1)) for i in range(num_buckets - 1)]
         levels = [
-            (int(np.percentile(node_tot, q)) + 2, int(np.percentile(edge_tot, q)) + 1)
+            (int(np.percentile(node_tot, q)) + 2, int(np.percentile(edge_tot, q)) + 1,
+             int(np.percentile(trip_tot, q)) + 1 if trip_tot is not None else 0)
             for q in qs
         ]
-        levels.append((int(node_tot.max() * 1.05) + 2, int(edge_tot.max() * 1.05) + 1))
+        levels.append((int(node_tot.max() * 1.05) + 2, int(edge_tot.max() * 1.05) + 1,
+                       int(trip_tot.max() * 1.05) + 1 if trip_tot is not None else 0))
         specs: List[PadSpec] = []
-        for n_b, e_b in levels:
+        for n_b, e_b, t_b in levels:
             spec = PadSpec(
                 n_nodes=_round_up(n_b, node_multiple),
                 n_edges=_round_up(e_b, edge_multiple),
                 n_graphs=worst.n_graphs,
+                n_triplets=_round_up(t_b, edge_multiple) if t_b else 0,
             )
             if spec.n_nodes < worst.n_nodes and (not specs or spec != specs[-1]):
                 specs.append(spec)
         specs.append(worst)
         return SpecLadder(tuple(specs))
 
-    def select(self, node_total: int, edge_total: int) -> PadSpec:
+    def select(self, node_total: int, edge_total: int, trip_total: int = 0) -> PadSpec:
         """Smallest spec fitting the batch; the top level fits any batch of
         at most ``batch_size`` dataset graphs."""
         for s in self.specs:
-            if node_total <= s.n_nodes - 1 and edge_total <= s.n_edges:
+            if (node_total <= s.n_nodes - 1 and edge_total <= s.n_edges
+                    and (s.n_triplets == 0 or trip_total <= s.n_triplets)):
                 return s
         return self.specs[-1]
 
     def select_for(self, graphs: List[Graph]) -> PadSpec:
+        t = sum(g.num_triplets for g in graphs) if self.specs[-1].n_triplets else 0
         return self.select(
-            sum(g.num_nodes for g in graphs), sum(g.num_edges for g in graphs)
+            sum(g.num_nodes for g in graphs), sum(g.num_edges for g in graphs), t
         )
+
+
+def _triplet_count(g: Graph) -> int:
+    """The graph's k->j->i triplets: for each edge j->i, one per in-edge
+    k->j of j with k != i."""
+    deg = np.bincount(g.receivers, minlength=g.num_nodes)
+    total = int(deg[g.senders].sum())
+    # minus the k == i cases: the distinct pairs j->i whose reverse i->j is
+    # an edge too
+    n = np.int64(max(g.num_nodes, 1))
+    s, r = np.asarray(g.senders, np.int64), np.asarray(g.receivers, np.int64)
+    pairs = np.unique(s * n + r)
+    mutual = int(np.isin((pairs % n) * n + pairs // n, pairs).sum())
+    return total - mutual
+
+
+def compute_triplets_np(senders: np.ndarray, receivers: np.ndarray, edge_mask: np.ndarray,
+                        n_triplets: int) -> Dict[str, np.ndarray]:
+    """Every k->j->i triplet over the real edges of a padded batch, as edge
+    ids ``trip_kj`` / ``trip_ji`` (ascending ``trip_ji``), padded to
+    ``n_triplets`` with the last edge slot, and their ``trip_mask``."""
+    real = np.nonzero(edge_mask)[0]
+    n_nodes = int(senders.max(initial=0)) + 1 if senders.size else 1
+    # in-edges grouped by receiver
+    order = np.argsort(receivers[real], kind="stable")
+    sorted_edges = real[order]
+    deg = np.bincount(receivers[real], minlength=n_nodes)
+    start = np.concatenate([[0], np.cumsum(deg)])
+    # for each real edge j->i, a block of deg[j] candidate edges k->j
+    j_of = senders[real]
+    counts = deg[j_of]
+    ji = np.repeat(real, counts)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    pos = np.arange(int(counts.sum())) - np.repeat(cum[:-1], counts)
+    kj = sorted_edges[np.repeat(start[j_of], counts) + pos]
+    keep = senders[kj] != receivers[ji]  # drop k == i
+    kj, ji = kj[keep], ji[keep]
+    t = kj.shape[0]
+    if t > n_triplets:
+        raise ValueError(f"batch has {t} triplets, exceeds pad spec {n_triplets}")
+    pad_edge = senders.shape[0] - 1
+    out_kj = np.full((n_triplets,), pad_edge, np.int32)
+    out_ji = np.full((n_triplets,), pad_edge, np.int32)
+    out_kj[:t] = kj
+    out_ji[:t] = ji
+    mask = np.zeros((n_triplets,), bool)
+    mask[:t] = True
+    return {"trip_kj": out_kj, "trip_ji": out_ji, "trip_mask": mask}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -305,6 +405,8 @@ def batch_graphs_np(
     node_mask[:n] = True
     edge_mask = np.zeros((spec.n_edges,), bool)
     edge_mask[:e] = True
+    if spec.n_triplets:
+        out.update(compute_triplets_np(senders, receivers, edge_mask, spec.n_triplets))
     graph_mask = np.zeros((spec.n_graphs,), bool)
     graph_mask[:G] = True
     out["node_mask"] = node_mask
@@ -337,7 +439,7 @@ def batch_graphs_np(
 
 # index arrays become int64 tensors: torch indexing and index_add_ take
 # int64, and the kernels' wrappers narrow to int32 themselves
-_INDEX_FIELDS = ("senders", "receivers", "node_graph", "dataset_id", "z")
+_INDEX_FIELDS = ("senders", "receivers", "node_graph", "dataset_id", "z", "trip_kj", "trip_ji")
 
 
 def graph_batch_from_np(arrs: Dict[str, np.ndarray]) -> GraphBatch:

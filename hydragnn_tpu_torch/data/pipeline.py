@@ -15,21 +15,36 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .graph import Graph, GraphBatch, PadSpec, SpecLadder, _round_up, batch_graphs
+from .graph import (
+    Graph,
+    GraphBatch,
+    PadSpec,
+    SpecLadder,
+    _round_up,
+    batch_graphs,
+)
 
 
-def _pack_spec(graphs: Sequence[Graph], per_shard: int) -> PadSpec:
+def _pack_spec(graphs: Sequence[Graph], per_shard: int, with_triplets: bool = False) -> PadSpec:
     """Budget spec for packed batching: mean size * per_shard (+5%
     headroom), never below the largest single graph, with 2x graph slots so
-    bins of small graphs are not cut short by the slot cap."""
+    bins of small graphs are not cut short by the slot cap. ``with_triplets``
+    budgets DimeNet's triplet channel the same way."""
     ns = np.asarray([g.num_nodes for g in graphs])
     es = np.asarray([g.num_edges for g in graphs])
     budget_n = max(int(ns.mean() * per_shard * 1.05) + 2, int(ns.max()) + 2)
     budget_e = max(int(es.mean() * per_shard * 1.05) + 1, int(es.max()) + 1)
+    n_triplets = 0
+    if with_triplets:
+        ts = np.asarray([g.num_triplets for g in graphs])
+        n_triplets = _round_up(
+            max(int(ts.mean() * per_shard * 1.05) + 1, int(ts.max()) + 1), 128
+        )
     return PadSpec(
         n_nodes=_round_up(budget_n, 8),
         n_edges=_round_up(budget_e, 128),
         n_graphs=2 * per_shard + 1,
+        n_triplets=n_triplets,
     )
 
 
@@ -42,7 +57,8 @@ def selectable_levels(
     for li, spec in enumerate(ladder.specs):
         g = next(
             (c for c in graphs
-             if c.num_nodes <= spec.n_nodes - 1 and c.num_edges <= spec.n_edges),
+             if c.num_nodes <= spec.n_nodes - 1 and c.num_edges <= spec.n_edges
+             and (not spec.n_triplets or c.num_triplets <= spec.n_triplets)),
             None,
         )
         if g is not None:
@@ -178,7 +194,8 @@ class GraphLoader:
     ``num_buckets`` levels is built from the data). ``pack=True`` bins
     consecutive graphs greedily into ONE budget with a variable real-graph
     count per batch. ``sort_edges`` sorts receivers (the sorted-aggregation
-    precondition)."""
+    precondition). ``with_triplets`` budgets DimeNet's triplet channel in a
+    spec built here; a given spec carries it in its ``n_triplets``."""
 
     def __init__(
         self,
@@ -192,6 +209,7 @@ class GraphLoader:
         sort_edges: bool = False,
         max_in_degree: Optional[int] = None,
         pack: bool = False,
+        with_triplets: bool = False,
     ):
         self.graphs = graphs
         self.batch_size = batch_size
@@ -200,9 +218,10 @@ class GraphLoader:
             if isinstance(spec, SpecLadder):
                 spec = spec.specs[-1]
             self.ladder = SpecLadder((spec if spec is not None
-                                      else _pack_spec(graphs, batch_size),))
+                                      else _pack_spec(graphs, batch_size, with_triplets),))
         elif spec is None:
-            self.ladder = SpecLadder.for_dataset(graphs, batch_size, num_buckets=num_buckets)
+            self.ladder = SpecLadder.for_dataset(graphs, batch_size, num_buckets=num_buckets,
+                                                 with_triplets=with_triplets)
         elif isinstance(spec, SpecLadder):
             self.ladder = spec
         else:
@@ -255,26 +274,30 @@ class GraphLoader:
 
     def _pack_groups(self, idx: np.ndarray) -> List[List[int]]:
         """Greedy stream packing: consecutive samples accumulate into a bin
-        until the next one would overflow the node/edge budget or the
-        graph-slot cap."""
+        until the next one would overflow the node/edge/triplet budget or
+        the graph-slot cap."""
         spec = self.spec
         cap_n, cap_e, cap_g = spec.n_nodes - 1, spec.n_edges, spec.n_graphs - 1
+        cap_t = spec.n_triplets
         groups: List[List[int]] = []
         cur: List[int] = []
-        n = e = 0
+        n = e = t = 0
         for i in idx:
             g = self.graphs[i]
             gn, ge = g.num_nodes, g.num_edges
-            if gn > cap_n or ge > cap_e:
+            gt = g.num_triplets if cap_t else 0
+            if gn > cap_n or ge > cap_e or gt > cap_t:
                 raise ValueError(
-                    f"graph {i} (nodes={gn}, edges={ge}) exceeds the pack "
-                    f"budget {spec}; pass a larger spec"
+                    f"graph {i} (nodes={gn}, edges={ge}"
+                    + (f", triplets={gt}" if cap_t else "")
+                    + f") exceeds the pack budget {spec}; pass a larger spec"
                 )
-            if cur and (n + gn > cap_n or e + ge > cap_e or len(cur) >= cap_g):
+            if cur and (n + gn > cap_n or e + ge > cap_e or len(cur) >= cap_g
+                        or t + gt > cap_t):
                 groups.append(cur)
-                cur, n, e = [], 0, 0
+                cur, n, e, t = [], 0, 0, 0
             cur.append(int(i))
-            n, e = n + gn, e + ge
+            n, e, t = n + gn, e + ge, t + gt
         if cur:
             groups.append(cur)
         return groups

@@ -35,7 +35,7 @@ class GraphHeadConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NodeHeadConfig:
-    nn_type: str = "mlp"  # mlp (mlp_per_node and conv: later slices)
+    nn_type: str = "mlp"  # mlp (mlp_per_node and conv: a later slice)
     num_headlayers: int = 2
     dim_headlayers: Tuple[int, ...] = (10, 10)
 
@@ -65,7 +65,21 @@ class ModelConfig:
     num_gaussians: Optional[int] = None
     num_filters: Optional[int] = None
     num_radial: Optional[int] = None
+    num_spherical: Optional[int] = None
     envelope_exponent: Optional[int] = None
+    radial_type: Optional[str] = None
+    distance_transform: Optional[str] = None
+    # DimeNet's block sizes
+    basis_emb_size: Optional[int] = None
+    int_emb_size: Optional[int] = None
+    out_emb_size: Optional[int] = None
+    num_before_skip: Optional[int] = None
+    num_after_skip: Optional[int] = None
+    # MACE
+    avg_num_neighbors: Optional[float] = None
+    max_ell: Optional[int] = None
+    node_max_ell: Optional[int] = None
+    correlation: Optional[int] = None
     # MFC's degree cap
     max_neighbours: Optional[int] = None
     # GPS global attention
@@ -106,14 +120,23 @@ class ModelConfig:
 
 # conv registry: mpnn_type -> (is_edge_model, ctor(cfg, in_dim, out_dim, last_layer))
 _CONV_REGISTRY: Dict[str, Tuple[bool, Callable]] = {}
+# the convs whose batches carry the triplet channel (PadSpec.n_triplets)
+_TRIPLET_CONVS = set()
 
 
-def register_conv(name: str, is_edge_model: bool = False):
+def register_conv(name: str, is_edge_model: bool = False, needs_triplets: bool = False):
     def deco(ctor):
         _CONV_REGISTRY[name] = (is_edge_model, ctor)
+        if needs_triplets:
+            _TRIPLET_CONVS.add(name)
         return ctor
 
     return deco
+
+
+def conv_needs_triplets(name: str) -> bool:
+    """Whether the conv ``name`` reads the batch's triplet channel."""
+    return name in _TRIPLET_CONVS
 
 
 def get_conv_ctor(name: str):
@@ -129,15 +152,9 @@ class MLPNode(nn.Module):
     """Shared per-node MLP head (``nn_type == "mlp"``), its layers under
     ``MLP_0`` as in the flax tree."""
 
-    def __init__(self, in_dim: int, output_dim: int, hidden_dims, nn_type: str,
-                 activation: str, mirror_init: bool, recovery_slope: float,
-                 num_branches: int):
+    def __init__(self, in_dim: int, output_dim: int, hidden_dims, activation: str,
+                 mirror_init: bool, recovery_slope: float, num_branches: int):
         super().__init__()
-        if nn_type != "mlp":
-            raise NotImplementedError(
-                f"node head type {nn_type!r} comes with a later slice of the "
-                "port; this slice serves the shared 'mlp' node head"
-            )
         self.MLP_0 = MLP(in_dim, tuple(hidden_dims) + (output_dim,), activation,
                          mirror_init=mirror_init, recovery_slope=recovery_slope,
                          num_branches=num_branches)
@@ -214,8 +231,7 @@ class HydraModel(nn.Module):
             elif t == "node":
                 nh = cfg.node_head or NodeHeadConfig()
                 heads.append(MLPNode(
-                    cfg.hidden_dim, d, nh.dim_headlayers, nh.nn_type,
-                    cfg.activation, cfg.decoder_mirror_init,
+                    cfg.hidden_dim, d, nh.dim_headlayers, cfg.activation, cfg.decoder_mirror_init,
                     cfg.decoder_recovery_slope, B,
                 ))
             else:

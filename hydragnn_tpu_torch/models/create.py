@@ -1,10 +1,12 @@
-"""Model factory: completed JSON config -> ``HydraModel`` on a device.
+"""Model factory: completed JSON config -> model on a device.
 
-Counterpart of ``hydragnn_tpu/models/create.py``. Eleven convs are
-registered (CGCNN, EGNN, GAT, GIN, MFC, PAINN, PNA, PNAEq, PNAPlus, SAGE,
-SchNet), with GPS global attention ("multihead", or "ring" for one spanning
-graph) around any of them; DimeNet, MACE and the "performer" attention of
-the JAX package come with later slices of the port.
+Counterpart of ``hydragnn_tpu/models/create.py``. Twelve convs are
+registered (CGCNN, DimeNet, EGNN, GAT, GIN, MFC, PAINN, PNA, PNAEq, PNAPlus,
+SAGE, SchNet) into ``HydraModel``, with GPS global attention ("multihead",
+"performer", or "ring" for one spanning graph) around any of them; MACE is
+its own model class (``MACEModel``: per-layer readouts summed), as in the
+JAX package. Variance heads (``GaussianNLLLoss``) and the "conv" and
+"mlp_per_node" node heads come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ from typing import Any, Dict, List
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .base import conv_needs_triplets  # noqa: F401 -- read with the registry filled
 from .base import GraphHeadConfig, HydraModel, ModelConfig, NodeHeadConfig
 from .layers import reset_parameters
 
 # import model files for their registry side effects
 from . import cgcnn as _cgcnn  # noqa: F401
+from . import dimenet as _dimenet  # noqa: F401
 from . import egnn as _egnn  # noqa: F401
 from . import gat as _gat  # noqa: F401
 from . import gin as _gin  # noqa: F401
@@ -29,9 +33,6 @@ from . import pna_eq as _pna_eq  # noqa: F401
 from . import pna_plus as _pna_plus  # noqa: F401
 from . import sage as _sage  # noqa: F401
 from . import schnet as _schnet  # noqa: F401
-
-# convs of the JAX package that this port does not carry yet
-_LATER_SLICES = ("DimeNet", "MACE")
 
 
 def normalize_output_heads(heads: Dict[str, Any]) -> Dict[str, List[Dict[str, Any]]]:
@@ -52,16 +53,6 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
     arch = nn_cfg["Architecture"]
     training = nn_cfg["Training"]
     var = nn_cfg["Variables_of_interest"]
-    if arch["mpnn_type"] in _LATER_SLICES:
-        raise NotImplementedError(
-            f"mpnn_type {arch['mpnn_type']!r} comes with a later slice of the "
-            "PyTorch port; this slice carries every other conv of the JAX package"
-        )
-    if arch.get("global_attn_engine") and arch.get("global_attn_type") == "performer":
-        raise NotImplementedError(
-            "global_attn_type 'performer' comes with a later slice of the "
-            "PyTorch port; this slice carries GPS 'multihead' and 'ring'"
-        )
     loss_type = training.get("loss_function_type", "mse")
     if loss_type == "GaussianNLLLoss":
         raise NotImplementedError(
@@ -87,6 +78,11 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
             num_headlayers=a.get("num_headlayers", 2),
             dim_headlayers=tuple(a.get("dim_headlayers", (10, 10))),
         )
+        if node_head.nn_type != "mlp":
+            raise NotImplementedError(
+                f"node head type {node_head.nn_type!r} comes with a later slice of the "
+                "port; this slice serves the shared 'mlp' node head"
+            )
     return ModelConfig(
         mpnn_type=arch["mpnn_type"],
         input_dim=int(arch["input_dim"]),
@@ -106,7 +102,19 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
         num_gaussians=arch.get("num_gaussians"),
         num_filters=arch.get("num_filters"),
         num_radial=arch.get("num_radial"),
+        num_spherical=arch.get("num_spherical"),
         envelope_exponent=arch.get("envelope_exponent"),
+        radial_type=arch.get("radial_type"),
+        distance_transform=arch.get("distance_transform"),
+        basis_emb_size=arch.get("basis_emb_size"),
+        int_emb_size=arch.get("int_emb_size"),
+        out_emb_size=arch.get("out_emb_size"),
+        num_before_skip=arch.get("num_before_skip"),
+        num_after_skip=arch.get("num_after_skip"),
+        avg_num_neighbors=arch.get("avg_num_neighbors"),
+        max_ell=arch.get("max_ell"),
+        node_max_ell=arch.get("node_max_ell"),
+        correlation=arch.get("correlation"),
         max_neighbours=arch.get("max_neighbours"),
         global_attn_engine=arch.get("global_attn_engine") or "",
         global_attn_type=arch.get("global_attn_type") or "",
@@ -132,11 +140,23 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
 
 
 def create_model(config: Dict[str, Any], device: DeviceLike = None,
-                 seed: int = 0) -> HydraModel:
-    """Completed config -> ``HydraModel`` in eval mode on ``device`` (the
-    current CUDA device when None; raises when there is none), its weights
-    drawn from ``torch.Generator().manual_seed(seed)``."""
+                 seed: int = 0) -> torch.nn.Module:
+    """Completed config -> ``HydraModel`` (``MACEModel`` for MACE, with the
+    JAX package's checks) in eval mode on ``device`` (the current CUDA
+    device when None; raises when there is none), its weights drawn from
+    ``torch.Generator().manual_seed(seed)``."""
     dev = resolve_device(device)
-    model = HydraModel(model_config_from(config))
+    cfg = model_config_from(config)
+    if cfg.mpnn_type == "MACE":
+        from .mace import MACEModel
+
+        assert cfg.radius is not None, "MACE requires radius"
+        assert cfg.num_radial is not None, "MACE requires num_radial"
+        assert (cfg.max_ell or 0) >= 1, "MACE requires max_ell >= 1"
+        assert (cfg.node_max_ell or 0) >= 1, "MACE requires node_max_ell >= 1"
+        assert not cfg.use_global_attn, "GPS global attention is not supported with MACE"
+        model = MACEModel(cfg)
+    else:
+        model = HydraModel(cfg)
     reset_parameters(model, torch.Generator().manual_seed(int(seed)))
     return model.to(dev).eval()

@@ -21,12 +21,17 @@ node of a batch that holds ONE spanning graph: inside
 ``parallel.sp.sp_context`` through ring attention (the block-summary kernel
 K4b on the card with ``use_flash_attention``), outside it through the same
 math computed densely. A batch with more than one real graph comes out NaN.
-"performer" comes with a later slice (``models/create.py`` raises for it).
+
+``global_attn_type: "performer"`` (``PerformerSelfAttention``) is linear
+attention with the relu feature map: per-graph K^T V and K moments by a
+plain segment sum over ``node_graph``, O(N d^2), no softmax matrix; no
+kernel.
 
 Parameter names follow the flax tree: ``conv``, ``MaskedBatchNorm_{0,1,2}``,
 ``MultiheadSelfAttention_0`` or ``RingSelfAttention_0`` (``Dense_0`` the
 fused QKV projection, ``Dense_1`` the output projection) and the MLP
-block's ``Dense_0`` / ``Dense_1``.
+block's ``Dense_0`` / ``Dense_1``; ``PerformerSelfAttention_0`` holds
+``Dense_0``-``Dense_3`` (query, key, value, output).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_self_attention
+from ..ops.segment import segment_sum
 from ..parallel.ring_attention import ring_self_attention
 from ..parallel.sp import current_sp
 from .layers import Dense, MaskedBatchNorm
@@ -159,6 +165,37 @@ class RingSelfAttention(nn.Module):
         return self.Dense_1(out.reshape(n, C))
 
 
+class PerformerSelfAttention(nn.Module):
+    """Linear attention per graph with the relu feature map (+1e-6):
+    ``out_i = q_i (sum_j k_j v_j^T) / (q_i . sum_j k_j)`` over the real
+    nodes j of i's graph."""
+
+    def __init__(self, channels: int, heads: int):
+        super().__init__()
+        if channels % heads:
+            raise ValueError(f"channels {channels} not divisible by heads {heads}")
+        self.channels = channels
+        self.heads = heads
+        for i in range(4):
+            self.add_module(f"Dense_{i}", Dense(channels, channels))
+
+    def forward(self, x, batch):
+        H, C = self.heads, self.channels
+        d = C // H
+        eps = torch.tensor(1e-6, dtype=x.dtype, device=x.device)
+        q = torch.relu(self.Dense_0(x)).reshape(-1, H, d) + eps
+        k = torch.relu(self.Dense_1(x)).reshape(-1, H, d) + eps
+        v = self.Dense_2(x).reshape(-1, H, d)
+        kv = torch.einsum("nhd,nhe->nhde", k, v)  # [N, H, d, d]
+        G = batch.num_graphs
+        kv_sum = segment_sum(kv, batch.node_graph, G, batch.node_mask)
+        k_sum = segment_sum(k, batch.node_graph, G, batch.node_mask)
+        num = torch.einsum("nhd,nhde->nhe", q, kv_sum[batch.node_graph])
+        den = torch.einsum("nhd,nhd->nh", q, k_sum[batch.node_graph])
+        out = num / torch.clamp(den[..., None], min=1e-6)
+        return self.Dense_3(out.reshape(-1, C))
+
+
 class GPSConv(nn.Module):
     """Local MPNN + global attention + MLP block (the GraphGPS layer)."""
 
@@ -169,9 +206,12 @@ class GPSConv(nn.Module):
         self.dropout = dropout
         self.conv = conv
         self.MaskedBatchNorm_0 = MaskedBatchNorm(channels)
-        self.attn_name = ("RingSelfAttention_0" if attn_type == "ring"
-                          else "MultiheadSelfAttention_0")
-        if attn_type == "ring":
+        self.attn_name = {"ring": "RingSelfAttention_0",
+                          "performer": "PerformerSelfAttention_0"}.get(
+                              attn_type, "MultiheadSelfAttention_0")
+        if attn_type == "performer":
+            self.PerformerSelfAttention_0 = PerformerSelfAttention(channels, heads)
+        elif attn_type == "ring":
             self.RingSelfAttention_0 = RingSelfAttention(
                 channels, heads, use_flash_attention=use_flash_attention)
         elif attn_type == "multihead":
@@ -181,7 +221,7 @@ class GPSConv(nn.Module):
                 channels, heads, 0.0 if use_flash_attention else dropout,
                 max_nodes_per_graph, use_flash_attention=use_flash_attention,
             )
-        else:  # performer: a later slice (models/create.py)
+        else:
             raise ValueError(f"attn_type {attn_type!r} not supported")
         self.MaskedBatchNorm_1 = MaskedBatchNorm(channels)
         self.Dense_0 = Dense(channels, 2 * channels)

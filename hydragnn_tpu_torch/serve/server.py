@@ -9,7 +9,8 @@ slice:
   (serve/errors.py) instead of failing the requests batched beside it;
 - **micro-batcher**: admitted graphs are packed into the run's
   ``SpecLadder`` pad buckets (``select_for`` picks the smallest level that
-  fits), so the model only sees the shapes warmed at startup;
+  fits, DimeNet's triplets within its budget), so the model only
+  sees the shapes warmed at startup;
 - **warm-up**: one forward per reachable ladder level before readiness
   flips (this is where the CUDA kernels are built and first launched);
 - **overload**: shedding with ``SheddedError`` when the projected queue wait
@@ -35,7 +36,7 @@ import torch
 
 from ..data.graph import Graph, SpecLadder, batch_graphs
 from ..data.pipeline import spec_template_batches
-from ..data.validate import R_CHANNELS, describe_reason, validate_graph
+from ..data.validate import R_BUDGET, R_CHANNELS, describe_reason, validate_graph
 from ..device import DeviceLike, resolve_device
 from ..train.loop import cast_batch_bf16, mp_cast_model
 from .config import ServeConfig
@@ -57,9 +58,9 @@ _JOIN_TIMEOUT_S = 5.0
 class PredictionHandle:
     """Client-side handle of one submitted request: ``result()`` blocks for
     the outcome and re-raises the request's typed error; ``error()`` returns
-    it as a value."""
+    it as a value. ``batch_index`` is the served batch that answered it."""
 
-    __slots__ = ("request_id", "deadline", "submitted_at", "done_at", "_event",
+    __slots__ = ("request_id", "deadline", "submitted_at", "done_at", "batch_index", "_event",
                  "_result", "_error")
 
     def __init__(self, request_id: int, deadline: float):
@@ -68,6 +69,7 @@ class PredictionHandle:
         # perf_counter stamps: per-request latency without a waiter thread
         self.submitted_at: float = time.perf_counter()
         self.done_at: Optional[float] = None
+        self.batch_index: Optional[int] = None
         self._event = threading.Event()
         self._result: Optional[Dict[str, np.ndarray]] = None
         self._error: Optional[RequestError] = None
@@ -339,6 +341,8 @@ class GraphServer:
             )
         reason = validate_graph(g, max_nodes=self._worst.n_nodes - 1,
                                 max_edges=self._worst.n_edges)
+        if reason is None and self._worst.n_triplets and g.num_triplets > self._worst.n_triplets:
+            reason = R_BUDGET
         if reason is not None:
             self._bump("rejected")
             raise InvalidRequestError(
@@ -432,7 +436,9 @@ class GraphServer:
             return None
         self._form_started = time.perf_counter()
         reqs = [first]
+        budget_t = self._worst.n_triplets
         n, e = first.graph.num_nodes, first.graph.num_edges
+        t = first.graph.num_triplets if budget_t else 0
         window_ends = time.monotonic() + self.cfg.batch_window_s
         while len(reqs) < self._batch_cap:
             remaining = window_ends - time.monotonic()
@@ -442,11 +448,13 @@ class GraphServer:
             if req is None:
                 break
             gn, ge = req.graph.num_nodes, req.graph.num_edges
-            if n + gn > self._worst.n_nodes - 1 or e + ge > self._worst.n_edges:
+            gt = req.graph.num_triplets if budget_t else 0
+            if (n + gn > self._worst.n_nodes - 1 or e + ge > self._worst.n_edges
+                    or t + gt > budget_t):
                 self._holdover = req
                 break
             reqs.append(req)
-            n, e = n + gn, e + ge
+            n, e, t = n + gn, e + ge, t + gt
         return reqs
 
     def _serve_loop(self) -> None:
@@ -480,7 +488,7 @@ class GraphServer:
                 self._seconds["form"] += t0 - self._form_started
                 self._seconds["build"] += t_built - t0
                 self._seconds["step"] += t_done - t_built
-            self._deliver(reqs, batch, outputs)
+            self._deliver(reqs, batch, outputs, batch_index)
             self._bump("batches")
             self._bump("completed", len(reqs))
             # EMA service-time estimate drives the shed projection
@@ -490,7 +498,8 @@ class GraphServer:
             self._inflight_graphs = 0
         self._drained.set()
 
-    def _deliver(self, reqs: List[_Request], batch, outputs: Dict[str, Any]) -> None:
+    def _deliver(self, reqs: List[_Request], batch, outputs: Dict[str, Any],
+                 batch_index: int) -> None:
         """Slice the padded outputs back per request: graph heads by graph
         row, node heads by the request's node span."""
         node_offsets = np.cumsum([0] + [r.graph.num_nodes for r in reqs])
@@ -504,6 +513,7 @@ class GraphServer:
                     result[name] = a[node_offsets[i]: node_offsets[i + 1]]
                 else:
                     result[name] = a
+            r.handle.batch_index = batch_index
             r.handle._resolve(result)
 
     # -- bookkeeping -----------------------------------------------------

@@ -858,14 +858,16 @@ def pytest_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
 
 # ---------------------------------------------------------------------------
 # the message-passing zoo's shapes: K1 at C = 4 (SAGE's and MFC's first
-# layer, CGCNN at the OC20 input width), 126 (SchNet's filters on MD17) and
-# 1,536 (GAT's six concatenated heads of 256); K3 with edge_in alone
-# (PNAEq) and with node_recv and a gate (PNAPlus) at C = 256
+# layer, CGCNN at the OC20 input width), 126 (SchNet's filters on MD17),
+# 128 (DimeNet's output block), 1,536 (GAT's six concatenated heads of 256)
+# and 2,304 (MACE's 256 channels x 9 irrep components); K3 with edge_in
+# alone (PNAEq) and with node_recv and a gate (PNAPlus) at C = 256
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(2272, 4), (700, 126), (400, 1536)])
+@pytest.mark.parametrize("n,c", [(2272, 4), (700, 126), (1100, 128), (400, 1536),
+                                 (1100, 2304)])
 def pytest_k1_zoo_widths_match_plain_on_card(cuda, dtype, n, c):
     """K1's forward against its fixed-order plain version, and its
     Function's first- and second-order gradients against ``index_add_``
@@ -925,13 +927,18 @@ def pytest_k3_zoo_variants_match_plain_on_card(cuda, dtype, variant):
 ZOO_LAUNCHES = {
     "SAGE": {"K1": 2}, "MFC": {"K1": 2}, "CGCNN": {"K1": 2}, "GAT": {"K1": 2},
     "SchNet": {"K1": 2}, "PAINN": {"K1": 2}, "PNAPlus": {"K3": 2}, "PNAEq": {"K3": 2},
+    "DimeNet": {"K1": 2}, "MACE": {"K1": 2},
 }
+# the blocks of DimeNet and MACE at this width (the bench cells' sizes)
+ZOO_ARCH = {"DimeNet": dict(num_radial=6, num_spherical=7, basis_emb_size=8, int_emb_size=16,
+                            out_emb_size=32),
+            "MACE": dict(num_radial=8, max_ell=2, node_max_ell=2, correlation=3)}
 
 
 def _zoo_models(device, model, layers):
     """A zoo conv's model (hidden 64, f32) on the sorted route, the same
     weights on the unsorted plain route (no kernel), and one batch of 8
-    OC20-shaped graphs."""
+    OC20-shaped graphs (DimeNet's with its triplets)."""
     import copy
 
     from hydragnn_tpu_torch.config import update_config
@@ -946,7 +953,8 @@ def _zoo_models(device, model, layers):
             "output_heads": {
                 "graph": {"num_sharedlayers": 1, "dim_sharedlayers": 16,
                           "num_headlayers": 1, "dim_headlayers": [16]},
-                "node": {"num_headlayers": 1, "dim_headlayers": [16], "type": "mlp"}}}
+                "node": {"num_headlayers": 1, "dim_headlayers": [16], "type": "mlp"}},
+            **ZOO_ARCH.get(model, {})}
     cfg = {"Dataset": {"node_features": {"dim": [1, 3, 3]}, "graph_features": {"dim": [1]}},
            "NeuralNetwork": {"Architecture": arch,
                              "Training": {"batch_size": 8, "loss_function_type": "mae"},
@@ -960,16 +968,17 @@ def _zoo_models(device, model, layers):
     kernels = create_model(update_config(cfg, *splits), device=device)
     plain = create_model(update_config(plain_cfg, *splits), device=device)
     plain.load_state_dict(kernels.state_dict())
-    batch = next(iter(GraphLoader(splits[0], 8, sort_edges=True))).to(device)
+    batch = next(iter(GraphLoader(splits[0], 8, sort_edges=True,
+                                  with_triplets=model == "DimeNet"))).to(device)
     return kernels, plain, batch
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("model", list(ZOO_LAUNCHES))
 def pytest_zoo_conv_kernels_match_the_plain_route_on_card(cuda, model):
-    """Each conv of the zoo (2 conv layers, hidden 64, f32) through the
-    kernels against the same weights on the unsorted plain route (no
-    kernel): real rows to 1e-4 of each head's largest value (GAT's and
+    """Each conv of the zoo, DimeNet and MACE too (2 conv layers, hidden 64,
+    f32), through the kernels against the same weights on the unsorted
+    plain route (no kernel): real rows to 1e-4 of each head's largest value (GAT's and
     PNAEq's to 1e-3: their softmax and degree scalers carry a summation
     order's rounding further), and the launches per forward."""
     model_k, plain, batch = _zoo_models(cuda, model, 2)

@@ -2,7 +2,8 @@
 (hydragnn_tpu_torch/ops/flash_attention.py) against the JAX flash kernel in
 interpret mode and its dense references, the Laplacian positional
 encodings, and the GPS-PNA ``HydraModel`` on bridged weights, in f32 and
-under both packages' mixed-precision eval cast.
+under both packages' mixed-precision eval cast; GIN under GPS performer
+attention (served answers and one step's gradients) on bridged weights.
 
 Tolerances: attention in f32 is the same function summed in another order
 (2e-5, the JAX package's own kernel-vs-dense tolerance). In bf16 the JAX
@@ -275,3 +276,93 @@ def pytest_run_server_serves_gps_pna_on_cpu(tmp_path, monkeypatch):
             # the same function; the batches differ, so a matmul may block
             # its sums differently (measured under 1e-7)
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# GPS performer attention (linear attention, the relu feature map)
+
+
+def _performer_config():
+    cfg = _pna_config(gps=True)
+    cfg["NeuralNetwork"]["Architecture"].update(mpnn_type="GIN", global_attn_type="performer")
+    return cfg
+
+
+def _performer_both():
+    """GIN under GPS performer attention (hidden 16, 2 heads, PE 4, 2
+    layers) built in JAX and bridged into the port, on one batch."""
+    tr, va, te = _splits(pe=True)
+    cfg = _performer_config()
+    jc = j_update(copy.deepcopy(cfg), tr, va, te)
+    tc = t_update(copy.deepcopy(cfg), tr, va, te)
+    jb = next(iter(JLoader(tr, 4, sort_edges=True)))
+    tb = next(iter(TLoader(tr, 4, sort_edges=True)))
+    jm = j_create(jc)
+    v = _jax_variables(jm, jb)
+    tm = t_create(tc, device="cpu")
+    load_jax_variables(tm, v)
+    return jm, v, jb, tm, tb, (tr, va, te)
+
+
+def pytest_performer_served_answers_match_jax(tmp_path, monkeypatch):
+    """``api.run_server`` on the bridged JAX weights (f32) answers each
+    request as the JAX model does on the same graphs, real rows to 1e-4 of
+    each head's largest value; the JAX side takes K1 in interpret mode."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS_SEGMENT", "1")
+    monkeypatch.chdir(tmp_path)
+    from hydragnn_tpu.data.graph import PadSpec as JPadSpec
+    from hydragnn_tpu.data.graph import _round_up
+    from hydragnn_tpu.data.graph import batch_graphs as j_batch_graphs
+    from hydragnn_tpu_torch.api import run_server
+
+    jm, v, _, tm, _, splits = _performer_both()
+    assert type(tm.graph_convs[0].PerformerSelfAttention_0).__name__ == "PerformerSelfAttention"
+    requests = splits[0][:6]
+    server = run_server(_performer_config(), datasets=splits, variables=v, device="cpu")
+    try:
+        assert server.wait_ready(timeout=120)
+        results = server.predict(requests, timeout=120)
+    finally:
+        server.close()
+    n = sum(g.num_nodes for g in requests)
+    spec = JPadSpec(n_nodes=_round_up(n + 1, 8),
+                    n_edges=_round_up(sum(g.num_edges for g in requests), 128),
+                    n_graphs=len(requests) + 1)
+    jout = jm.apply(v, j_batch_graphs(requests, spec, sort_edges=True), train=False)
+    want = {"energy": np.asarray(jout["energy"])[:len(requests)],
+            "forces": np.asarray(jout["forces"])[:n]}
+    got = {"energy": np.stack([r["energy"] for r in results]),
+           "forces": np.concatenate([r["forces"] for r in results])}
+    for k in ("energy", "forces"):
+        assert np.isfinite(got[k]).all()
+        scale = float(np.abs(want[k]).max())
+        assert float(np.abs(got[k] - want[k]).max()) <= 1e-4 * scale, k
+
+
+def pytest_performer_step0_gradients_match_jax(monkeypatch):
+    """One training step (MAE over both heads, batch statistics, f32): the
+    loss and each task's to 1e-5, every gradient to 1e-4 of its largest
+    (floored at 1e-3 of the largest anywhere: tests/test_torch_train.py)."""
+    monkeypatch.setenv("HYDRAGNN_PALLAS_SEGMENT", "1")
+    from hydragnn_tpu.train.loss import compute_loss as j_compute_loss
+    from hydragnn_tpu_torch.train import compute_loss
+    from test_torch_train import _assert_close, _flat
+    from test_torch_zoo_grads import grads_of
+
+    jm, v, jb, tm, tb, _ = _performer_both()
+    jv = jax.tree_util.tree_map(jnp.asarray, v)
+
+    def loss_fn(params):
+        tot, tasks, _, _ = j_compute_loss(jm, {"params": params,
+                                               "batch_stats": jv["batch_stats"]},
+                                          jb, jm.cfg, True, jax.random.PRNGKey(0), False)
+        return tot, tasks
+
+    (jtot, jtasks), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jv["params"])
+    tm.train()
+    tot, tasks, _ = compute_loss(tm, tb, tm.cfg, False)
+    tot.backward()
+    np.testing.assert_allclose(float(tot.detach()), float(jtot), rtol=1e-5)
+    for k in jtasks:
+        np.testing.assert_allclose(float(tasks[k].detach()), float(jtasks[k]), rtol=1e-5)
+    _assert_close(_flat(jgrads), grads_of(tm), 1e-4, "performer grad", floor=1e-3)

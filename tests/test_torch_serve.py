@@ -93,6 +93,36 @@ def pytest_graph_server_answers_equal_a_direct_forward(pack):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
+def pytest_handles_name_the_batch_that_answered_them():
+    """``PredictionHandle.batch_index``: the served batches in order, each
+    holding requests in submission order; rebuilding a batch from its
+    requests at ``ladder.select_for`` gives the served answers exactly."""
+    graphs = _graphs()
+    config, (_, _, test_loader), _ = prepare_data(_config(False), split_dataset(graphs, 0.5))
+    model = create_model(config, device="cpu", seed=1)
+    server = GraphServer(model, test_loader.ladder, ServeConfig.from_config(config),
+                         template_graphs=test_loader.graphs, sort_edges=True, device="cpu")
+    with server:
+        assert server.wait_ready(timeout=120)
+        handles = [server.submit(g) for g in graphs[:8]]
+        results = [h.result(timeout=120) for h in handles]
+        batches = server.stats()["batches"]
+    index = [h.batch_index for h in handles]
+    assert index == sorted(index) and set(index) == set(range(batches))
+    for b in range(batches):
+        group = [g for g, i in zip(graphs, index) if i == b]
+        assert 1 <= len(group) <= 4
+        with torch.no_grad():
+            out = model(batch_graphs(group, server.ladder.select_for(group), sort_edges=True))
+        got = [r for r, i in zip(results, index) if i == b]
+        off = 0
+        for j, g in enumerate(group):
+            np.testing.assert_array_equal(got[j]["energy"], out["energy"][j].numpy())
+            np.testing.assert_array_equal(got[j]["forces"],
+                                          out["forces"][off:off + g.num_nodes].numpy())
+            off += g.num_nodes
+
+
 def pytest_run_server_and_run_prediction_on_cpu(tmp_path, monkeypatch):
     """Both entry points restore the run's checkpoint from ``./logs`` (here
     written by one epoch of ``run_training``) and answer from it."""

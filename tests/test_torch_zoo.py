@@ -255,14 +255,29 @@ def pytest_update_config_matches_jax(model):
 
 
 def pytest_create_model_raises_only_for_dimenet_and_mace():
+    """Named when the port still raised for DimeNet and MACE: now
+    ``create_model`` builds every conv of the JAX package's registry into a
+    ``HydraModel`` with each layer of that conv, and MACE into its own
+    ``MACEModel``, as the JAX package's ``available_models`` lists them."""
+    from hydragnn_tpu.models.create import available_models
+    from hydragnn_tpu_torch.models import HydraModel
+    from hydragnn_tpu_torch.models.mace import MACEModel
+
     tr, va, te = _splits()
-    for model in ZOO:
-        assert t_create(t_update(_config(model), tr, va, te), device="cpu") is not None
-    for model in ("DimeNet", "MACE"):
-        cfg = t_update(_config("SAGE"), tr, va, te)
-        cfg["NeuralNetwork"]["Architecture"]["mpnn_type"] = model
-        with pytest.raises(NotImplementedError, match=model):
-            t_create(cfg, device="cpu")
+    extra = {"DimeNet": dict(num_radial=4, num_spherical=3),
+             "MACE": dict(num_radial=6, max_ell=2, node_max_ell=1, correlation=2)}
+    built = {}
+    for model in available_models():
+        cfg = _config(model)
+        cfg["NeuralNetwork"]["Architecture"].update(extra.get(model, {}))
+        m = t_create(t_update(cfg, tr, va, te), device="cpu")
+        built[model] = type(m)
+        if model != "MACE":
+            assert {type(c).__module__.rsplit(".", 1)[-1] for c in m.graph_convs} == \
+                {type(m.graph_convs[0]).__module__.rsplit(".", 1)[-1]}
+    assert set(ZOO) | {"DimeNet", "EGNN", "GIN", "PNA", "MACE"} <= set(built)
+    assert built.pop("MACE") is MACEModel
+    assert set(built.values()) == {HydraModel}
 
 
 def pytest_gat_layer_widths_follow_its_heads():
