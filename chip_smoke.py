@@ -166,6 +166,30 @@ Phases, each fatal on failure (exit code 1):
    bench's performer cell (GIN hidden 256, 4 layers, 8 heads, PE 4), GIN's
    sums through K1 (bf16, C = 256). The kernel checks of phase 3 hold K1
    at C = 2,304 (bf16 and f32), 128 and 4 (f32) too.
+13. The multibranch GFM recipe (examples/multibranch/multibranch_GFM260_SC25.json
+   as committed: EGNN hidden 866, 4 layers, equivariant, 5 branches of
+   graph heads 2 x 50 + 3 x 889 and mlp node heads 3 x 889, task weights
+   [1, 100], MAE, batch 160, 3 pad buckets, bf16, balanced branch
+   sampling, AdamW 1e-3), with per-branch loss weights [1, 2, 1, 0.5, 1]
+   and the ``branch<i>`` scalars, on 1,920 OC20-shaped graphs drawn into the
+   branches 40/25/15/12/8 %. ``gfm_train``: ``run_cell_train`` over 2
+   epochs (22 steps; K1 and K2 as egnn_train per step) and
+   ``run_training`` for 2 epochs, each branch's share of the draws;
+   ``gfm``: ``api.run_server`` restores that checkpoint and answers 192
+   requests over every branch, against the plain ops on its own
+   micro-batches and against ``run_prediction`` branch by branch;
+   ``gfm_convhead_train``: the recipe with conv node heads [889, 889, 889]
+   (each branch a chain of 4 EGNN convs, K1 and K2 17 and 6 times a step)
+   at batch 32, its first step's peak memory; ``gfm_nll``: the recipe under
+   ``GaussianNLLLoss`` (one served batch with its variances, f32 step-0
+   gradients, 4 steps against the plain route), then the mace cell under
+   it; ``optimizers``: Adagrad, RMSprop, Adamax, Adadelta, LAMB and
+   FusedLAMB 3 steps each on the card from one GFM batch's gradients
+   against CPU copies, and the guard undoing a non-finite step;
+   ``mlp_per_node``: GIN with a per-node MLP head, a served batch and an
+   f32 step against K1's plain version. The GFM recipe's K1 and K2 cases
+   are measured at its batch of 160 (``gfm/`` in the kernels line) and
+   carry the launches of its phases.
 
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
@@ -646,10 +670,12 @@ def dense_block_summary(q, k, v, key_mask):
     return m, p.sum(dim=-1), torch.einsum("qhk,khd->qhd", p, v.float())
 
 
-def egnn_kernel_cases(batch, device):
+def egnn_kernel_cases(batch, device, prefix: str = "", k2_dtypes=None):
     """K1 and K2 at the EGNN serving shapes, inputs from a seed. The
     receiver ids are the real batch's; messages of padding edges are zero,
-    as ``segment_sum`` masks them before K1 (K2 takes them unmasked)."""
+    as ``segment_sum`` masks them before K1 (K2 takes them unmasked).
+    ``prefix`` names another path's cases (``gfm/``: the GFM recipe's batch
+    of 160); ``k2_dtypes`` limits K2's cases to those dtypes."""
     import torch
 
     from hydragnn_tpu_torch.ops.fused_edge import (
@@ -664,8 +690,10 @@ def egnn_kernel_cases(batch, device):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
         size = torch.tensor([], dtype=dtype).element_size()
-        cases += [_k1_case(ids, batch.edge_mask.to(device), n, c, dtype, gen, c)
+        cases += [_k1_case(ids, batch.edge_mask.to(device), n, c, dtype, gen, c, prefix)
                   for c in (866, 3)]
+        if k2_dtypes is not None and dtype not in k2_dtypes:
+            continue
         ci = co = 866
         kw = dict(
             node_recv=torch.randn(n, ci, generator=gen, device=device).to(dtype),
@@ -676,7 +704,8 @@ def egnn_kernel_cases(batch, device):
         )
         unit, passes = MMA_PASSES[dname]
         cases.append(_case(
-            "K2", dtype, f"fused_edge_message_sum ({dname}, {ci}x{co})", f"{dname}/{ci}x{co}",
+            "K2", dtype, f"{prefix}fused_edge_message_sum ({dname}, {ci}x{co})",
+            f"{prefix}{dname}/{ci}x{co}",
             lambda kw=kw: fused_edge_message_sum(**kw),
             lambda kw=kw: reference_edge_message_sum(**kw),
             None,
@@ -1375,10 +1404,11 @@ def plain_versions(swap=PLAIN, k1=None):
     return swapped([swaps[k] for k in swap])
 
 
-def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases):
+def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases, hook=None):
     """Serve ``n_requests`` through ``api.run_server`` and check them.
     ``per_batch_cases`` maps each kernel to its launches per served batch by
-    case; a kernel not named must not launch."""
+    case; a kernel not named must not launch. ``hook(server, requests,
+    results)`` runs more checks before the server closes."""
     import numpy as np
     import torch
 
@@ -1396,9 +1426,9 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
             f"{arch['pe_dim']}" if arch.get("global_attn_engine") else "")
     print(f"serve {label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, "
           f"{arch['num_conv_layers']} conv layers, equivariant {arch['equivariance']}{attn}, "
-          f"heads {arch['output_heads']['graph']['dim_headlayers']} / "
-          f"{arch['output_heads']['node']['dim_headlayers']}, batch {training['batch_size']}, "
-          f"packed {training['pack_batches']}, mixed precision {training['mixed_precision']}, "
+          f"heads {head_dims(arch)}, batch {training['batch_size']}, "
+          f"packed {training.get('pack_batches', False)}, mixed precision "
+          f"{training['mixed_precision']}, "
           f"sorted aggregation {arch['use_sorted_aggregation']}, random weights (seed {SEED})",
           flush=True)
     t0 = time.perf_counter()
@@ -1430,11 +1460,16 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
           f"excluded): {per_batch}", flush=True)
     check(stats["failed_batches"] == 0 and stats["rejected"] == 0, f"serving stats {stats}")
     check(batches > 0, f"{label}: no batch served")
+    var = training.get("loss_function_type") == "GaussianNLLLoss"
+    heads = {"energy", "forces"} | ({"energy__var", "forces__var"} if var else set())
     for g, r in zip(requests, results):
-        check(set(r) == {"energy", "forces"}, f"served heads {sorted(r)}")
-        check(r["energy"].shape == (1,) and r["forces"].shape == (g.num_nodes, 3),
+        check(set(r) == heads, f"served heads {sorted(r)}")
+        check(all(r[k].shape == (1,) and r[k.replace("energy", "forces")].shape
+                  == (g.num_nodes, 3) for k in heads if k.startswith("energy")),
               f"served shapes {r['energy'].shape} {r['forces'].shape} for {g.num_nodes} nodes")
         check(all(np.isfinite(v).all() for v in r.values()), "non-finite served output")
+        check(not var or min(float(r[k].min()) for k in heads if k.endswith("__var")) >= 0,
+              "a negative served variance")
 
     # the served answers against the same weights through the plain ops
     # (unsorted route, dense attention, no kernels) on the card, batch by
@@ -1503,6 +1538,8 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases)
         check(all(worst[k] <= lim[k][0] and median[k] <= lim[k][1] for k in lim),
               f"{label}: {a} disagrees with {r}")
     profile_batch(server, graphs, label)
+    if hook is not None:
+        hook(server, requests, results)
     server.close()
     print(f"serving {label}: {gps:.1f} graphs/s, p50 {np.percentile(lat, 50):.2f} ms, "
           f"p99 {np.percentile(lat, 99):.2f} ms", flush=True)
@@ -1837,6 +1874,83 @@ def pinned_clamps(masks: list, flips=None):
     return swapped([(painn, "update_clamp", clamp)])
 
 
+def pinned_decisions(masks: list, flips=None):
+    """Within the block, every ReLU (``torch.relu``, which ``F.relu``
+    calls), every leaky ReLU of the port's layers and the variance clamp of
+    the Gaussian NLL record, call by call, which elements they pass into
+    the empty list ``masks``; given a filled ``masks`` (``flips`` a list)
+    they take exactly those decisions, whatever their input, and ``flips``
+    gets per call how many their own input would have taken otherwise. Two
+    routes through the same decisions compute one function that is
+    continuous in their roundings (``pinned_act`` does it for one MLP).
+    Both routes must make the same calls in the same order: a kernel that
+    fuses ReLUs (K2) has to run in both."""
+    import torch
+
+    import hydragnn_tpu_torch.models.layers as layers
+    import hydragnn_tpu_torch.train.loss as loss
+
+    replay = iter(list(masks))
+
+    def decide(keep):
+        if flips is None:
+            masks.append(keep)
+            return keep
+        want = next(replay)
+        flips.append(int((keep != want).sum()))
+        return want
+
+    def pinned_relu(t):
+        return torch.where(decide(t > 0), t, t.new_zeros(()))
+
+    def pinned_leaky(v, negative_slope=0.01):
+        slope = torch.tensor(negative_slope, dtype=v.dtype, device=v.device)
+        return torch.where(decide(v >= 0), v, slope * v)
+
+    def pinned_nll(pred, var, target, eps=1e-6):
+        v = torch.where(decide(var >= eps), var, var.new_full((), eps))
+        return 0.5 * (torch.log(v) + (pred - target) ** 2 / v)
+
+    return swapped([(torch, "relu", pinned_relu), (layers, "leaky_relu", pinned_leaky),
+                    (loss, "_nll_elementwise", pinned_nll)])
+
+
+def pinned_route_gradients(label, model, batch, device, mixed_precision, limit,
+                           reference=("K1",)):
+    """One train step's gradients through the kernels against the same step
+    through the plain versions of ``reference`` (K2 runs in both: it fuses
+    its ReLUs), every ReLU, leaky ReLU and variance clamp held to the
+    reference's decisions (``pinned_decisions``), under deterministic
+    algorithms; gated by ``grad_gate`` at ``limit``, beside the reference
+    again on its own decisions. Prints how many decisions each route's own
+    input would have flipped."""
+    import torch
+
+    from hydragnn_tpu_torch.train import make_train_step
+
+    dname = "bf16" if mixed_precision else "f32"
+    masks, flips, grads = [], {}, {}
+    with deterministic():
+        for route, swap in (("reference", reference), ("kernels", ()),
+                            ("the reference again", reference)):
+            state = _train_copy(model, device)
+            flips[route] = None if route == "reference" else []
+            with plain_versions(swap), pinned_decisions(masks, flips[route]):
+                make_train_step(state.model, mixed_precision=mixed_precision)(state, batch)
+            grads[route] = _grads(state)
+            del state
+        torch.cuda.synchronize()
+    print(f"{label}: {dname} step 0 against the plain version of {'/'.join(reference)}, "
+          f"{len(masks)} activation and clamp calls held to their decisions (deterministic "
+          f"algorithms); decisions each route's own input would have flipped: kernels "
+          f"{sum(flips['kernels'])}, the reference again {sum(flips['the reference again'])}",
+          flush=True)
+    gradients_present(f"{label}: {dname} step 0", grads["kernels"], grads["reference"])
+    grad_gate(f"{dname} gradients vs {'/'.join(reference)} plain, decisions pinned",
+              grads["kernels"], grads["reference"], limit,
+              {"the reference again": grads["the reference again"]}, cell=label)
+
+
 def pinned_act(mlp, masks: list, flips=None):
     """Within the block, the activation of the MLP ``mlp`` (a ReLU or a
     leaky ReLU) records, call by call, which elements it passes (input > 0)
@@ -2072,19 +2186,21 @@ def trajectory_gate(label: str, lk, lp, limit: float, extra: str = "") -> None:
     check(float(rel.max()) <= limit, f"{label}: the trajectories part")
 
 
-def run_training_epoch(label: str, config, splits, per_step):
-    """``api.run_training`` for one epoch with no device given (the
-    current CUDA device): every train step and every val/test batch
-    launches the step's table ``per_step``, none in a backward; the state
-    on the card, every step taken and every loss finite. Returns the
-    launches by (kernel, case)."""
+def run_training_epoch(label: str, config, splits, per_step, epochs: int = 1):
+    """``api.run_training`` for ``epochs`` epochs (the config's
+    ``num_epoch``) with no device given (the current CUDA device): every
+    train step and every val/test batch launches the step's table
+    ``per_step``, none in a backward; the state on the card, every step
+    taken and every loss finite. Returns the launches by (kernel, case)."""
     import torch
 
     from hydragnn_tpu_torch.api import prepare_data, run_training
 
     wrappers = _wrappers()
+    check(int(config["NeuralNetwork"]["Training"]["num_epoch"]) == epochs,
+          f"{label}: num_epoch is not {epochs}")
     _, loaders, _ = prepare_data(copy.deepcopy(config), splits)
-    units = sum(len(loader) for loader in loaders)
+    units = epochs * sum(len(loader) for loader in loaders)
     _zero_launches(wrappers)
     t0 = time.perf_counter()
     _, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
@@ -2092,10 +2208,10 @@ def run_training_epoch(label: str, config, splits, per_step):
     seconds = time.perf_counter() - t0
     launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
                                "steps and eval batches")
-    print(f"{label}: run_training (no device given: {state.step.device}), 1 epoch in "
+    print(f"{label}: run_training (no device given: {state.step.device}), {epochs} epoch(s) in "
           f"{seconds:.2f} s: {int(state.step)} steps, history {hist}, guard skips "
           f"{int(state.skipped_steps)}", flush=True)
-    check(state.step.device.type == "cuda" and int(state.step) == len(loaders[0])
+    check(state.step.device.type == "cuda" and int(state.step) == epochs * len(loaders[0])
           and int(state.skipped_steps) == 0
           and all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k]),
           f"{label}: run_training did not train on the card")
@@ -3030,7 +3146,7 @@ def md17_config(num_epoch: int = 100):
     return config
 
 
-def _k1_case(ids, edge_mask, n, c, dtype, gen, seed):
+def _k1_case(ids, edge_mask, n, c, dtype, gen, seed, prefix: str = ""):
     """K1 on ``ids`` at width ``c``: messages from ``gen``, zero on padding
     edges (``segment_sum`` masks them before K1); against its fixed-order
     plain version, ``index_add`` as the library call, first- and
@@ -3051,7 +3167,7 @@ def _k1_case(ids, edge_mask, n, c, dtype, gen, seed):
               segment_ids=ids, num_segments=n)
     base = torch.zeros(n, c, dtype=dtype, device=dev)
     return _case(
-        "K1", dtype, f"sorted_segment_sum ({dname}, C={c})", f"{dname}/C{c}",
+        "K1", dtype, f"{prefix}sorted_segment_sum ({dname}, C={c})", f"{prefix}{dname}/C{c}",
         lambda: sorted_segment_sum(**kw),
         lambda: sorted_segment_sum_plain(**kw),
         lambda: base.index_add(0, ids, kw["messages"]),
@@ -3141,15 +3257,33 @@ def zoo_kernel_cases(batch, md17_batch, device):
     return cases
 
 
-def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups):
+def head_dims(arch) -> str:
+    """The graph and node heads' widths (the first branch's, in the
+    multibranch list form), and the node head's type."""
+    heads = {k: (v[0]["architecture"] if isinstance(v, list) else v)
+             for k, v in arch["output_heads"].items()}
+    branches = max((len(v) for v in arch["output_heads"].values() if isinstance(v, list)),
+                   default=1)
+    return " / ".join(f"{k} {h['dim_headlayers']}" + (f" ({h.get('type', 'mlp')})"
+                                                      if k == "node" else "")
+                      for k, h in heads.items()) + (f", {branches} branches" if branches > 1
+                                                     else "")
+
+
+def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups, epochs=1,
+                   splits=None, min_steps=20, pinned_grads=False):
     """A cell's model trained at full width through its kernels with
     gradients (``make_train_step``, bf16 mixed precision), against the same
     steps through the plain versions of ``swap``: one step's gradients in
     f32 and in bf16 beside controls (the plain route again, each kernel
-    alone), the loss trajectories over an epoch, launches per step, ms per
-    step, peak memory, one profiled step (its device time summed by
-    ``groups``), one ``api.run_training`` epoch. Returns the launches by
-    (kernel, case) of the kernel route's trajectory and the epoch."""
+    alone), the loss trajectories over ``epochs`` epochs, launches per
+    step, ms per step, peak memory, one profiled step (its device time
+    summed by ``groups``), one ``api.run_training`` of ``epochs`` epochs
+    (the config's ``num_epoch``). ``pinned_grads`` gates the step-0
+    gradients against K1's plain version with every activation's decisions
+    held to that route's (``pinned_route_gradients``), and prints the
+    unpinned readings beside. Returns the launches by (kernel, case) of the
+    kernel route's trajectory and the run."""
     import torch
 
     from hydragnn_tpu_torch.api import prepare_data
@@ -3157,18 +3291,19 @@ def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups):
     from hydragnn_tpu_torch.models.create import create_model
     from hydragnn_tpu_torch.train import make_train_step
 
-    splits = split_dataset(graphs, 0.9, seed=0)
+    splits = splits or split_dataset(graphs, 0.9, seed=0)
     done, (loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
     arch, training = done["NeuralNetwork"]["Architecture"], done["NeuralNetwork"]["Training"]
-    loader.set_epoch(0)
-    batches = list(loader)
+    batches = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        batches += list(loader)
     steps = len(batches)
-    check(steps >= 20, f"{label}: {steps} batches, fewer than 20 steps")
+    check(steps >= min_steps, f"{label}: {steps} batches, fewer than {min_steps} steps")
     attn = (f", GPS {arch['global_attn_type']} x{arch['global_attn_heads']} heads, PE "
             f"{arch['pe_dim']}" if arch.get("global_attn_engine") else "")
     print(f"{label}: {arch['mpnn_type']} hidden {arch['hidden_dim']}, {arch['num_conv_layers']} "
-          f"conv layers{attn}, heads {arch['output_heads']['graph']['dim_headlayers']} / "
-          f"{arch['output_heads']['node']['dim_headlayers']}, task weights "
+          f"conv layers{attn}, heads {head_dims(arch)}, task weights "
           f"{arch['task_weights']}, AdamW lr 1e-3, {training['loss_function_type']}, batch "
           f"{training['batch_size']} (not packed, node bound {arch['max_nodes_per_graph']}), "
           f"bf16 mixed precision, guard on, sorted aggregation "
@@ -3190,13 +3325,23 @@ def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups):
                        for k in swap})
     for mp in (False, True):
         dname = "bf16" if mp else "f32"
+        if pinned_grads:
+            pinned_route_gradients(label, model, batches[0], device, mp,
+                                   rtol[f"{dname} gradients"])
         grads = route_gradients(model, batches[0], device, routes, lambda st, mp=mp: (
             lambda b: make_train_step(st.model, mixed_precision=mp)(st, b)))
         torch.cuda.synchronize()
         gradients_present(f"{label}: {dname} step 0", grads["kernels"], grads["plain"])
-        grad_gate(f"{dname} gradients vs plain route", grads["kernels"], grads["plain"],
-                  rtol[f"{dname} gradients"],
-                  {r: g for r, g in grads.items() if r not in ("kernels", "plain")}, cell=label)
+        controls = {r: g for r, g in grads.items() if r not in ("kernels", "plain")}
+        if pinned_grads:  # unpinned, printed: the pinned gate above is the gate
+            print(f"{label}: {dname} gradients vs plain route, unpinned: largest, its "
+                  f"parameter, median " + "; ".join(
+                      "{}: {:.6g} ({}), {:.6g}".format(r, *grad_reading(g, grads["plain"])[:3])
+                      for r, g in {"kernels": grads["kernels"], **controls}.items()),
+                  flush=True)
+        else:
+            grad_gate(f"{dname} gradients vs plain route", grads["kernels"], grads["plain"],
+                      rtol[f"{dname} gradients"], controls, cell=label)
         del grads
 
     # the trajectories, through the kernels (the main path) and through the
@@ -3217,7 +3362,7 @@ def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups):
                            "(forward, backward, guard and AdamW)",
                     lambda: step(kernel_state, batches[0]), noun="step", groups=groups)
     del kernel_state, step
-    rt_launched = run_training_epoch(label, config, splits, per_step)
+    rt_launched = run_training_epoch(label, config, splits, per_step, epochs)
     merged = collections.Counter(launched)
     merged.update(rt_launched)
     return merged
@@ -3707,7 +3852,11 @@ def run_energy_force_step(label, config, graphs, device, per_step, limits):
     head is an MLP (DimeNet), the other routes take the plain route's
     decisions in its activations (``pinned_act``), and how many each would
     have flipped is printed; every route against the same step in f64 (its
-    own decisions) is printed beside them. Returns the launches by (kernel, case)."""
+    own decisions) is printed beside them. The three routes run PyTorch's
+    deterministic algorithms: with its atomics, DimeNet's plain route once
+    read 1.48e-6 (loss) and 5.7e-3 (forces) from both the kernel route and
+    the plain route again, which agreed. Returns the launches by (kernel,
+    case)."""
     import dataclasses
 
     import torch
@@ -3724,7 +3873,7 @@ def run_energy_force_step(label, config, graphs, device, per_step, limits):
     model = create_model(done, device=device, seed=SEED)
     loader.set_epoch(0)
     batch = next(iter(loader)).to(device)
-    res, decisions, flips = {}, [], {}
+    res, decisions, flips, caught = {}, [], {}, []
     for route, swap in (("plain", ("K1",)), ("kernels", ()), ("the plain route again", ("K1",))):
         m = copy.deepcopy(model).train()
         torch.cuda.synchronize()
@@ -3735,7 +3884,7 @@ def run_energy_force_step(label, config, graphs, device, per_step, limits):
             pin = pinned_act(m.heads_NN[0].MLP_0, decisions, flips[route])
         else:
             pin = contextlib.nullcontext()
-        with plain_versions(swap), pin:
+        with deterministic(caught), plain_versions(swap), pin:
             tot, _, preds = compute_loss(m, batch, m.cfg, True)
             tot.backward()
             torch.cuda.synchronize()
@@ -3800,7 +3949,8 @@ def run_energy_force_step(label, config, graphs, device, per_step, limits):
           f"{limits['energy-force loss']}; the plain route again {abs(ta - tp) / abs(tp):.6g}); "
           f"forces largest row {float(frow.max()):.6g}, median row {float(frow.median()):.6g} "
           f"of max |F_plain| {scale:.6g} (limits {lim}; the plain route again "
-          f"{float(again.max()):.6g}, {float(again.median()):.6g})", flush=True)
+          f"{float(again.max()):.6g}, {float(again.median()):.6g}); deterministic "
+          f"algorithms, warnings {sorted(set(caught))}", flush=True)
     check(math.isfinite(tk) and abs(tk - tp) <= limits["energy-force loss"] * abs(tp),
           f"{label}: the energy-force loss disagrees with the plain route")
     check(bool(torch.isfinite(fk).all()) and float(frow.max()) <= lim[0]
@@ -3858,6 +4008,575 @@ def run_model_cell_train(mpnn_type, graphs, device):
                                           MODEL_EF_PER_STEP[mpnn_type], MODEL_RTOL[mpnn_type]))
     print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
     return launched
+
+
+# ---------------------------------------------------------------------------
+# the multibranch GFM recipe
+
+
+# examples/multibranch/multibranch_GFM260_SC25.json as committed: EGNN
+# hidden 866, 4 conv layers, equivariant, sorted aggregation; 5 branches, each
+# with graph heads (2 x 50 shared, 3 x 889) and mlp node heads (3 x 889);
+# task weights [1, 100], MAE, batch 160, 3 pad buckets, bf16 mixed
+# precision, balanced branch sampling, AdamW 1e-3. The cells add per-branch
+# loss weights and the per-branch loss scalars, and train GFM_EPOCHS epochs
+GFM_JSON = "examples/multibranch/multibranch_GFM260_SC25.json"
+GFM_SHARES = (0.40, 0.25, 0.15, 0.12, 0.08)  # each branch's share of the data
+GFM_BRANCH_LOSS_WEIGHTS = [1.0, 2.0, 1.0, 0.5, 1.0]
+GFM_GRAPHS = 1920  # 1,728 train graphs: 11 balanced batches of 160 an epoch
+GFM_EPOCHS = 2
+GFM_SERVE_GRAPHS = 128
+# K1 and K2 per step (and per served batch) of the mlp-head recipe are the
+# encoder's, TRAIN_PER_STEP (conv layer 0 in bf16, layers 1-3 promoted to
+# f32, the last through K2); mlp heads launch none. With conv node heads at
+# [889, 889, 889] each of the 5 branches adds 3 equivariant EGNN convs (K1 at
+# the messages' width, the model's hidden 866, and at C = 3 for the
+# coordinate mean, f32 as the encoder's output is) and the output conv
+# through K2
+GFM_CONVHEAD_PER_STEP = {"K1": {"bfloat16/C866": 1, "float32/C866": 17,
+                                "bfloat16/C3": 1, "float32/C3": 17},
+                         "K2": {"float32/866x866": 6}}
+GFM_CONVHEAD_BATCH = 32  # the egnn_train batch (PERF.md: the batch cut)
+GFM_CONVHEAD_GRAPHS = 384  # 345 train graphs: 11 balanced batches of 32
+# gfm_train's gates are egnn_train's (TRAIN_RTOL): the same unpinned
+# comparison, read 1.27e-2 to 1.55e-2 / 2.6e-3 to 3.8e-3 in f32 beside the
+# plain route again at 5.9e-3 to 1.5e-2. The conv-head cell's step-0
+# gradients are held to K1's plain route with every decision pinned, which
+# reads far lower: f32 (2.82e-5, 5.53e-6), bf16 (9.78e-3, 5.87e-4) in five
+# runs, the pinned reference again 0 and 0; limits at about three times.
+# Its 11-step trajectory (unpinned) read 1.2e-3 to 3.1e-3 in six runs
+GFM_CONVHEAD_RTOL = {"f32 gradients": (1e-4, 2e-5), "bf16 gradients": (3e-2, 2e-3),
+                     "trajectory": 1e-2}
+# gfm_nll's 4 steps with the decisions pinned, from variances near 4: the
+# per-step relative loss difference read 7.03e-6 in four runs
+GFM_NLL_TRAJECTORY_RTOL = 2e-5
+# served answers, (largest row, median row) of max |reference| per head (a
+# ``__var`` output under its head's limit), at about three times the
+# readings of four to six runs: the server against the same bf16 cast
+# through the plain ops on its own micro-batches, energy (2.03e-7, 1.3e-8
+# to 1.9e-8), forces (5.4e-7 to 1.14e-6, 3.8e-9 to 4.0e-9), and against
+# each branch's run_prediction answers (other micro-batch compositions),
+# energy (0 to 1.6e-7, 0 to 1.5e-8), forces (0 to 1.27e-6, 0 to 6.2e-9);
+# against the f32 plain ops energy (3.24e-3, 1.96e-4), forces (3.48e-3,
+# 2.31e-5)
+GFM_SERVE_RTOL = {"bf16 plain ops": {"energy": (1e-6, 6e-8), "forces": (4e-6, 2e-8)},
+                  "f32 plain ops": {"energy": (1e-2, 6e-4), "forces": (1e-2, 7e-5)}}
+# gfm_nll's served batch with its variances against the plain route: energy
+# (9.2e-7 to 1.38e-6, 1.6e-7 to 1.84e-7), energy__var (2.84e-6 to 6.08e-6,
+# 8.4e-8 to 1.1e-7), forces (9.9e-7 to 1.35e-6, 4.81e-8), forces__var
+# (1.31e-6 to 1.75e-6, 2.9e-9 to 3.0e-9) in six runs
+GFM_NLL_SERVE_RTOL = {"energy": (2e-5, 6e-7), "forces": (5e-6, 1.5e-7)}
+# mace_nll's and mlp_per_node's served batches read 0 and 0 in six runs;
+# their limits are the mace cell's served ones
+SMALL_SERVE_RTOL = SERVE_RTOL["mace"]["bf16 plain ops"]
+# f32 step-0 gradients against K1's plain version, six runs each: mace_nll
+# (3.36e-7, 1.23e-8), the plain route again (4.9e-8 to 5.3e-8, 4.5e-20);
+# mlp_per_node (1.22e-6, 4.17e-7), the plain route again 0 and 0. gfm_nll's
+# unpinned step-0 gradients keep egnn_train's limits: (5.7e-3 to 1.96e-2,
+# 1.4e-3 to 2.7e-3), the plain route again (1.8e-3 to 1.26e-2)
+MACE_NLL_GRAD_RTOL = (1e-6, 4e-8)
+MLP_PER_NODE_GRAD_RTOL = (4e-6, 1.5e-6)
+GFM_NLL_STEPS = 4
+GFM_NLL_GRAPHS = 720  # 648 train graphs: 4 balanced batches of 160 (+ a short one)
+GFM_GROUPS = {
+    "K1 (forward)": ["sorted_segment_sum_"],
+    "K2 (forward, with its row-pointer and W-layout kernels)":
+        ["fused_edge_kernel", "rowptr_kernel", "prep_w_kernel"],
+    "f32 GEMMs (cuBLAS and CUTLASS, forward and backward)": ["gemm_f32f32", "sgemm"],
+    "bf16 GEMMs": ["bf16_s16816gemm"],
+    "AdamW and the guard's copy (multi-tensor kernels)": ["multi_tensor_apply"],
+    "the branch banks' einsums and gathers (bmm, gather)": ["bmm", "gather"],
+    "gathers' backwards (index_add_, indexing backward)":
+        ["indexing_backward", "indexFuncLargeIndex", "index_add"],
+}
+OPTIMIZER_KINDS = ("Adagrad", "RMSprop", "Adamax", "Adadelta", "LAMB", "FusedLAMB")
+OPT_STEPS = 3
+OPT_RTOL = 1e-6  # card against CPU copies, of each tensor's largest value
+MLP_PER_NODE_PER_UNIT = {"K1": {"bfloat16/C4": 1, "bfloat16/C256": 1}}
+MLP_PER_NODE_STEP = {"K1": {"float32/C4": 1, "float32/C256": 1}}
+MACE_NLL_PER_UNIT = {"K1": {"bfloat16/C2304": 2}}
+MACE_NLL_STEP = {"K1": {"float32/C2304": 2}}
+
+
+def gfm_config(node_type: str = "mlp", batch_size: int = 0, loss: str = "",
+               num_epoch: int = GFM_EPOCHS):
+    """The committed GFM recipe, with ``GFM_BRANCH_LOSS_WEIGHTS`` and the
+    per-branch loss scalars, ``num_epoch`` epochs; ``node_type``,
+    ``batch_size`` and ``loss`` override the recipe's where given."""
+    config = json.loads((REPO / GFM_JSON).read_text())
+    config["Verbosity"] = {"level": 0}
+    arch = config["NeuralNetwork"]["Architecture"]
+    arch.update(branch_loss_weights=list(GFM_BRANCH_LOSS_WEIGHTS), branch_loss_metrics=True)
+    for head in arch["output_heads"]["node"]:
+        head["architecture"]["type"] = node_type
+    training = config["NeuralNetwork"]["Training"]
+    training["num_epoch"] = num_epoch
+    if batch_size:
+        training["batch_size"] = batch_size
+    if loss:
+        training["loss_function_type"] = loss
+    return config
+
+
+def gfm_dataset(n: int):
+    """``n`` OC20-shaped graphs, each drawn into one of the 5 branches
+    (``dataset_id``) with the uneven shares ``GFM_SHARES``, from the seed."""
+    import dataclasses
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+
+    ids = np.random.default_rng(SEED).choice(len(GFM_SHARES), size=n, p=GFM_SHARES)
+    return [dataclasses.replace(g, dataset_id=int(i))
+            for g, i in zip(oc20_shaped_dataset(n), ids)]
+
+
+def branch_shares(label: str, splits, config, epochs: int) -> None:
+    """Each branch's share of the data and of the train loader's draws over
+    ``epochs`` epochs (balanced sampling: a fifth each)."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.api import prepare_data
+
+    _, (loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
+    draws = []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        draws += [b.dataset_id.numpy()[b.graph_mask.numpy()] for b in loader]
+    draws = np.concatenate(draws)
+    data = np.bincount([g.dataset_id for g in splits[0]], minlength=5) / len(splits[0])
+    share = np.bincount(draws, minlength=5) / draws.size
+    print(f"{label}: branch shares of the train split {np.round(data, 4).tolist()}, of the "
+          f"{draws.size} draws over {epochs} epochs {np.round(share, 4).tolist()}", flush=True)
+    check(bool(np.all(np.abs(share - 0.2) < 0.05)), f"{label}: the draws are not balanced")
+
+
+def run_gfm_train(graphs, device):
+    """``gfm_train``: the committed GFM recipe at full width through K1 and
+    K2 (``run_cell_train``: step-0 gradients in f32 and bf16 against their
+    plain versions, the 22-step trajectories, launches per step, ms per
+    step, peak memory, a profiled step, ``api.run_training`` for 2 epochs),
+    with each branch's share of the draws. Returns the launches."""
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+
+    label = "gfm_train"
+    t0 = time.perf_counter()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    config = gfm_config()
+    branch_shares(label, splits, config, GFM_EPOCHS)
+    launched = run_cell_train(label, config, graphs, device, TRAIN_PER_STEP, ("K1", "K2"),
+                              TRAIN_RTOL, GFM_GROUPS, epochs=GFM_EPOCHS, splits=splits)
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
+def gfm_prediction_hook(config, graphs, device):
+    """Served answers against ``api.run_prediction`` (restored from the
+    same checkpoint) over the served graphs, branch by branch."""
+    def hook(server, requests, results):
+        import numpy as np
+
+        from hydragnn_tpu_torch.api import run_prediction
+        from hydragnn_tpu_torch.data.pipeline import split_dataset
+
+        tr, va, _ = split_dataset(graphs, 0.9, seed=0)
+        _, _, preds, _ = run_prediction(copy.deepcopy(config), datasets=(tr, va, graphs),
+                                        device=device)
+        offs = np.cumsum([0] + [g.num_nodes for g in graphs])
+        branch = np.asarray([g.dataset_id for g in graphs])
+        for b in range(len(GFM_SHARES)):
+            idx = np.nonzero(branch == b)[0]
+            check(idx.size > 0, f"gfm: no request of branch {b}")
+            line = []
+            for k, (lim_max, lim_med) in GFM_SERVE_RTOL["bf16 plain ops"].items():
+                want = [preds[k][i:i + 1] if k == "energy" else preds[k][offs[i]:offs[i + 1]]
+                        for i in idx]
+                got = [results[i].get(k).reshape(w.shape) for i, w in zip(idx, want)]
+                scale = max(float(np.abs(w).max()) for w in want)
+                rows = np.concatenate([np.abs(g - w).max(axis=1) for g, w in zip(got, want)])
+                rel = rows / max(scale, 1e-12)
+                line.append(f"{k} largest {float(rel.max()):.3g} median "
+                            f"{float(np.median(rel)):.3g} (limits {(lim_max, lim_med)})")
+                check(float(rel.max()) <= lim_max and float(np.median(rel)) <= lim_med,
+                      f"gfm: branch {b}'s served {k} disagrees with run_prediction")
+            print(f"serve gfm: branch {b} ({idx.size} graphs) against run_prediction: "
+                  + "; ".join(line), flush=True)
+    return hook
+
+
+def run_gfm_serving(graphs, device):
+    """``gfm``: ``api.run_server`` restores gfm_train's checkpoint and
+    answers N_REQUESTS requests over the 5 branches (each request's
+    ``dataset_id`` picks its decoder), held against the plain ops on the
+    server's own micro-batches and against run_prediction per branch."""
+    t0 = time.perf_counter()
+    config = gfm_config()
+    SERVE_RTOL.setdefault("gfm", GFM_SERVE_RTOL)
+    launched = run_serving("gfm", config, graphs, device, N_REQUESTS, TRAIN_PER_STEP,
+                           hook=gfm_prediction_hook(config, graphs, device))
+    print(f"serve gfm: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
+def run_gfm_convhead_train(graphs, device):
+    """``gfm_convhead_train``: the recipe with conv node heads at
+    [889, 889, 889] (5 branches of 4 EGNN convs, the last through K2), batch
+    32, trained as gfm_train for 1 epoch, with the first step's peak
+    memory. Returns the launches."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "gfm_convhead_train"
+    t0 = time.perf_counter()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    config = gfm_config("conv", batch_size=GFM_CONVHEAD_BATCH, num_epoch=1)
+    done, (loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    state = _train_copy(create_model(done, device=device, seed=SEED), device)
+    params = sum(p.numel() for p in state.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    make_train_step(state.model, mixed_precision=True)(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: {params} parameters; the first step of {int(batch.graph_mask.sum())} "
+          f"graphs ({int(batch.edge_mask.sum())} edges): peak memory {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB over the state's "
+          f"{base / 2**30:.2f} GiB); at batch 160 (x{160 / GFM_CONVHEAD_BATCH:.0f} the "
+          f"activations) about {(base + (peak - base) * 160 / GFM_CONVHEAD_BATCH) / 2**30:.1f} "
+          f"GiB", flush=True)
+    del state
+    branch_shares(label, splits, config, 1)
+    # the step-0 gradients with every activation held to K1's plain
+    # route's decisions: 8 convs deep, the f32 step through K2's kernel alone
+    # read 3.22e-2 against the plain route in one parameter of a head chain
+    # (over egnn_train's limit, 3e-2), and the plain route against itself
+    # 3.29e-2 with PyTorch's atomics: roundings flip ReLUs
+    launched = run_cell_train(label, config, graphs, device, GFM_CONVHEAD_PER_STEP,
+                              ("K1", "K2"), GFM_CONVHEAD_RTOL, GFM_GROUPS, epochs=1,
+                              splits=splits, min_steps=10, pinned_grads=True)
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
+def _outputs_gate(label, what, got, want, mask_of, limits):
+    """Every output of ``got`` against ``want`` on real rows, (largest
+    row, median row) of each output's max |want| within ``limits`` (by
+    output, a ``__var`` output under its head's limit)."""
+    import numpy as np
+
+    line = []
+    for k, w in want.items():
+        m = mask_of(k).cpu().numpy()
+        w = w.float().cpu().numpy()[m]
+        g = got[k].float().cpu().numpy()[m]
+        rows = np.abs(g - w).reshape(w.shape[0], -1).max(axis=1) / max(
+            float(np.abs(w).max()), 1e-12)
+        lim = limits[k.split("__")[0]]
+        line.append(f"{k} ({float(rows.max()):.3g}, {float(np.median(rows)):.3g})")
+        check(bool(np.isfinite(g).all()) and float(rows.max()) <= lim[0]
+              and float(np.median(rows)) <= lim[1], f"{label}: {what}: {k} disagrees")
+    print(f"{label}: {what}: (largest row, median row) of max |reference| "
+          + ", ".join(line) + f" (limits {limits})", flush=True)
+
+
+def served_batch_gate(label, model, batch, per_unit, limits):
+    """One served batch (the server's bf16 eval cast) through the kernels
+    (launches counted) against the same cast through their plain
+    versions. Returns the launches."""
+    import torch
+
+    from hydragnn_tpu_torch.train.loop import cast_batch_bf16, mp_cast_model
+
+    wrappers = _wrappers()
+    m = mp_cast_model(model).eval()
+    b = cast_batch_bf16(batch)
+    with torch.inference_mode():
+        _zero_launches(wrappers)
+        got = m(b)
+        torch.cuda.synchronize()
+        launched = _check_launches(f"{label} served batch", wrappers, per_unit, 1, "batches")
+        with plain_versions(PLAIN):
+            want = m(b)
+
+    def mask_of(k):
+        return batch.graph_mask if k.startswith("energy") else batch.node_mask
+
+    _outputs_gate(label, "one served batch, bf16, kernels vs plain versions", got, want,
+                  mask_of, limits)
+    return launched
+
+
+def unit_variance(model) -> None:
+    """Each head's last layer: its variance half (``<name>__var`` the
+    square of it) given a bias of 2 and a tenth of its weights, in place."""
+    import torch
+
+    for head, d in zip(model.heads_NN, model.cfg.output_dim):
+        mlp = getattr(head, "MLP_0", head)
+        last = getattr(mlp, f"Dense_{len(mlp.features) - 1}")
+        with torch.no_grad():
+            last.bias[..., d:] = 2.0
+            last.weight[..., d:, :] *= 0.1
+
+
+def run_gfm_nll(graphs, mace_graphs, device):
+    """``gfm_nll``: the recipe under ``GaussianNLLLoss`` (every head twice
+    as wide, ``<name>__var`` its second half squared): one served batch with
+    its variances and step-0 gradients through K1 and K2 against their plain
+    versions, and GFM_NLL_STEPS train steps through K1 against its plain
+    version with the decisions pinned (``pinned_decisions``), the variances
+    started near 4 (``unit_variance``); then the mace cell under
+    ``GaussianNLLLoss``: one served batch and one f32 step's gradients
+    against K1's plain version. Returns the launches (GFM, MACE)."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "gfm_nll"
+    t0 = time.perf_counter()
+    config = gfm_config(loss="GaussianNLLLoss", num_epoch=1)
+    done, (loader, _, _), _ = prepare_data(copy.deepcopy(config),
+                                           split_dataset(graphs, 0.9, seed=0))
+    loader.set_epoch(0)
+    batches = list(loader)[:GFM_NLL_STEPS]
+    model = create_model(done, device=device, seed=SEED)
+    check(model.cfg.var_output, f"{label}: no variance heads")
+    launched = served_batch_gate(label, model, batches[0].to(device), TRAIN_PER_STEP,
+                                 GFM_NLL_SERVE_RTOL)
+    grads = route_gradients(model, batches[0], device,
+                            {"kernels": ((), None), "plain": (("K1", "K2"), None),
+                             "the plain route again": (("K1", "K2"), None)},
+                            lambda st: (lambda b: make_train_step(st.model)(st, b)))
+    torch.cuda.synchronize()
+    gradients_present(f"{label}: f32 step 0", grads["kernels"], grads["plain"])
+    grad_gate("f32 gradients vs plain route", grads["kernels"], grads["plain"],
+              TRAIN_RTOL["f32 gradients"], {"the plain route again": grads["the plain route again"]},
+              cell=label)
+    del grads
+    # the steps through K1's kernel against K1's plain version (K2 in both),
+    # every ReLU and variance clamp held to the plain route's decisions, from
+    # the seeded weights with each variance half's last layer given a bias of
+    # 2 and a tenth of its weights (variances near 4): at the seeded init the
+    # variances sit at the NLL's 1e-6 clamp (the largest gradient 3e6), and
+    # two routes part by ~0.77 of the loss within 4 steps unpinned, ~100x
+    # pinned, as AdamW moves every parameter by its learning rate whatever
+    # the gradient's rounding
+    unit_variance(model)
+    masks, flips, losses, skipped = [], [], {}, {}
+    wrappers = _wrappers()
+    with deterministic():
+        for route, swap in (("K1 plain", ("K1",)), ("kernels", ())):
+            state = _train_copy(model, device)
+            step = make_train_step(state.model, mixed_precision=True)
+            torch.cuda.synchronize()
+            if route == "kernels":
+                _zero_launches(wrappers)
+            out = []
+            with plain_versions(swap), pinned_decisions(
+                    masks, flips if route == "kernels" else None):
+                for b in batches:
+                    out.append(step(state, b)[1])
+                torch.cuda.synchronize()
+            if route == "kernels":
+                steps_launched = _check_launches(label, wrappers, TRAIN_PER_STEP, len(batches))
+            losses[route] = torch.stack(out).float().cpu().numpy()
+            skipped[route] = int(state.skipped_steps)
+            del state, step
+    trajectory_gate(label, losses["kernels"], losses["K1 plain"], GFM_NLL_TRAJECTORY_RTOL,
+                    f" (against K1's plain version, decisions pinned: {len(flips)} calls, "
+                    f"{sum(flips)} flipped by the kernel route's own input; deterministic "
+                    f"algorithms); guard skips {skipped}")
+    check(max(skipped.values()) == 0, f"{label}: the guard skipped a step")
+    del model
+    launched = collections.Counter(launched)
+    launched.update(steps_launched)
+
+    mlabel = "mace_nll"
+    mconfig = model_cell_config("MACE")
+    mconfig["NeuralNetwork"]["Training"]["loss_function_type"] = "GaussianNLLLoss"
+    done, (loader, _, _), _ = prepare_data(copy.deepcopy(mconfig),
+                                           split_dataset(mace_graphs, 0.9, seed=0))
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    mmodel = create_model(done, device=device, seed=SEED)
+    check(mmodel.cfg.var_output, f"{mlabel}: no variance heads")
+    mace_launched = collections.Counter(served_batch_gate(
+        mlabel, mmodel, batch.to(device), MACE_NLL_PER_UNIT, SMALL_SERVE_RTOL))
+    wrappers = _wrappers()
+    _zero_launches(wrappers)
+    grads = route_gradients(mmodel, batch, device, {"kernels": ((), None)},
+                            lambda st: (lambda b: make_train_step(st.model)(st, b)))
+    torch.cuda.synchronize()
+    mace_launched.update(_check_launches(f"{mlabel} f32 step", wrappers, MACE_NLL_STEP, 1))
+    grads.update(route_gradients(mmodel, batch, device,
+                                 {"plain": (("K1",), None),
+                                  "the plain route again": (("K1",), None)},
+                                 lambda st: (lambda b: make_train_step(st.model)(st, b))))
+    gradients_present(f"{mlabel}: f32 step 0", grads["kernels"], grads["plain"])
+    grad_gate("f32 gradients vs plain route", grads["kernels"], grads["plain"],
+              MACE_NLL_GRAD_RTOL, {"the plain route again": grads["the plain route again"]},
+              cell=mlabel)
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched, mace_launched
+
+
+def run_optimizers(graphs, device):
+    """``optimizers``: each of the six optimizers written for the port
+    (optax's semantics) takes OPT_STEPS steps on the card from one real
+    GFM batch's gradients (bf16 step through the kernels), against the same
+    steps on CPU copies: parameters and state to OPT_RTOL of each tensor's
+    largest value; then a non-finite step, which the guard must undo
+    exactly (parameters and state bit for bit)."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from hydragnn_tpu_torch.train.guard import guarded_update, step_ok
+    from hydragnn_tpu_torch.train.optimizer import optimizer_step, state_tensors
+
+    label = "optimizers"
+    t0 = time.perf_counter()
+    done, (loader, _, _), _ = prepare_data(copy.deepcopy(gfm_config(num_epoch=1)),
+                                           split_dataset(graphs, 0.9, seed=0))
+    loader.set_epoch(0)
+    model = create_model(done, device=device, seed=SEED)
+    state = _train_copy(model, device)
+    make_train_step(state.model, mixed_precision=True)(state, next(iter(loader)))
+    grads = [p.grad.detach().clone() for p in state.model.parameters()]
+    del state
+    # three steps' gradients: the batch's, scaled and flipped
+    scales = (1.0, -0.5, 2.0)
+    worst = {}
+    for kind in OPTIMIZER_KINDS:
+        opt_config = {"type": kind, "learning_rate": 1e-3}
+        card = copy.deepcopy(model)
+        host = copy.deepcopy(model).cpu()
+        sc = TrainState.create(card, make_optimizer(card, opt_config))
+        oh = make_optimizer(host, opt_config)
+        t1 = time.perf_counter()
+        for k in range(OPT_STEPS):
+            for p, g in zip(card.parameters(), grads):
+                p.grad = g * scales[k]
+            optimizer_step(sc.optimizer, [p.grad for p in card.parameters()])
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t1) * 1e3 / OPT_STEPS
+        for k in range(OPT_STEPS):
+            for p, g in zip(host.parameters(), grads):
+                p.grad = g.cpu() * scales[k]
+            optimizer_step(oh, [p.grad for p in host.parameters()])
+        pairs = list(zip(list(card.parameters()) + list(state_tensors(sc.optimizer)),
+                         list(host.parameters()) + list(state_tensors(oh))))
+        check(len(list(state_tensors(sc.optimizer))) >= len(grads),
+              f"{label}: {kind} keeps no state")
+        rel = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  / max(float(b.detach().abs().max()), 1e-30) for a, b in pairs)
+        worst[kind] = rel
+        # the guard: a step with a non-finite gradient leaves the parameters
+        # and the state exactly as they were
+        before = [t.clone() for t in sc.held]
+        for p, g in zip(card.parameters(), grads):
+            p.grad = g.clone()
+        card_grads = [p.grad for p in card.parameters()]
+        card_grads[0].view(-1)[0] = float("nan")
+        sc.guard.save()
+        with torch.no_grad():
+            guarded_update(sc, step_ok(torch.ones((), device=device), card_grads),
+                           lambda: optimizer_step(sc.optimizer, card_grads))
+        restored = all(torch.equal(a, b) for a, b in zip(before, sc.held))
+        print(f"{label}: {kind}: {OPT_STEPS} steps on the card, {card_ms:.2f} ms a step; "
+              f"parameters and state against CPU copies: largest difference {rel:.3g} of the "
+              f"tensor's largest value (limit {OPT_RTOL}); a non-finite step undone exactly "
+              f"{restored} (skips {int(sc.skipped_steps)})", flush=True)
+        check(rel <= OPT_RTOL, f"{label}: {kind} on the card parts from its CPU copy")
+        check(restored and int(sc.skipped_steps) == 1, f"{label}: {kind}: the guard failed")
+        del card, host, sc, oh
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mlp_per_node_config():
+    """The JAX package's mlp_per_node training test's model
+    (tests/test_training.py ``pytest_train_mlp_per_node_head``: GIN, an
+    ``mlp_per_node`` node head [10, 10] alone, task weight 1), here at the
+    zoo's width (hidden 256, 2 conv layers), batch 16, bf16, sorted
+    aggregation, over graphs of varying size as that test's fixture has
+    them: each node decoded by the MLP of its position in its graph, modulo
+    the first training graph's size."""
+    config = pna_cell_config("GIN", layers=2)
+    nn_cfg = config["NeuralNetwork"]
+    nn_cfg["Architecture"].update(
+        task_weights=[1.0],
+        output_heads={"node": {"num_headlayers": 2, "dim_headlayers": [10, 10],
+                               "type": "mlp_per_node"}})
+    nn_cfg["Variables_of_interest"].update(output_names=["forces"], output_index=[2],
+                                           type=["node"])
+    return config
+
+
+def run_mlp_per_node(graphs, device):
+    """``mlp_per_node``: one served batch and one f32 step's gradients
+    through K1 against its plain version. Returns the launches."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "mlp_per_node"
+    done, (loader, _, _), _ = prepare_data(mlp_per_node_config(),
+                                           split_dataset(graphs, 0.9, seed=0))
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    model = create_model(done, device=device, seed=SEED)
+    head = model.heads_NN[0].VmapMLP_0.Dense_0.weight
+    print(f"{label}: GIN hidden 256, 2 conv layers, per-node MLP bank {tuple(head.shape)} "
+          f"(branches, node positions, out, in)", flush=True)
+    launched = collections.Counter(served_batch_gate(
+        label, model, batch.to(device), MLP_PER_NODE_PER_UNIT, SMALL_SERVE_RTOL))
+    wrappers = _wrappers()
+    _zero_launches(wrappers)
+    grads = route_gradients(model, batch, device, {"kernels": ((), None)},
+                            lambda st: (lambda b: make_train_step(st.model)(st, b)))
+    torch.cuda.synchronize()
+    launched.update(_check_launches(f"{label} f32 step", wrappers, MLP_PER_NODE_STEP, 1))
+    grads.update(route_gradients(model, batch, device,
+                                 {"plain": (("K1",), None),
+                                  "the plain route again": (("K1",), None)},
+                                 lambda st: (lambda b: make_train_step(st.model)(st, b))))
+    gradients_present(f"{label}: f32 step 0", grads["kernels"], grads["plain"])
+    grad_gate("f32 gradients vs plain route", grads["kernels"], grads["plain"],
+              MLP_PER_NODE_GRAD_RTOL, {"the plain route again": grads["the plain route again"]},
+              cell=label)
+    return launched
+
+
+def run_gfm_phases(device, gfm_graphs, oc20, mace_graphs):
+    """Every GFM phase in order; returns the launches of the GFM recipe's
+    phases (counted against the ``gfm/`` kernel cases) and of the rest."""
+    gfm = collections.Counter()
+    rest = collections.Counter()
+    gfm.update(run_gfm_train(gfm_graphs, device))
+    gfm.update(run_gfm_serving(gfm_graphs[:GFM_SERVE_GRAPHS], device))
+    gfm.update(run_gfm_convhead_train(gfm_graphs[:GFM_CONVHEAD_GRAPHS], device))
+    nll, mace = run_gfm_nll(gfm_graphs[:GFM_NLL_GRAPHS], mace_graphs, device)
+    gfm.update(nll)
+    rest.update(mace)
+    run_optimizers(gfm_graphs[:GFM_SERVE_GRAPHS], device)
+    rest.update(run_mlp_per_node(oc20, device))
+    return gfm, rest
 
 
 def main() -> None:
@@ -3955,6 +4674,18 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
             nmax = int(done["NeuralNetwork"]["Architecture"]["max_nodes_per_graph"])
             cases += gps_kernel_cases(batch, device, nmax)
     cases += zoo_kernel_cases(first["pnaplus"], first["schnet_md17"], device)
+    # the GFM recipe's batch of 160 (its K1 and K2 cases, named gfm/)
+    t0 = time.perf_counter()
+    gfm_graphs = gfm_dataset(GFM_GRAPHS)
+    print(f"gfm_dataset({GFM_GRAPHS}) in {time.perf_counter() - t0:.2f} s", flush=True)
+    _, (gfm_loader, _, _), _ = prepare_data(gfm_config(), datasets=split_dataset(
+        gfm_graphs, 0.9, seed=0))
+    gfm_loader.set_epoch(0)
+    batch = next(iter(gfm_loader))
+    print(f"batch gfm: {int(batch.graph_mask.sum())} graphs, "
+          f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
+          f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
+    cases += egnn_kernel_cases(batch, device, prefix="gfm/", k2_dtypes=(torch.float32,))
     t0 = time.perf_counter()
     topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
     topology_s = time.perf_counter() - t0
@@ -4023,6 +4754,12 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                                 device, ZOO_PER_UNIT))
         print(f"zoo: phase in {time.perf_counter() - t0:.1f} s", flush=True)
         launched.update(run_schnet_md17(md17, device, MD17_PER_UNIT, MD17_EPOCHS))
+        t0 = time.perf_counter()
+        gfm_launched, rest = run_gfm_phases(device, gfm_graphs, oc20,
+                                            oc20_shaped_dataset(MODEL_TRAIN_GRAPHS))
+        launched.update({(k, f"gfm/{c}"): n for (k, c), n in gfm_launched.items()})
+        launched.update(rest)
+        print(f"gfm phases in {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .config import get_log_name_config, load_config, update_config
 from .data.graph import Graph, SpecLadder
-from .data.pipeline import GraphLoader, _pack_spec
+from .data.pipeline import GraphLoader, _pack_spec, branch_sample_weights
 from .device import DeviceLike, resolve_device
 
 
@@ -31,12 +31,29 @@ def _as_config(config) -> Dict[str, Any]:
     raise TypeError(f"config must be a dict or str path, got {type(config)}")
 
 
+def wants_transforms(dataset_cfg: Dict[str, Any]) -> bool:
+    """Whether the Dataset section asks for a load-time transform
+    (``rotational_invariance``, ``edge_features``, ``Descriptors``)."""
+    return bool(dataset_cfg.get("rotational_invariance") or dataset_cfg.get("edge_features")
+                or dataset_cfg.get("Descriptors"))
+
+
 def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None):
     """Complete the config from the data and build the loaders; returns
     ``(completed config, (train, val, test) loaders, minmax)``.
 
     ``datasets`` is the (train, val, test) split of model-ready graphs.
-    Loading raw datasets from ``Dataset.path`` comes with a later slice."""
+    Each split passes the sample validator of ``Dataset.bad_sample_policy``
+    first, as in the JAX package. The train loader draws with replacement
+    under ``Training.oversampling`` (``num_samples`` draws, default the
+    split's size), weighted so every branch gets the same share of the
+    draws under ``Training.balance_branch_sampling``, and takes the first
+    ``num_samples`` of its shuffle otherwise; ``size_bucketed_batching``
+    composes batches of like-sized graphs (the ladder simulates the same
+    policy). Loading raw datasets from ``Dataset.path``, the load-time
+    transforms (``wants_transforms``) and the ``Mixture`` section come with
+    later slices and raise ``NotImplementedError``."""
+    from .data.validate import SampleValidator
     from .models.create import conv_needs_triplets
 
     config = _as_config(config)
@@ -45,12 +62,27 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
             "prepare_data needs explicit (train, val, test) datasets; loading "
             "raw datasets from the Dataset section comes with a later slice"
         )
-    trainset, valset, testset = (list(d) for d in datasets)
+    if wants_transforms(config.get("Dataset", {})):
+        raise NotImplementedError(
+            "the Dataset section's load-time transforms (rotational_invariance, "
+            "edge_features, Descriptors) come with the dataset slice of the port (a later "
+            "slice)")
+    if config.get("Mixture"):
+        raise NotImplementedError(
+            "the Mixture section (the streaming multi-source sampler and its branch loss "
+            "weights) comes with the mixture plane of the port (a later slice); set "
+            "Architecture.branch_loss_weights and Training.balance_branch_sampling instead")
+    validator = SampleValidator(
+        str(config.get("Dataset", {}).get("bad_sample_policy", "warn_skip")))
+    trainset, valset, testset = (
+        validator.filter(list(d), source=src)
+        for d, src in zip(datasets, ("train", "val", "test")))
     config = update_config(config, trainset, valset, testset)
     training = config["NeuralNetwork"]["Training"]
     arch = config["NeuralNetwork"]["Architecture"]
     batch_size = int(training["batch_size"])
     pack = bool(training.get("pack_batches", False))
+    size_bucketing = bool(training.get("size_bucketed_batching", False))
     everything: List[Graph] = trainset + valset + testset
     # a conv that reads triplets (DimeNet) has them budgeted in the pad specs
     with_triplets = conv_needs_triplets(arch["mpnn_type"])
@@ -60,13 +92,18 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
     else:
         spec = SpecLadder.for_dataset(
             everything, batch_size, num_buckets=int(training["num_pad_buckets"]),
-            with_triplets=with_triplets,
+            with_triplets=with_triplets, size_bucketing=size_bucketing,
         )
-    kw = dict(spec=spec, pack=pack,
+    kw = dict(spec=spec, pack=pack, size_bucketing=size_bucketing, validator=validator,
               sort_edges=bool(arch.get("use_sorted_aggregation", False)))
-    train_loader = GraphLoader(trainset, batch_size, shuffle=True, seed=0, **kw)
-    val_loader = GraphLoader(valset, batch_size, shuffle=False, **kw)
-    test_loader = GraphLoader(testset, batch_size, shuffle=False, **kw)
+    balance = bool(training.get("balance_branch_sampling", False))
+    sample_weights = branch_sample_weights(trainset) if balance else None
+    train_loader = GraphLoader(
+        trainset, batch_size, shuffle=True, seed=0, source="train",
+        oversampling=bool(training.get("oversampling", False)) or balance,
+        num_samples=training.get("num_samples"), sample_weights=sample_weights, **kw)
+    val_loader = GraphLoader(valset, batch_size, shuffle=False, source="val", **kw)
+    test_loader = GraphLoader(testset, batch_size, shuffle=False, source="test", **kw)
     return config, (train_loader, val_loader, test_loader), None
 
 

@@ -11,7 +11,10 @@ port's ``HydraModel`` or ``MACEModel`` in place. The mapping is by name:
   [B, in, out] becomes [B, out, in]: the bank axis is kept);
 - every other leaf keeps its name (``bias``, ``scale``, ``coords_range``,
   the batch-norm ``mean``/``var``/``count`` buffers, MACE's ``w<l>``,
-  ``b0`` and ``w<k>_<l>``).
+  ``b0`` and ``w<k>_<l>``);
+- a leaf under a module the port builds once per branch (a ``branch_bank``
+  module: the conv node heads) is split along its leading ``[B]`` axis
+  into ``<module>.branches.<b>.<rest>``, the batch-norm statistics too.
 
 Module names are the flax ones: an auto-named layer (``Dense_<k>``,
 numbered in call order) has the same name in the port.
@@ -49,6 +52,32 @@ def torch_name(path: Tuple[str, ...]) -> Tuple[str, bool]:
     return ".".join(mods + [leaf]), False
 
 
+def torch_arrays(model: torch.nn.Module, tree: Any, where: str = ""
+                 ) -> Iterator[Tuple[str, np.ndarray, str]]:
+    """``(torch name, array in torch layout, flax path)`` for every leaf of
+    one flax collection ``tree`` (``params``, ``batch_stats``, or a
+    gradient tree of the same structure), a branch bank's leaves split per
+    branch."""
+    banks = {n: len(m.branches) for n, m in model.named_modules()
+             if getattr(m, "branch_bank", False)}
+    for path, leaf in _leaves(tree):
+        name, transpose = torch_name(path)
+        arr = np.asarray(leaf)
+        if transpose:
+            arr = np.swapaxes(arr, -1, -2)
+        at = f"{where}{'/'.join(path)}"
+        bank = next((b for b in banks if name.startswith(b + ".")), None)
+        if bank is None:
+            yield name, arr, at
+            continue
+        if arr.ndim == 0 or arr.shape[0] != banks[bank]:
+            raise ValueError(f"JAX leaf {at} shape {arr.shape} has no leading "
+                             f"[{banks[bank]}] branch axis for {bank!r}")
+        rest = name[len(bank) + 1:]
+        for b in range(banks[bank]):
+            yield f"{bank}.branches.{b}.{rest}", arr[b], at
+
+
 def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
     # the parameters and persistent buffers (constants a module builds
     # itself, such as MACE's CG tensors, are not part of the tree)
@@ -58,22 +87,16 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> Non
     if unknown:
         raise ValueError(f"unexpected variable collections {unknown}")
     for collection in ("params", "batch_stats"):
-        for path, leaf in _leaves(variables.get(collection, {})):
-            name, transpose = torch_name(path)
-            arr = np.asarray(leaf)
-            if transpose:
-                arr = np.swapaxes(arr, -1, -2)
+        for name, arr, where in torch_arrays(model, variables.get(collection, {}),
+                                             f"{collection}/"):
             t = targets.get(name)
             if t is None:
                 raise ValueError(
-                    f"JAX leaf {collection}/{'/'.join(path)} has no counterpart "
-                    f"{name!r} in the torch model"
-                )
+                    f"JAX leaf {where} has no counterpart {name!r} in the torch model")
             if tuple(t.shape) != arr.shape:
                 raise ValueError(
-                    f"JAX leaf {collection}/{'/'.join(path)} shape {arr.shape} "
-                    f"!= torch {name} shape {tuple(t.shape)}"
-                )
+                    f"JAX leaf {where} shape {arr.shape} != torch {name} shape "
+                    f"{tuple(t.shape)}")
             if name in filled:
                 raise ValueError(f"torch tensor {name!r} filled twice")
             with torch.no_grad():

@@ -98,7 +98,8 @@ def update_config(
     ``mixed_precision``, ``loss_function_type``, the checkpoint keys
     ``Checkpoint``, ``checkpoint_warmup``, ``checkpoint_retention``, the
     guard's ``non_finite_*`` policy keys, ``warmup_epochs``, ``continue``
-    and ``startfrom``). ``checkpoint_backend: "orbax"`` raises
+    and ``startfrom``), and ``Dataset.bad_sample_policy``.
+    ``checkpoint_backend: "orbax"`` raises
     ``NotImplementedError``."""
     config = copy.deepcopy(config)
     arch = config["NeuralNetwork"]["Architecture"]
@@ -283,6 +284,14 @@ def update_config(
     assert len(arch["task_weights"]) == len(output_dim), (
         f"task_weights {arch['task_weights']} must match number of heads {len(output_dim)}"
     )
+    # the sample validator's policy (data/validate.py)
+    ds_cfg = config.setdefault("Dataset", {})
+    ds_cfg.setdefault("bad_sample_policy", "warn_skip")
+    from ..data.validate import POLICIES
+
+    if ds_cfg["bad_sample_policy"] not in POLICIES:
+        raise ValueError(f"Dataset.bad_sample_policy {ds_cfg['bad_sample_policy']!r} must be "
+                         f"one of {POLICIES}")
     if config.get("Serving"):
         from ..serve.config import ServeConfig
 

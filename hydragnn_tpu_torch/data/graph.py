@@ -190,6 +190,11 @@ class PadSpec:
         )
 
 
+# batches per size-sorted window of size-bucketed batching (the loader's
+# composition and the ladder's simulation of it)
+BUCKET_WINDOW = 16
+
+
 @dataclasses.dataclass(frozen=True)
 class SpecLadder:
     """A small ascending set of pad specs: each batch takes the smallest
@@ -208,7 +213,12 @@ class SpecLadder:
         with_triplets: bool = False,
         num_sim: int = 256,
         seed: int = 0,
+        size_bucketing: bool = False,
     ) -> "SpecLadder":
+        """Levels at quantiles of simulated batch totals, plus the exact
+        worst case. The simulation follows the loader's composition: under
+        ``size_bucketing`` batches of like-sized graphs (sorted windows of
+        ``BUCKET_WINDOW`` batches), else random batches."""
         n_sizes = np.asarray([g.num_nodes for g in graphs])
         e_sizes = np.asarray([g.num_edges for g in graphs])
         t_sizes = (np.asarray([g.num_triplets for g in graphs]) if with_triplets
@@ -224,9 +234,20 @@ class SpecLadder:
         if num_buckets <= 1 or len(graphs) <= batch_size:
             return SpecLadder((worst,))
         rng = np.random.default_rng(seed)
-        picks = np.stack(
-            [rng.choice(len(graphs), size=k, replace=False) for _ in range(num_sim)]
-        )
+        if size_bucketing:
+            picks_l: List[np.ndarray] = []
+            w = max(BUCKET_WINDOW * k, k)
+            while len(picks_l) < num_sim:
+                order = rng.permutation(len(graphs))
+                for s in range(0, len(order) - k + 1, w):
+                    win = order[s: s + w]
+                    win = win[np.argsort(n_sizes[win], kind="stable")]
+                    picks_l.extend(win[b: b + k] for b in range(0, len(win) - k + 1, k))
+            picks = np.stack(picks_l[:num_sim])
+        else:
+            picks = np.stack(
+                [rng.choice(len(graphs), size=k, replace=False) for _ in range(num_sim)]
+            )
         node_tot = n_sizes[picks].sum(axis=1)
         edge_tot = e_sizes[picks].sum(axis=1)
         trip_tot = t_sizes[picks].sum(axis=1) if t_sizes is not None else None

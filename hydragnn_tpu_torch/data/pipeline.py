@@ -3,9 +3,11 @@
 Counterpart of ``hydragnn_tpu/data/pipeline.py`` for a single host. Host
 work is numpy and gives the same padded arrays as the JAX package for the
 same graphs, seed and settings; ``GraphLoader`` yields CPU ``GraphBatch``es
-that the caller moves to its device. Not ported here: the prefetch thread,
-the sample validator, host sharding, stacked shards, size bucketing,
-oversampling and the mixture plane.
+that the caller moves to its device: shuffled or weighted draws with
+replacement (``oversampling``, ``num_samples``, ``sample_weights``; the
+per-branch ``branch_sample_weights``), size-bucketed composition, packing,
+and the sample validator's gate. Not ported here: the prefetch thread,
+host sharding, stacked shards and the mixture plane.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .graph import (
+    BUCKET_WINDOW,
     Graph,
     GraphBatch,
     PadSpec,
@@ -174,6 +177,15 @@ def split_dataset(
     )
 
 
+def branch_sample_weights(graphs: Sequence[Graph]) -> np.ndarray:
+    """Per-sample draw weights giving every branch (``dataset_id``) the
+    same share of the draws, whatever its sample count
+    (``Training.balance_branch_sampling``)."""
+    ids = np.asarray([g.dataset_id for g in graphs], np.int64)
+    _, inverse, counts = np.unique(ids, return_inverse=True, return_counts=True)
+    return 1.0 / counts[inverse].astype(np.float64)
+
+
 def check_in_degree(graphs: Sequence[Graph], max_in_degree: int) -> None:
     """Raise when a graph's real in-degree exceeds the configured bound
     that ``max_in_degree`` promises the sorted-aggregation path."""
@@ -195,7 +207,18 @@ class GraphLoader:
     consecutive graphs greedily into ONE budget with a variable real-graph
     count per batch. ``sort_edges`` sorts receivers (the sorted-aggregation
     precondition). ``with_triplets`` budgets DimeNet's triplet channel in a
-    spec built here; a given spec carries it in its ``n_triplets``."""
+    spec built here; a given spec carries it in its ``n_triplets``.
+
+    An epoch's index stream is a pure function of (``seed``, epoch): with
+    ``oversampling`` ``num_samples`` (default: the dataset size) draws with
+    replacement, weighted by ``sample_weights`` when given; otherwise the
+    (shuffled) indices, cut to ``num_samples`` when set.
+    ``size_bucketing`` sorts windows of ``BUCKET_WINDOW * batch_size``
+    samples by node count and shuffles the order of the resulting batches.
+    ``validator`` (``data.validate.SampleValidator``) drops or raises on
+    bad samples at construction (under a given spec, graphs over its
+    budget too) and on graphs over the pack budget; ``source`` names this
+    loader in its tally."""
 
     def __init__(
         self,
@@ -210,7 +233,23 @@ class GraphLoader:
         max_in_degree: Optional[int] = None,
         pack: bool = False,
         with_triplets: bool = False,
+        oversampling: bool = False,
+        num_samples: Optional[int] = None,
+        sample_weights: Optional[np.ndarray] = None,
+        size_bucketing: bool = False,
+        validator=None,
+        source: str = "dataset",
     ):
+        self.validator = validator
+        self.source = source
+        if validator is not None:
+            # content checks always; budget caps only under a given spec
+            worst = spec.specs[-1] if isinstance(spec, SpecLadder) else spec
+            graphs = validator.filter(
+                graphs, source=source,
+                max_nodes=worst.n_nodes - 1 if worst is not None else None,
+                max_edges=worst.n_edges if worst is not None else None,
+            )
         self.graphs = graphs
         self.batch_size = batch_size
         self.pack = bool(pack)
@@ -221,7 +260,8 @@ class GraphLoader:
                                       else _pack_spec(graphs, batch_size, with_triplets),))
         elif spec is None:
             self.ladder = SpecLadder.for_dataset(graphs, batch_size, num_buckets=num_buckets,
-                                                 with_triplets=with_triplets)
+                                                 with_triplets=with_triplets,
+                                                 size_bucketing=size_bucketing)
         elif isinstance(spec, SpecLadder):
             self.ladder = spec
         else:
@@ -233,6 +273,19 @@ class GraphLoader:
         self.sort_edges = sort_edges
         if sort_edges and max_in_degree:
             check_in_degree(graphs, max_in_degree)
+        self.oversampling = bool(oversampling)
+        self.num_samples = num_samples
+        if sample_weights is not None:
+            if not oversampling:
+                raise ValueError("sample_weights requires oversampling=True")
+            w = np.asarray(sample_weights, np.float64)
+            if w.shape != (len(graphs),):
+                raise ValueError(f"sample_weights shape {w.shape} != ({len(graphs)},)")
+            sample_weights = w / w.sum()
+        self.sample_weights = sample_weights
+        self.size_bucketing = bool(size_bucketing)
+        self._node_counts = (np.asarray([g.num_nodes for g in graphs], np.int64)
+                             if self.size_bucketing else None)
         self.epoch = 0
         # mid-epoch resume: the first ``start_batch`` batches of the epoch
         # are skipped without being built. The epoch's order is a pure
@@ -267,10 +320,39 @@ class GraphLoader:
                 "next_batch": int(next_batch), "num_batches": int(len(self))}
 
     def _indices(self) -> np.ndarray:
-        idx = np.arange(len(self.graphs))
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        rng = np.random.default_rng(self.seed + self.epoch)
+        if self.oversampling:
+            n = self.num_samples or len(self.graphs)
+            idx = rng.choice(len(self.graphs), size=n, replace=True, p=self.sample_weights)
+        else:
+            idx = np.arange(len(self.graphs))
+            if self.shuffle:
+                rng.shuffle(idx)
+            if self.num_samples is not None:
+                idx = idx[: self.num_samples]
+        if self.size_bucketing and len(idx) > self.batch_size:
+            idx = self._bucket_order(idx)
         return idx
+
+    def _bucket_order(self, idx: np.ndarray) -> np.ndarray:
+        """``idx`` reordered so that consecutive ``batch_size`` slices hold
+        graphs of like size: sorted by node count within shuffled windows
+        of ``BUCKET_WINDOW * batch_size`` samples (the whole set when not
+        shuffling), then the full batches' order shuffled. The remainder
+        keeps its place at the end."""
+        bs = self.batch_size
+        n_full = len(idx) // bs
+        head, tail = idx[: n_full * bs], idx[n_full * bs:]
+        w = max(BUCKET_WINDOW * bs if self.shuffle else len(head), bs)
+        parts = []
+        for s in range(0, len(head), w):
+            win = head[s: s + w]
+            parts.append(win[np.argsort(self._node_counts[win], kind="stable")])
+        head = np.concatenate(parts) if parts else head
+        if self.shuffle and n_full > 1:
+            rng = np.random.default_rng((self.seed + self.epoch) ^ 0x5EEDB)
+            head = head.reshape(n_full, bs)[rng.permutation(n_full)].reshape(-1)
+        return np.concatenate([head, tail])
 
     def _pack_groups(self, idx: np.ndarray) -> List[List[int]]:
         """Greedy stream packing: consecutive samples accumulate into a bin
@@ -287,6 +369,11 @@ class GraphLoader:
             gn, ge = g.num_nodes, g.num_edges
             gt = g.num_triplets if cap_t else 0
             if gn > cap_n or ge > cap_e or gt > cap_t:
+                if self.validator is not None:  # dropped and counted, or raised
+                    self.validator.reject(
+                        g, int(i), "budget_overflow", source=self.source,
+                        detail=f"nodes={gn}, edges={ge}, triplets={gt} vs pack budget {spec}")
+                    continue
                 raise ValueError(
                     f"graph {i} (nodes={gn}, edges={ge}"
                     + (f", triplets={gt}" if cap_t else "")

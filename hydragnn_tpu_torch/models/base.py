@@ -4,7 +4,11 @@ Counterpart of ``hydragnn_tpu/models/base.py``: a conv stack over padded
 ``GraphBatch``es (each conv followed by masked batch norm and the
 activation), masked mean pooling, and branch-bank decoders whose
 parameters keep a leading ``[num_branches]`` axis, decoded densely for every
-branch and selected per graph by ``dataset_id``. With GPS global attention
+branch and selected per graph by ``dataset_id``. Node heads are a shared MLP
+(``mlp``), one MLP per node position in its graph (``mlp_per_node``), or a
+chain of the model's own conv type (``conv``), one chain per branch; under
+``var_output`` every head is twice as wide and its second half, squared,
+is the ``<name>__var`` output. With GPS global attention
 (``global_attn_engine``) the inputs are embedded with the Laplacian
 positional encodings first (``pos_emb``, ``node_emb``/``node_lin``,
 ``rel_pos_emb``) and every conv is wrapped in a ``GPSConv``.
@@ -35,7 +39,7 @@ class GraphHeadConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NodeHeadConfig:
-    nn_type: str = "mlp"  # mlp (mlp_per_node and conv: a later slice)
+    nn_type: str = "mlp"  # mlp | mlp_per_node | conv
     num_headlayers: int = 2
     dim_headlayers: Tuple[int, ...] = (10, 10)
 
@@ -56,10 +60,18 @@ class ModelConfig:
     graph_head: Optional[GraphHeadConfig] = None
     node_head: Optional[NodeHeadConfig] = None
     num_branches: int = 1
+    # static per-branch loss weights (every graph's loss weighted by its
+    # branch's entry) and the per-branch loss scalars (``branch<i>`` tasks)
+    branch_loss_weights: Optional[Tuple[float, ...]] = None
+    branch_loss_metrics: bool = False
     activation: str = "relu"
     loss_function_type: str = "mse"
     edge_dim: int = 0
     equivariance: bool = False
+    # nodes per graph of the first training graph (``mlp_per_node``)
+    num_nodes: Optional[int] = None
+    # variance heads (``GaussianNLLLoss``)
+    var_output: bool = False
     # geometry and radial bases (None: the conv's own default)
     radius: Optional[float] = None
     num_gaussians: Optional[int] = None
@@ -149,18 +161,99 @@ def get_conv_ctor(name: str):
 
 
 class MLPNode(nn.Module):
-    """Shared per-node MLP head (``nn_type == "mlp"``), its layers under
-    ``MLP_0`` as in the flax tree."""
+    """Per-node MLP head: ``mlp`` shares one MLP (its layers under
+    ``MLP_0``) across all nodes; ``mlp_per_node`` keeps one MLP per node
+    position in its graph (``VmapMLP_0``: every layer a bank of
+    ``[num_branches, num_nodes, ...]`` weights), a node at position ``p``
+    decoded by MLP ``p % num_nodes``, as in the flax tree."""
 
     def __init__(self, in_dim: int, output_dim: int, hidden_dims, activation: str,
-                 mirror_init: bool, recovery_slope: float, num_branches: int):
+                 mirror_init: bool, recovery_slope: float, num_branches: int,
+                 nn_type: str = "mlp", num_nodes: int = 0):
         super().__init__()
-        self.MLP_0 = MLP(in_dim, tuple(hidden_dims) + (output_dim,), activation,
-                         mirror_init=mirror_init, recovery_slope=recovery_slope,
-                         num_branches=num_branches)
+        self.nn_type = nn_type
+        feats = tuple(hidden_dims) + (output_dim,)
+        if nn_type == "mlp":
+            self.MLP_0 = MLP(in_dim, feats, activation, mirror_init=mirror_init,
+                             recovery_slope=recovery_slope, num_branches=num_branches)
+            return
+        if not num_nodes or num_nodes <= 0:
+            raise ValueError("mlp_per_node requires a fixed graph size (num_nodes)")
+        self.num_nodes = int(num_nodes)
+        self.VmapMLP_0 = MLP(in_dim, feats, activation, mirror_init=mirror_init,
+                             recovery_slope=recovery_slope,
+                             num_branches=(num_branches, self.num_nodes))
 
-    def forward(self, x):
-        return self.MLP_0(x)
+    def forward(self, x, batch):
+        if self.nn_type == "mlp":
+            return self.MLP_0(x)
+        pos = node_position_in_graph(batch) % self.num_nodes
+        return self.VmapMLP_0(x, rows=pos)
+
+
+def node_position_in_graph(batch) -> torch.Tensor:
+    """Index of each node within its own graph (0 .. n_g - 1): its row less
+    the first row of its graph (a padding node counts in the padding
+    graph)."""
+    n = batch.num_nodes
+    idx = torch.arange(n, device=batch.node_graph.device)
+    start = torch.full((batch.num_graphs,), n, dtype=idx.dtype, device=idx.device)
+    start = start.scatter_reduce(0, batch.node_graph.long(), idx, reduce="amin")
+    return idx - start[batch.node_graph.long()]
+
+
+class NodeConvHead(nn.Module):
+    """One branch's conv-chain node head: a conv of the model's own type per
+    width of ``dim_headlayers`` and one to ``out_dim`` (the last in its
+    final form), each followed by masked batch norm and the activation.
+    Modules are named as flax names them: ``<conv class>_<i>`` and
+    ``MaskedBatchNorm_<i>``."""
+
+    def __init__(self, cfg: "ModelConfig", out_dim: int):
+        super().__init__()
+        _, ctor = get_conv_ctor(cfg.mpnn_type)
+        self.act = get_activation(cfg.activation)
+        nh = cfg.node_head or NodeHeadConfig()
+        dims = tuple(nh.dim_headlayers) + (out_dim,)
+        in_d = vec_d = cfg.hidden_dim
+        self.names = []
+        for i, hd in enumerate(dims):
+            conv = ctor(cfg, in_d, hd, i == len(dims) - 1)
+            if hasattr(conv, "vectors_in"):  # the vectors arrive at the last width
+                conv.vectors_in(vec_d)
+                vec_d = hd
+            # a conv wider than asked (GAT's concatenated heads) says so
+            in_d = getattr(conv, "out_width", hd)
+            name = f"{type(conv).__name__}_{i}"
+            self.add_module(name, conv)
+            self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(in_d))
+            self.names.append(name)
+
+    def forward(self, x, equiv, batch):
+        inv, eq = x, equiv
+        for i, name in enumerate(self.names):
+            inv, eq = getattr(self, name)(inv, eq, batch)
+            bn = getattr(self, f"MaskedBatchNorm_{i}")
+            inv = self.act(bn(inv, batch.node_mask, train=self.training))
+        return inv
+
+
+class BranchBank(nn.Module):
+    """A module built once per branch (``branches.<b>``), each with its own
+    parameters and batch-norm statistics: the flax ``nn.vmap`` branch bank
+    of a module whose layers cannot be banked as one tensor (a conv
+    chain). ``forward`` stacks the branches' outputs to ``[B, ...]``.
+    ``bridge.py`` maps the flax tree's ``[B, ...]`` leaves onto the
+    branches (``branch_bank``)."""
+
+    branch_bank = True
+
+    def __init__(self, build, num_branches: int):
+        super().__init__()
+        self.branches = nn.ModuleList(build() for _ in range(num_branches))
+
+    def forward(self, *args):
+        return torch.stack([m(*args) for m in self.branches])
 
 
 class HydraModel(nn.Module):
@@ -222,18 +315,25 @@ class HydraModel(nn.Module):
             )
         heads = []
         for t, d in zip(cfg.output_type, cfg.output_dim):
+            out_d = d * (2 if cfg.var_output else 1)
             if t == "graph":
                 heads.append(MLP(
-                    gh.dim_sharedlayers, tuple(gh.dim_headlayers) + (d,),
+                    gh.dim_sharedlayers, tuple(gh.dim_headlayers) + (out_d,),
                     cfg.activation, mirror_init=cfg.decoder_mirror_init,
                     recovery_slope=cfg.decoder_recovery_slope, num_branches=B,
                 ))
             elif t == "node":
                 nh = cfg.node_head or NodeHeadConfig()
-                heads.append(MLPNode(
-                    cfg.hidden_dim, d, nh.dim_headlayers, cfg.activation, cfg.decoder_mirror_init,
-                    cfg.decoder_recovery_slope, B,
-                ))
+                if nh.nn_type in ("mlp", "mlp_per_node"):
+                    heads.append(MLPNode(
+                        cfg.hidden_dim, out_d, nh.dim_headlayers, cfg.activation,
+                        cfg.decoder_mirror_init, cfg.decoder_recovery_slope, B,
+                        nn_type=nh.nn_type, num_nodes=cfg.num_nodes or 0,
+                    ))
+                elif nh.nn_type == "conv":
+                    heads.append(BranchBank(lambda d=out_d: NodeConvHead(cfg, d), B))
+                else:
+                    raise ValueError(f"unknown node head type {nh.nn_type!r}")
             else:
                 raise ValueError(f"unknown head type {t!r}")
         self.heads_NN = nn.ModuleList(heads)
@@ -261,16 +361,22 @@ class HydraModel(nn.Module):
 
     def encode(self, batch):
         """Conv stack -> final invariant node features [N, hidden]."""
+        inv, equiv, _ = self._encode(batch)
+        return inv, equiv
+
+    def _encode(self, batch):
+        """(invariant features, equivariant features, the batch the convs
+        saw): the conv heads run on the same embedded batch."""
         inv, batch = self._embedding(batch)
         equiv = batch.pos
         for conv, bn in zip(self.graph_convs, self.feature_layers):
             inv, equiv = conv(inv, equiv, batch)
             inv = self.act(bn(inv, batch.node_mask, train=self.training))
-        return inv, equiv
+        return inv, equiv, batch
 
     def forward(self, batch) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        x, _ = self.encode(batch)
+        x, equiv, batch = self._encode(batch)
         x_graph = masked_global_mean_pool(x, batch.node_graph, batch.num_graphs,
                                           batch.node_mask, batch.graphs_contiguous)
         outputs: Dict[str, torch.Tensor] = {}
@@ -281,9 +387,14 @@ class HydraModel(nn.Module):
                 stacked = self.heads_NN[ihead](self.graph_shared(x_graph))  # [B, G, d]
                 row_branch = batch.dataset_id
             else:
-                stacked = self.heads_NN[ihead](x)  # [B, N, d]
+                head = self.heads_NN[ihead]
+                # [B, N, d]
+                stacked = head(x, equiv, batch) if isinstance(head, BranchBank) else head(x, batch)
                 row_branch = batch.dataset_id[batch.node_graph]
-            outputs[name] = self._select_branch(stacked, row_branch)[..., :d]
+            out = self._select_branch(stacked, row_branch)
+            outputs[name] = out[..., :d]
+            if cfg.var_output:
+                outputs[f"{name}__var"] = out[..., d:] ** 2
         return outputs
 
     def _select_branch(self, stacked, row_branch):

@@ -5,8 +5,9 @@ registered (CGCNN, DimeNet, EGNN, GAT, GIN, MFC, PAINN, PNA, PNAEq, PNAPlus,
 SAGE, SchNet) into ``HydraModel``, with GPS global attention ("multihead",
 "performer", or "ring" for one spanning graph) around any of them; MACE is
 its own model class (``MACEModel``: per-layer readouts summed), as in the
-JAX package. Variance heads (``GaussianNLLLoss``) and the "conv" and
-"mlp_per_node" node heads come with a later slice of the port.
+JAX package. Every node-head type ("mlp", "mlp_per_node", "conv"), the
+variance heads of ``GaussianNLLLoss`` and the multibranch loss weights
+(``Architecture.branch_loss_weights`` / ``branch_loss_metrics``) are read.
 """
 
 from __future__ import annotations
@@ -54,10 +55,6 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
     training = nn_cfg["Training"]
     var = nn_cfg["Variables_of_interest"]
     loss_type = training.get("loss_function_type", "mse")
-    if loss_type == "GaussianNLLLoss":
-        raise NotImplementedError(
-            "variance heads (GaussianNLLLoss) come with a later slice of the port"
-        )
 
     heads = normalize_output_heads(arch["output_heads"])
     graph_head = node_head = None
@@ -78,11 +75,6 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
             num_headlayers=a.get("num_headlayers", 2),
             dim_headlayers=tuple(a.get("dim_headlayers", (10, 10))),
         )
-        if node_head.nn_type != "mlp":
-            raise NotImplementedError(
-                f"node head type {node_head.nn_type!r} comes with a later slice of the "
-                "port; this slice serves the shared 'mlp' node head"
-            )
     return ModelConfig(
         mpnn_type=arch["mpnn_type"],
         input_dim=int(arch["input_dim"]),
@@ -95,8 +87,13 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
         graph_head=graph_head,
         node_head=node_head,
         num_branches=num_branches,
+        branch_loss_weights=(tuple(float(w) for w in arch["branch_loss_weights"])
+                             if arch.get("branch_loss_weights") else None),
+        branch_loss_metrics=bool(arch.get("branch_loss_metrics", False)),
         activation=arch.get("activation_function", "relu"),
         loss_function_type=loss_type,
+        num_nodes=arch.get("num_nodes"),
+        var_output=loss_type == "GaussianNLLLoss",
         edge_dim=int(arch.get("edge_dim") or 0),
         radius=None if arch.get("radius") is None else float(arch["radius"]),
         num_gaussians=arch.get("num_gaussians"),

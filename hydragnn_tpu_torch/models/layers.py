@@ -51,8 +51,9 @@ def _lecun_normal_(w, fan_in: int, gen: torch.Generator):
 
 
 def init_dense_weight_(w, init: Init, gen: torch.Generator) -> None:
-    """Fill a ``[out, in]`` (or banked ``[B, out, in]``) weight in place."""
-    if w.dim() == 3:
+    """Fill a ``[out, in]`` (or banked ``[B, out, in]``, ``[B, P, out, in]``)
+    weight in place."""
+    if w.dim() > 2:
         for b in range(w.shape[0]):
             init_dense_weight_(w[b], init, gen)
         return
@@ -103,23 +104,32 @@ class BankedDense(nn.Module):
     ``bias`` [B, out], each branch initialized on its own (the flax
     ``nn.vmap`` branch bank of models/base.py). A 2-D input ``[R, in]`` is
     broadcast to every branch; a 3-D ``[B, R, in]`` input is mapped branch
-    by branch. Returns ``[B, R, out]``."""
+    by branch. Returns ``[B, R, out]``.
 
-    def __init__(self, num_branches: int, in_dim: int, out_dim: int,
+    ``num_branches`` ``(B, P)`` adds a second bank axis (``weight``
+    [B, P, out, in]: ``mlp_per_node``'s one layer per node position): then
+    ``rows`` [R] picks the bank entry of each input row."""
+
+    def __init__(self, num_branches, in_dim: int, out_dim: int,
                  init: Init = ("lecun",)):
         super().__init__()
         self.init = init
-        self.weight = nn.Parameter(torch.empty(num_branches, out_dim, in_dim))
-        self.bias = nn.Parameter(torch.zeros(num_branches, out_dim))
+        bank = tuple(num_branches) if isinstance(num_branches, (tuple, list)) else (num_branches,)
+        self.weight = nn.Parameter(torch.empty(*bank, out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(*bank, out_dim))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         init_dense_weight_(self.weight, self.init, gen)
         with torch.no_grad():
             self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         dt = _promote(x, self.weight, self.bias)
         w, b = self.weight.to(dt), self.bias.to(dt)
+        if rows is not None:  # [B, R, out, in]: each row's own layer
+            w, b = w[:, rows], b[:, rows]
+            eq = "ri,broi->bro" if x.dim() == 2 else "bri,broi->bro"
+            return torch.einsum(eq, x.to(dt), w) + b
         eq = "ri,boi->bro" if x.dim() == 2 else "bri,boi->bro"
         return torch.einsum(eq, x.to(dt), w) + b[:, None, :]
 
@@ -159,7 +169,8 @@ class MLP(nn.Module):
     last (unless ``final_activation``). ``mirror_init`` draws every
     activated layer with the mirrored init; ``recovery_slope`` > 0 turns a
     relu activation into leaky relu with that slope (the decoder settings).
-    ``num_branches`` makes every layer a ``BankedDense``."""
+    ``num_branches`` makes every layer a ``BankedDense`` (``rows`` then
+    picks each row's entry of a two-axis bank)."""
 
     def __init__(self, in_dim: int, features: Sequence[int], activation: str = "relu",
                  final_activation: bool = False, mirror_init: bool = False,
@@ -180,10 +191,11 @@ class MLP(nn.Module):
             self.add_module(f"Dense_{i}", layer)
             d = f
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
         n = len(self.features)
         for i in range(n):
-            x = getattr(self, f"Dense_{i}")(x)
+            layer = getattr(self, f"Dense_{i}")
+            x = layer(x) if rows is None else layer(x, rows)
             if i < n - 1 or self.final_activation:
                 x = self.act(x)
         return x

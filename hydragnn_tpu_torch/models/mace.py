@@ -254,6 +254,7 @@ class MACEModel(nn.Module):
             in_dim = NUM_ELEMENTS if idx == 0 else c
             nonlinear = idx == cfg.num_conv_layers
             for ihead, (t, d) in enumerate(zip(cfg.output_type, cfg.output_dim)):
+                d = d * (2 if cfg.var_output else 1)
                 if nonlinear:
                     if t == "graph":
                         gh = cfg.graph_head or GraphHeadConfig()
@@ -292,7 +293,8 @@ class MACEModel(nn.Module):
         cfg = self.cfg
         outputs: Dict[str, torch.Tensor] = {}
         pooled = None
-        for ihead, (name, t) in enumerate(zip(cfg.output_names, cfg.output_type)):
+        for ihead, (name, t, d) in enumerate(zip(cfg.output_names, cfg.output_type,
+                                                 cfg.output_dim)):
             if t == "graph":
                 if pooled is None:
                     pooled = masked_global_mean_pool(scalars, batch.node_graph,
@@ -303,8 +305,13 @@ class MACEModel(nn.Module):
                 inp, rows = scalars, batch.dataset_id[batch.node_graph]
             stacked = getattr(self, f"readout{idx}_head{ihead}")(inp)  # [B, R, d]
             if cfg.num_branches == 1:
-                outputs[name] = stacked[0]
+                out = stacked[0]
             else:
                 sel = rows.long()[None, :, None].expand(1, -1, stacked.shape[-1])
-                outputs[name] = torch.gather(stacked, 0, sel)[0]
+                out = torch.gather(stacked, 0, sel)[0]
+            outputs[name] = out[..., :d]
+            if cfg.var_output:
+                # this layer's variance: the second half of its readout,
+                # squared; forward sums the layers' variances
+                outputs[f"{name}__var"] = out[..., d:] ** 2
         return outputs

@@ -28,15 +28,27 @@ from .base import register_conv
 from .layers import MLP, Dense
 
 
-def vector_state(equiv, n: int, features: int):
+def vector_state(equiv, n: int, features: int, v_proj=None):
     """The ``equiv`` slot as [N, 3, F] vectors: zeros (f32) where it holds
-    the positions, else the incoming vectors, whose width must be the
-    layer's."""
+    the positions, else the incoming vectors, mixed to the layer's width by
+    ``v_proj`` where they arrive at another (a conv node head's chain)."""
     if equiv is None or equiv.dim() == 2:
         device = None if equiv is None else equiv.device
         return torch.zeros((n, 3, features), dtype=torch.float32, device=device)
-    assert equiv.shape[-1] == features, (tuple(equiv.shape), features)
+    if equiv.shape[-1] != features:
+        assert v_proj is not None, (tuple(equiv.shape), features)
+        return v_proj(equiv)
     return equiv
+
+
+class VectorsIn:
+    """A conv whose incoming vector features may arrive at another width
+    than its own: ``vectors_in(width)`` adds the bias-free channel mixing
+    ``v_proj`` (the flax module creates it where the widths differ)."""
+
+    def vectors_in(self, width: int) -> None:
+        if width != self.node_size:
+            self.v_proj = Dense(width, self.node_size, bias=False)
 
 
 def update_clamp(t):
@@ -75,7 +87,7 @@ def painn_update(layer: nn.Module, x, v, last_layer: bool):
             v + update_clamp(a_vv[:, None, :] * uv))
 
 
-class PainnConv(nn.Module):
+class PainnConv(VectorsIn, nn.Module):
     def __init__(self, in_dim: int, node_size: int, num_radial: int, radius: float,
                  edge_dim: int = 0, last_layer: bool = False, sorted_agg: bool = False,
                  max_in_degree: int = 0):
@@ -100,7 +112,7 @@ class PainnConv(nn.Module):
     def forward(self, inv, equiv, batch):
         n = batch.num_nodes
         x = inv if self.x_proj is None else self.x_proj(inv)
-        v = vector_state(equiv, n, self.node_size)
+        v = vector_state(equiv, n, self.node_size, self._modules.get("v_proj"))
         vec, length = edge_vectors(batch.pos, batch.senders, batch.receivers, batch.edge_shifts)
         r = length[:, 0]
         unit = vec / length

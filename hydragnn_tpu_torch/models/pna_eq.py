@@ -31,11 +31,11 @@ from ..ops.radial import bessel_basis_enveloped, edge_vectors
 from ..ops.segment import segment_sum
 from .base import register_conv
 from .layers import MLP, Dense, hoisted_pair_dense
-from .painn import add_painn_update, painn_update, vector_state
+from .painn import VectorsIn, add_painn_update, painn_update, vector_state
 from .pna import pna_aggregate
 
 
-class PNAEqConv(nn.Module):
+class PNAEqConv(VectorsIn, nn.Module):
     def __init__(self, in_dim: int, node_size: int, deg_hist: Tuple[int, ...],
                  num_radial: int, radius: float, edge_dim: int = 0, last_layer: bool = False,
                  sorted_agg: bool = False, max_in_degree: int = 0, multi_agg: bool = False):
@@ -69,7 +69,7 @@ class PNAEqConv(nn.Module):
     def forward(self, inv, equiv, batch):
         n = batch.num_nodes
         x = inv if self.x_proj is None else self.x_proj(inv)
-        v = vector_state(equiv, n, self.node_size)
+        v = vector_state(equiv, n, self.node_size, self._modules.get("v_proj"))
         vec, length = edge_vectors(batch.pos, batch.senders, batch.receivers, batch.edge_shifts)
         r = length[:, 0]
         unit = vec / length

@@ -4,8 +4,9 @@ Counterpart of ``hydragnn_tpu/serve/server.py`` for the single-server
 slice:
 
 - **admission**: a bounded request queue with per-request deadlines; every
-  request passes ``data/validate.validate_graph`` and a channel-signature
-  check at the door, so a malformed request gets a typed error
+  request passes ``data/validate.validate_graph``, a channel-signature
+  check and a branch check (its ``dataset_id`` picks its decoder) at the
+  door, so a malformed request gets a typed error
   (serve/errors.py) instead of failing the requests batched beside it;
 - **micro-batcher**: admitted graphs are packed into the run's
   ``SpecLadder`` pad buckets (``select_for`` picks the smallest level that
@@ -36,7 +37,7 @@ import torch
 
 from ..data.graph import Graph, SpecLadder, batch_graphs
 from ..data.pipeline import spec_template_batches
-from ..data.validate import R_BUDGET, R_CHANNELS, describe_reason, validate_graph
+from ..data.validate import R_BRANCH, R_BUDGET, R_CHANNELS, describe_reason, validate_graph
 from ..device import DeviceLike, resolve_device
 from ..train.loop import cast_batch_bf16, mp_cast_model
 from .config import ServeConfig
@@ -165,6 +166,7 @@ class GraphServer:
             )
         self._template_graphs = clean
         self._channel_sig = _channel_signature(clean[0])
+        self._num_branches = int(getattr(getattr(model, "cfg", None), "num_branches", 1))
         self._worst = ladder.specs[-1]
         # real-graph slots are bounded by the worst spec (n_graphs counts
         # the dummy slot too)
@@ -343,6 +345,10 @@ class GraphServer:
                                 max_edges=self._worst.n_edges)
         if reason is None and self._worst.n_triplets and g.num_triplets > self._worst.n_triplets:
             reason = R_BUDGET
+        # each request's dataset_id picks its decoder branch; one outside
+        # the model's branches would index past the banked decoders
+        if reason is None and not 0 <= int(g.dataset_id) < self._num_branches:
+            reason = R_BRANCH
         if reason is not None:
             self._bump("rejected")
             raise InvalidRequestError(

@@ -4,8 +4,8 @@ Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
 ``make_eval_step``, ``train_epoch``, ``evaluate``, ``EarlyStopping``,
 ``BestCheckpoint``, ``train_validate_test`` and ``test_model``, with the
 JAX package's recovery plane (the non-finite policy, the warmup ramp, the
-SIGTERM stop mid-epoch and at the epoch boundary, mid-epoch resume, and
-``HYDRAGNN_VALTEST`` / ``HYDRAGNN_MAX_NUM_BATCH``), without its numerics
+SIGTERM stop mid-epoch and at the epoch boundary, mid-epoch resume, ``HYDRAGNN_VALTEST`` / ``HYDRAGNN_MAX_NUM_BATCH``,
+``HYDRAGNN_STEP_GUARD`` and ``HYDRAGNN_DUMP_TESTDATA``), without its numerics
 and fault-injection hooks, compile plane, and telemetry and tracing
 planes.
 
@@ -23,6 +23,9 @@ read them once, at the end of the epoch.
 from __future__ import annotations
 
 import copy
+import os
+import pickle
+import sys
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,22 +87,30 @@ def _apply_fn(model, mixed_precision: bool, cast_buffers: bool) -> Callable:
     return apply
 
 
+def guard_enabled() -> bool:
+    """``HYDRAGNN_STEP_GUARD``: on unless set to anything but ``1``, as the
+    JAX package reads it."""
+    return envflags.env_force("HYDRAGNN_STEP_GUARD") is not False
+
+
 def make_train_step(model, compute_grad_energy: bool = False,
                     mixed_precision: bool = False):
     """``train_step(state, batch) -> (state, loss, per-task losses)``: one
     optimizer step of ``state`` (updated in place) on ``batch``, the losses
     as device tensors. ``compute_grad_energy`` trains the energy-force
-    objective. Where ``state.guard`` is set (``TrainState.create``'s
-    default) a step whose loss or global gradient norm is not finite is
-    skipped on the device (train/guard.py). The update is
-    ``optimizer_step`` (the optimizer's clip, then its step)."""
+    objective. Where the guard is on (``guard_enabled()``, read here) and
+    ``state.guard`` is set (``TrainState.create``'s default) a step whose
+    loss or global gradient norm is not finite is skipped on the device
+    (train/guard.py). The update is ``optimizer_step`` (the optimizer's
+    clip, then its step)."""
     apply = _apply_fn(model, mixed_precision, cast_buffers=False)
+    guarded = guard_enabled()
 
     def train_step(state: TrainState, batch: GraphBatch):
         batch = batch.to(module_device(model), non_blocking=True)
         if mixed_precision:
             batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
-        return step_on(state, model, batch, apply, compute_grad_energy, guard=True)
+        return step_on(state, model, batch, apply, compute_grad_energy, guard=guarded)
 
     return train_step
 
@@ -267,7 +278,9 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     the last measured val/test losses; at an epoch boundary it saves the
     state. Returns the final state (the best one when early stopping or
     checkpointing is on, unless ``Training.return_best`` says otherwise)
-    and the loss history ``{"train", "val", "test", "lr"}``."""
+    and the loss history ``{"train", "val", "test", "lr"}``, with the
+    epochs' mean per-task train losses (the ``branch<i>`` totals of a
+    multibranch model included) under ``"train_tasks"``."""
     training = config["NeuralNetwork"]["Training"]
     do_valtest = envflags.env_flag("HYDRAGNN_VALTEST") is not False
     compute_grad_energy = bool(training.get("compute_grad_energy", False))
@@ -292,7 +305,10 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     # at the base LR; the plateau scheduler engages after it
     warmup_epochs = int(training.get("warmup_epochs", 0))
     base_lr = state.learning_rate
-    hist: Dict[str, List[float]] = {"train": [], "val": [], "test": [], "lr": []}
+    hist: Dict[str, List[Any]] = {"train": [], "val": [], "test": [], "lr": [],
+                                  "train_tasks": []}
+    validator = getattr(train_loader, "validator", None)
+    reported_skips = 0
     best_val, best_state = float("inf"), None
     preemption.install()
     try:
@@ -300,8 +316,14 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
             if warmup_epochs and epoch < warmup_epochs:
                 state = state.with_learning_rate(base_lr * (epoch + 1) / warmup_epochs)
             train_loader.set_epoch(epoch)
-            state, tr_loss, _, cursor = train_epoch(train_loader, step_fn, state)
+            state, tr_loss, tr_tasks, cursor = train_epoch(train_loader, step_fn, state)
             hist["train"].append(tr_loss)
+            hist["train_tasks"].append(tr_tasks)
+            if validator is not None and validator.skipped_total != reported_skips:
+                # the data plane's skips, said at the epoch boundary
+                reported_skips = validator.skipped_total
+                print(f"[{log_name}] epoch {epoch}: data-plane skips: {validator.tally()}",
+                      file=sys.stderr)
             if cursor is not None:
                 # SIGTERM between steps: save the state and the loader's
                 # cursor now (the grace window is ticking: no val/test, no
@@ -338,8 +360,10 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 state = state.with_learning_rate(scheduler.step(va_loss, state.learning_rate))
             hist["lr"].append(state.learning_rate)
             if verbosity > 0:
+                branches = "".join(f" {k} {v:.5f}" for k, v in tr_tasks.items()
+                                   if k.startswith("branch"))
                 print(f"[{log_name}] epoch {epoch}: train {tr_loss:.5f} val {va_loss:.5f} "
-                      f"test {te_loss:.5f} lr {state.learning_rate:.2e}")
+                      f"test {te_loss:.5f} lr {state.learning_rate:.2e}{branches}")
             if return_best and va_loss < best_val:
                 best_val, best_state = va_loss, state.state_dict()
             if checkpointer is not None:
@@ -390,6 +414,14 @@ def test_model(model, loader, mixed_precision: bool = False,
             preds[name].append(pred[mask].numpy())
             trues[name].append(target[mask].numpy())
     tot, tasks = _weighted_avg(entries)
-    return (tot, tasks,
-            {k: np.concatenate(v) for k, v in preds.items()},
-            {k: np.concatenate(v) for k, v in trues.items()})
+    preds_flat = {k: np.concatenate(v) for k, v in preds.items()}
+    trues_flat = {k: np.concatenate(v) for k, v in trues.items()}
+    # HYDRAGNN_DUMP_TESTDATA: "0"/"false" off, "1"/"true" the default
+    # directory logs/testdata, anything else the directory
+    dump = envflags.env_str("HYDRAGNN_DUMP_TESTDATA", "")
+    if dump and dump.lower() not in ("0", "false"):
+        path = dump if dump.lower() not in ("1", "true") else os.path.join("logs", "testdata")
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "testdata_rank0.pkl"), "wb") as f:
+            pickle.dump({"preds": preds_flat, "trues": trues_flat}, f)
+    return tot, tasks, preds_flat, trues_flat

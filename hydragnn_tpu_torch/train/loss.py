@@ -6,8 +6,11 @@ entry point of the train and eval steps; with ``compute_grad_energy`` the
 model's single node head predicts per-node energy, the graph energy is its
 masked sum per graph and the forces are ``-dE/dpos``, taken with
 ``create_graph=True`` so a loss on them trains the parameters (a double
-backward through every op of the forward). Variance heads (Gaussian NLL)
-come with a later slice.
+backward through every op of the forward). Under ``GaussianNLLLoss`` each
+head's loss is the Gaussian negative log likelihood of its ``__var``
+output. A multibranch model weights every graph's loss by its branch's
+``branch_loss_weights`` entry and, with ``branch_loss_metrics``, reports
+the per-branch totals as ``branch<i>`` task losses.
 """
 
 from __future__ import annotations
@@ -44,22 +47,77 @@ def head_loss(pred, target, mask, loss_type: str, row_weights=None):
     return loss
 
 
+def gaussian_nll(pred, var, target, mask, eps: float = 1e-6, row_weights=None):
+    """Gaussian negative log likelihood with a predicted variance (torch's
+    ``GaussianNLLLoss`` with ``full=False``): the masked mean of
+    ``0.5 (log v + (pred - target)^2 / v)``, ``v = max(var, eps)``."""
+    return masked_mean(_nll_elementwise(pred, var, target, eps), mask, row_weights)
+
+
+def _nll_elementwise(pred, var, target, eps: float = 1e-6):
+    v = torch.clamp(var, min=eps)
+    return 0.5 * (torch.log(v) + (pred - target) ** 2 / v)
+
+
+def _per_branch_head_loss(per_elem, mask, branch_of_row, num_branches: int, loss_type: str):
+    """[num_branches] masked means of one head's per-element loss, each
+    over the rows of its branch."""
+    m = mask.reshape(mask.shape + (1,) * (per_elem.dim() - mask.dim())).to(per_elem.dtype)
+    dims = tuple(range(1, per_elem.dim()))
+    row_num = torch.sum(per_elem * m, dim=dims)
+    row_den = torch.sum(m.expand_as(per_elem), dim=dims)
+    seg = torch.clamp(branch_of_row.long(), 0, num_branches - 1)
+    num = row_num.new_zeros(num_branches).index_add(0, seg, row_num)
+    den = row_den.new_zeros(num_branches).index_add(0, seg, row_den)
+    out = num / torch.clamp(den, min=1.0)
+    return torch.sqrt(out) if loss_type.lower() == "rmse" else out
+
+
 def multitask_loss(outputs: Dict[str, torch.Tensor], batch, cfg
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total weighted loss + per-task unweighted losses."""
+    """Total weighted loss + per-task unweighted losses (and, for a
+    multibranch model with ``branch_loss_metrics``, the per-branch totals
+    as ``branch<i>``)."""
+    B = int(cfg.num_branches)
+    graph_branch = batch.dataset_id.long()
+    gw = None
+    if B > 1 and cfg.branch_loss_weights:
+        w_arr = torch.tensor(cfg.branch_loss_weights, dtype=torch.float32,
+                             device=graph_branch.device)
+        gw = w_arr[torch.clamp(graph_branch, 0, B - 1)]
+    want_branch = B > 1 and cfg.branch_loss_metrics
+    branch_tot = None
     tot = 0.0
     tasks: Dict[str, torch.Tensor] = {}
     for name, t, w in zip(cfg.output_names, cfg.output_type,
                           cfg.normalized_task_weights):
         pred = outputs[name]
         if t == "graph":
-            target, mask = batch.graph_targets[name], batch.graph_mask
+            target, mask, rows = batch.graph_targets[name], batch.graph_mask, graph_branch
+            row_w = gw
         else:
             target, mask = batch.node_targets[name], batch.node_mask
-        task = head_loss(pred, target.reshape(pred.shape), mask,
-                         cfg.loss_function_type)
+            rows = graph_branch[batch.node_graph]
+            row_w = None if gw is None else gw[batch.node_graph]
+        target = target.reshape(pred.shape)
+        if cfg.var_output:
+            task = gaussian_nll(pred, outputs[f"{name}__var"], target, mask, row_weights=row_w)
+        else:
+            task = head_loss(pred, target, mask, cfg.loss_function_type, row_weights=row_w)
         tasks[name] = task
         tot = tot + w * task
+        if want_branch:
+            if cfg.var_output:  # the NLL per element, never the rmse root
+                per_elem = _nll_elementwise(pred, outputs[f"{name}__var"], target)
+                per_branch_type = "mse"
+            else:
+                per_elem = _elementwise(cfg.loss_function_type, pred - target)
+                per_branch_type = cfg.loss_function_type
+            head = w * _per_branch_head_loss(per_elem, mask, rows, B, per_branch_type)
+            branch_tot = head if branch_tot is None else branch_tot + head
+    if want_branch:
+        for b in range(B):
+            tasks[f"branch{b}"] = branch_tot[b]
     return tot, tasks
 
 

@@ -1,14 +1,23 @@
 """Optimizer selection with optax's defaults, global-norm clipping, the
 frozen conv stack and the plateau schedule.
 
-Counterpart of ``hydragnn_tpu/train/optimizer.py``. Each ``Optimizer.type``
-maps to its ``torch.optim`` class with the defaults of the optax
-transform the JAX package builds, not torch's: AdamW's weight decay is
-optax's 1e-4 (torch's default is 1e-2), decoupled and applied to every
-parameter; Adam and AdamW take eps 1e-8 and betas (0.9, 0.999); SGD has no
-momentum. On the card the step count stays on the device (``capturable``),
-so an update never waits on the host. The other optax types of the JAX
-package come with a later slice of the port.
+Counterpart of ``hydragnn_tpu/train/optimizer.py``: the nine
+``Optimizer.type``s of the JAX package, each with the semantics and
+defaults of the optax transform the JAX package builds, not torch's.
+
+- AdamW, Adam and SGD are their ``torch.optim`` classes: AdamW's weight
+  decay is optax's 1e-4 (torch's default is 1e-2), decoupled and applied
+  to every parameter; Adam and AdamW take eps 1e-8 and betas
+  (0.9, 0.999); SGD has no momentum. On the card the step count stays on
+  the device (``capturable``), so an update never waits on the host.
+- Adagrad, RMSprop, Adamax, Adadelta, LAMB and FusedLAMB (LAMB, as the JAX
+  package maps it) are ``OptaxRule``, written here, because torch's
+  classes differ from optax: torch's Adagrad starts its accumulator at 0
+  and adds eps outside the root (optax: 0.1, and ``rsqrt(acc + 1e-7)``);
+  torch's RMSprop decays by 0.99 and adds eps outside the root (optax:
+  0.9, ``rsqrt(nu + 1e-8)``); torch has no LAMB. Adamax and Adadelta
+  follow optax's formulas too (torch's agree on them, bar Adadelta's
+  default learning rate, which the config always sets).
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ _OPT_TABLE = {
     "Adam": (torch.optim.Adam, dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)),
     "SGD": (torch.optim.SGD, dict(momentum=0.0, weight_decay=0.0)),
 }
-_LATER_SLICES = ("Adadelta", "Adagrad", "Adamax", "RMSprop", "FusedLAMB", "LAMB")
+# Optimizer.type -> OptaxRule kind
+_RULES = {"Adagrad": "adagrad", "RMSprop": "rmsprop", "Adamax": "adamax",
+          "Adadelta": "adadelta", "LAMB": "lamb", "FusedLAMB": "lamb"}
 
 
 def frozen(name: str) -> bool:
@@ -47,21 +58,21 @@ def make_optimizer(model: torch.nn.Module, opt_config: Dict[str, Any],
     ``clip_grad_norm``, 0: off) is applied by the train step before the
     update."""
     kind = opt_config.get("type", "AdamW")
-    if kind in _LATER_SLICES:
-        raise NotImplementedError(
-            f"Optimizer.type {kind!r} comes with a later slice of the port; "
-            f"this slice carries {sorted(_OPT_TABLE)}"
-        )
-    if kind not in _OPT_TABLE:
-        raise ValueError(f"unknown optimizer {kind!r}; known: {sorted(_OPT_TABLE)}")
-    cls, defaults = _OPT_TABLE[kind]
+    if kind not in _OPT_TABLE and kind not in _RULES:
+        raise ValueError(f"unknown optimizer {kind!r}; known: "
+                         f"{sorted(list(_OPT_TABLE) + list(_RULES))}")
     params = [p for n, p in model.named_parameters() if not (freeze_conv and frozen(n))]
-    on_card = bool(params) and params[0].device.type == "cuda"
-    kw = dict(defaults, lr=float(opt_config.get("learning_rate", 1e-3)))
-    if cls is not torch.optim.SGD:
-        kw["capturable"] = on_card
-    opt = cls(params, foreach=on_card, **kw)
-    _init_state(opt)
+    lr = float(opt_config.get("learning_rate", 1e-3))
+    if kind in _RULES:
+        opt = OptaxRule(params, _RULES[kind], lr=lr)
+    else:
+        cls, defaults = _OPT_TABLE[kind]
+        on_card = bool(params) and params[0].device.type == "cuda"
+        kw = dict(defaults, lr=lr)
+        if cls is not torch.optim.SGD:
+            kw["capturable"] = on_card
+        opt = cls(params, foreach=on_card, **kw)
+        _init_state(opt)
     opt.clip_grad_norm = float(opt_config.get("clip_grad_norm", 0.0) or 0.0)
     return opt
 
@@ -81,6 +92,84 @@ def _init_state(opt: torch.optim.Optimizer) -> None:
                 "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
                 "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
             }
+
+
+class OptaxRule(torch.optim.Optimizer):
+    """The optax transforms torch has no match for, with optax's defaults;
+    every state tensor made at construction (optax's ``init``), on the
+    parameters' device, the step count included (so no update waits on the
+    host, and the guard's copies cover it). ``kind``:
+
+    - ``adagrad``: ``acc += g^2`` from 0.1; ``u = g rsqrt(acc + 1e-7)``
+      where ``acc > 0``;
+    - ``rmsprop``: ``nu = 0.9 nu + 0.1 g^2`` from 0; ``u = g rsqrt(nu +
+      1e-8)``;
+    - ``adamax``: ``mu = 0.9 mu + 0.1 g``, ``nu = max(|g| + 1e-8, 0.999
+      nu)``; ``u = mu / (1 - 0.9^t) / nu``;
+    - ``adadelta``: ``e_g = 0.9 e_g + 0.1 g^2``; ``u = sqrt(e_x + 1e-6) /
+      sqrt(e_g + 1e-6) g``; ``e_x = 0.9 e_x + 0.1 u^2``;
+    - ``lamb``: Adam's direction (b1 0.9, b2 0.999, eps 1e-6, bias
+      corrected), then each tensor's trust ratio ``|p| / |u|`` (1 where
+      either norm is 0), weight decay 0;
+
+    and then ``p -= lr u``."""
+
+    _STATE = {"adagrad": ("sum_of_squares",), "rmsprop": ("nu",),
+              "adamax": ("step", "mu", "nu"), "adadelta": ("e_g", "e_x"),
+              "lamb": ("step", "mu", "nu")}
+
+    def __init__(self, params, kind: str, lr: float):
+        if kind not in self._STATE:
+            raise ValueError(f"unknown rule {kind!r}")
+        super().__init__(params, dict(lr=lr))
+        self.kind = kind
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = {}
+                for k in self._STATE[kind]:
+                    if k == "step":
+                        st[k] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    elif k == "sum_of_squares":
+                        st[k] = torch.full_like(p, 0.1, memory_format=torch.preserve_format)
+                    else:
+                        st[k] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                self.state[p] = st
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.sub_(self._direction(p, p.grad, self.state[p]) * group["lr"])
+
+    def _direction(self, p, g, st):
+        """The update direction ``u`` of ``p`` (its state advanced in
+        place)."""
+        kind = self.kind
+        if kind == "adagrad":
+            acc = st["sum_of_squares"].add_(g * g)
+            return torch.where(acc > 0, torch.rsqrt(acc + 1e-7), torch.zeros_like(acc)) * g
+        if kind == "rmsprop":
+            nu = st["nu"].mul_(0.9).add_(g * g * 0.1)
+            return torch.rsqrt(nu + 1e-8) * g
+        if kind == "adadelta":
+            e_g = st["e_g"].mul_(0.9).add_(g * g * 0.1)
+            u = torch.sqrt(st["e_x"] + 1e-6) / torch.sqrt(e_g + 1e-6) * g
+            st["e_x"].mul_(0.9).add_(u * u * 0.1)
+            return u
+        t = st["step"].add_(1)
+        mu = st["mu"].mul_(0.9).add_(0.1 * g)
+        mu_hat = mu / (1 - torch.pow(0.9, t))
+        if kind == "adamax":
+            nu = torch.maximum(g.abs() + 1e-8, 0.999 * st["nu"])
+            st["nu"].copy_(nu)
+            return mu_hat / nu
+        nu = st["nu"].mul_(0.999).add_(g * g * 0.001)
+        u = mu_hat / (torch.sqrt(nu / (1 - torch.pow(0.999, t))) + 1e-6)
+        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                            p_norm / u_norm)
+        return u * ratio
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

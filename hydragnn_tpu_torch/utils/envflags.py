@@ -3,11 +3,14 @@
 Counterpart of ``hydragnn_tpu/utils/envflags.py`` (the port keeps its own
 copy: it imports nothing of the JAX package). The flags read today:
 ``HYDRAGNN_CKPT_RETRIES`` / ``HYDRAGNN_CKPT_RETRY_BASE`` and
-``HYDRAGNN_EPOCH`` (train/checkpoint.py), ``HYDRAGNN_VALTEST`` and
-``HYDRAGNN_MAX_NUM_BATCH`` (train/loop.py).
+``HYDRAGNN_EPOCH`` (train/checkpoint.py), ``HYDRAGNN_VALTEST``,
+``HYDRAGNN_MAX_NUM_BATCH``, ``HYDRAGNN_STEP_GUARD`` and
+``HYDRAGNN_DUMP_TESTDATA`` (train/loop.py).
 
 - ``env_flag``: tri-state on/off: None unset, else False for ``0``/``off``/
   ``false``/empty (any case) and True otherwise;
+- ``env_force``: tri-state force/deny: None unset, True for exactly
+  ``1``, False for anything else;
 - ``env_int`` / ``env_float``: a number with a default; a malformed value
   warns and falls back instead of crashing the run;
 - ``env_str``: the raw string.
@@ -31,6 +34,13 @@ def env_flag(name: str) -> Optional[bool]:
     if v is None:
         return None
     return v.strip().lower() not in _FALSY
+
+
+def env_force(name: str) -> Optional[bool]:
+    v = env_str(name)
+    if v is None:
+        return None
+    return v == "1"
 
 
 def env_int(name: str, default: int) -> int:

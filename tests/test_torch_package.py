@@ -73,26 +73,27 @@ def pytest_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("later", [
-    dict(loss_function_type="GaussianNLLLoss"),
-    dict(node_type="conv"),
-    dict(node_type="mlp_per_node"),
+    {"Mixture": {"temperature": 1.0}},
+    {"Dataset": {"rotational_invariance": True}},
+    {"Dataset": {"edge_features": ["lengths"]}},
+    {"Dataset": {"bad_sample_policy": "quarantine"}},
 ])
 def pytest_later_slices_raise_not_implemented(later):
-    """What the port does not carry yet raises when the config is read:
-    variance heads (``GaussianNLLLoss``) and the "conv" and "mlp_per_node"
-    node heads."""
-    from hydragnn_tpu_torch.models.create import model_config_from
+    """What the port does not carry yet raises in ``prepare_data`` rather
+    than be ignored: a ``Mixture`` section (the mixture plane), the
+    Dataset section's load-time transforms (the dataset slice), and the
+    ``quarantine`` sample policy (the robustness slice)."""
+    from hydragnn_tpu_torch import api
+    from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
     from test_torch_serve import _config
 
     c = _config()
-    arch = c["NeuralNetwork"]["Architecture"]
-    arch.update(input_dim=4, output_dim=[1, 3], output_type=["graph", "node"])
-    if "node_type" in later:
-        arch["output_heads"]["node"]["type"] = later["node_type"]
-    else:
-        c["NeuralNetwork"]["Training"].update(later)
+    for section, keys in later.items():
+        c.setdefault(section, {}).update(keys)
+    splits = split_dataset(oc20_shaped_dataset(8, mean_atoms=20, min_atoms=10,
+                                               max_atoms=40, max_neighbours=10), 0.5)
     with pytest.raises(NotImplementedError, match="later slice"):
-        model_config_from(c)
+        api.prepare_data(c, splits)
 
 
 def pytest_orbax_checkpoint_backend_raises_not_implemented():

@@ -586,25 +586,37 @@ class _Tiny(torch.nn.Module):
                 for k, v in leaf.items()})]))
 
 
+NEW_OPTIMIZERS = ("Adagrad", "RMSprop", "Adamax", "Adadelta", "LAMB", "FusedLAMB")
+
+
+def _tiny_tree(rng):
+    return {"graph_convs_0": {"kernel": rng.normal(size=(3, 4)).astype(np.float32)},
+            "feature_layers_0": {"scale": rng.uniform(0.5, 1.5, 4).astype(np.float32),
+                                 "bias": rng.normal(size=4).astype(np.float32)},
+            "heads_NN_0": {"kernel": rng.normal(size=(4, 2)).astype(np.float32),
+                           "bias": rng.normal(size=2).astype(np.float32)}}
+
+
 @pytest.mark.parametrize("opt_config,freeze", [
     ({"type": "AdamW", "learning_rate": 1e-2}, False),
     ({"type": "Adam", "learning_rate": 1e-2}, False),
     ({"type": "SGD", "learning_rate": 1e-1}, False),
     ({"type": "AdamW", "learning_rate": 1e-2, "clip_grad_norm": 0.5}, False),
     ({"type": "AdamW", "learning_rate": 1e-2}, True),
+    *[({"type": k, "learning_rate": 1e-2}, False) for k in NEW_OPTIMIZERS],
+    ({"type": "RMSprop", "learning_rate": 1e-2, "clip_grad_norm": 0.5}, False),
+    ({"type": "LAMB", "learning_rate": 1e-2}, True),
 ])
 def pytest_optimizer_steps_match_optax(opt_config, freeze):
-    """Three steps of each ported optimizer from the JAX package's
+    """Three steps of each of the nine optimizers from the JAX package's
     ``make_optimizer`` (optax) and the port's, on the same gradients: the
-    optax defaults (AdamW's weight decay 1e-4 on every parameter), the
-    global-norm clip (here it engages on every step) and the frozen conv
-    stack."""
+    optax defaults (AdamW's weight decay 1e-4 on every parameter; Adagrad's
+    accumulator from 0.1, RMSprop's decay 0.9 with eps in the root,
+    Adamax's eps outside the infinity norm, Adadelta's rho 0.9, LAMB's
+    per-tensor trust ratio), the global-norm clip (here it engages on every
+    step) and the frozen conv stack."""
     rng = np.random.default_rng(1)
-    tree = {"graph_convs_0": {"kernel": rng.normal(size=(3, 4)).astype(np.float32)},
-            "feature_layers_0": {"scale": rng.uniform(0.5, 1.5, 4).astype(np.float32),
-                                 "bias": rng.normal(size=4).astype(np.float32)},
-            "heads_NN_0": {"kernel": rng.normal(size=(4, 2)).astype(np.float32),
-                           "bias": rng.normal(size=2).astype(np.float32)}}
+    tree = _tiny_tree(rng)
     tx = j_make_optimizer(opt_config, freeze_conv=freeze)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     jopt = tx.init(jparams)
@@ -628,9 +640,57 @@ def pytest_optimizer_steps_match_optax(opt_config, freeze):
         assert np.array_equal(got["graph_convs.0.weight"], tree["graph_convs_0"]["kernel"].T)
 
 
-def pytest_later_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_optimizer(torch.nn.Linear(2, 2), {"type": "Adagrad"})
+@pytest.mark.parametrize("kind", NEW_OPTIMIZERS)
+def pytest_optimizer_state_survives_checkpoint_and_guard(kind):
+    """Each new optimizer's state exists from construction and lies in the
+    guard's copies: a non-finite step leaves the parameters and the state
+    exactly as they were; ``TrainState.to_payload`` / ``load_payload``
+    carry the state bit for bit into a fresh state, and the next step of
+    both states is the same."""
+    from hydragnn_tpu_torch.train.guard import guarded_update, step_ok
+
+    rng = np.random.default_rng(2)
+    tree = _tiny_tree(rng)
+    model = _Tiny(tree)
+    opt_config = {"type": kind, "learning_rate": 1e-2}
+    state = TrainState.create(model, make_optimizer(model, opt_config))
+    held = set(map(id, state.held))
+    assert all(id(t) in held for t in state_tensors(state.optimizer))
+    assert len(list(state_tensors(state.optimizer))) >= len(list(model.parameters()))
+
+    def step(s, grads):
+        for p, g in zip(s.model.parameters(), grads):
+            p.grad = torch.from_numpy(g.copy())
+        gl = [p.grad for p in s.model.parameters()]
+        s.guard.save()
+        with torch.no_grad():
+            guarded_update(s, step_ok(torch.tensor(1.0), gl), lambda: optimizer_step(s.optimizer, gl))
+
+    def grads():
+        return [rng.normal(size=tuple(p.shape)).astype(np.float32) for p in model.parameters()]
+
+    for _ in range(2):
+        step(state, grads())
+    before = [t.clone() for t in state.held]
+    bad = grads()
+    bad[0][0, 0] = np.nan
+    step(state, bad)
+    assert int(state.skipped_steps) == 1
+    assert all(torch.equal(a, b) for a, b in zip(before, state.held))
+    payload = state.to_payload()
+    fresh_model = _Tiny(_tiny_tree(np.random.default_rng(9)))
+    fresh = TrainState.create(fresh_model, make_optimizer(fresh_model, opt_config))
+    fresh.load_payload(payload)
+    assert all(torch.equal(a, b) for a, b in zip(state.held, fresh.held))
+    g = grads()
+    step(state, g)
+    step(fresh, g)
+    assert all(torch.equal(a, b) for a, b in zip(state.held, fresh.held))
+
+
+def pytest_unknown_optimizer_raises():
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(torch.nn.Linear(2, 2), {"type": "Lion"})
 
 
 def pytest_reduce_lr_on_plateau_sequences():
