@@ -190,10 +190,37 @@ Phases, each fatal on failure (exit code 1):
    f32 step against K1's plain version. The GFM recipe's K1 and K2 cases
    are measured at its batch of 160 (``gfm/`` in the kernels line) and
    carry the launches of its phases.
+14. The committed example recipes from their JSON alone, through
+   ``api.run_training(config)`` (the path of a JSON file),
+   ``run_prediction(config)`` and ``run_server(config)`` with no explicit
+   datasets (``run_config_phase``, after the GFM phases). Their data is
+   written at start-up by the port's own writers into a temporary
+   directory under ``build/``. ``oc20_config``:
+   examples/open_catalyst_2020/open_catalyst_2020.json with its script's
+   ``--production`` overrides (EGNN hidden 866, 4 conv layers, node head
+   [64, 64], packed batch 16, energy-force, f32, AdamW) on 512 OC20-shaped
+   graphs in a columnar directory read in mmap mode, K2 four times a step;
+   ``lsms_config``: examples/lsms/lsms.json (PNA hidden 16 x 4, a graph
+   and two node heads, stratified split, charge-density correction) on 96
+   FePt LSMS files converted to formation Gibbs energies, K3 at C = 1 and
+   16. Each: ``prepare_data(config)`` against ``prepare_data(config,
+   datasets)`` on the graphs the phase read back and split itself (the
+   same completed config and batches, bit for bit); ``run_training`` (2
+   epochs of the JSON's 10 and 20) against a run on those datasets, both
+   under PyTorch's deterministic algorithms (the first 4 losses equal);
+   the first 4 steps through the kernels against the plain versions
+   (egnn_train's energy-force limits, pnaplus_train's limits; the later
+   steps within the trajectory limit or 3x a rounding draw's distance);
+   launches per step, eval batch and served batch; finite predictions;
+   192 requests served from the run's checkpoint. It prints the seconds
+   of ``prepare_data``, ms per step and graphs/s, the peak memory, and the
+   served graphs/s and latency. The kernel checks of phase 3 hold K2 at
+   oc20_config's first batch and K3 at lsms_config's (``oc20/`` and
+   ``lsms/`` in the kernels line).
 
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
-``egnn_ckpt`` phase prints none). Every path runs in a temporary directory
+``egnn_ckpt`` phase and the phases of 14 print none). Every path runs in a temporary directory
 under ``build/``, so its ``./logs`` (checkpoints written by
 ``run_training``, read by the servers) starts empty. The last three lines
 are the card, the kernels JSON line and the result line.
@@ -205,6 +232,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -678,47 +706,93 @@ def egnn_kernel_cases(batch, device, prefix: str = "", k2_dtypes=None):
     of 160); ``k2_dtypes`` limits K2's cases to those dtypes."""
     import torch
 
-    from hydragnn_tpu_torch.ops.fused_edge import (
-        fused_edge_message_sum,
-        reference_edge_message_sum,
-    )
-
     gen = torch.Generator(device=device).manual_seed(SEED)
     ids = batch.receivers.to(device)
     n, e = batch.num_nodes, batch.num_edges
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype)[6:]
-        size = torch.tensor([], dtype=dtype).element_size()
         cases += [_k1_case(ids, batch.edge_mask.to(device), n, c, dtype, gen, c, prefix)
                   for c in (866, 3)]
         if k2_dtypes is not None and dtype not in k2_dtypes:
             continue
-        ci = co = 866
-        kw = dict(
-            node_recv=torch.randn(n, ci, generator=gen, device=device).to(dtype),
-            edge_in=torch.randn(e, ci, generator=gen, device=device).to(dtype),
-            weights=(torch.randn(ci, co, generator=gen, device=device) / math.sqrt(ci)).to(dtype),
-            bias=(0.1 * torch.randn(co, generator=gen, device=device)).to(dtype),
-            segment_ids=ids, num_segments=n,
-        )
-        unit, passes = MMA_PASSES[dname]
-        cases.append(_case(
-            "K2", dtype, f"{prefix}fused_edge_message_sum ({dname}, {ci}x{co})",
-            f"{prefix}{dname}/{ci}x{co}",
-            lambda kw=kw: fused_edge_message_sum(**kw),
-            lambda kw=kw: reference_edge_message_sum(**kw),
-            None,
-            ((n + e) * ci + ci * co + co + n * co) * size + e * 4,
-            # the product on the tensor cores; the gather add + relu and the
-            # bias + relu + row sum in f32 outside them
-            (passes * 2 * e * ci * co / PEAK_FLOPS[unit]
-             + (2 * e * ci + 3 * e * co) / PEAK_FLOPS["float32"]) * 1e3,
-            10, dict(E=e, N=n, Ci=ci, Co=co),
-            backward=lambda kw=kw: backward_call(
-                fused_edge_message_sum, kw, ("node_recv", "edge_in", "weights", "bias")),
-        ))
+        cases.append(_k2_case(ids, n, e, dtype, gen, prefix))
     return cases
+
+
+def _k2_case(ids, n, e, dtype, gen, prefix: str = "", ci: int = 866, co: int = 866):
+    """K2 on ``ids`` at EGNN's width (``ci`` x ``co``), inputs from ``gen``;
+    against its plain version, with its backward timed."""
+    import torch
+
+    from hydragnn_tpu_torch.ops.fused_edge import (
+        fused_edge_message_sum,
+        reference_edge_message_sum,
+    )
+
+    device = ids.device
+    dname = str(dtype)[6:]
+    size = torch.tensor([], dtype=dtype).element_size()
+    kw = dict(
+        node_recv=torch.randn(n, ci, generator=gen, device=device).to(dtype),
+        edge_in=torch.randn(e, ci, generator=gen, device=device).to(dtype),
+        weights=(torch.randn(ci, co, generator=gen, device=device) / math.sqrt(ci)).to(dtype),
+        bias=(0.1 * torch.randn(co, generator=gen, device=device)).to(dtype),
+        segment_ids=ids, num_segments=n,
+    )
+    unit, passes = MMA_PASSES[dname]
+    return _case(
+        "K2", dtype, f"{prefix}fused_edge_message_sum ({dname}, {ci}x{co})",
+        f"{prefix}{dname}/{ci}x{co}",
+        lambda: fused_edge_message_sum(**kw),
+        lambda: reference_edge_message_sum(**kw),
+        None,
+        ((n + e) * ci + ci * co + co + n * co) * size + e * 4,
+        # the product on the tensor cores; the gather add + relu and the
+        # bias + relu + row sum in f32 outside them
+        (passes * 2 * e * ci * co / PEAK_FLOPS[unit]
+         + (2 * e * ci + 3 * e * co) / PEAK_FLOPS["float32"]) * 1e3,
+        10, dict(E=e, N=n, Ci=ci, Co=co),
+        backward=lambda: backward_call(
+            fused_edge_message_sum, kw, ("node_recv", "edge_in", "weights", "bias")),
+    )
+
+
+def _k3_pna_case(ids, node_mask, n, e, c, dtype, gen, prefix: str = ""):
+    """K3 on ``ids`` at width ``c``, PNA's variant (``node_recv``, no gate),
+    inputs from ``gen``; against ``reference_multi_agg`` (count, min and max
+    exactly), its gradients on the real rows (the path masks the dummy row
+    downstream: in bf16 that row's ``node_recv`` gradient is a bf16 sum
+    over the padding edges, in an order the atomics pick). Returns the case
+    and its inputs."""
+    import torch
+
+    from hydragnn_tpu_torch.ops.multi_agg import fused_multi_agg, reference_multi_agg
+
+    dname = str(dtype)[6:]
+    size = torch.tensor([], dtype=dtype).element_size()
+    kw = dict(node_recv=torch.randn(n, c, generator=gen, device=ids.device).to(dtype),
+              edge_in=torch.randn(e, c, generator=gen, device=ids.device).to(dtype),
+              gate=None, segment_ids=ids, num_segments=n)
+
+    def real_rows(moments):
+        return tuple(m[node_mask] for m in moments)
+
+    return _case(
+        "K3", dtype, f"{prefix}fused_multi_agg ({dname}, C={c})", f"{prefix}{dname}/C{c}",
+        lambda: fused_multi_agg(**kw),
+        lambda: reference_multi_agg(**kw),
+        None,  # no one PyTorch call computes the five moments
+        (e * c + n * c) * size + e * 8 + (4 * n * c + n) * 4,
+        # add, square, sum, sumsq, min, max per message element, f32
+        6 * e * c / PEAK_FLOPS["float32"] * 1e3,
+        50, dict(E=e, N=n, C=c),
+        check_exact=(1, 2, 3),  # count, min, max
+        backward=lambda: backward_call(fused_multi_agg, kw, ("node_recv", "edge_in")),
+        gradients=(lambda nr, ei: real_rows(fused_multi_agg(nr, ei, None, ids, n)),
+                   ("reference_multi_agg's autograd",
+                    lambda nr, ei: real_rows(reference_multi_agg(nr, ei, None, ids, n))),
+                   [kw["node_recv"], kw["edge_in"]], 3),
+    ), kw
 
 
 def gps_kernel_cases(batch, device, nmax: int, channels: int = 256, heads: int = 8):
@@ -746,35 +820,12 @@ def gps_kernel_cases(batch, device, nmax: int, channels: int = 256, heads: int =
     pairs = float((sizes * sizes).sum())  # same-graph (query, key) pairs per head
     same = (node_graph[:, None] == node_graph[None, :]) & node_mask[None, :] & node_mask[:, None]
 
-    def real_rows(moments):
-        return tuple(m[node_mask] for m in moments)
-
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype)[6:]
         size = torch.tensor([], dtype=dtype).element_size()
-        kw = dict(node_recv=torch.randn(n, c, generator=gen, device=device).to(dtype),
-                  edge_in=torch.randn(e, c, generator=gen, device=device).to(dtype),
-                  gate=None, segment_ids=ids, num_segments=n)
-        cases.append(_case(
-            "K3", dtype, f"fused_multi_agg ({dname}, C={c})", f"{dname}/C{c}",
-            lambda kw=kw: fused_multi_agg(**kw),
-            lambda kw=kw: reference_multi_agg(**kw),
-            None,  # no one PyTorch call computes the five moments
-            (e * c + n * c) * size + e * 8 + (4 * n * c + n) * 4,
-            # add, square, sum, sumsq, min, max per message element, f32
-            6 * e * c / PEAK_FLOPS["float32"] * 1e3,
-            50, dict(E=e, N=n, C=c),
-            check_exact=(1, 2, 3),  # count, min, max
-            backward=lambda kw=kw: backward_call(fused_multi_agg, kw, ("node_recv", "edge_in")),
-            # the moments of the real rows, as the path masks the dummy row
-            # downstream: in bf16 that row's node_recv gradient is a bf16 sum
-            # over ~17k padding edges, in an order the atomics pick
-            gradients=(lambda nr, ei: real_rows(fused_multi_agg(nr, ei, None, ids, n)),
-                       ("reference_multi_agg's autograd",
-                        lambda nr, ei: real_rows(reference_multi_agg(nr, ei, None, ids, n))),
-                       [kw["node_recv"], kw["edge_in"]], 3),
-        ))
+        case, kw = _k3_pna_case(ids, node_mask, n, e, c, dtype, gen)
+        cases.append(case)
         # off the kernels line: the same batch padded as the serving ladder's
         # top level pads it, with LONG_ROW_EDGES more padding edges, all on
         # the dummy row (node N - 1)
@@ -1376,12 +1427,9 @@ def swapped(swaps):
             setattr(mod, name, fn)
 
 
-def plain_versions(swap=PLAIN, k1=None):
-    """Within the block, the model's call sites of the kernels named in
-    ``swap`` take the kernels' plain versions on the card (the same route,
-    no kernel; each differentiable as its kernel's Function is). ``k1``
-    replaces K1's plain version (``segment_sum_plain``: the same sums in
-    ``index_add_``'s order, through ordinary autograd)."""
+def plain_swaps(k1=None):
+    """Kernel -> (module, name, plain version) of the model's call site of
+    each kernel; ``k1`` replaces K1's plain version."""
     import hydragnn_tpu_torch.models.gps as gps
     import hydragnn_tpu_torch.ops.segment as segment
     import hydragnn_tpu_torch.parallel.ring_attention as ring
@@ -1393,7 +1441,7 @@ def plain_versions(swap=PLAIN, k1=None):
     from hydragnn_tpu_torch.ops.multi_agg import reference_multi_agg
     from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum_plain
 
-    swaps = {
+    return {
         "K4": (gps, "flash_self_attention",
                lambda q, k, v, ng, nm, g, nmax: reference_masked_attention(q, k, v, ng, nm)),
         "K3": (segment, "fused_multi_agg", reference_multi_agg),
@@ -1401,6 +1449,15 @@ def plain_versions(swap=PLAIN, k1=None):
         "K2": (segment, "_fused_edge_message_sum", reference_edge_message_sum),
         "K4b": (ring, "flash_block_summary", reference_block_summary),
     }
+
+
+def plain_versions(swap=PLAIN, k1=None):
+    """Within the block, the model's call sites of the kernels named in
+    ``swap`` take the kernels' plain versions on the card (the same route,
+    no kernel; each differentiable as its kernel's Function is). ``k1``
+    replaces K1's plain version (``segment_sum_plain``: the same sums in
+    ``index_add_``'s order, through ordinary autograd)."""
+    swaps = plain_swaps(k1)
     return swapped([swaps[k] for k in swap])
 
 
@@ -2779,8 +2836,9 @@ def run_egnn_ckpt(graphs, device, per_step):
     run_dir = os.path.join("logs", name)
     saved = [int(f.split("_epoch")[1].split(".")[0]) for f, _, _ in saves]
     kept = sorted(set(saved))[-CKPT_RETENTION:]
+    # the retained checkpoints, the pointer and the completed config
     want_files = sorted([f"{name}_epoch{e}.pt{s}" for e in kept for s in ("", ".sha256")]
-                        + ["latest"])
+                        + ["latest", "config.json"])
     files = sorted(os.listdir(run_dir))
     latest = latest_checkpoint_entry(name)
     print(f"{label}: on disk {files}, latest -> {latest}, payload "
@@ -4563,6 +4621,466 @@ def run_mlp_per_node(graphs, device):
     return launched
 
 
+# oc20_config and lsms_config: the committed example recipes run from their
+# JSON alone, through run_training(config), run_prediction(config) and
+# run_server(config) with no explicit datasets. oc20_config is
+# OC20_JSON with its example script's --production overrides (EGNN hidden 866, 4
+# conv layers: the SC25 shape; f32, energy-force, packed batch 16, AdamW)
+# on OC20_CONFIG_GRAPHS OC20-shaped graphs written by the port's
+# ColumnarWriter and read in mmap mode; lsms_config is LSMS_JSON (PNA
+# hidden 16 x 4, one graph and two node heads, f32) on LSMS_CONFIGS FePt
+# LSMS text files converted to formation Gibbs energies by data/lsms.py.
+# Cut: CONFIG_EPOCHS epochs of the JSONs' 10 and 20; the generators stand
+# in for the recipes' datasets, which are not in the repo.
+OC20_JSON = "examples/open_catalyst_2020/open_catalyst_2020.json"
+LSMS_JSON = "examples/lsms/lsms.json"
+OC20_CONFIG_GRAPHS = 512
+LSMS_CONFIGS = 96
+CONFIG_EPOCHS = 2
+CONFIG_STEPS = 4  # the first steps whose losses the gates hold
+# launches per train step, eval batch and served batch (f32 throughout):
+# with equivariance off every EGNN layer takes K2 (none takes K1); PNA's
+# conv layer 0 sums at the input width (one feature), layers 1-3 at 16
+CONFIG_PER_STEP = {"oc20_config": {"K2": {"float32/866x866": 4}},
+                   "lsms_config": {"K3": {"float32/C1": 1, "float32/C16": 3}}}
+# the kernel route against the same steps through the plain versions: the
+# egnn_train cell's energy-force limits (step 0's loss, forces per atom and
+# gradients) and its trajectory limit for the later steps; pnaplus_train's
+# f32 gradient and trajectory limits for lsms_config, whose step-0 loss is
+# held to the trajectory limit
+CONFIG_RTOL = {
+    "oc20_config": {"loss": TRAIN_RTOL["energy-force loss"],
+                    "forces": TRAIN_RTOL["energy-force forces"],
+                    "gradients": TRAIN_RTOL["energy-force gradients"],
+                    "trajectory": TRAIN_RTOL["trajectory"]},
+    "lsms_config": {"loss": PNAPLUS_TRAIN_RTOL["trajectory"],
+                    "gradients": PNAPLUS_TRAIN_RTOL["f32 gradients"],
+                    "trajectory": PNAPLUS_TRAIN_RTOL["trajectory"]},
+}
+def _rounded_f64(fn):
+    """``fn`` evaluated in f64 and its outputs rounded back to its inputs'
+    floating dtype: a kernel's plain version with correctly rounded sums."""
+    import torch
+
+    def call(*args, **kw):
+        floats = [a for a in (*args, *kw.values())
+                  if isinstance(a, torch.Tensor) and a.is_floating_point()]
+
+        def up(a):
+            return a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+
+        out = fn(*map(up, args), **{k: up(v) for k, v in kw.items()})
+        down = (lambda o: o.to(floats[0].dtype) if o.is_floating_point() else o)
+        return tuple(map(down, out)) if isinstance(out, tuple) else down(out)
+
+    return call
+
+
+# the kernel of each phase whose plain version, in f64 and rounded back,
+# is the phase's rounding draw
+CONFIG_KERNEL = {"oc20_config": "K2", "lsms_config": "K3"}
+LSMS_Z = (26.0, 78.0)  # Fe, Pt
+LSMS_PURE_ENERGY = (-3.2, -5.1)  # per atom, Rydberg
+
+
+def write_lsms_raw(dir_path: Path, num_configs: int, seed: int = 11) -> None:
+    """FePt BCC supercells (2 x 2 x 2 cells, 16 sites) as LSMS text files,
+    as examples/lsms/lsms.py writes them: the header the total energy, one
+    row per atom [Z, q, x, y, z, charge density, magnetic moment];
+    configurations 0 and 1 pure Fe and pure Pt, the rest random
+    occupations with closed-form targets."""
+    import numpy as np
+
+    dir_path.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    a = 2.85
+    cells = np.array([(x, y, z) for x in range(2) for y in range(2) for z in range(2)], float)
+    sites = np.concatenate([cells, cells + 0.5]) * a
+    n = sites.shape[0]
+    z_fe, z_pt = LSMS_Z
+    for i in range(num_configs):
+        if i < 2:
+            zs = np.full(n, LSMS_Z[i])
+        else:
+            zs = np.where(rng.random(n) < rng.uniform(0.1, 0.9), z_fe, z_pt)
+        x_fe = float(np.mean(zs == z_fe))
+        enthalpy = -4.0 * 0.8 * x_fe * (1.0 - x_fe) * n / 16.0
+        total = float(np.sum(np.where(zs == z_fe, *LSMS_PURE_ENERGY))) + enthalpy
+        pos = sites + rng.normal(0.0, 0.03, sites.shape)
+        q_net = np.where(zs == z_fe, -0.2 * (1 - x_fe), 0.2 * x_fe)
+        rho = zs + q_net  # the raw charge density includes the proton count
+        moment = np.where(zs == z_fe, 2.2, 0.35)
+        with open(dir_path / f"config_{i:04d}.txt", "w") as f:
+            f.write(f"{total!r} 0.0\n")
+            for k in range(n):
+                f.write(f"{zs[k]:.1f} 0.0 {pos[k, 0]:.6f} {pos[k, 1]:.6f} {pos[k, 2]:.6f} "
+                        f"{rho[k]:.6f} {moment[k]:.4f}\n")
+
+
+def config_phase_data(root: Path):
+    """The data of oc20_config and lsms_config under ``root``, written by
+    the port's own writers, and each phase's config: the committed JSON
+    with the phase's overrides and the data's path. Returns {label:
+    config}."""
+    from hydragnn_tpu_torch.data import (
+        ColumnarWriter,
+        convert_total_energy_to_formation_gibbs,
+        oc20_shaped_dataset,
+    )
+
+    t0 = time.perf_counter()
+    oc20 = json.loads((REPO / OC20_JSON).read_text())
+    arch = oc20["NeuralNetwork"]["Architecture"]
+    arch.update(hidden_dim=866, num_conv_layers=4)  # the example script's --production
+    path = root / "oc20_columnar"
+    ColumnarWriter(str(path)).add(oc20_shaped_dataset(
+        OC20_CONFIG_GRAPHS, radius=arch["radius"], max_neighbours=arch["max_neighbours"])).save()
+    oc20["Dataset"]["path"]["total"] = str(path)
+    oc20_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lsms = json.loads((REPO / LSMS_JSON).read_text())
+    write_lsms_raw(root / "FePt_raw", LSMS_CONFIGS)
+    converted = convert_total_energy_to_formation_gibbs(str(root / "FePt_raw"), LSMS_Z,
+                                                        create_plots=False)
+    lsms["Dataset"]["path"]["total"] = converted.output_dir
+    gibbs = converted.formation_gibbs_energies
+    print(f"config data: {OC20_CONFIG_GRAPHS} OC20-shaped graphs written by ColumnarWriter in "
+          f"{oc20_s:.2f} s; {LSMS_CONFIGS} LSMS files written and converted to formation Gibbs "
+          f"energies ([{gibbs.min():.4f}, {gibbs.max():.4f}] Ry) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for config in (oc20, lsms):
+        config["NeuralNetwork"]["Training"]["num_epoch"] = CONFIG_EPOCHS
+    return {"oc20_config": oc20, "lsms_config": lsms}
+
+
+def config_kernel_cases(batches, device):
+    """K2 at oc20_config's first packed batch (f32, 866 x 866, its backward
+    timed: the energy-force step differentiates through it twice) and K3
+    at lsms_config's first batch (PNA's variant in f32 at 1 and 16
+    channels), named ``oc20/`` and ``lsms/``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    b = batches["oc20_config"]
+    cases = [_k2_case(b.receivers.to(device), b.num_nodes, b.num_edges, torch.float32, gen,
+                      "oc20/")]
+    b = batches["lsms_config"]
+    for c in (1, 16):
+        cases.append(_k3_pna_case(b.receivers.to(device), b.node_mask.to(device), b.num_nodes,
+                                  b.num_edges, c, torch.float32, gen, "lsms/")[0])
+    return cases
+
+
+def read_back(label: str, config):
+    """The phase's own read of its data into model-ready graphs, with the
+    port's readers: the columnar dataset (its ``Dataset.mode``) with the
+    input columns selected (energy-force: no min-max), or the LSMS files
+    with their radius graphs, min-max normalized, the variables
+    extracted."""
+    from hydragnn_tpu_torch.config import voi_from_config
+    from hydragnn_tpu_torch.data import (
+        ColumnarDataset,
+        MinMax,
+        extract_variables,
+        finalize_graphs,
+        load_raw_dataset,
+        select_input_columns,
+    )
+
+    ds, arch = config["Dataset"], config["NeuralNetwork"]["Architecture"]
+    voi = voi_from_config(config)
+    if label == "oc20_config":
+        dataset = ColumnarDataset(ds["path"]["total"], mode=ds.get("mode", "mmap"))
+        graphs = [select_input_columns(g, voi) for g in dataset]
+        dataset.close()
+        return graphs
+    nf, gf = ds["node_features"], ds["graph_features"]
+    raw = finalize_graphs(
+        load_raw_dataset(ds["path"]["total"], "LSMS", node_feature_cols=nf["column_index"],
+                         node_feature_dims=nf["dim"], graph_feature_cols=gf["column_index"],
+                         graph_feature_dims=gf["dim"],
+                         charge_density_correction=ds["charge_density_correction"]),
+        radius=arch["radius"], max_neighbours=arch["max_neighbours"])
+    return [extract_variables(g, voi) for g in MinMax.fit(raw).apply(raw)]
+
+
+def same_batches(a, b) -> bool:
+    """Two GraphBatches hold the same arrays, bit for bit."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, dict):
+            if x.keys() != y.keys() or not all(torch.equal(x[k], y[k]) for k in x):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def step_probe(losses: list, seconds: list, graphs: list):
+    """Within the block, every train step that ``train_validate_test``
+    builds records its loss (on the device), its seconds (synchronized at
+    both ends) and its real graphs."""
+    import torch
+
+    import hydragnn_tpu_torch.train.loop as loop
+
+    make_step = loop.make_train_step
+
+    def probed(model, *a, **kw):
+        step = make_step(model, *a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(out[1].detach().clone())
+            graphs.append(int(batch.graph_mask.sum()))
+            return out
+
+        return run
+
+    with swapped([(loop, "make_train_step", probed)]):
+        yield
+
+
+def run_config_phase(label: str, config, device, n_requests: int):
+    """One committed example recipe from its JSON alone (``config``: the
+    JSON with the phase's overrides, written to ``<label>.json`` and passed
+    to ``run_training`` as a path):
+
+    - ``prepare_data(config)`` against ``prepare_data(config, datasets)`` on
+      the graphs the phase read back (``read_back``) and split itself: the
+      same completed config, and every batch of every split (the train
+      loader's of each epoch) the same, bit for bit;
+    - ``run_training(config)`` (CONFIG_EPOCHS epochs, no device given) and
+      ``run_training`` on the explicit datasets (1 epoch: a distinct log
+      name), both under PyTorch's deterministic algorithms: their first
+      CONFIG_STEPS losses equal; launches per step and eval batch; the
+      completed config written to the run directory;
+    - the first CONFIG_STEPS steps through the kernels against the same
+      steps through the plain versions (``CONFIG_RTOL``): step 0's loss
+      and gradients (and forces, energy-force), the later steps' losses;
+    - ``run_prediction(config)``: finite predictions, each head's MAE over
+      the zero predictor's printed;
+    - ``run_server(config)`` restored from the run's checkpoint: ``n_requests``
+      test graphs, finite answers of every head, launches per batch.
+
+    Prints the seconds of ``prepare_data``, ms per step and graphs/s
+    trained, the peak memory, the served graphs/s and latency. Returns the
+    launches by (kernel, case) of the three calls."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch import api
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.data import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step, predict_energy_forces
+
+    wrappers = _wrappers()
+    per_step, rtol = CONFIG_PER_STEP[label], CONFIG_RTOL[label]
+    training = config["NeuralNetwork"]["Training"]
+    ef = bool(training.get("compute_grad_energy", False))
+    ds = config["Dataset"]
+    t0 = time.perf_counter()
+    api._load_raw_dataset(copy.deepcopy(config))
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done, loaders, mm = api.prepare_data(copy.deepcopy(config))
+    prep_s = time.perf_counter() - t0
+    splits = split_dataset(read_back(label, config), training["perc_train"], seed=0,
+                           stratified=ds.get("compositional_stratified_splitting", False))
+    t0 = time.perf_counter()
+    done_e, loaders_e, mm_e = api.prepare_data(copy.deepcopy(config), splits)
+    prep_e_s = time.perf_counter() - t0
+    arch = done["NeuralNetwork"]["Architecture"]
+    print(f"{label}: {ds['format']} data from {Path(ds['path']['total']).name} "
+          f"({ds.get('mode', 'mmap') if ds['format'] == 'columnar' else 'text'}); "
+          f"{arch['mpnn_type']} hidden {arch['hidden_dim']} x {arch['num_conv_layers']}, heads "
+          f"{head_dims(arch)}, batch {done['NeuralNetwork']['Training']['batch_size']} (packed "
+          f"{training.get('pack_batches', False)}), energy-force {ef}, sorted aggregation "
+          f"{arch['use_sorted_aggregation']}, fused {arch['use_fused_edge_kernel']}, "
+          f"equivariance {arch['equivariance']}; splits {[len(s) for s in splits]}, min-max "
+          f"{'none' if mm is None else 'fitted'}; prepare_data from the config {prep_s:.2f} s "
+          f"(the read alone {read_s:.2f} s; then validation, min-max, split, config completion "
+          f"and the pad ladder), from the explicit datasets {prep_e_s:.2f} s", flush=True)
+    check(arch["use_sorted_aggregation"] and arch["use_fused_edge_kernel"],
+          f"{label}: config completion did not turn the kernels on")
+    check(done == done_e, f"{label}: the completed configs differ")
+    compared = 0
+    for name, a, b in zip(("train", "val", "test"), loaders, loaders_e):
+        for epoch in range(CONFIG_EPOCHS if name == "train" else 1):
+            a.set_epoch(epoch)
+            b.set_epoch(epoch)
+            ba, bb = list(a), list(b)
+            check(len(ba) == len(bb) and all(same_batches(x, y) for x, y in zip(ba, bb)),
+                  f"{label}: the {name} batches of epoch {epoch} differ from the explicit "
+                  "datasets'")
+            compared += len(ba)
+    print(f"{label}: prepare_data(config) and prepare_data(config, datasets): the same completed "
+          f"config, the same {compared} batches bit for bit", flush=True)
+
+    # run_training from the JSON's path, then on the explicit datasets
+    cfg_path = Path(f"{label}.json").resolve()
+    cfg_path.write_text(json.dumps(config))
+    log_name = get_log_name_config(done)
+    runs, caught = {}, []
+    for run, (cfg, splits_in) in {"config": (str(cfg_path), None),
+                                  "datasets": (dict(copy.deepcopy(config)), splits)}.items():
+        if run == "datasets":
+            cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+        losses, seconds, graphs = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches(wrappers)
+        t0 = time.perf_counter()
+        with deterministic(caught), step_probe(losses, seconds, graphs):
+            _, state, hist = api.run_training(cfg, datasets=splits_in, seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs = CONFIG_EPOCHS if run == "config" else 1
+        units = int(state.step) + epochs * (len(loaders[1]) + len(loaders[2]))
+        counts = _check_launches(f"{label} run_training ({run})", wrappers, per_step, units,
+                                 "steps and eval batches")
+        check(state.step.device.type == "cuda" and int(state.step) == len(losses)
+              and int(state.skipped_steps) == 0
+              and all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k]),
+              f"{label}: run_training ({run}) did not train on the card")
+        runs[run] = (torch.stack(losses).float().cpu().numpy(), seconds, graphs, wall,
+                     torch.cuda.max_memory_allocated(), hist, counts)
+    la, seconds, graphs, wall, peak, hist, counts = runs["config"]
+    launched = collections.Counter(counts)
+    lb = runs["datasets"][0]
+    written = Path("logs") / log_name / "config.json"
+    check(written.is_file() and json.loads(written.read_text()) == json.loads(json.dumps(done)),
+          f"{label}: run_training did not write the completed config to {written}")
+    n = CONFIG_STEPS
+    print(f"{label}: run_training(config) {CONFIG_EPOCHS} epochs in {wall:.2f} s: {len(la)} "
+          f"steps, history {hist}; step time (synchronized at both ends) median "
+          f"{np.median(seconds[3:]) * 1e3:.2f} ms over steps 4-{len(la)}, "
+          f"{sum(graphs[3:]) / sum(seconds[3:]):.1f} graphs/s trained; peak memory "
+          f"{peak / 2**20:.1f} MiB; the first {n} losses {la[:n].tolist()}, on the explicit "
+          f"datasets {lb[:n].tolist()}; deterministic algorithms, warnings "
+          f"{sorted(set(caught))}", flush=True)
+    check(len(la) >= n and len(lb) >= n and np.array_equal(la[:n], lb[:n]),
+          f"{label}: the first {n} losses differ between the config's data and the explicit "
+          "datasets")
+
+    # the first steps through the kernels against the plain versions
+    lr = training["Optimizer"]["learning_rate"]
+    loaders[0].set_epoch(0)
+    batches = list(loaders[0])[:n]
+    model = create_model(done, device=device, seed=SEED)
+
+    def make_step(st):
+        return lambda b: make_train_step(st.model, compute_grad_energy=ef)(st, b)
+
+    with deterministic():
+        grads = route_gradients(model, batches[0], device,
+                                {"kernels": ((), None), "plain": (PLAIN, None),
+                                 "the plain route again": (PLAIN, None)}, make_step, lr=lr)
+        gradients_present(f"{label}: step 0", grads["kernels"], grads["plain"])
+        grad_gate("step-0 gradients vs plain route", grads["kernels"], grads["plain"],
+                  rtol["gradients"], {"the plain route again": grads["the plain route again"]},
+                  cell=label)
+        del grads
+        lk, lp, _, _, _, _, _ = trajectories(label, model, batches, device, make_step, PLAIN,
+                                             per_step, lr=lr)
+        # a rounding draw: the plain route with the kernel's plain version
+        # evaluated in f64 and rounded back (its sums correctly rounded)
+        state = _train_copy(model, device, lr=lr)
+        step = make_step(state)
+        mod, name, plain = plain_swaps()[CONFIG_KERNEL[label]]
+        with swapped([(mod, name, _rounded_f64(plain))]):
+            lc = np.asarray([float(step(b)[1]) for b in batches])
+        del state, step
+    step0 = abs(float(lk[0]) - float(lp[0])) / abs(float(lp[0]))
+    print(f"{label}: step 0's loss through the kernels {lk[0]:.8g}, plain {lp[0]:.8g}, relative "
+          f"{step0:.3g} (limit {rtol['loss']}); the kernel route's {n} losses equal "
+          f"run_training's: {bool(np.array_equal(lk, la[:n]))}", flush=True)
+    check(step0 <= rtol["loss"], f"{label}: step 0's loss disagrees with the plain route")
+    # the later steps amplify a step's roundings (the loss may jump tenfold
+    # from step to step at random init): the limit is the trajectory limit
+    # or three times the rounding draw's largest distance, whichever is larger
+    draw = float((np.abs(lc - lp) / np.abs(lp)).max())
+    trajectory_gate(label, lk, lp, max(rtol["trajectory"], 3 * draw),
+                    f"; the rounding draw {lc.tolist()}, largest relative {draw:.3g}")
+    if ef:
+        b = batches[0].to(device)
+        forces = {}
+        for route, swap in (("kernels", ()), ("plain", PLAIN)):
+            m = copy.deepcopy(model).eval()
+            with deterministic(), plain_versions(swap):
+                forces[route] = predict_energy_forces(m, b, m.cfg)[1]
+            del m
+        mask = b.node_mask
+        rows = ((forces["kernels"] - forces["plain"])[mask].abs().max(dim=1).values
+                / float(forces["plain"][mask].abs().max()))
+        lim = rtol["forces"]
+        print(f"{label}: forces at the initial weights (eval), kernels vs plain: largest row "
+              f"{float(rows.max()):.6g}, median row {float(rows.median()):.6g} (limits {lim})",
+              flush=True)
+        check(float(rows.max()) <= lim[0] and float(rows.median()) <= lim[1],
+              f"{label}: the forces disagree with the plain route")
+    del model
+
+    # run_prediction and run_server from the run's checkpoint
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    tot, _, preds, trues = api.run_prediction(copy.deepcopy(config))
+    pred_s = time.perf_counter() - t0
+    launched.update(_check_launches(f"{label} run_prediction", wrappers, per_step,
+                                    len(loaders[2]), "batches"))
+    ratios = {k: float(np.abs(preds[k] - trues[k]).mean() / np.abs(trues[k]).mean())
+              for k in preds}
+    print(f"{label}: run_prediction(config) in {pred_s:.2f} s: test loss {tot:.6g}; MAE over the "
+          f"zero predictor's by head {ratios}", flush=True)
+    check(all(np.isfinite(v).all() for v in preds.values()) and math.isfinite(tot),
+          f"{label}: non-finite predictions")
+    t0 = time.perf_counter()
+    server = api.run_server(copy.deepcopy(config))
+    check(server.wait_ready(timeout=600), f"{label}: server warm-up failed: {server.failed}")
+    ready_s = time.perf_counter() - t0
+    test = splits[2]
+    requests = [test[i % len(test)] for i in range(n_requests)]
+    batches0 = server.stats()["batches"]
+    _zero_launches(wrappers)
+    t_start = time.perf_counter()
+    handles = [server.submit(g) for g in requests]
+    results = [h.result(timeout=600) for h in handles]
+    t_end = max(h.done_at for h in handles)
+    torch.cuda.synchronize()
+    stats = server.stats()
+    server.close()
+    served = stats["batches"] - batches0
+    launched.update(_check_launches(f"{label} run_server", wrappers, per_step, served, "batches"))
+    check(stats["failed_batches"] == 0 and stats["rejected"] == 0 and served > 0,
+          f"{label}: serving {stats}")
+    check(stats["current_checkpoint"] is not None,
+          f"{label}: the server did not restore the run's checkpoint")
+    var = done["NeuralNetwork"]["Variables_of_interest"]
+    for g, r in zip(requests, results):
+        check(set(r) == set(var["output_names"]), f"{label}: served heads {sorted(r)}")
+        for name, t in zip(var["output_names"], var["type"]):
+            rows = 1 if t == "graph" else g.num_nodes
+            check(r[name].reshape(rows, -1).shape[0] == rows and np.isfinite(r[name]).all(),
+                  f"{label}: served {name} of shape {r[name].shape} for {g.num_nodes} nodes")
+    lat = np.asarray([h.done_at - h.submitted_at for h in handles]) * 1e3
+    print(f"{label}: run_server(config) ready in {ready_s:.2f} s from "
+          f"{stats['current_checkpoint']}; {n_requests} requests in {served} batches, "
+          f"{n_requests / (t_end - t_start):.1f} graphs/s, latency p50 "
+          f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} ms", flush=True)
+    return launched
+
+
 def run_gfm_phases(device, gfm_graphs, oc20, mace_graphs):
     """Every GFM phase in order; returns the launches of the GFM recipe's
     phases (counted against the ``gfm/`` kernel cases) and of the rest."""
@@ -4686,6 +5204,21 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
           f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
           f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += egnn_kernel_cases(batch, device, prefix="gfm/", k2_dtypes=(torch.float32,))
+    # the example recipes' data (oc20_config, lsms_config), written once;
+    # their first train batches give the shapes of their cases
+    (REPO / "build").mkdir(exist_ok=True)
+    data_root = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_data_",
+                                                                      dir=REPO / "build")))
+    config_phases = config_phase_data(data_root)
+    config_batches = {}
+    for label, config in config_phases.items():
+        _, (loader, _, _), _ = prepare_data(copy.deepcopy(config))
+        loader.set_epoch(0)
+        config_batches[label] = batch = next(iter(loader))
+        print(f"batch {label}: {int(batch.graph_mask.sum())} graphs, "
+              f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
+              f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
+    cases += config_kernel_cases(config_batches, device)
     t0 = time.perf_counter()
     topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
     topology_s = time.perf_counter() - t0
@@ -4760,6 +5293,12 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
         launched.update({(k, f"gfm/{c}"): n for (k, c), n in gfm_launched.items()})
         launched.update(rest)
         print(f"gfm phases in {time.perf_counter() - t0:.1f} s", flush=True)
+        for label, config in config_phases.items():
+            t0 = time.perf_counter()
+            prefix = label.split("_")[0]
+            launched.update({(k, f"{prefix}/{c}"): n for (k, c), n in run_config_phase(
+                label, config, device, N_REQUESTS).items()})
+            print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

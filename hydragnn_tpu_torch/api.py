@@ -1,25 +1,43 @@
 """Config-driven entry points: ``prepare_data``, ``run_training``,
 ``run_prediction`` and ``run_server`` (single host).
 
-Counterpart of ``hydragnn_tpu/api.py``. ``run_training`` checkpoints to
-``./logs/<log name>/`` (train/checkpoint.py: every save verified and
-atomic, the end of the run always saved), resumes a run under
-``Training.continue`` (mid-epoch after a SIGTERM stop) and wires the
-rollback policy's restore. ``run_prediction`` and ``run_server`` restore
-the newest verified checkpoint of the run; explicit ``variables`` (a JAX
-package checkpoint tree as numpy arrays, loaded by
-``bridge.load_jax_variables``) win over the disk. Every entry point runs on
-the current CUDA device unless ``device`` says otherwise, and raises when
-no GPU is present and none was given.
+Counterpart of ``hydragnn_tpu/api.py``. Each takes a config dict or the
+path of a JSON file. With no explicit datasets, ``prepare_data`` loads the
+``Dataset`` section's data (``_load_raw_dataset``: ``synthetic`` /
+``unit_test``, ``lennard_jones``, ``pickle``, ``columnar``, ``LSMS``,
+``XYZ``, ``CFG``), applies the load-time transforms, passes the sample
+validator, normalizes (min-max) and selects the variables, attaches GPS's
+Laplacian PE through its disk cache, and splits; explicit datasets get the
+transforms and the validator per split. ``run_training`` writes the
+completed config to ``./logs/<log name>/config.json`` and checkpoints
+there (train/checkpoint.py: every save verified and atomic, the end of the
+run always saved), resumes a run under ``Training.continue`` (mid-epoch
+after a SIGTERM stop) and wires the rollback policy's restore.
+``run_prediction`` and ``run_server`` restore the newest verified
+checkpoint of the run; explicit ``variables`` (a JAX package checkpoint
+tree as numpy arrays, loaded by ``bridge.load_jax_variables``) win over
+the disk. ``run_prediction`` returns the predictions in the data's units
+under ``Variables_of_interest.denormalize_output``. Every entry point runs
+on the current CUDA device unless ``device`` says otherwise, and raises
+when no GPU is present and none was given.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .config import get_log_name_config, load_config, update_config
+from .config import get_log_name_config, load_config, save_config, update_config, voi_from_config
 from .data.graph import Graph, SpecLadder
-from .data.pipeline import GraphLoader, _pack_spec, branch_sample_weights
+from .data.pipeline import (
+    GraphLoader,
+    MinMax,
+    _pack_spec,
+    branch_sample_weights,
+    extract_variables,
+    select_input_columns,
+    split_dataset,
+)
+from .data.transforms import apply_dataset_transforms, wants_transforms
 from .device import DeviceLike, resolve_device
 
 
@@ -31,52 +49,142 @@ def _as_config(config) -> Dict[str, Any]:
     raise TypeError(f"config must be a dict or str path, got {type(config)}")
 
 
-def wants_transforms(dataset_cfg: Dict[str, Any]) -> bool:
-    """Whether the Dataset section asks for a load-time transform
-    (``rotational_invariance``, ``edge_features``, ``Descriptors``)."""
-    return bool(dataset_cfg.get("rotational_invariance") or dataset_cfg.get("edge_features")
-                or dataset_cfg.get("Descriptors"))
+def _load_raw_dataset(config: Dict[str, Any]) -> List[Graph]:
+    """The ``Dataset`` section's graphs, by ``Dataset.format``:
+    ``synthetic`` / ``unit_test`` (the deterministic BCC fixture),
+    ``lennard_jones``, ``pickle`` (``Dataset.path.total`` and
+    ``Dataset.name``), ``columnar`` (read in ``Dataset.mode``), and the raw
+    text formats ``LSMS`` (the column indices of ``node_features`` and
+    ``graph_features``, ``charge_density_correction``), ``XYZ`` and ``CFG``,
+    whose edges come from the radius graph. A raw file that fails to parse
+    is skipped, unless ``Dataset.bad_sample_policy`` is ``error``."""
+    ds = config.get("Dataset", {})
+    arch = config["NeuralNetwork"]["Architecture"]
+    fmt = ds.get("format", "synthetic")
+    if fmt in ("synthetic", "unit_test"):
+        from .data.synthetic import deterministic_graph_dataset
+
+        opts = ds.get("synthetic", {})
+        return deterministic_graph_dataset(
+            number_configurations=opts.get("number_configurations", 300),
+            linear_only=opts.get("linear_only", False),
+            radius=arch.get("radius", 2.0) or 2.0,
+            max_neighbours=arch.get("max_neighbours") or 100,
+            seed=opts.get("seed", 97),
+        )
+    if fmt == "lennard_jones":
+        from .data.synthetic import lennard_jones_dataset
+
+        opts = dict(ds.get("lennard_jones", {}))
+        opts.setdefault("radius", arch.get("radius", 2.5) or 2.5)
+        if arch.get("max_neighbours"):
+            opts.setdefault("max_neighbours", arch["max_neighbours"])
+        return lennard_jones_dataset(**opts)
+    if fmt == "pickle":
+        from .data.datasets import SimplePickleDataset
+
+        return list(SimplePickleDataset(ds["path"]["total"], ds["name"]))
+    if fmt == "columnar":
+        from .data.columnar import ColumnarDataset
+
+        # the samples become host Graphs for the split and normalization:
+        # the mode bounds the raw arrays' residency during the read only
+        dataset = ColumnarDataset(ds["path"]["total"], mode=ds.get("mode", "mmap"))
+        graphs = list(dataset)
+        dataset.close()
+        return graphs
+    if fmt in ("LSMS", "XYZ", "CFG"):
+        from .data.raw import finalize_graphs, load_raw_dataset
+
+        kwargs: Dict[str, Any] = {}
+        if fmt == "LSMS":
+            nf, gf = ds.get("node_features", {}), ds.get("graph_features", {})
+            if "column_index" in nf:
+                kwargs.update(node_feature_cols=nf["column_index"], node_feature_dims=nf["dim"])
+            if "column_index" in gf:
+                kwargs.update(graph_feature_cols=gf["column_index"],
+                              graph_feature_dims=gf["dim"])
+            kwargs["charge_density_correction"] = ds.get("charge_density_correction", False)
+        on_error = "raise" if ds.get("bad_sample_policy", "warn_skip") == "error" else "skip"
+        raw = load_raw_dataset(ds["path"]["total"], fmt, on_error=on_error, **kwargs)
+        return finalize_graphs(raw, radius=arch.get("radius", 5.0) or 5.0,
+                               max_neighbours=arch.get("max_neighbours"),
+                               periodic=arch.get("periodic_boundary_conditions", False))
+    raise ValueError(f"unknown Dataset.format {fmt!r}")
+
+
+def _ready_splits(config: Dict[str, Any], validator):
+    """The raw path of ``prepare_data``: load, transform, validate (source
+    ``ingest``), then under ``compute_grad_energy`` select the input columns
+    (physical units: no min-max), else fit the min-max over the validated
+    set, normalize (``Dataset.normalize``, default on) and extract the
+    variables; GPS's PE; split (``perc_train``,
+    ``compositional_stratified_splitting``). Returns the three splits and
+    the min-max table (None under ``compute_grad_energy``)."""
+    ds_cfg = config.get("Dataset", {})
+    training = config["NeuralNetwork"]["Training"]
+    arch = config["NeuralNetwork"]["Architecture"]
+    raw = _load_raw_dataset(config)
+    if wants_transforms(ds_cfg):
+        (raw,) = apply_dataset_transforms(ds_cfg, raw)
+    raw = validator.filter(raw, source="ingest")
+    voi = voi_from_config(config)
+    if training.get("compute_grad_energy", False):
+        mm = None
+        ready = [select_input_columns(g, voi) for g in raw]
+    else:
+        mm = MinMax.fit(raw)
+        if ds_cfg.get("normalize", True):
+            raw = mm.apply(raw)
+        ready = [extract_variables(g, voi) for g in raw]
+    if arch.get("global_attn_engine"):
+        from .data.lappe import add_dataset_pe
+
+        ready = add_dataset_pe(ready, int(arch.get("pe_dim") or 1),
+                               cache=ds_cfg.get("lappe_cache", True))
+    splits = split_dataset(ready, perc_train=training.get("perc_train", 0.7), seed=0,
+                           stratified=ds_cfg.get("compositional_stratified_splitting", False))
+    return splits, mm
 
 
 def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None):
     """Complete the config from the data and build the loaders; returns
     ``(completed config, (train, val, test) loaders, minmax)``.
 
-    ``datasets`` is the (train, val, test) split of model-ready graphs.
-    Each split passes the sample validator of ``Dataset.bad_sample_policy``
-    first, as in the JAX package. The train loader draws with replacement
-    under ``Training.oversampling`` (``num_samples`` draws, default the
-    split's size), weighted so every branch gets the same share of the
-    draws under ``Training.balance_branch_sampling``, and takes the first
+    With ``datasets`` None the data comes from the ``Dataset`` section
+    (``_ready_splits``; ``minmax`` is the table fitted there). Else
+    ``datasets`` is the (train, val, test) split of model-ready graphs: the
+    load-time transforms run over the three (one shared edge-length max)
+    and each split passes the sample validator of
+    ``Dataset.bad_sample_policy``; ``minmax`` is None. The train loader
+    draws with replacement under ``Training.oversampling``
+    (``num_samples`` draws, default the split's size), weighted so every
+    branch gets the same share of the draws under
+    ``Training.balance_branch_sampling``, and takes the first
     ``num_samples`` of its shuffle otherwise; ``size_bucketed_batching``
     composes batches of like-sized graphs (the ladder simulates the same
-    policy). Loading raw datasets from ``Dataset.path``, the load-time
-    transforms (``wants_transforms``) and the ``Mixture`` section come with
-    later slices and raise ``NotImplementedError``."""
+    policy). The ``Mixture`` section comes with a later slice and raises
+    ``NotImplementedError``."""
     from .data.validate import SampleValidator
     from .models.create import conv_needs_triplets
 
     config = _as_config(config)
-    if datasets is None:
-        raise NotImplementedError(
-            "prepare_data needs explicit (train, val, test) datasets; loading "
-            "raw datasets from the Dataset section comes with a later slice"
-        )
-    if wants_transforms(config.get("Dataset", {})):
-        raise NotImplementedError(
-            "the Dataset section's load-time transforms (rotational_invariance, "
-            "edge_features, Descriptors) come with the dataset slice of the port (a later "
-            "slice)")
     if config.get("Mixture"):
         raise NotImplementedError(
             "the Mixture section (the streaming multi-source sampler and its branch loss "
             "weights) comes with the mixture plane of the port (a later slice); set "
             "Architecture.branch_loss_weights and Training.balance_branch_sampling instead")
-    validator = SampleValidator(
-        str(config.get("Dataset", {}).get("bad_sample_policy", "warn_skip")))
-    trainset, valset, testset = (
-        validator.filter(list(d), source=src)
-        for d, src in zip(datasets, ("train", "val", "test")))
+    ds_cfg = config.get("Dataset", {})
+    validator = SampleValidator(str(ds_cfg.get("bad_sample_policy", "warn_skip")))
+    if datasets is None:
+        (trainset, valset, testset), mm = _ready_splits(config, validator)
+    else:
+        mm = None
+        splits = [list(d) for d in datasets]
+        if wants_transforms(ds_cfg):
+            splits = apply_dataset_transforms(ds_cfg, *splits)
+        trainset, valset, testset = (
+            validator.filter(d, source=src) for d, src in zip(splits, ("train", "val", "test")))
     config = update_config(config, trainset, valset, testset)
     training = config["NeuralNetwork"]["Training"]
     arch = config["NeuralNetwork"]["Architecture"]
@@ -104,7 +212,7 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
         num_samples=training.get("num_samples"), sample_weights=sample_weights, **kw)
     val_loader = GraphLoader(valset, batch_size, shuffle=False, source="val", **kw)
     test_loader = GraphLoader(testset, batch_size, shuffle=False, source="test", **kw)
-    return config, (train_loader, val_loader, test_loader), None
+    return config, (train_loader, val_loader, test_loader), mm
 
 
 def _model(config, variables, device, seed):
@@ -155,9 +263,9 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     JAX checkpoint tree), else the seeded initialization; under
     ``Training.continue`` the newest verified checkpoint of run
     ``Training.startfrom`` (default: this run) is restored over them.
-    Checkpoints go to ``./logs/<log name>/``: the best validation epochs
-    under ``Training.Checkpoint``, the SIGTERM stop, and the end of the
-    run."""
+    The completed config goes to ``./logs/<log name>/config.json``, and
+    the checkpoints beside it: the best validation epochs under
+    ``Training.Checkpoint``, the SIGTERM stop, and the end of the run."""
     from .train.checkpoint import (clear_loader_state, load_existing_model, save_loader_state,
                                    save_model)
     from .train.loop import train_validate_test
@@ -166,6 +274,8 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     from .utils import preemption
 
     config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
+    log_name = get_log_name_config(config)
+    save_config(config, log_name)
     model = _model(config, variables, resolve_device(device), seed)
     training = config["NeuralNetwork"]["Training"]
     optimizer = make_optimizer(
@@ -173,7 +283,6 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
         freeze_conv=bool(config["NeuralNetwork"]["Architecture"].get("freeze_conv_layers", False)),
     )
     state = TrainState.create(model, optimizer)
-    log_name = get_log_name_config(config)
     verbosity = config["Verbosity"].get("level", 0)
     if training.get("continue"):
         _resume(state, train_loader, training.get("startfrom") or log_name, log_name, verbosity)
@@ -221,19 +330,33 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
     """Evaluate on the test split: ``(loss, per-task losses, predictions,
     targets)``. The weights are ``variables`` (a JAX checkpoint tree), else
     the run's newest verified checkpoint; with neither it raises
-    ``FileNotFoundError``."""
+    ``FileNotFoundError``. Under ``Variables_of_interest.denormalize_output``
+    the predictions and targets of every head come back in the data's units
+    (the min-max table of a run that loaded its data from the config)."""
     from .train.loop import test_model
 
-    config, (_, _, test_loader), _ = prepare_data(config, datasets)
+    config, (_, _, test_loader), mm = prepare_data(config, datasets)
     model = _model(config, variables, resolve_device(device), 0)
     if variables is None:
         _restore_for_inference(model, config)
     training = config["NeuralNetwork"]["Training"]
-    return test_model(
+    tot, tasks, preds, trues = test_model(
         model, test_loader,
         mixed_precision=bool(training.get("mixed_precision", False)),
         compute_grad_energy=bool(training.get("compute_grad_energy", False)),
     )
+    var = config["NeuralNetwork"]["Variables_of_interest"]
+    if var.get("denormalize_output") and mm is not None:
+        voi = voi_from_config(config)
+        for name, t, idx in zip(var["output_names"], var["type"], var["output_index"]):
+            if name not in preds:
+                continue  # the forces head of an energy-force run replaces it
+            if t == "graph":
+                denorm, sl = mm.denormalize_graph, voi.graph_feature_slice(idx)
+            else:
+                denorm, sl = mm.denormalize_node, voi.node_feature_slice(idx)
+            preds[name], trues[name] = denorm(preds[name], sl), denorm(trues[name], sl)
+    return tot, tasks, preds, trues
 
 
 def run_server(config, datasets=None, variables=None, device: DeviceLike = None,

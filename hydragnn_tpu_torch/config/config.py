@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import sys
 from typing import Any, Dict, List, Sequence
 
@@ -18,6 +19,7 @@ import torch
 
 from ..data.graph import Graph
 from ..data.pipeline import VariablesOfInterest
+from ..data.transforms import descriptor_edge_dim
 
 # Architecture keys of the radial bases and of DimeNet's and MACE's blocks,
 # None when absent
@@ -29,6 +31,8 @@ _ARCH_NONE_DEFAULTS = ("radius", "radial_type", "distance_transform", "num_gauss
 
 EQUIVARIANT_MODELS = ("EGNN", "SchNet", "PNAEq", "PAINN", "MACE")
 PNA_MODELS = ("PNA", "PNAPlus", "PNAEq")
+EDGE_MODELS = ("GAT", "PNA", "PNAPlus", "PNAEq", "PAINN", "GPS", "CGCNN", "SchNet", "EGNN",
+               "DimeNet", "MACE")
 
 
 def degree_histogram(graphs: Sequence[Graph], max_deg: int = 64) -> List[int]:
@@ -89,8 +93,9 @@ def update_config(
     ``compute_grad_energy`` the dims from ``Variables_of_interest``),
     ``num_nodes``, ``input_dim``, ``pna_deg`` (and ``max_neighbours`` for PNA models),
     MACE's ``avg_num_neighbors``, CGCNN's ``hidden_dim`` (its input width without global
-    attention) and ``edge_dim``, the keys of the radial bases and of DimeNet's and MACE's
-    blocks (``_ARCH_NONE_DEFAULTS``: None when absent), the
+    attention), ``edge_dim`` (the load-time descriptors' columns, else 0 for
+    CGCNN), the keys of the radial bases and of DimeNet's and MACE's blocks
+    (``_ARCH_NONE_DEFAULTS``: None when absent), the
     measured ``max_in_degree`` (a supplied bound below the data's raises),
     the ``use_sorted_aggregation`` / ``use_fused_edge_kernel`` /
     ``use_flash_attention`` defaults, and the Training section's defaults
@@ -222,7 +227,14 @@ def update_config(
         arch["hidden_dim"] = arch["input_dim"]
     for key in _ARCH_NONE_DEFAULTS:
         arch.setdefault(key, None)
-    if arch["mpnn_type"] == "CGCNN" and not arch.get("edge_dim"):
+    # the edge width: the columns the load-time descriptors give
+    # (data/transforms.py), else 0 for CGCNN, else the config's
+    edge_dim = descriptor_edge_dim(config.get("Dataset", {}))
+    if edge_dim:
+        assert arch["mpnn_type"] in EDGE_MODELS or arch["global_attn_engine"], (
+            "edge features can only be used with edge-aware models")
+        arch["edge_dim"] = edge_dim
+    elif arch["mpnn_type"] == "CGCNN":
         arch["edge_dim"] = 0
 
     if arch.get("equivariance"):
@@ -314,6 +326,16 @@ def get_log_name_config(config: Dict[str, Any]) -> str:
         f"-lr-{training.get('Optimizer', {}).get('learning_rate')}"
         f"-bs-{training.get('batch_size')}"
     )
+
+
+def save_config(config: Dict[str, Any], log_name: str, path: str = "./logs") -> str:
+    """Write the completed config to ``<path>/<log name>/config.json``."""
+    run_dir = os.path.join(path, log_name)
+    os.makedirs(run_dir, exist_ok=True)
+    fname = os.path.join(run_dir, "config.json")
+    with open(fname, "w") as f:
+        json.dump(config, f, indent=2)
+    return fname
 
 
 def load_config(path: str) -> Dict[str, Any]:

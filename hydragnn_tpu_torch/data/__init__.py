@@ -1,3 +1,5 @@
+from .columnar import ColumnarDataset, ColumnarWriter
+from .datasets import AbstractBaseDataset, SimplePickleDataset, SimplePickleWriter
 from .graph import (
     Graph,
     GraphBatch,
@@ -9,6 +11,7 @@ from .graph import (
     sort_edges_by_receiver,
 )
 from .lappe import add_dataset_pe, add_graph_pe, laplacian_pe
+from .lsms import compositional_histogram_cutoff, convert_total_energy_to_formation_gibbs
 from .neighbors import radius_graph, radius_graph_pbc
 from .pipeline import (
     GraphLoader,
@@ -19,6 +22,8 @@ from .pipeline import (
     spec_template_batches,
     split_dataset,
 )
+from .raw import finalize_graphs, load_raw_dataset
+from .reference_energy import fit_reference_energies, subtract_reference_energies
 from .synthetic import (
     bcc_supercell,
     deterministic_graph_dataset,
@@ -26,3 +31,4 @@ from .synthetic import (
     md17_shaped_dataset,
     oc20_shaped_dataset,
 )
+from .transforms import apply_dataset_transforms, descriptor_edge_dim, wants_transforms

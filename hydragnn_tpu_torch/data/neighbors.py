@@ -140,3 +140,19 @@ def _cap_neighbours(pos, senders, receivers, shifts, k):
     if shifts is None:
         return senders[keep], receivers[keep], None
     return senders[keep], receivers[keep], shifts[keep]
+
+
+def edge_vectors_and_lengths(
+    pos: np.ndarray,
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    shifts: Optional[np.ndarray] = None,
+    eps: float = 1e-12,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Displacement sender -> receiver (less the sender image's shift) and
+    its length ``sqrt(|vec|^2 + eps)``, in numpy."""
+    vec = pos[receivers] - pos[senders]
+    if shifts is not None:
+        vec = vec - shifts
+    length = np.sqrt(np.sum(vec * vec, axis=1) + eps)
+    return vec, length

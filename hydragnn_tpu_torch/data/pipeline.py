@@ -133,7 +133,8 @@ def extract_variables(graph: Graph, voi: VariablesOfInterest) -> Graph:
 
 @dataclasses.dataclass
 class MinMax:
-    """Per-column min/max used to normalize features/targets to [0, 1]."""
+    """Per-column min/max used to normalize features/targets to [0, 1],
+    and to take predictions back to the data's units."""
 
     x_min: np.ndarray
     x_max: np.ndarray
@@ -160,14 +161,42 @@ class MinMax:
             out.append(dataclasses.replace(g, x=x.astype(np.float32), graph_y=gy))
         return out
 
+    def denormalize_graph(self, y: np.ndarray, idx: slice) -> np.ndarray:
+        """A graph head's values (columns ``idx`` of the graph features) in
+        the data's units."""
+        return y * (self.y_max[idx] - self.y_min[idx]) + self.y_min[idx]
+
+    def denormalize_node(self, y: np.ndarray, idx: slice) -> np.ndarray:
+        """A node head's values in the data's units: node heads come from
+        the normalized ``graph.x`` columns ``idx``, so their scale is the x
+        min/max."""
+        lo, hi = self.x_min[idx], self.x_max[idx]
+        return y * np.where(hi > lo, hi - lo, 1.0) + lo
+
 
 def split_dataset(
-    graphs: List[Graph], perc_train: float, seed: int = 0
+    graphs: List[Graph], perc_train: float, seed: int = 0, stratified: bool = False
 ) -> Tuple[List[Graph], List[Graph], List[Graph]]:
-    """Random train/val/test split; val and test share the remainder."""
+    """Random train/val/test split; val and test share the remainder.
+    ``stratified`` groups the graphs by composition (the histogram of
+    ``z``), shuffles each group and deals the groups round-robin
+    (``_deal_order``), so each split sees every composition."""
     rng = np.random.default_rng(seed)
     idx = np.arange(len(graphs))
-    rng.shuffle(idx)
+    if stratified:
+        groups: Dict[tuple, list] = {}
+        for i, g in enumerate(graphs):
+            key = tuple(np.bincount(np.asarray(g.z, np.int64) if g.z is not None else [0]))
+            groups.setdefault(key, []).append(i)
+        order = []
+        for key in sorted(groups):
+            sub = np.array(groups[key])
+            rng.shuffle(sub)
+            order.append(sub)
+        idx = np.concatenate(order) if order else idx
+        idx = idx[_deal_order(len(idx))]
+    else:
+        rng.shuffle(idx)
     n_train = int(len(idx) * perc_train)
     n_val = (len(idx) - n_train) // 2
     return (
@@ -175,6 +204,12 @@ def split_dataset(
         [graphs[i] for i in idx[n_train : n_train + n_val]],
         [graphs[i] for i in idx[n_train + n_val :]],
     )
+
+
+def _deal_order(n: int) -> np.ndarray:
+    """Round-robin dealing permutation: 0, k, 2k, ..., 1, k+1, ... with k=10."""
+    k = 10
+    return np.concatenate([np.arange(s, n, k) for s in range(k)])
 
 
 def branch_sample_weights(graphs: Sequence[Graph]) -> np.ndarray:

@@ -1200,3 +1200,40 @@ def pytest_gfm_step_gradients_match_the_plain_route_on_card(cuda, loss):
         _assert_zoo_step_gradients_match(
             cuda, "EGNN", layers=3, branches=3, loss=loss,
             prepare=unit_variance if loss == "GaussianNLLLoss" else None)
+
+
+@pytest.mark.gpu
+def pytest_run_training_from_a_columnar_config_on_card(cuda, tmp_path, monkeypatch):
+    """``run_training`` from the OC20 example's JSON alone (narrowed: EGNN
+    hidden 32) over a small columnar directory, one epoch on the card with
+    no device given: the kernels on by config completion, K2 four times in
+    each train step and eval batch (every EGNN layer, equivariance off), the
+    state on the card, every loss finite, the completed config written to
+    the run directory."""
+    import json
+    import math
+    from pathlib import Path
+
+    from hydragnn_tpu_torch.api import prepare_data, run_training
+    from hydragnn_tpu_torch.data import ColumnarWriter, oc20_shaped_dataset
+
+    monkeypatch.chdir(tmp_path)
+    config = json.loads((Path(__file__).resolve().parents[1] / "examples" / "open_catalyst_2020"
+                         / "open_catalyst_2020.json").read_text())
+    config["NeuralNetwork"]["Architecture"]["hidden_dim"] = 32
+    config["NeuralNetwork"]["Training"].update(num_epoch=1, batch_size=4)
+    config["Dataset"]["path"]["total"] = str(tmp_path / "oc20")
+    ColumnarWriter(str(tmp_path / "oc20")).add(
+        oc20_shaped_dataset(24, mean_atoms=20, min_atoms=10, max_atoms=40)).save()
+    done, loaders, mm = prepare_data(copy.deepcopy(config))
+    arch = done["NeuralNetwork"]["Architecture"]
+    assert mm is None and arch["use_sorted_aggregation"] and arch["use_fused_edge_kernel"]
+    before = dict(t_fused.fused_edge_message_sum.launches_by_case)
+    _, state, hist = run_training(copy.deepcopy(config))
+    torch.cuda.synchronize()
+    after = t_fused.fused_edge_message_sum.launches_by_case
+    launched = after["float32/32x32"] - before.get("float32/32x32", 0)
+    assert launched == 4 * (int(state.step) + len(loaders[1]) + len(loaders[2]))
+    assert state.step.device.type == "cuda" and int(state.step) == len(loaders[0])
+    assert all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k])
+    assert list((tmp_path / "logs").glob("*/config.json"))

@@ -74,14 +74,11 @@ def pytest_entry_points_raise_without_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("later", [
     {"Mixture": {"temperature": 1.0}},
-    {"Dataset": {"rotational_invariance": True}},
-    {"Dataset": {"edge_features": ["lengths"]}},
     {"Dataset": {"bad_sample_policy": "quarantine"}},
 ])
 def pytest_later_slices_raise_not_implemented(later):
     """What the port does not carry yet raises in ``prepare_data`` rather
-    than be ignored: a ``Mixture`` section (the mixture plane), the
-    Dataset section's load-time transforms (the dataset slice), and the
+    than be ignored: a ``Mixture`` section (the mixture plane) and the
     ``quarantine`` sample policy (the robustness slice)."""
     from hydragnn_tpu_torch import api
     from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
@@ -94,6 +91,35 @@ def pytest_later_slices_raise_not_implemented(later):
                                                max_atoms=40, max_neighbours=10), 0.5)
     with pytest.raises(NotImplementedError, match="later slice"):
         api.prepare_data(c, splits)
+
+
+@pytest.mark.parametrize("transform", [
+    {"rotational_invariance": True},
+    {"edge_features": ["lengths"]},
+])
+def pytest_load_time_transforms_apply_as_in_jax(transform):
+    """The Dataset section's load-time transforms, which the earlier slices
+    refused, now run in ``prepare_data`` on explicit datasets: the loaders
+    hold the JAX package's transformed graphs, and the completed edge width
+    is the JAX package's."""
+    from hydragnn_tpu.api import prepare_data as j_prepare
+    from hydragnn_tpu.data.transforms import apply_dataset_transforms
+    from hydragnn_tpu_torch import api
+    from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
+    from test_torch_data import _assert_graphs_equal
+    from test_torch_serve import _config
+
+    c = _config()
+    c["Dataset"].update(transform)
+    splits = split_dataset(oc20_shaped_dataset(8, mean_atoms=20, min_atoms=10,
+                                               max_atoms=40, max_neighbours=10), 0.5)
+    config, loaders, _ = api.prepare_data(c, splits)
+    jconfig, _, _ = j_prepare(c, splits)
+    for loader, want in zip(loaders, apply_dataset_transforms(transform, *splits)):
+        _assert_graphs_equal(want, loader.graphs)
+    width = len(transform.get("edge_features", [])) or None
+    assert config["NeuralNetwork"]["Architecture"]["edge_dim"] == \
+        jconfig["NeuralNetwork"]["Architecture"]["edge_dim"] == width
 
 
 def pytest_orbax_checkpoint_backend_raises_not_implemented():

@@ -329,7 +329,8 @@ def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
     ls = tck.load_loader_state(log_name)
     assert ls is not None and (ls.epoch, ls.next_batch) == (1, 2)
     assert sorted(os.listdir(os.path.join("logs", log_name))) == sorted(
-        [f"{log_name}_epoch1.pt", f"{log_name}_epoch1.pt.sha256", "latest", "loader_state.json"])
+        [f"{log_name}_epoch1.pt", f"{log_name}_epoch1.pt.sha256", "latest", "loader_state.json",
+         "config.json"])
 
     # the JAX package killed after the same step
     d = str(tmp_path / "jax")

@@ -185,9 +185,25 @@ def pytest_serve_config_resolution():
         ServeConfig(batch_window_s=-1.0)
 
 
-def pytest_prepare_data_needs_explicit_datasets():
-    with pytest.raises(NotImplementedError, match="explicit"):
-        prepare_data(_config())
+def pytest_prepare_data_loads_the_config_or_takes_datasets():
+    """With no datasets ``prepare_data`` loads the Dataset section's data
+    (the synthetic format here) and returns its min-max table, the JAX
+    package's; with explicit datasets it takes them as they are (no min-max
+    table)."""
+    from hydragnn_tpu.api import prepare_data as j_prepare
+
+    c = _config()
+    c["Dataset"] = {"format": "synthetic", "synthetic": {"number_configurations": 24},
+                    "node_features": {"dim": [1, 1, 1]}, "graph_features": {"dim": [1]}}
+    c["NeuralNetwork"]["Variables_of_interest"].update(input_node_features=[0],
+                                                        output_index=[0, 1])
+    config, loaders, mm = prepare_data(copy.deepcopy(c))
+    _, jloaders, jmm = j_prepare(copy.deepcopy(c))
+    assert [len(l.graphs) for l in loaders] == [len(l.graphs) for l in jloaders]
+    assert sum(len(l.graphs) for l in loaders) == 24
+    for f in ("x_min", "x_max", "y_min", "y_max"):
+        np.testing.assert_array_equal(getattr(mm, f), getattr(jmm, f))
+    assert config["NeuralNetwork"]["Architecture"]["input_dim"] == 1
     config, loaders, mm = prepare_data(_config(), split_dataset(_graphs(12), 0.5))
     assert mm is None and all(isinstance(l, GraphLoader) for l in loaders)
     assert all(l.sort_edges for l in loaders) and loaders[0].pack
