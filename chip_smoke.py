@@ -218,6 +218,34 @@ Phases, each fatal on failure (exit code 1):
    oc20_config's first batch and K3 at lsms_config's (``oc20/`` and
    ``lsms/`` in the kernels line).
 
+15. The multi-GPU slice (``parallel/engine.py``), after the phases of 14.
+   ``dist_gfm_train``: the GFM recipe of 13 at full width (batch 160, bf16)
+   through ``make_mesh_train_step`` at a world of one rank over a real NCCL
+   process group, once per unrouted preset (dp, zero1, zero2, zero3; the
+   state placed by ``place_state``), 4 steps each against
+   ``make_train_step`` on the same batches under deterministic algorithms:
+   every reduction is the identity there, so parameters, statistics,
+   moments and losses agree bit for bit; ms per step of each preset beside
+   the plain step's, peak memory, K1/K2 launches per step (egnn_train's)
+   and ``torch.cuda.nccl.version()``. ``dist_run_training``: the entry
+   point a user runs, ``python -m hydragnn_tpu_torch.launch --nprocs 1``
+   starting ``dist_run_rank``: ``run_training`` on the recipe with
+   ``zero_stage`` 3 (1 epoch) joins a group of one over NCCL, places the
+   state by the zero3 table, records ``Parallel.resolved_rules`` in the
+   saved config and writes the checkpoint; ``run_prediction`` from it
+   gives the run's last test loss exactly. ``dist_ranks``: processes that
+   share the card over gloo (NCCL refuses two ranks on one device; a
+   collective gloo lacks fails the phase), 2 ranks under dp, zero1, zero2
+   and zero3, AdamW, in one spawn, and 5 ranks under branch (one branch
+   each; SGD for 3 steps, as Adam would hide a branch's loss weight, and
+   the recipe's AdamW for 1), at batch 32 a rank: each rank's own tensors
+   after its job's steps against one process's emulation of the same
+   steps (``_emulated``: each row's gradients and statistics from the
+   same start, combined with the world's weights, each decoder branch
+   from its rank times its loss weight; bit for bit over 2 ranks), K1/K2
+   launches per step at every rank, ms per step and the bytes each rank
+   holds (optimizer state, parameters between steps).
+
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
 ``egnn_ckpt`` phase and the phases of 14 print none). Every path runs in a temporary directory
@@ -576,15 +604,6 @@ def gin_ring_spec(graph):
     from hydragnn_tpu_torch.data.graph import PadSpec
 
     return PadSpec(n_nodes=graph.num_nodes + 2, n_edges=graph.num_edges + 2, n_graphs=2)
-
-
-def exact_spec(graphs):
-    """The smallest pad spec holding ``graphs`` in one batch."""
-    from hydragnn_tpu_torch.data.graph import PadSpec, _round_up
-
-    return PadSpec(n_nodes=_round_up(sum(g.num_nodes for g in graphs) + 1, 8),
-                   n_edges=_round_up(sum(g.num_edges for g in graphs), 128),
-                   n_graphs=len(graphs) + 1)
 
 
 def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, shape,
@@ -3572,7 +3591,8 @@ def run_zoo(cells, device, per_unit):
         batches0 = server.stats()["batches"]
         _zero_launches(wrappers)
         t0 = time.perf_counter()
-        results = server.predict(requests, timeout=600)
+        handles = [server.submit(g) for g in requests]
+        results = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         serve_ms = (time.perf_counter() - t0) * 1e3
         served = server.stats()["batches"] - batches0
@@ -3587,17 +3607,30 @@ def run_zoo(cells, device, per_unit):
               f"{serve_ms:.2f} ms", flush=True)
         check(all(isinstance(r, dict) and set(r) == {"energy", "forces"} for r in results),
               f"{label}: served {results[:1]}")
-        # the same bf16 cast through the kernels' plain versions
-        batch = batch_graphs(requests, exact_spec(requests), sort_edges=True).to(device)
-        with torch.inference_mode(), plain_versions(PLAIN):
-            ref = mp_cast_model(server.model)(cast_batch_bf16(batch))
-        ref = {k: v.float().cpu().numpy() for k, v in ref.items()}
-        rows = {"energy": np.arange(len(requests)),
-                "forces": np.flatnonzero(batch.node_mask.cpu().numpy())}
-        got = {"energy": np.concatenate([r["energy"] for r in results]).reshape(-1, 1),
-               "forces": np.concatenate([r["forces"] for r in results])}
-        _rows_gate(label, "served answers vs the same bf16 cast, plain versions", got,
-                   {k: ref[k][rows[k]].reshape(got[k].shape) for k in got},
+        # the same bf16 cast through the kernels' plain versions, on the
+        # server's own micro-batches (how the admission window splits the
+        # requests varies run to run, and another composition pads to
+        # another ladder level, whose GEMM shapes round otherwise in bf16)
+        served_batches = {}
+        for i, h in enumerate(handles):
+            served_batches.setdefault(h.batch_index, []).append(i)
+        order = [i for idx in served_batches.values() for i in idx]
+        want = {"energy": [], "forces": []}
+        ref_model = mp_cast_model(server.model)
+        for idx in served_batches.values():
+            gs = [requests[i] for i in idx]
+            batch = batch_graphs(gs, server.ladder.select_for(gs),
+                                 sort_edges=server.sort_edges).to(device)
+            with torch.inference_mode(), plain_versions(PLAIN):
+                ref = ref_model(cast_batch_bf16(batch))
+            want["energy"].append(ref["energy"].float().cpu().numpy()[:len(gs)])
+            want["forces"].append(ref["forces"].float().cpu().numpy()[
+                np.flatnonzero(batch.node_mask.cpu().numpy())])
+        got = {"energy": np.concatenate([results[i]["energy"] for i in order]).reshape(-1, 1),
+               "forces": np.concatenate([results[i]["forces"] for i in order])}
+        _rows_gate(label, f"served answers vs the same bf16 cast, plain versions, on the "
+                          f"server's {len(served_batches)} micro-batches", got,
+                   {k: np.concatenate(v).reshape(got[k].shape) for k, v in want.items()},
                    ZOO_RTOL[name]["served"])
         model = server.model
         server.close()
@@ -5081,6 +5114,569 @@ def run_config_phase(label: str, config, device, n_requests: int):
     return launched
 
 
+# dist_gfm_train and dist_ranks: the multi-GPU slice. dist_gfm_train runs
+# the GFM recipe at full width (batch 160, bf16) through the distributed
+# step (parallel/engine.py) at a world of one rank over a real NCCL process
+# group, for each unrouted preset, against make_train_step on the same
+# batches under deterministic algorithms: every reduction is then the
+# identity, so the two agree bit for bit (parameters, statistics, moments,
+# losses). dist_run_training runs the entry point a user runs, `python -m
+# hydragnn_tpu_torch.launch --nprocs 1 -- ...` calling run_training on the
+# recipe with gfm_zero3.json's legacy key zero_stage 3: the launcher
+# (torchrun), setup_distributed joining a group of one over NCCL,
+# resolve_parallel, the rank's loaders, the engine's step on the placed
+# state, rank 0's config and checkpoint, then run_prediction from that
+# checkpoint. dist_ranks runs processes that share the one card over gloo
+# (NCCL refuses two ranks on one device; a collective gloo lacks fails the
+# phase): 2 ranks under dp, zero1, zero2 and zero3 and 5 ranks under
+# branch (one branch each), at batch 32 a rank (cut: the batch), each
+# rank's parameters after its job's steps against one process that
+# computes the real-graph-weighted mean of the same rows' gradients
+# (encoder over every rank, each decoder branch from its own rank times
+# its loss weight), elements a rounding can turn round (a step-0 gradient
+# below 1e-6 of the largest, or a sum over the rows that cancels to within
+# 1e-5 of its terms) bounded by 2 lr a step. Limits: parameters relative
+# to the largest, at ~3x the chip's readings.
+DIST_PRESETS = ("dp", "zero1", "zero2", "zero3")
+DIST_GFM_STEPS = 4
+DIST_RANKS_BATCH = 32
+# (job, preset, ranks, optimizer, steps): the recipe's AdamW where the
+# optimizer's own state is placed (ZeRO); branch under SGD for 3 steps,
+# since Adam hides a branch's gradient weight (any constant factor cancels
+# in m / sqrt(v)) and, from the second step on, turns the 5-term sum's
+# order into +-lr flips that cascade (under AdamW for 3 steps this script
+# read 4.83e-3 of the largest parameter, at an encoder weight); and branch
+# under the recipe's AdamW for 1 step, where a flip can only come from a
+# step-0 sum that rounds to either sign, which the emulation marks
+DIST_SGD = {"type": "SGD", "learning_rate": 1e-3}
+DIST_RANKS_JOBS = (("dp", "dp", 2, None, 3), ("zero1", "zero1", 2, None, 3),
+                   ("zero2", "zero2", 2, None, 3), ("zero3", "zero3", 2, None, 3),
+                   ("branch", "branch", 5, DIST_SGD, 3), ("branch_adamw", "branch", 5, None, 1))
+DIST_LR = 1e-3  # the recipe's and DIST_SGD's: a noise element moves at most 2 lr a step
+# largest relative difference, by job: 2 ranks add two terms, which
+# commutes, so they equal the emulation bit for bit (0 in every run);
+# branch's 5 terms sum in gloo's order: 1.65e-7 in two runs (readings from
+# this script on an H100, NVIDIA H100 80GB HBM3, 700 W), the limit 3x;
+# branch_adamw 1.33e-7 (one run), the same limit
+DIST_RANKS_RTOL = {"dp": 0.0, "zero1": 0.0, "zero2": 0.0, "zero3": 0.0, "branch": 5e-7,
+                   "branch_adamw": 5e-7}
+DIST_NOISE = 1e-6
+DIST_RANKS_TIMEOUT = 420.0
+DIST_RUN_GRAPHS = GFM_NLL_GRAPHS  # 648 train graphs: 4 balanced batches of 160 (+ a short one)
+DIST_RUN_TIMEOUT = 300.0
+# run_prediction's loss from the saved checkpoint against the run's own
+# last test loss (the same model, batches and kernels), relative: 0 in five
+# runs (NVIDIA H100 80GB HBM3, 700 W), so equal
+DIST_RUN_RTOL = 0.0
+
+
+def _payload_diff(a, b):
+    """(tensors that differ, largest absolute difference) of two payloads'
+    model and optimizer state."""
+    import torch
+
+    pairs = [(f"model/{k}", v, b["model"][k]) for k, v in a["model"].items()]
+    for i, st in a["optimizer"]["state"].items():
+        pairs += [(f"opt/{i}/{k}", torch.as_tensor(v), torch.as_tensor(b["optimizer"]["state"][i][k]))
+                  for k, v in st.items()]
+    bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+    top = max((float((x.double() - y.double()).abs().max()) for n, x, y in pairs if n in bad),
+              default=0.0)
+    return bad, top
+
+
+def run_dist_gfm_train(graphs, device):
+    """``dist_gfm_train``: the GFM recipe at full width through the
+    distributed step of every unrouted preset at a world of one rank over
+    NCCL, against ``make_train_step``; ms per step, peak memory, K1/K2
+    launches per step. Returns the launches (the gfm/ cases' shapes)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel import (Grid, Objective, init_group, make_mesh_train_step,
+                                             place_state)
+    from hydragnn_tpu_torch.parallel import rules as R
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer, make_train_step
+    from hydragnn_tpu_torch.utils.ranks import free_port
+
+    label = "dist_gfm_train"
+    t0 = time.perf_counter()
+    done, (loader, _, _), _ = prepare_data(gfm_config(), split_dataset(graphs, 0.9, seed=0))
+    loader.set_epoch(0)
+    batches = [b for _, b in zip(range(DIST_GFM_STEPS), loader)]
+    opt_cfg = done["NeuralNetwork"]["Training"]["Optimizer"]
+    model = create_model(done, device=device, seed=SEED)
+    init_group(1, 0, f"tcp://127.0.0.1:{free_port()}", device=device, timeout_s=300)
+    print(f"{label}: NCCL {torch.cuda.nccl.version()}, world {dist.get_world_size()}, backend "
+          f"{dist.get_backend()}; GFM recipe, batch {int(batches[0].graph_mask.sum())}, "
+          f"{len(batches)} steps a preset, deterministic algorithms", flush=True)
+    wrappers = _wrappers()
+    launched = collections.Counter()
+    try:
+        with deterministic():
+            runs = {}
+            for preset in (None,) + DIST_PRESETS:
+                m = copy.deepcopy(model)
+                state = TrainState.create(m, make_optimizer(m, opt_cfg))
+                if preset is None:
+                    plain = make_train_step(m, mixed_precision=True)
+                    step = plain
+                else:
+                    table = R.preset(preset)
+                    state = place_state(state, table, Grid())
+                    step = make_mesh_train_step(Objective(mixed_precision=True), table)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_launches(wrappers)
+                walls, losses = [], []
+                for b in batches:
+                    t1 = time.perf_counter()
+                    state, tot, _ = step(state, b)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+                    losses.append(float(tot))
+                name = preset or "make_train_step"
+                got = _check_launches(f"{label} {name}", wrappers, TRAIN_PER_STEP, len(batches))
+                if preset is not None:
+                    launched.update(got)
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                shards = len(state.placement.shards) if preset else 0
+                runs[name] = (state.to_payload(), losses, float(np.median(walls[1:])) * 1e3)
+                print(f"{label}: {name}: {runs[name][2]:.2f} ms per step (median of steps "
+                      f"2-{len(batches)}), peak {peak:.1f} MiB, {shards} leaves sharded, "
+                      f"losses {losses}", flush=True)
+                del state, step, m
+            want = runs.pop("make_train_step")
+            for name, (payload, losses, ms) in runs.items():
+                bad, top = _payload_diff(payload, want[0])
+                print(f"{label}: {name} vs make_train_step: {len(bad)} tensors differ "
+                      f"(largest {top:.3g}), losses equal {losses == want[1]}; {ms:.2f} against "
+                      f"{want[2]:.2f} ms per step", flush=True)
+                check(not bad and losses == want[1],
+                      f"{label}: {name} is not make_train_step's step bit for bit: {bad[:4]}")
+    finally:
+        dist.destroy_process_group()
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
+def dist_run_rank(out: str) -> None:
+    """The rank that ``dist_run_training``'s launcher starts: the GFM recipe
+    with ``zero_stage`` 3 through ``run_training`` (1 epoch) and
+    ``run_prediction``, each from the config as a user passes it. Writes
+    what the phase checks to ``out`` (JSON)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.api import run_prediction, run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.parallel import rules as R
+    from hydragnn_tpu_torch.train.checkpoint import SUFFIX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = gfm_config(num_epoch=1)
+    config["NeuralNetwork"]["Training"]["Optimizer"]["zero_stage"] = 3
+    splits = split_dataset(gfm_dataset(DIST_RUN_GRAPHS), 0.9, seed=0)
+    wrappers = _wrappers()
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    _, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
+    torch.cuda.synchronize()
+    res = {"train_s": time.perf_counter() - t0, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "device": torch.cuda.current_device(),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "launches": {k: dict(w.launches_by_case) for k, w in wrappers.items()},
+           "losses": hist["train"] + hist["val"] + hist["test"]}
+    pl = state.placement
+    res["shards"] = 0 if pl is None else len(pl.shards)
+    res["stored_sharded"] = 0 if pl is None else sum(s.store_sharded for s in pl.shards)
+    run_dir = Path("logs") / get_log_name_config(config)
+    saved = json.loads((run_dir / "config.json").read_text())
+    recorded = saved.get("Parallel", {}).get("resolved_rules")
+    res["resolved_rules"] = recorded
+    res["shards_params"] = bool(recorded) and R.table_from_recorded(recorded).shards("params")
+    res["checkpoint_bytes"] = sum(p.stat().st_size for p in run_dir.iterdir()
+                                  if p.suffix == SUFFIX)
+    res["files"] = sorted(p.name for p in run_dir.iterdir())
+    tot, _, preds, _ = run_prediction(copy.deepcopy(config), datasets=splits)
+    res["prediction"] = {"loss": float(tot), "finite": all(
+        bool(np.isfinite(np.asarray(p)).all()) for p in preds.values()),
+        "rows": {k: list(np.asarray(p).shape) for k, p in preds.items()}}
+    res["test_graphs"] = len(splits[2])
+    Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def run_dist_run_training():
+    """``dist_run_training``: ``python -m hydragnn_tpu_torch.launch --nprocs
+    1`` starts ``dist_run_rank`` on the card. Checks that the rank joined a
+    group of one over NCCL, trained through the placed zero3 state with K1
+    and K2, recorded ``Parallel.resolved_rules`` in the saved config,
+    wrote the checkpoint, and that ``run_prediction`` from it gives finite
+    answers for every test graph. Returns the launches."""
+    import os
+    import signal
+
+    label = "dist_run_training"
+    t0 = time.perf_counter()
+    out = Path.cwd() / "dist_run.json"
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+            f"chip_smoke.dist_run_rank({str(out)!r})")
+    cmd = [sys.executable, "-m", "hydragnn_tpu_torch.launch", "--nprocs", "1", "--",
+           sys.executable, "-c", code]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=DIST_RUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None or rc is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    check(rc == 0, f"{label}: the launched rank exited {rc} (None: past "
+                   f"{DIST_RUN_TIMEOUT} s)")
+    res = json.loads(out.read_text())
+    launches = {k: {c: n for c, n in v.items() if n} for k, v in res["launches"].items()}
+    print(f"{label}: launch --nprocs 1 -> run_training: backend {res['backend']}, world "
+          f"{res['world']}, cuda:{res['device']}; {res['shards']} leaves placed, "
+          f"{res['stored_sharded']} stored sharded (zero3); 1 epoch in {res['train_s']:.1f} s "
+          f"(train, val, test losses {res['losses']}), peak {res['peak_mib']:.1f} MiB; "
+          f"Parallel.resolved_rules {json.dumps(res['resolved_rules'])}; run directory "
+          f"{res['files']}, checkpoint {res['checkpoint_bytes']} bytes; run_prediction from it: "
+          f"loss {res['prediction']['loss']:.6g}, rows {res['prediction']['rows']}; K1/K2 "
+          f"launches {launches}; phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(res["backend"] == "nccl" and res["world"] == 1,
+          f"{label}: the rank did not join a group of one over NCCL")
+    check(res["stored_sharded"] > 0, f"{label}: the state was not placed by the zero3 table")
+    check(res["shards_params"], f"{label}: the saved config records no zero3 table")
+    check(res["checkpoint_bytes"] > 0, f"{label}: rank 0 wrote no checkpoint")
+    check(all(math.isfinite(x) for x in res["losses"]) and res["prediction"]["finite"]
+          and all(r[0] == res["test_graphs"] for n, r in res["prediction"]["rows"].items()
+                  if n == "energy"),
+          f"{label}: non-finite losses or predictions, or not one energy per test graph")
+    test_loss, pred_loss = res["losses"][-1], res["prediction"]["loss"]
+    rel = abs(pred_loss - test_loss) / max(abs(test_loss), 1e-30)
+    print(f"{label}: run_prediction's loss against the run's last test loss {test_loss:.9g}: "
+          f"{rel:.3g} relative (limit {DIST_RUN_RTOL})", flush=True)
+    check(rel <= DIST_RUN_RTOL, f"{label}: run_prediction from the checkpoint parts from the run")
+    check(all(launches.get(k) for k in TRAIN_PER_STEP),
+          f"{label}: the run launched no {[k for k in TRAIN_PER_STEP if not launches.get(k)]}")
+    return collections.Counter({(k, c): n for k, v in launches.items() for c, n in v.items()})
+
+
+def _dist_rows(train, preset, world, steps):
+    """Per step, each rank's graphs: consecutive blocks of the train split,
+    or (branch) each rank the next block of its branch."""
+    if preset == "branch":
+        by = [[g for g in train if g.dataset_id == b] for b in range(world)]
+        return [[by[r][s * DIST_RANKS_BATCH:(s + 1) * DIST_RANKS_BATCH] for r in range(world)]
+                for s in range(steps)]
+    return [[train[(s * world + r) * DIST_RANKS_BATCH:(s * world + r + 1) * DIST_RANKS_BATCH]
+             for r in range(world)] for s in range(steps)]
+
+
+def _emulated(job, device):
+    """One process's reading of the distributed steps: each row's gradients
+    and batch-norm statistics from the same starting state, combined with
+    the world's weights, then the optimizer. Under ``branch`` row r's
+    gradients come from a one-branch copy of the model holding branch r's
+    decoders (the shape a rank computes: five branches decoded at once
+    round differently in bf16): the encoder's weighted by the rows' real
+    graphs, branch r's decoders by its loss weight alone. Returns the whole
+    model's state dict and, per parameter, the elements whose update a
+    rounding can turn round (on the CPU): a step-0 gradient of rounding
+    noise (below ``DIST_NOISE`` of the largest), or, at any step, a sum
+    over the rows that cancels to within 1e-5 of its terms' sizes (the
+    ranks add in another order, and Adam moves such an element by about lr
+    either way)."""
+    import torch
+
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_optimizer, optimizer_step
+    from hydragnn_tpu_torch.train.loop import _apply_fn, cast_batch_bf16
+    from hydragnn_tpu_torch.train.loss import compute_loss
+
+    done = job["config"]
+    model = create_model(done, device=device, seed=SEED)
+    model.load_state_dict(torch.load(job["init"]))
+    opt = make_optimizer(model, job["optimizer"])
+    weights = done["NeuralNetwork"]["Architecture"].get("branch_loss_weights") or []
+    routed = job["preset"] == "branch"
+    # the model a row runs through, and its tensors' slices of the whole one's
+    row_model = model
+    if routed:
+        row_model = type(model)(dataclasses.replace(
+            model.cfg, num_branches=1, branch_loss_weights=None,
+            branch_loss_metrics=False)).to(device).train()
+    decoder = lambda name: routed and name.split(".")[0] in ("graph_shared", "heads_NN")  # noqa
+
+    def part(name, t, r):  # a decoder bank's branch r, [1, ...]
+        return t[r:r + 1] if decoder(name) else t
+
+    whole = dict(model.state_dict(keep_vars=True))
+    keep = set(whole)
+    named = [(n, p) for n, p in model.named_parameters()]
+    row_named = list(row_model.named_parameters())
+    bufs = [(n, b) for n, b in model.named_buffers() if n in keep and b.is_floating_point()]
+    row_bufs = dict(row_model.named_buffers())
+    apply = _apply_fn(row_model, True, cast_buffers=False)
+    quiet = None
+    model.train()
+    for rows in job["rows"]:
+        start = {n: b.clone() for n, b in bufs}
+        n = [float(len(r)) for r in rows]
+        acc = {name: torch.zeros_like(p) for name, p in named}
+        size = {name: torch.zeros_like(p) for name, p in named}  # the terms' sizes
+        sacc = {name: torch.zeros_like(b) for name, b in bufs}
+        for r, graphs in enumerate(rows):
+            with torch.no_grad():
+                if routed:
+                    for name, t in row_model.state_dict(keep_vars=True).items():
+                        src = start[name] if name in start else whole[name]
+                        t.data.copy_(part(name, src.data, r))
+                else:
+                    for name, b in bufs:
+                        b.copy_(start[name])
+            batch = batch_graphs(graphs, job["spec"], sort_edges=True)
+            if routed:
+                batch = batch.replace(dataset_id=torch.zeros_like(batch.dataset_id))
+            batch = cast_batch_bf16(batch.to(device))
+            for _, p in row_named:
+                p.grad = None
+            tot, _, _ = compute_loss(apply, batch, row_model.cfg, False)
+            tot.float().backward()
+            with torch.no_grad():
+                for name, p in row_named:
+                    if p.grad is None:
+                        continue
+                    if decoder(name):  # branch r's decoder: its rank alone
+                        term = p.grad * weights[r]
+                        part(name, acc[name], r).add_(term)
+                        part(name, size[name], r).add_(term.abs())
+                    else:
+                        term = p.grad * (n[r] / sum(n))
+                        acc[name].add_(term)
+                        size[name].add_(term.abs())
+                for name, _ in bufs:
+                    b = row_bufs[name] if routed else whole[name]
+                    sacc[name].add_(b * (n[r] / sum(n)))
+        with torch.no_grad():
+            grads = [acc[name] for name, _ in named]
+            for (_, p), g in zip(named, grads):
+                p.grad = g
+            for name, b in bufs:
+                b.copy_(sacc[name])
+            cancels = {name: acc[name].abs() < 1e-5 * size[name] for name, _ in named}
+            if quiet is None:
+                top = max(float(a.abs().max()) for a in acc.values())
+                quiet = {name: (acc[name].abs() < DIST_NOISE * top).cpu() for name, _ in named}
+            for name, _ in named:
+                quiet[name] |= cancels[name].cpu()
+            optimizer_step(opt, grads)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}, quiet
+
+
+def _dist_rank(rank, world, store, job_paths, out_dir):
+    """One rank of ``dist_ranks``: joins the gloo group on the card and, for
+    each job in turn, places the job's initial state by its preset, takes
+    its rows' steps, and compares its own tensors with the emulation's."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from hydragnn_tpu_torch.parallel import init_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores: one rank's intra-op threads each
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = torch.device(torch.load(job_paths[0], weights_only=False)["device"])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    init_group(world, rank, f"file://{store}", device=device, backend="gloo", timeout_s=300)
+    try:
+        for job_path in job_paths:
+            _dist_rank_job(rank, torch.load(job_path, weights_only=False), device, sync,
+                           Path(out_dir))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_rank_job(rank, job, device, sync, out_dir):
+    """One job of ``_dist_rank``; its result goes to
+    ``out_dir/<job>/rank<r>.json``."""
+    import torch
+
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel import Grid, Objective, make_mesh_train_step, place_state
+    from hydragnn_tpu_torch.parallel import rules as R
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer
+    from hydragnn_tpu_torch.train.optimizer import state_tensors
+
+    out = {"rank": rank}
+    try:
+        done = job["config"]
+        model = create_model(done, device=device, seed=SEED)
+        model.load_state_dict(torch.load(job["init"]))
+        table = R.preset(job["preset"], num_branches=len(
+            done["NeuralNetwork"]["Architecture"]["output_heads"]["graph"]))
+        grid = Grid(table.model_size if table.routed else 1)
+        state = place_state(TrainState.create(model, make_optimizer(model, job["optimizer"])),
+                            table, grid)
+        step = make_mesh_train_step(Objective(mixed_precision=True), table, grid)
+        wrappers = _wrappers()
+        _zero_launches(wrappers)
+        walls = []
+        with deterministic():
+            for rows in job["rows"]:
+                batch = batch_graphs(rows[rank], job["spec"], sort_edges=True)
+                sync()
+                t1 = time.perf_counter()
+                state, tot, _ = step(state, batch)
+                sync()
+                walls.append(time.perf_counter() - t1)
+        out["launches"] = {k: dict(w.launches_by_case) for k, w in wrappers.items()}
+        out["ms"] = [w * 1e3 for w in walls]
+        out["skipped"] = int(state.skipped_steps)
+        out["opt_bytes"] = int(sum(t.numel() * t.element_size()
+                                   for t in state_tensors(state.optimizer)))
+        # a stage-3 leaf's parameters are empty between steps: its slice counts
+        out["param_bytes"] = int(sum(t.numel() * t.element_size() for t in [
+            *state.model.parameters(),
+            *(s.local for s in state.placement.shards if s.store_sharded)]))
+        pl = state.placement
+        expected, quiet = job["expected"], job["quiet"]
+        top = max(float(v.abs().max()) for k, v in expected.items() if k in quiet)
+        rel = noise = 0.0
+        worst = ("", 0.0)
+        local = dict(state.model.state_dict())
+        for s in pl.shards:  # a stage-3 leaf's parameters: this rank's slice
+            if s.store_sharded:
+                stream = torch.cat([expected[n].reshape(-1) for n in s.leaf.names])
+                qs = torch.cat([quiet[n].reshape(-1) for n in s.leaf.names])
+                got = s.local.detach().cpu()
+                sl = slice(s.rank * s.c, (s.rank + 1) * s.c)
+                err = (got - stream[sl]).abs()
+                rel = max(rel, float(torch.where(qs[sl], 0.0, err).max()) / top)
+                noise = max(noise, float(err.max()))
+                for n in s.leaf.names:
+                    local.pop(n, None)
+        for lname, t in local.items():
+            want = pl._local_from(lname, expected.__getitem__)
+            err = (t.detach().float().cpu() - want.float()).abs()
+            gname = pl.local_to_global.get(lname, lname)
+            if gname in quiet:
+                qs = pl._local_from(lname, quiet.__getitem__)
+                e = float(torch.where(qs, 0.0, err).max()) / top
+                if e > worst[1]:
+                    i = int(torch.where(qs, 0.0, err).reshape(-1).argmax())
+                    worst = (f"{lname}[{i}] got {float(t.reshape(-1)[i]):.6g} want "
+                             f"{float(want.reshape(-1)[i]):.6g}", e)
+                rel = max(rel, e)
+                noise = max(noise, float(err.max()))
+            else:  # batch-norm statistics
+                rel = max(rel, float(err.max()) / max(float(want.abs().max()), 1e-30))
+        out.update(rel=rel, noise=noise, worst=worst[0])
+    finally:
+        (out_dir / job["name"]).mkdir(exist_ok=True)
+        (out_dir / job["name"] / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def run_dist_ranks(graphs, device):
+    """``dist_ranks``: the distributed step over processes that share the
+    card through gloo, against one process's emulation of the same steps
+    (``_emulated``); per preset each rank's largest relative parameter
+    difference, ms per step, optimizer-state bytes and K1/K2 launches."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.graph import PadSpec
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+
+    label = "dist_ranks"
+    t0 = time.perf_counter()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    done, _, _ = prepare_data(gfm_config(batch_size=DIST_RANKS_BATCH), splits)
+    work = Path(tempfile.mkdtemp(prefix="dist_ranks_", dir=Path.cwd()))
+    init = str(work / "init.pt")  # the seeded weights every job starts from
+    torch.save({k: v.detach().cpu() for k, v in create_model(
+        done, device=device, seed=SEED).state_dict().items()}, init)
+    # every job of one world size in one spawn (one group): the processes'
+    # start-up (~8 s each to reach the card) is paid once per world size
+    groups = collections.defaultdict(list)
+    for name, preset, world, optimizer, steps in DIST_RANKS_JOBS:
+        rows = _dist_rows(splits[0], preset, world, steps)
+        flat = [r for step_rows in rows for r in step_rows]
+        spec = PadSpec(int(math.ceil((max(sum(g.num_nodes for g in r) for r in flat) + 1) / 8)) * 8,
+                       int(math.ceil(max(sum(g.num_edges for g in r) for r in flat) / 128)) * 128,
+                       DIST_RANKS_BATCH + 1)
+        job = {"config": done, "init": init, "name": name, "preset": preset, "rows": rows,
+               "spec": spec, "device": str(device),
+               "optimizer": optimizer or done["NeuralNetwork"]["Training"]["Optimizer"]}
+        with deterministic():
+            job["expected"], job["quiet"] = _emulated(job, device)
+        torch.save(job, work / f"{name}.pt")
+        groups[world].append((name, job["optimizer"]["type"], steps))
+    results = {}
+    for world, jobs in groups.items():
+        t1 = time.perf_counter()
+        paths = [str(work / f"{name}.pt") for name, _, _ in jobs]
+        ctx = mp.start_processes(_dist_rank, args=(world, str(work / f"{world}.store"), paths,
+                                                   str(work)),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + DIST_RANKS_TIMEOUT
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"{label}: the {world} ranks did not finish in {DIST_RANKS_TIMEOUT} s")
+        for name, kind, steps in jobs:
+            results[name] = (world, kind, steps, [json.loads(
+                (work / name / f"rank{r}.json").read_text()) for r in range(world)])
+            (work / f"{name}.pt").unlink()
+        print(f"{label}: {len(jobs)} jobs over {world} ranks in {time.perf_counter() - t1:.1f} s "
+              "(the processes' start included)", flush=True)
+    for name, (world, kind, steps, res) in results.items():
+        for r in res:
+            want = {k: {c: n * steps for c, n in per.items()}
+                    for k, per in TRAIN_PER_STEP.items()}
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == want, f"{label}: {name} rank {r['rank']}: launches {got}, "
+                               f"expected {want}")
+            check(r["skipped"] == 0, f"{label}: {name} rank {r['rank']} skipped steps")
+        rels = [r["rel"] for r in res]
+        noise = max(r["noise"] for r in res)
+        mean_ms = [round(sum(r["ms"][1:] or r["ms"]) / len(r["ms"][1:] or r["ms"]), 2)
+                   for r in res]
+        print(f"{label}: {name} over {world} ranks sharing the card (gloo), {kind}, {steps} "
+              f"steps: parameters and statistics vs the one-process emulation, largest "
+              f"relative per rank {[f'{x:.3g}' for x in rels]} (limit "
+              f"{DIST_RANKS_RTOL[name]}; rank 0's at {res[0].get('worst') or 'none'}), elements "
+              f"a rounding can turn round within {noise:.3g} (bound {2 * DIST_LR * steps}); ms "
+              f"per step by rank {mean_ms}; optimizer-state bytes by rank "
+              f"{[r['opt_bytes'] for r in res]}, parameter bytes held between steps "
+              f"{[r['param_bytes'] for r in res]}; K1/K2 launches per step as "
+              f"egnn_train's on every rank", flush=True)
+        check(max(rels) <= DIST_RANKS_RTOL[name], f"{label}: {name}: a rank's parameters "
+                                                  "part from the emulation")
+        check(noise <= 2 * DIST_LR * steps, f"{label}: {name}: noise elements part")
+    print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def run_gfm_phases(device, gfm_graphs, oc20, mace_graphs):
     """Every GFM phase in order; returns the launches of the GFM recipe's
     phases (counted against the ``gfm/`` kernel cases) and of the rest."""
@@ -5299,6 +5895,12 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
             launched.update({(k, f"{prefix}/{c}"): n for (k, c), n in run_config_phase(
                 label, config, device, N_REQUESTS).items()})
             print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+        # the multi-GPU slice: the GFM recipe through the distributed step
+        # (its K1/K2 calls at the gfm/ shapes), then ranks sharing the card
+        launched.update({(k, f"gfm/{c}"): n
+                         for (k, c), n in run_dist_gfm_train(gfm_graphs, device).items()})
+        launched.update({(k, f"gfm/{c}"): n for (k, c), n in run_dist_run_training().items()})
+        run_dist_ranks(gfm_graphs, device)
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

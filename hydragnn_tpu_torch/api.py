@@ -1,5 +1,5 @@
 """Config-driven entry points: ``prepare_data``, ``run_training``,
-``run_prediction`` and ``run_server`` (single host).
+``run_prediction`` and ``run_server``, on one process or over ranks.
 
 Counterpart of ``hydragnn_tpu/api.py``. Each takes a config dict or the
 path of a JSON file. With no explicit datasets, ``prepare_data`` loads the
@@ -20,6 +20,18 @@ the disk. ``run_prediction`` returns the predictions in the data's units
 under ``Variables_of_interest.denormalize_output``. Every entry point runs
 on the current CUDA device unless ``device`` says otherwise, and raises
 when no GPU is present and none was given.
+
+Over several ranks (``python -m hydragnn_tpu_torch.launch --nprocs N``,
+torchrun, SLURM) ``run_training`` and ``run_prediction`` first join the
+process group (``parallel.setup_distributed``: NCCL on the card, gloo for
+``device="cpu"``). ``resolve_parallel`` reads the placement table from
+``Parallel.rules`` or the legacy keys and records it under
+``Parallel.resolved_rules``; each rank loads its own share of the data
+(``GraphLoader(host_count, host_index)``, or ``BranchRoutedLoader`` for a
+routed table), trains through the distributed step
+(``parallel/engine.py``), and rank 0 alone writes the config and the
+checkpoints. ``run_prediction`` evaluates each rank's share and gathers
+the predictions to every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from .data.pipeline import (
 )
 from .data.transforms import apply_dataset_transforms, wants_transforms
 from .device import DeviceLike, resolve_device
+from .utils.ranks import is_primary, joined, rank, world_size
 
 
 def _as_config(config) -> Dict[str, Any]:
@@ -147,6 +160,35 @@ def _ready_splits(config: Dict[str, Any], validator):
     return splits, mm
 
 
+def _zero_stage(training: Dict[str, Any]) -> int:
+    opt = training.get("Optimizer", {})
+    return int(opt.get("zero_stage", 1 if opt.get("use_zero_redundancy") else 0))
+
+
+def resolve_parallel(config: Dict[str, Any]):
+    """The run's placement table (``parallel/rules.py``): ``Parallel.rules``
+    (a preset name or an inline table) wins, else the legacy keys
+    (``Optimizer.zero_stage`` / ``use_zero_redundancy``,
+    ``Training.branch_parallel``) choose a preset; conflicts and unknown
+    ``Parallel`` keys raise here. The table is recorded under
+    ``Parallel.resolved_rules`` and the legacy keys are brought in line
+    with it (a routed table sets ``branch_parallel``; a sharding table
+    raises ``zero_stage`` to the stage it implies). Idempotent."""
+    from .parallel import rules
+
+    table = rules.resolve(config)
+    config.setdefault("Parallel", {})["resolved_rules"] = table.to_config()
+    training = config.setdefault("NeuralNetwork", {}).setdefault("Training", {})
+    if table.routed:
+        training["branch_parallel"] = True
+    else:
+        implied = (3 if table.shards("params") else 2 if table.shards("grads")
+                   else 1 if table.shards("opt_state") else 0)
+        if implied > _zero_stage(training):
+            training.setdefault("Optimizer", {})["zero_stage"] = implied
+    return table
+
+
 def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None):
     """Complete the config from the data and build the loaders; returns
     ``(completed config, (train, val, test) loaders, minmax)``.
@@ -164,7 +206,11 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
     ``num_samples`` of its shuffle otherwise; ``size_bucketed_batching``
     composes batches of like-sized graphs (the ladder simulates the same
     policy). The ``Mixture`` section comes with a later slice and raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``. The placement table is resolved and recorded
+    (``resolve_parallel``). Inside a process group of more than one rank
+    each rank's loaders hold its share (``host_count`` / ``host_index``;
+    the train loader's batches full), and a routed table gives
+    ``BranchRoutedLoader``s that feed each rank its branch."""
     from .data.validate import SampleValidator
     from .models.create import conv_needs_triplets
 
@@ -186,6 +232,8 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
         trainset, valset, testset = (
             validator.filter(d, source=src) for d, src in zip(splits, ("train", "val", "test")))
     config = update_config(config, trainset, valset, testset)
+    table = resolve_parallel(config)
+    world, me = world_size(), rank()
     training = config["NeuralNetwork"]["Training"]
     arch = config["NeuralNetwork"]["Architecture"]
     batch_size = int(training["batch_size"])
@@ -202,14 +250,32 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
             everything, batch_size, num_buckets=int(training["num_pad_buckets"]),
             with_triplets=with_triplets, size_bucketing=size_bucketing,
         )
+    sort_edges = bool(arch.get("use_sorted_aggregation", False))
+    if table.routed and world > 1:
+        if pack:
+            raise ValueError("Training.pack_batches is not supported with branch_parallel "
+                             "(branch-routed rows need fixed graph counts); use num_pad_buckets")
+        from .parallel.routing import BranchRoutedLoader
+        from .parallel.rules import num_branches_of
+
+        route = dict(branch_count=num_branches_of(config), host_count=world, host_index=me,
+                     sort_edges=sort_edges, spec=spec)
+        train_loader = BranchRoutedLoader(trainset, batch_size, seed=0, shuffle=True, **route)
+        train_loader.validator = validator
+        return config, (train_loader,
+                        BranchRoutedLoader(valset, batch_size, shuffle=False,
+                                           oversampling=False, **route),
+                        BranchRoutedLoader(testset, batch_size, shuffle=False,
+                                           oversampling=False, **route)), mm
     kw = dict(spec=spec, pack=pack, size_bucketing=size_bucketing, validator=validator,
-              sort_edges=bool(arch.get("use_sorted_aggregation", False)))
+              sort_edges=sort_edges, host_count=world, host_index=me)
     balance = bool(training.get("balance_branch_sampling", False))
     sample_weights = branch_sample_weights(trainset) if balance else None
     train_loader = GraphLoader(
         trainset, batch_size, shuffle=True, seed=0, source="train",
         oversampling=bool(training.get("oversampling", False)) or balance,
-        num_samples=training.get("num_samples"), sample_weights=sample_weights, **kw)
+        num_samples=training.get("num_samples"), sample_weights=sample_weights,
+        drop_last=world > 1, **kw)
     val_loader = GraphLoader(valset, batch_size, shuffle=False, source="val", **kw)
     test_loader = GraphLoader(testset, batch_size, shuffle=False, source="test", **kw)
     return config, (train_loader, val_loader, test_loader), mm
@@ -265,7 +331,18 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     ``Training.startfrom`` (default: this run) is restored over them.
     The completed config goes to ``./logs/<log name>/config.json``, and
     the checkpoints beside it: the best validation epochs under
-    ``Training.Checkpoint``, the SIGTERM stop, and the end of the run."""
+    ``Training.Checkpoint``, the SIGTERM stop, and the end of the run.
+
+    Launched over several ranks it joins their process group first
+    (``parallel.setup_distributed``; a failed rendezvous raises) and
+    trains through the distributed step of ``parallel/engine.py`` with the
+    state placed by the resolved table (ZeRO-1/2/3 by its scopes, the
+    routed branch-parallel decoders), each rank on its own loaders; rank 0
+    writes the config and the checkpoints, which hold the whole model, so
+    a run resumes under another world size or preset. The returned model
+    is this rank's (its decoder branches under a routed table). A routed
+    table at a world of one rank raises."""
+    from .parallel.mesh import setup_distributed
     from .train.checkpoint import (clear_loader_state, load_existing_model, save_loader_state,
                                    save_model)
     from .train.loop import train_validate_test
@@ -273,11 +350,20 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     from .train.state import LoaderState, TrainState
     from .utils import preemption
 
+    setup_distributed(device)
     config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
-    log_name = get_log_name_config(config)
-    save_config(config, log_name)
-    model = _model(config, variables, resolve_device(device), seed)
+    table = resolve_parallel(config)
+    world = world_size()
     training = config["NeuralNetwork"]["Training"]
+    if table.routed and world < 2:
+        raise ValueError(
+            "Training.branch_parallel requires a multibranch model and >=2 ranks (have "
+            f"{world}): launch the run over the model axis's {table.model_size} ranks "
+            "(python -m hydragnn_tpu_torch.launch --nprocs N)")
+    log_name = get_log_name_config(config)
+    if is_primary():
+        save_config(config, log_name)
+    model = _model(config, variables, resolve_device(device), seed)
     optimizer = make_optimizer(
         model, training["Optimizer"],
         freeze_conv=bool(config["NeuralNetwork"]["Architecture"].get("freeze_conv_layers", False)),
@@ -286,6 +372,18 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     verbosity = config["Verbosity"].get("level", 0)
     if training.get("continue"):
         _resume(state, train_loader, training.get("startfrom") or log_name, log_name, verbosity)
+    step_fn = eval_fn = None
+    if joined():
+        from .parallel import Grid, Objective, make_mesh_eval_step, make_mesh_train_step
+        from .parallel import place_state
+
+        grid = Grid(table.model_size if table.routed else 1)
+        state = place_state(state, table, grid)
+        model = state.model
+        objective = Objective(bool(training.get("compute_grad_energy", False)),
+                              bool(training.get("mixed_precision", False)))
+        step_fn = make_mesh_train_step(objective, table, grid)
+        eval_fn = make_mesh_eval_step(objective, table, grid)
     retention = int(training.get("checkpoint_retention", 0) or 0)
 
     def save_fn(s, e=None):
@@ -305,7 +403,7 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     state, hist = train_validate_test(
         model, state, train_loader, val_loader, test_loader, config,
         log_name=log_name, verbosity=verbosity, save_fn=save_fn, restore_fn=restore_fn,
-        loader_state_fn=loader_state_fn,
+        loader_state_fn=loader_state_fn, step_fn=step_fn, eval_fn=eval_fn,
     )
     # the end-of-run save, unless the SIGTERM stop has just saved this state
     if not preemption.global_stop_noted():
@@ -332,10 +430,23 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
     the run's newest verified checkpoint; with neither it raises
     ``FileNotFoundError``. Under ``Variables_of_interest.denormalize_output``
     the predictions and targets of every head come back in the data's units
-    (the min-max table of a run that loaded its data from the config)."""
+    (the min-max table of a run that loaded its data from the config).
+
+    Launched over several ranks, every rank joins the process group,
+    evaluates its share of the test split with the whole model, and
+    returns the world's: the losses weighted by each rank's graphs, the
+    predictions and targets of every rank in rank order
+    (``parallel.gather_across_hosts``)."""
+    from .parallel.mesh import gather_across_hosts, setup_distributed
     from .train.loop import test_model
 
+    setup_distributed(device)
     config, (_, _, test_loader), mm = prepare_data(config, datasets)
+    world = world_size()
+    if not isinstance(test_loader, GraphLoader):  # a branch-routed loader: plain shares
+        test_loader = GraphLoader(test_loader.graphs, test_loader.batch_size,
+                                  spec=test_loader.ladder, shuffle=False, host_count=world,
+                                  host_index=rank(), sort_edges=test_loader.sort_edges)
     model = _model(config, variables, resolve_device(device), 0)
     if variables is None:
         _restore_for_inference(model, config)
@@ -345,6 +456,17 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
         mixed_precision=bool(training.get("mixed_precision", False)),
         compute_grad_energy=bool(training.get("compute_grad_energy", False)),
     )
+    if world > 1:
+        import numpy as np
+
+        w = float(len(test_loader._local_indices()))
+        got = gather_across_hosts({"w": np.asarray([w]), "tot": np.asarray([tot * w]),
+                                   **{f"task_{k}": np.asarray([v * w])
+                                      for k, v in tasks.items()}})
+        total = float(got["w"].sum()) or 1.0
+        tot = float(got["tot"].sum() / total)
+        tasks = {k: float(got[f"task_{k}"].sum() / total) for k in tasks}
+        preds, trues = gather_across_hosts(preds), gather_across_hosts(trues)
     var = config["NeuralNetwork"]["Variables_of_interest"]
     if var.get("denormalize_output") and mm is not None:
         voi = voi_from_config(config)

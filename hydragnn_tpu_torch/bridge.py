@@ -25,12 +25,14 @@ tensor of the model left unfilled raises ``ValueError``.
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
+_LIST_NAMES = ("graph_convs", "feature_layers", "heads_NN")
 _LIST_MODULE = re.compile(r"^(graph_convs|feature_layers|heads_NN)_(\d+)$")
 
 
@@ -105,3 +107,87 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> Non
     missing = sorted(set(targets) - filled)
     if missing:
         raise ValueError(f"torch tensors not filled from the JAX tree: {missing}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FlaxLeaf:
+    """One leaf of the flax variable tree of a port model: its '/'-joined
+    ``path`` (without the collection), its ``shape`` in the flax layout,
+    and the torch tensors that hold it (``names``: one, or one per branch
+    of a ``branch_bank`` module, in branch order; ``transpose``: a Dense
+    kernel, which torch keeps as ``[..., out, in]``)."""
+
+    path: str
+    shape: Tuple[int, ...]
+    names: Tuple[str, ...]
+    transpose: bool
+
+    @property
+    def lead_axis(self) -> int:
+        """The torch axis of a one-tensor leaf that holds the flax leading
+        axis (a 2-D kernel's leading flax axis is torch's last)."""
+        return 1 if self.transpose and len(self.shape) == 2 else 0
+
+
+def flax_path(name: str) -> Tuple[str, bool]:
+    """(flax path, transposed?) of a torch state-dict name outside a branch
+    bank: the inverse of ``torch_name``."""
+    parts = name.split(".")
+    out: List[str] = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p in _LIST_NAMES and i + 1 < len(parts) - 1 and parts[i + 1].isdigit():
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append(p)
+        i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        return "/".join(out + ["kernel"]), True
+    return "/".join(out + [leaf]), False
+
+
+def flax_leaves(model: torch.nn.Module, collection: str = "params") -> List[FlaxLeaf]:
+    """The leaves of ``model``'s flax ``collection`` (``params``: the
+    parameters; ``batch_stats``: the persistent buffers), in torch's order,
+    with their flax paths and shapes: the names a rule table matches
+    (``parallel/rules.py``)."""
+    if collection == "params":
+        named = list(model.named_parameters())
+    elif collection == "batch_stats":
+        params = {n for n, _ in model.named_parameters()}
+        named = [(n, t) for n, t in model.state_dict(keep_vars=True).items() if n not in params]
+    else:
+        raise ValueError(f"unknown collection {collection!r}")
+    banks = {n: len(m.branches) for n, m in model.named_modules()
+             if getattr(m, "branch_bank", False)}
+    grouped: Dict[str, List[Tuple[int, str, torch.Tensor]]] = {}
+    order: List[str] = []
+    meta: Dict[str, Tuple[bool, int]] = {}
+    for name, t in named:
+        bank = next((b for b in banks if name.startswith(b + ".branches.")), None)
+        if bank is None:
+            path, transpose = flax_path(name)
+            branch, nb = 0, 0
+        else:
+            branch_s, rest = name[len(bank) + len(".branches."):].split(".", 1)
+            path, transpose = flax_path(f"{bank}.{rest}")
+            branch, nb = int(branch_s), banks[bank]
+        if path not in grouped:
+            grouped[path] = []
+            order.append(path)
+            meta[path] = (transpose, nb)
+        grouped[path].append((branch, name, t))
+    leaves = []
+    for path in order:
+        transpose, nb = meta[path]
+        members = sorted(grouped[path])
+        shape = tuple(members[0][2].shape)
+        if transpose:
+            shape = shape[:-2] + (shape[-1], shape[-2])
+        if nb:
+            shape = (nb,) + shape
+        leaves.append(FlaxLeaf(path, shape, tuple(n for _, n, _ in members), transpose))
+    return leaves

@@ -263,9 +263,10 @@ def update_config(
     training.setdefault("checkpoint_retention", 0)
     if training.get("checkpoint_backend") == "orbax":
         raise NotImplementedError(
-            "Training.checkpoint_backend 'orbax' (sharded checkpoints) comes with the "
-            "multi-GPU slice of the port (a later slice); this slice writes the "
-            "single-host file chain (the JAX package's default 'msgpack' backend)"
+            "Training.checkpoint_backend 'orbax' (per-rank sharded checkpoint files) comes "
+            "with the port's sharded-checkpoint slice (a later slice, after the multi-GPU "
+            "one); the port writes the single file chain of the JAX package's default "
+            "'msgpack' backend, rank 0 writing the whole model gathered from every rank"
         )
     training.setdefault("non_finite_policy", "warn_skip")
     if training["non_finite_policy"] not in ("error", "warn_skip", "rollback"):

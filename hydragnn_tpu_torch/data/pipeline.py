@@ -6,8 +6,10 @@ same graphs, seed and settings; ``GraphLoader`` yields CPU ``GraphBatch``es
 that the caller moves to its device: shuffled or weighted draws with
 replacement (``oversampling``, ``num_samples``, ``sample_weights``; the
 per-branch ``branch_sample_weights``), size-bucketed composition, packing,
-and the sample validator's gate. Not ported here: the prefetch thread,
-host sharding, stacked shards and the mixture plane.
+and the sample validator's gate, and per-rank sharding (``host_count`` /
+``host_index``: each rank of a data-parallel run draws its own 1/world
+of every epoch, in lockstep with the others). Not ported here: the
+prefetch thread, stacked shards and the mixture plane.
 """
 
 from __future__ import annotations
@@ -253,7 +255,20 @@ class GraphLoader:
     ``validator`` (``data.validate.SampleValidator``) drops or raises on
     bad samples at construction (under a given spec, graphs over its
     budget too) and on graphs over the pack budget; ``source`` names this
-    loader in its tally."""
+    loader in its tally.
+
+    ``host_count`` / ``host_index`` give each rank of a data-parallel run
+    its share, with ``DistributedSampler`` semantics: every rank draws the
+    same epoch stream, cuts it to a multiple of the world size and takes
+    every ``host_count``-th sample from ``host_index`` on, so the ranks
+    hold disjoint, equal shares. Every rank must take the same number of
+    steps in an epoch (a rank with one batch fewer would leave the others
+    waiting in a collective): with full batches (``drop_last``) equal
+    shares give equal counts, and a packed loader simulates every rank's
+    packing from the shared stream and stops at the smallest count, with
+    no collective. Each rank picks its own ladder level per batch: the
+    collectives of a step move parameter-shaped tensors only, so the ranks'
+    batch shapes need not agree."""
 
     def __init__(
         self,
@@ -262,6 +277,8 @@ class GraphLoader:
         spec=None,
         shuffle: bool = True,
         seed: int = 0,
+        host_count: int = 1,
+        host_index: int = 0,
         drop_last: bool = False,
         num_buckets: int = 1,
         sort_edges: bool = False,
@@ -304,6 +321,10 @@ class GraphLoader:
         self.spec = self.ladder.specs[-1]
         self.shuffle = shuffle
         self.seed = seed
+        if not 0 <= int(host_index) < int(host_count):
+            raise ValueError(f"host_index {host_index} outside host_count {host_count}")
+        self.host_count = int(host_count)
+        self.host_index = int(host_index)
         self.drop_last = drop_last
         self.sort_edges = sort_edges
         if sort_edges and max_in_degree:
@@ -329,6 +350,7 @@ class GraphLoader:
         # uninterrupted run would have seen
         self.start_batch = 0
         self._resume: Optional[Tuple[int, int]] = None
+        self._groups_cache: Optional[Tuple[Tuple[int, int], List[List[int]]]] = None
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the shuffle for ``epoch``. The first call after
@@ -354,7 +376,9 @@ class GraphLoader:
         return {"seed": int(self.seed), "epoch": int(self.epoch),
                 "next_batch": int(next_batch), "num_batches": int(len(self))}
 
-    def _indices(self) -> np.ndarray:
+    def _global_indices(self) -> np.ndarray:
+        """The epoch's whole index stream, the same on every rank; over more
+        than one rank cut to a multiple of the world size (equal shares)."""
         rng = np.random.default_rng(self.seed + self.epoch)
         if self.oversampling:
             n = self.num_samples or len(self.graphs)
@@ -365,6 +389,17 @@ class GraphLoader:
                 rng.shuffle(idx)
             if self.num_samples is not None:
                 idx = idx[: self.num_samples]
+        if self.host_count > 1:
+            idx = idx[: len(idx) // self.host_count * self.host_count]
+        return idx
+
+    def _local_indices(self, host: Optional[int] = None) -> np.ndarray:
+        """Rank ``host``'s share (this rank's when None) of the stream."""
+        h = self.host_index if host is None else host
+        return self._global_indices()[h :: self.host_count]
+
+    def _indices(self, host: Optional[int] = None) -> np.ndarray:
+        idx = self._local_indices(host)
         if self.size_bucketing and len(idx) > self.batch_size:
             idx = self._bucket_order(idx)
         return idx
@@ -425,12 +460,24 @@ class GraphLoader:
         return groups
 
     def _groups(self) -> List[List[int]]:
+        key = (self.seed, self.epoch)
+        if self._groups_cache is None or self._groups_cache[0] != key:
+            self._groups_cache = (key, self._make_groups())
+        return self._groups_cache[1]
+
+    def _make_groups(self) -> List[List[int]]:
         idx = self._indices()
         if self.pack:
-            groups = self._pack_groups(idx)
-            if self.drop_last and len(groups) > 1:
-                groups = groups[:-1]  # only the final bin can be sparse
-            return groups
+            raw = self._pack_groups(idx)
+            groups = raw[:-1] if self.drop_last and len(raw) > 1 else raw
+            # the count every rank agrees on: each packs its own share of
+            # the shared stream, so every rank can count every other's bins
+            # and the smallest count wins (under drop_last each count
+            # leaves out its final, possibly sparse, bin)
+            counts = [len(raw)] + [len(self._pack_groups(self._indices(h)))
+                                   for h in range(self.host_count) if h != self.host_index]
+            agreed = min(max(c - 1, 0) if self.drop_last else c for c in counts)
+            return groups[:agreed]
         bs = self.batch_size
         n_full = len(idx) // bs
         groups = [list(idx[b * bs : (b + 1) * bs]) for b in range(n_full)]

@@ -57,9 +57,10 @@ def shard_sp_batch(batch, group=None, device: DeviceLike = None):
     ranks = 1 if group is None else dist.get_world_size(group)
     if ranks > 1:
         raise NotImplementedError(
-            f"SP over {ranks} ranks comes with the multi-GPU slice of the port: "
+            f"SP over {ranks} ranks comes with the port's SP-across-ranks slice (a later "
+            "slice, after the multi-GPU one): "
             "the partition of convs, norms and pools across ranks is not ported; "
-            "this slice runs the ring on one rank (group=None)"
+            "the port runs the ring on one rank (group=None)"
         )
     return batch.to(resolve_device(device))
 

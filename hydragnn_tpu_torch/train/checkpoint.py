@@ -25,8 +25,12 @@ transient IO errors or rot bytes at rest. The protocol:
 - ``retention`` > 0 prunes the per-epoch chain to its newest files after a
   committed save.
 
-Not in this slice: the orbax backend (sharded checkpoints come with the
-multi-GPU slice; an ``orbax/<step>`` pointer is walked past), the mixture
+Over several ranks (``parallel/engine.py``) every rank gathers the whole
+state (``TrainState.to_payload`` is a collective), rank 0 alone writes the
+same file chain, and every rank waits at a barrier until it is written;
+every rank restores, each placing its part. Not in this slice: the orbax
+backend (per-rank sharded checkpoint files, with the elastic and
+robustness slice; an ``orbax/<step>`` pointer is walked past), the mixture
 snapshot (it goes with the mixture plane), and the fault-injection kill
 points and duration telemetry of the JAX package.
 """
@@ -45,6 +49,8 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 
 from ..utils import envflags
+from ..utils.ranks import barrier as _barrier
+from ..utils.ranks import is_primary as _primary
 from .state import InferenceState, LoaderState, TrainState
 
 SUFFIX = ".pt"
@@ -152,14 +158,28 @@ def save_model(state: TrainState, log_name: str, path: str = "./logs",
     each atomically; the pointer commits the save. The file is
     ``<log_name>_epoch<epoch>.pt`` (``epoch`` None: ``HYDRAGNN_EPOCH``,
     else the unsuffixed name). ``retention`` > 0 prunes older epoch files
-    after the commit. Returns the payload's path."""
+    after the commit. Returns the payload's path. Over several ranks every
+    rank calls it: each takes part in gathering the payload, rank 0 writes,
+    and all return together."""
     if epoch is None:
         epoch = _epoch_from_env()
-    d = _run_dir(log_name, path)
     suffix = f"_epoch{epoch}" if epoch is not None else ""
-    fname = os.path.join(d, f"{log_name}{suffix}{SUFFIX}")
+    payload = state.to_payload()
+    fname = os.path.join(path, log_name, f"{log_name}{suffix}{SUFFIX}")
+    if not _primary():
+        _barrier()
+        return fname
+    try:
+        _write_payload(payload, fname, log_name, path, retention)
+    finally:
+        _barrier()
+    return fname
+
+
+def _write_payload(payload, fname: str, log_name: str, path: str, retention: int) -> None:
+    d = _run_dir(log_name, path)
     buf = io.BytesIO()
-    torch.save(state.to_payload(), buf)
+    torch.save(payload, buf)
     blob = buf.getvalue()
     # a resave of the same name: drop the old sidecar first, so a process
     # killed between the payload replace and the new sidecar leaves a
@@ -173,7 +193,6 @@ def save_model(state: TrainState, log_name: str, path: str = "./logs",
     atomic_write(_sha256_path(fname), hashlib.sha256(blob).hexdigest().encode("ascii"))
     atomic_write(os.path.join(d, "latest"), os.path.basename(fname).encode("utf-8"))
     _prune_retention(d, log_name, retention)
-    return fname
 
 
 def save_loader_state(state: LoaderState, log_name: str, path: str = "./logs") -> str:
@@ -181,10 +200,11 @@ def save_loader_state(state: LoaderState, log_name: str, path: str = "./logs") -
     the checkpoint, atomically. The training loop writes it after the model
     save of a mid-epoch preemption stop, and every other save clears it
     (``clear_loader_state``), so a present sidecar describes the committed
-    checkpoint."""
-    d = _run_dir(log_name, path)
-    fname = os.path.join(d, _LOADER_STATE_FILE)
-    atomic_write(fname, json.dumps(state.to_dict()).encode("utf-8"))
+    checkpoint. Rank 0 writes it."""
+    fname = os.path.join(path, log_name, _LOADER_STATE_FILE)
+    if _primary():
+        _run_dir(log_name, path)
+        atomic_write(fname, json.dumps(state.to_dict()).encode("utf-8"))
     return fname
 
 
@@ -209,7 +229,9 @@ def load_loader_state(log_name: str, path: str = "./logs") -> Optional[LoaderSta
 
 def clear_loader_state(log_name: str, path: str = "./logs") -> None:
     """Remove the loader-position sidecar (a later save makes its cursor
-    stale). A missing file is fine."""
+    stale). A missing file is fine. Rank 0 removes it."""
+    if not _primary():
+        return
     try:
         os.unlink(os.path.join(path, log_name, _LOADER_STATE_FILE))
     except OSError:
@@ -305,7 +327,7 @@ def _resolve_restore_dir(log_name: str, path: str, tried: List[str]):
         entry = f"{log_name}{SUFFIX}"
         tried.append(f"latest: missing (trying the default {SUFFIX} name)")
     if entry and entry.startswith("orbax/"):
-        tried.append(f"{entry}: the orbax backend comes with the multi-GPU slice of the port")
+        tried.append(f"{entry}: the orbax backend comes with the port's sharded-checkpoint slice")
     return d, entry
 
 
@@ -398,7 +420,10 @@ def load_existing_model(template_state: TrainState, log_name: str, path: str = "
     back through older epochs, newest first. Pass a list as
     ``loaded_entry`` to receive the file restored. Total failure raises a
     ``FileNotFoundError`` listing the run directory's files and every
-    candidate tried with the reason it was rejected."""
+    candidate tried with the reason it was rejected. Over several ranks
+    every rank calls it, after a barrier (rank 0's last save is then on
+    disk), and places its part of the payload."""
+    _barrier()
     state, fn = _restore(template_state, log_name, path, [])
     if loaded_entry is not None:
         loaded_entry.append(fn)

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.ranks import is_primary
 from .optimizer import global_norm, state_tensors
 
 
@@ -88,6 +89,12 @@ def guarded_update(state, ok, do_update: Callable[[], None]) -> None:
     state.consecutive_skips.add_(bad).mul_(bad)
 
 
+def _say(msg: str) -> None:
+    """To stderr, once per run: on rank 0 of a distributed one."""
+    if is_primary():
+        print(msg, file=sys.stderr)
+
+
 class NonFinitePolicy:
     """The epoch-boundary half of ``Training.non_finite_policy``.
 
@@ -104,7 +111,9 @@ class NonFinitePolicy:
     run, as the JAX package's does: a run resumed from a state with
     earlier skips reports them at its first epoch boundary (and raises
     under ``error``). ``policy`` is one of the values config completion
-    admits."""
+    admits. Over several ranks the counters agree (the step's guard decides
+    on reduced values), so every rank takes the same branch; ``restore_fn``
+    is then called on every rank, and only rank 0 prints."""
 
     def __init__(self, policy: str = "warn_skip", rollback_after: int = 3,
                  lr_backoff: float = 0.5, max_rollbacks: int = 3,
@@ -133,7 +142,7 @@ class NonFinitePolicy:
                 msg + "; Training.non_finite_policy is 'error'. Inspect the "
                 "data/LR, or set 'warn_skip'/'rollback' to ride through."
             )
-        print(msg, file=sys.stderr)
+        _say(msg)
         if self.policy != "rollback" or consec < self.rollback_after:
             return state
         # K consecutive bad steps: the trajectory is lost, not one cosmic ray
@@ -157,7 +166,6 @@ class NonFinitePolicy:
         state = state.with_learning_rate(lr)
         # the restored checkpoint carries its own (older) counters
         self._prev_skipped = int(state.skipped_steps)
-        print(f"[{self.log_name}] rollback {self.rollbacks_done}/{self.max_rollbacks}: "
-              f"restored last verified checkpoint, learning rate backed off to {lr:.3e}",
-              file=sys.stderr)
+        _say(f"[{self.log_name}] rollback {self.rollbacks_done}/{self.max_rollbacks}: "
+             f"restored last verified checkpoint, learning rate backed off to {lr:.3e}")
         return state

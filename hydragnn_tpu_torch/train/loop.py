@@ -34,6 +34,7 @@ import torch
 from ..data.graph import GraphBatch
 from ..device import module_device
 from ..utils import envflags, preemption
+from ..utils.ranks import is_primary, rank, world_size
 from .guard import NonFinitePolicy, guarded_update, step_ok
 from .loss import compute_loss
 from .optimizer import ReduceLROnPlateau, optimizer_step
@@ -179,13 +180,23 @@ def _weighted_avg(entries: List[Tuple[float, Dict[str, float], int]]):
 
 
 def _read_entries(entries):
-    """The epoch's device losses read back in one transfer."""
+    """The epoch's device losses (and device counts) read back in one
+    transfer."""
     if not entries:
         return []
     names = list(entries[0][1])
-    flat = torch.stack([torch.stack([t.float()] + [d[k].float() for k in names])
-                        for t, d, _ in entries]).cpu().tolist()
-    return [(row[0], dict(zip(names, row[1:])), n) for row, (_, _, n) in zip(flat, entries)]
+    flat = torch.stack([torch.stack([t.float()] + [d[k].float() for k in names]
+                                    + [torch.as_tensor(n, dtype=torch.float32, device=t.device)])
+                        for t, d, n in entries]).cpu().tolist()
+    return [(row[0], dict(zip(names, row[1:-1])), row[-1]) for row in flat]
+
+
+def _count(fn, batch) -> Any:
+    """The weight of a step's loss in an epoch mean: the real graphs of the
+    batch, or the world's (``last_count`` of a distributed step, the same
+    on every rank, so every rank's epoch means agree)."""
+    n = getattr(fn, "last_count", None)
+    return n if n is not None else int(batch.graph_mask.sum())
 
 
 def train_epoch(loader, step_fn, state: TrainState):
@@ -200,13 +211,16 @@ def train_epoch(loader, step_fn, state: TrainState):
     caps the batches of the epoch."""
     offset = int(getattr(loader, "start_batch", 0) or 0)
     max_batches = envflags.env_int("HYDRAGNN_MAX_NUM_BATCH", 0)
+    # the SIGTERM stop is one process's decision: over several ranks it
+    # would leave the others in a collective (checked at world 1 only)
+    single = world_size() == 1
     entries = []
     cursor = None
     for i, batch in enumerate(loader):
         state, tot, tasks = step_fn(state, batch)
         # graph_mask is host data: reading it never waits on the device
-        entries.append((tot, tasks, int(batch.graph_mask.sum())))
-        if preemption.preempted():
+        entries.append((tot, tasks, _count(step_fn, batch)))
+        if single and preemption.preempted():
             cursor = offset + i + 1
             break
         if max_batches > 0 and i + 1 >= max_batches:
@@ -223,7 +237,7 @@ def evaluate(loader, eval_fn, state: Optional[TrainState] = None):
     entries = []
     for batch in loader:
         tot, tasks, _ = eval_fn(state, batch)
-        entries.append((tot, tasks, int(batch.graph_mask.sum())))
+        entries.append((tot, tasks, _count(eval_fn, batch)))
     return _weighted_avg(_read_entries(entries))
 
 
@@ -265,6 +279,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                         save_fn: Optional[Callable[..., None]] = None,
                         restore_fn: Optional[Callable[[TrainState], TrainState]] = None,
                         loader_state_fn: Optional[Callable[[Dict[str, int]], None]] = None,
+                        step_fn: Optional[Callable] = None, eval_fn: Optional[Callable] = None,
                         ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """The epoch loop: the ``warmup_epochs`` LR ramp, train, the
     non-finite policy (``NonFinitePolicy``: a rollback restores through
@@ -280,13 +295,18 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     checkpointing is on, unless ``Training.return_best`` says otherwise)
     and the loss history ``{"train", "val", "test", "lr"}``, with the
     epochs' mean per-task train losses (the ``branch<i>`` totals of a
-    multibranch model included) under ``"train_tasks"``."""
+    multibranch model included) under ``"train_tasks"``. ``step_fn`` and
+    ``eval_fn`` replace ``make_train_step`` / ``make_eval_step`` (the
+    distributed steps of ``parallel/engine.py``); over several ranks only
+    rank 0 prints, and the SIGTERM stop is not checked."""
     training = config["NeuralNetwork"]["Training"]
     do_valtest = envflags.env_flag("HYDRAGNN_VALTEST") is not False
     compute_grad_energy = bool(training.get("compute_grad_energy", False))
     mixed_precision = bool(training.get("mixed_precision", False))
-    step_fn = make_train_step(model, compute_grad_energy, mixed_precision)
-    eval_fn = make_eval_step(model, compute_grad_energy, mixed_precision)
+    step_fn = step_fn or make_train_step(model, compute_grad_energy, mixed_precision)
+    eval_fn = eval_fn or make_eval_step(model, compute_grad_energy, mixed_precision)
+    verbosity = verbosity if is_primary() else 0
+    single = world_size() == 1
     scheduler = ReduceLROnPlateau()
     stopper = (EarlyStopping(patience=training.get("patience", 10))
                if training.get("EarlyStopping", False) else None)
@@ -319,7 +339,8 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
             state, tr_loss, tr_tasks, cursor = train_epoch(train_loader, step_fn, state)
             hist["train"].append(tr_loss)
             hist["train_tasks"].append(tr_tasks)
-            if validator is not None and validator.skipped_total != reported_skips:
+            if (validator is not None and validator.skipped_total != reported_skips
+                    and is_primary()):
                 # the data plane's skips, said at the epoch boundary
                 reported_skips = validator.skipped_total
                 print(f"[{log_name}] epoch {epoch}: data-plane skips: {validator.tally()}",
@@ -370,7 +391,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 checkpointer(state, va_loss, epoch)
             if stopper is not None and stopper(va_loss):
                 break
-            if preemption.preempted():
+            if single and preemption.preempted():
                 # SIGTERM during val/test: checkpoint at the epoch boundary
                 preemption.note_global_stop()
                 if save_fn is not None:
@@ -422,6 +443,6 @@ def test_model(model, loader, mixed_precision: bool = False,
     if dump and dump.lower() not in ("0", "false"):
         path = dump if dump.lower() not in ("1", "true") else os.path.join("logs", "testdata")
         os.makedirs(path, exist_ok=True)
-        with open(os.path.join(path, "testdata_rank0.pkl"), "wb") as f:
+        with open(os.path.join(path, f"testdata_rank{rank()}.pkl"), "wb") as f:
             pickle.dump({"preds": preds_flat, "trues": trues_flat}, f)
     return tot, tasks, preds_flat, trues_flat

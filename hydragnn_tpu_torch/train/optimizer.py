@@ -112,7 +112,10 @@ class OptaxRule(torch.optim.Optimizer):
       corrected), then each tensor's trust ratio ``|p| / |u|`` (1 where
       either norm is 0), weight decay 0;
 
-    and then ``p -= lr u``."""
+    and then ``p -= lr u``. A placed state's optimizer may hold only a
+    slice of a tensor (ZeRO, parallel/engine.py): ``norm_group`` maps such
+    a slice to the process group whose slices make the tensor, over which
+    LAMB sums its squared norms."""
 
     _STATE = {"adagrad": ("sum_of_squares",), "rmsprop": ("nu",),
               "adamax": ("step", "mu", "nu"), "adadelta": ("e_g", "e_x"),
@@ -123,6 +126,7 @@ class OptaxRule(torch.optim.Optimizer):
             raise ValueError(f"unknown rule {kind!r}")
         super().__init__(params, dict(lr=lr))
         self.kind = kind
+        self.norm_group: Dict[int, Any] = {}
         for group in self.param_groups:
             for p in group["params"]:
                 st = {}
@@ -166,10 +170,26 @@ class OptaxRule(torch.optim.Optimizer):
             return mu_hat / nu
         nu = st["nu"].mul_(0.999).add_(g * g * 0.001)
         u = mu_hat / (torch.sqrt(nu / (1 - torch.pow(0.999, t))) + 1e-6)
-        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        p_norm, u_norm = self._norms(p, u)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                             p_norm / u_norm)
         return u * ratio
+
+    def _norms(self, p, u):
+        group = self.norm_group.get(id(p), False)
+        if group is False:
+            return torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        return _norms_of(p, u, group)
+
+
+def _norms_of(p, u, group):
+    """The norms of ``p`` and ``u``, squared sums added over ``group`` when
+    ``p`` is one slice of a tensor."""
+    import torch.distributed as dist
+
+    sq = torch.stack([p.float().pow(2).sum(), u.float().pow(2).sum()])
+    dist.all_reduce(sq, group=group)
+    return sq[0].sqrt(), sq[1].sqrt()
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

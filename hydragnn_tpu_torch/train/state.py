@@ -41,6 +41,9 @@ class TrainState:
     consecutive_skips: torch.Tensor
     held: List[torch.Tensor]
     guard: Optional[StepCopies]
+    # where a distributed run placed the state (parallel/engine.py
+    # place_state); None for one process
+    placement: Optional[Any] = None
 
     @staticmethod
     def create(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -79,7 +82,10 @@ class TrainState:
 
     def to_payload(self) -> Dict[str, Any]:
         """The checkpoint payload: CPU copies of the model's and the
-        optimizer's state dicts, the counters and the learning rate."""
+        optimizer's state dicts, the counters and the learning rate. A
+        placed state gathers the whole model's (every rank calls it)."""
+        if self.placement is not None:
+            return self.placement.to_payload(self)
         return {"format": PAYLOAD_FORMAT,
                 "model": _to_cpu(self.model.state_dict()),
                 "optimizer": _to_cpu(self.optimizer.state_dict()),
@@ -91,7 +97,10 @@ class TrainState:
     def load_payload(self, payload: Dict[str, Any]) -> "TrainState":
         """Copy a ``to_payload`` dict into this state in place. A payload of
         another structure raises ``ValueError`` before anything is
-        copied."""
+        copied. A placed state takes its part of the whole model's."""
+        if self.placement is not None:
+            self.placement.load_payload(self, payload)
+            return self
         _check_model(self.model, payload)
         writes = _optimizer_writes(self.optimizer, payload["optimizer"])
         self.model.load_state_dict(payload["model"], strict=True)

@@ -28,7 +28,10 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 assert {"hydragnn_tpu_torch.train.checkpoint", "hydragnn_tpu_torch.utils.envflags",
-        "hydragnn_tpu_torch.utils.preemption"} <= set(names), names
+        "hydragnn_tpu_torch.utils.preemption", "hydragnn_tpu_torch.launch",
+        "hydragnn_tpu_torch.parallel.rules", "hydragnn_tpu_torch.parallel.mesh",
+        "hydragnn_tpu_torch.parallel.engine", "hydragnn_tpu_torch.parallel.routing",
+        "hydragnn_tpu_torch.parallel.dp", "hydragnn_tpu_torch.parallel.branch"} <= set(names), names
 assert not bad, bad
 """
 
@@ -123,9 +126,10 @@ def pytest_load_time_transforms_apply_as_in_jax(transform):
 
 
 def pytest_orbax_checkpoint_backend_raises_not_implemented():
-    """``Training.checkpoint_backend: "orbax"`` (sharded checkpoints) comes
-    with the multi-GPU slice; the JAX package's default ("msgpack") names
-    the single-host file chain the port writes."""
+    """``Training.checkpoint_backend: "orbax"`` (per-rank sharded
+    checkpoint files) comes with the sharded-checkpoint slice; the JAX
+    package's default ("msgpack") names the single file chain the port
+    writes."""
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.data import oc20_shaped_dataset, split_dataset
     from test_torch_serve import _config
@@ -143,7 +147,7 @@ def pytest_orbax_checkpoint_backend_raises_not_implemented():
 def pytest_sp_ring_over_two_ranks_raises_not_implemented(monkeypatch):
     """A GIN GPS-ring model builds, but its SP evaluation over a group of
     two ranks stops at ``shard_sp_batch``: the partition of the rest of the
-    model across ranks comes with the multi-GPU slice."""
+    model across ranks comes with the SP-across-ranks slice."""
     import torch.distributed as dist
 
     from hydragnn_tpu_torch.config import update_config
@@ -173,7 +177,7 @@ def pytest_sp_ring_over_two_ranks_raises_not_implemented(monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2 if group is two_ranks else 1)
     tot, _, out = make_sp_eval_step(model, device="cpu")(batch)
     assert torch.isfinite(tot) and torch.isfinite(out["total"]).all()
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="SP-across-ranks slice"):
         make_sp_eval_step(model, group=two_ranks, device="cpu")(batch)
 
 
