@@ -246,6 +246,34 @@ Phases, each fatal on failure (exit code 1):
    launches per step at every rank, ms per step and the bytes each rank
    holds (optimizer state, parameters between steps).
 
+16. The observability plane on the egnn cell, after the phases of 15.
+   ``obs_train``: ``api.run_training`` of ``train_config`` (the SC25 EGNN,
+   bf16, through K1 and K2, no device given) with the top-level
+   ``Telemetry`` section on (windows of 5 steps, every step traced,
+   numerics, ``/metrics`` on an ephemeral port) and ``NeuralNetwork.Profile``
+   off, one epoch of ~20 steps; the records of ``metrics.jsonl``,
+   ``trace.jsonl`` and ``events.jsonl`` against the port's schema; each
+   window's step time and graphs/s within 10% of the phase's own CUDA
+   events around the same steps; ``mfu_est`` in (0, 1) against the card's
+   named peak; a mid-run scrape of ``/metrics`` holding the train series
+   and ``/healthz`` 200; a touch-file capture of ``profile_steps`` steps
+   naming K1's and K2's kernels and the step's ``train/*`` and region
+   ranges; K1/K2 launches per step as egnn_train's; each probe's and
+   gradient group's max |x| and rms through the kernels against the plain
+   versions (egnn_train's largest-gradient limit); one batch poisoned after
+   batching (``x[0, 0]`` NaN) through the numerics step: the guard skips
+   it, ``numerics_provenance`` names ``embedding`` and one flight dump
+   holds its files; the step-time A/Bs of run-scripts/telemetry_smoke.py
+   (legs 3 and 5: telemetry on against off, numerics on against off, the
+   best of 3 blocks of 10 interleaved pairs) within 2%, every pair printed.
+   ``obs_serve``: ``api.run_server`` on the egnn serving config with
+   ``Telemetry.trace`` at ``trace_sample`` 1.0, 64 requests: every request's
+   span tree complete, the ``/metrics`` request histogram counting 64 (its
+   p50 and p99 beside the client's), ``/readyz`` 200, K1/K2 launches per
+   batch; a step sleeping past ``Serving.step_timeout_s``: its request gets
+   ``WedgedStepError``, ``serve_wedge`` is emitted, the flight recorder
+   dumps, a fresh runner answers the next request.
+
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
 ``egnn_ckpt`` phase and the phases of 14 print none). Every path runs in a temporary directory
@@ -2855,10 +2883,12 @@ def run_egnn_ckpt(graphs, device, per_step):
     run_dir = os.path.join("logs", name)
     saved = [int(f.split("_epoch")[1].split(".")[0]) for f, _, _ in saves]
     kept = sorted(set(saved))[-CKPT_RETENTION:]
-    # the retained checkpoints, the pointer and the completed config
+    # the retained checkpoints, the pointer and the completed config, beside
+    # run_training's metric writer (utils/writer.py): scalars.jsonl and,
+    # where TensorBoard imports, its event file
     want_files = sorted([f"{name}_epoch{e}.pt{s}" for e in kept for s in ("", ".sha256")]
-                        + ["latest", "config.json"])
-    files = sorted(os.listdir(run_dir))
+                        + ["latest", "config.json", "scalars.jsonl"])
+    files = sorted(f for f in os.listdir(run_dir) if not f.startswith("events.out.tfevents."))
     latest = latest_checkpoint_entry(name)
     print(f"{label}: on disk {files}, latest -> {latest}, payload "
           f"{os.path.getsize(os.path.join(run_dir, latest))} bytes", flush=True)
@@ -5693,6 +5723,466 @@ def run_gfm_phases(device, gfm_graphs, oc20, mace_graphs):
     return gfm, rest
 
 
+# ---------------------------------------------------------------------------
+# the observability plane (obs_train, obs_serve)
+# ---------------------------------------------------------------------------
+
+OBS_TELEMETRY = {"enabled": True, "interval_steps": 5, "trace": True, "trace_interval_steps": 1,
+                 "numerics": True, "http_port": 0}
+OBS_WINDOW_RTOL = 0.10  # each window's step time and graphs/s against the phase's own events
+OBS_AB_BUDGET = 0.02  # telemetry_smoke.py's step-time budget, best of interleaved blocks
+OBS_AB_BLOCKS = 3
+OBS_AB_TRIALS = 10  # pairs a block, as telemetry_smoke.py's trials
+OBS_AB_STEPS = 10  # steps an epoch of the A/B (one window of the default interval)
+OBS_PROBE_RTOL = TRAIN_RTOL["bf16 gradients"][0]  # egnn_train's largest-gradient limit
+OBS_SERVE_REQUESTS = 64
+OBS_STEP_TIMEOUT_S = 2.0
+OBS_WEDGE_SLEEP_S = 4.0
+OBS_TRAIN_SERIES = ("hydragnn_step_time_seconds", "hydragnn_goodput_per_second",
+                    "hydragnn_padding_waste_fraction", "hydragnn_mfu_estimate",
+                    "hydragnn_numerics_max_abs", "hydragnn_device_memory_peak_bytes")
+OBS_TRACE_NAMES = ("train/step", "train/host_batch_build", "train/device_dispatch", "dataload",
+                   "train_step")
+OBS_KERNEL_NAMES = {"K1": "sorted_segment_sum", "K2": "fused_edge_kernel"}
+
+
+def http_get(url: str):
+    """(status, body) of a GET on the loopback endpoint."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def read_jsonl(path) -> list:
+    path = Path(path)
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def validate_streams(label: str, run_dir) -> dict:
+    """Every record of the run's ``metrics.jsonl``, ``trace.jsonl`` and
+    ``events.jsonl`` against the port's schema; the records by file."""
+    from hydragnn_tpu_torch.obs.schema import (validate_event_record, validate_metrics_record,
+                                               validate_span_record)
+
+    out = {}
+    for name, validate in (("metrics.jsonl", validate_metrics_record),
+                           ("trace.jsonl", validate_span_record),
+                           ("events.jsonl", validate_event_record)):
+        recs = read_jsonl(Path(run_dir) / name)
+        bad = [(r, e) for r in recs for e in validate(r)]
+        print(f"{label}: {name} {len(recs)} records, kinds "
+              f"{dict(collections.Counter(r.get('kind', r.get('name')) for r in recs))}, "
+              f"{len(bad)} invalid", flush=True)
+        check(not bad, f"{label}: {name} records fail the schema: {bad[:3]}")
+        out[name] = recs
+    return out
+
+
+def histogram_buckets(text: str, name: str, labels: str = "") -> dict:
+    """A Prometheus histogram's cumulative buckets in ``text``: upper bound
+    -> count."""
+    import re
+
+    return {float("inf") if le == "+Inf" else float(le): float(v) for le, v in re.findall(
+        rf'^{name}_bucket{{{labels}{"," if labels else ""}le="([^"]+)"}} (\S+)$', text, re.M)}
+
+
+def histogram_quantile(after: dict, before: dict, q: float):
+    """The q-quantile of what a histogram gained from ``before`` to
+    ``after`` (``histogram_buckets``; the registry is the process's, so
+    earlier phases' observations are in both): the upper bound of the
+    bucket holding it, and the count gained."""
+    rows = sorted((le, n - before.get(le, 0.0)) for le, n in after.items())
+    total = rows[-1][1] if rows else 0.0
+    return next((le for le, v in rows if v >= q * total), float("nan")), total
+
+
+def obs_ab(label: str, batches, legs, blocks: int = OBS_AB_BLOCKS,
+           trials: int = OBS_AB_TRIALS) -> float:
+    """run-scripts/telemetry_smoke.py's A/B protocol (legs 3 and 5): blocks
+    of interleaved (off, on) epochs over ``batches``; the best block's
+    on/off ratio. ``legs`` maps "off"/"on" to ``(state, step, train_epoch
+    keywords)`` callables. Two adjustments to the card's shared host,
+    whose speed drifts by ~10% within seconds: each pair runs its legs in
+    turn (off first, then on first), and a block's ratio is the median of
+    its pairs' ratios (each pair's legs seconds apart), not the ratio of
+    the legs' medians; and the objects alive before it are frozen out of
+    the garbage collector's passes (``gc.freeze``: their cost grows with
+    this process's heap, not with what a leg does). Prints every pair, and
+    each block's allocator churn (device allocations and frees, retries)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.train.loop import train_epoch
+
+    gc.collect()
+    gc.freeze()
+    ratios = []
+    for block in range(blocks):
+        mem0 = torch.cuda.memory_stats()
+        pairs = []
+        for trial in range(trials):
+            ms = {}
+            for leg in (("off", "on") if trial % 2 == 0 else ("on", "off")):
+                state, step, kw = legs[leg]()
+                t0 = time.perf_counter()
+                train_epoch(batches, step, state, **kw)
+                ms[leg] = (time.perf_counter() - t0) / len(batches) * 1e3
+            pairs.append(ms["on"] / ms["off"])
+            print(f"{label}: block {block} pair {trial}: off {ms['off']:.3f} ms on "
+                  f"{ms['on']:.3f} ms per step ({(pairs[-1] - 1) * 100:+.2f}%)", flush=True)
+        ratios.append(float(np.median(pairs)))
+        mem = torch.cuda.memory_stats()
+        churn = {k: mem.get(k, 0) - mem0.get(k, 0)
+                 for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+        print(f"{label}: block {block}: median of the pairs {(ratios[-1] - 1) * 100:+.2f}% "
+              f"(allocator {churn}, {mem.get('reserved_bytes.all.current', 0) / 2**30:.1f} GiB "
+              "reserved)", flush=True)
+    gc.unfreeze()
+    best = min(ratios)
+    print(f"{label}: overhead {(best - 1) * 100:+.2f}% (best of {blocks} blocks; all "
+          f"{[round((r - 1) * 100, 2) for r in ratios]}%), budget "
+          f"{OBS_AB_BUDGET * 100:.0f}%", flush=True)
+    return best
+
+
+def run_obs_train(graphs, device, per_step):
+    """``obs_train``: ``api.run_training`` on ``train_config`` (the SC25
+    EGNN, bf16, through K1 and K2, no device given) with ``OBS_TELEMETRY``
+    (windows of 5 steps, every step traced, numerics, ``/metrics`` on an
+    ephemeral port) and ``NeuralNetwork.Profile`` off, one epoch (~20
+    steps); a touch file arms the on-demand profile. Gates: the streams'
+    records validate; each window's step time and graphs/s within 10% of
+    this phase's own CUDA events around the same steps; ``mfu_est`` in
+    (0, 1) against the card's named peak; a scrape of ``/metrics`` during
+    the run holds the train series and ``/healthz`` answers 200; the
+    capture of ``profile_steps`` steps names K1's and K2's kernels and the
+    step's spans and regions; K1/K2 launches per step and eval batch as
+    egnn_train's. Then, on the run's weights: each probe's and gradient
+    group's max |x| and rms through the kernels against the plain versions
+    on one batch; one batch poisoned after batching through the numerics
+    step (the guard skips it, ``numerics_provenance`` names ``embedding``,
+    one flight dump with its files); and the step-time A/Bs, telemetry on
+    against off and numerics on against off, within 2%. Returns the
+    launches by (kernel, case) of the run."""
+    import torch
+
+    import hydragnn_tpu_torch.obs.telemetry as obs_telemetry
+    import hydragnn_tpu_torch.train.loop as loop
+    from hydragnn_tpu_torch.api import prepare_data, run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.obs.flightrec import FlightRecorder
+    from hydragnn_tpu_torch.obs.numerics import NanWatch, finalize_stats
+    from hydragnn_tpu_torch.obs.telemetry import StepTelemetry, peak_flops, resolve_telemetry
+    from hydragnn_tpu_torch.train.loop import make_train_step, train_epoch
+
+    label = "obs_train"
+    wrappers = _wrappers()
+    kind = torch.cuda.get_device_name(device)
+    check(peak_flops(kind) is not None, f"{label}: no peak named for {kind!r}")
+    config = train_config()
+    config["Telemetry"] = dict(OBS_TELEMETRY)
+    config["NeuralNetwork"]["Profile"] = {"enable": 0}
+    splits = split_dataset(graphs, 0.9, seed=0)
+    _, loaders, _ = prepare_data(copy.deepcopy(config), splits)
+    units = sum(len(loader) for loader in loaders)
+    run_dir = Path("logs") / get_log_name_config(config)
+    run_dir.mkdir(parents=True)
+    (run_dir / "profile_trigger").touch()
+
+    # this phase's own clock: CUDA events around every train step the run
+    # dispatches, and a scrape of /metrics and /healthz mid-run
+    events, scraped, telems = [], {}, []
+    real_make, real_init = loop.make_train_step, obs_telemetry.StepTelemetry.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        telems.append(self)
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(state, batch):
+            before = torch.cuda.Event(enable_timing=True)
+            after = torch.cuda.Event(enable_timing=True)
+            before.record()
+            out = step(state, batch)
+            after.record()
+            events.append((before, after, int(batch.graph_mask.sum())))
+            if len(events) == 12 and telems and telems[0].endpoint_port:
+                base = f"http://127.0.0.1:{telems[0].endpoint_port}"
+                scraped["metrics"] = http_get(base + "/metrics")
+                scraped["healthz"] = http_get(base + "/healthz")
+            return out
+
+        timed.__dict__.update(step.__dict__)
+        return timed
+
+    _zero_launches(wrappers)
+    t0 = time.perf_counter()
+    with swapped([(loop, "make_train_step", make),
+                  (obs_telemetry.StepTelemetry, "__init__", init)]):
+        model, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
+                               "steps and eval batches")
+    steps = len(events)
+    print(f"{label}: run_training with Telemetry {OBS_TELEMETRY}, 1 epoch in {seconds:.2f} s: "
+          f"{steps} steps, history {hist}, guard skips {int(state.skipped_steps)}", flush=True)
+    check(steps == int(state.step) == len(loaders[0]) >= 16 and int(state.skipped_steps) == 0,
+          f"{label}: {steps} steps timed, state at step {int(state.step)}")
+
+    streams = validate_streams(label, run_dir)
+    windows = [r for r in streams["metrics.jsonl"] if r["kind"] == "step_window"]
+    check(sum(w["steps"] for w in windows) == steps and len(windows) >= 4,
+          f"{label}: windows {[w['steps'] for w in windows]} for {steps} steps")
+    for w in windows:
+        first, last = events[w["step"] - w["steps"]], events[w["step"] - 1]
+        own = first[0].elapsed_time(last[1]) / 1e3
+        graphs_w = sum(e[2] for e in events[w["step"] - w["steps"]:w["step"]])
+        own_ms, own_gps = own / w["steps"] * 1e3, graphs_w / own
+        gaps = (abs(w["step_time_ms"] / own_ms - 1), abs(w["graphs_per_sec"] / own_gps - 1))
+        print(f"{label}: window to step {w['step']} ({w['steps']} steps, {w['buckets']}): "
+              f"step_time_ms {w['step_time_ms']} vs own events {own_ms:.3f} ({gaps[0]:.2%}), "
+              f"graphs_per_sec {w['graphs_per_sec']} vs {own_gps:.2f} ({gaps[1]:.2%}), mfu_est "
+              f"{w['mfu_est']} against {peak_flops(kind) / 1e12:.1f} TFLOP/s ({kind}), padding "
+              f"waste {w['padding_waste']}", flush=True)
+        check(max(gaps) <= OBS_WINDOW_RTOL,
+              f"{label}: window to step {w['step']} {gaps} from the phase's own events")
+        check(w["mfu_est"] is not None and 0.0 < w["mfu_est"] < 1.0,
+              f"{label}: mfu_est {w['mfu_est']} not in (0, 1)")
+    from hydragnn_tpu_torch.obs import flops as obs_flops
+
+    for sig, f in obs_flops.cached().items():
+        print(f"{label}: FLOPs per train step at level {sig[-1]}: {f:.4e} (meta count, "
+              "matrix products)", flush=True)
+    numerics = [r for r in streams["metrics.jsonl"] if r["kind"] == "numerics"]
+    check(len(numerics) == len(windows), f"{label}: {len(numerics)} numerics records")
+    print(f"{label}: last numerics window, activations "
+          f"{ {k: (v['max_abs'], v['rms']) for k, v in numerics[-1]['activations'].items()} }",
+          flush=True)
+    names = collections.Counter(s["name"] for s in streams["trace.jsonl"])
+    check(names["train/step"] == names["train/device_dispatch"] == steps,
+          f"{label}: span counts {dict(names)}")
+    code, text = scraped.get("metrics", (None, ""))
+    missing = [s for s in OBS_TRAIN_SERIES if f"\n{s}" not in text]
+    print(f"{label}: /metrics mid-run {code}, {len(text)} bytes, missing {missing}; /healthz "
+          f"{scraped.get('healthz', (None,))[0]}", flush=True)
+    check(code == 200 and not missing and scraped["healthz"][0] == 200,
+          f"{label}: the mid-run scrape {code}, missing {missing}")
+    traces = sorted((run_dir / "profile_on_demand").glob("step*/trace.json"))
+    check(len(traces) == 1, f"{label}: on-demand captures {traces}")
+    trace = json.loads(traces[0].read_text())
+    trace_names = {e.get("name", "") for e in trace.get("traceEvents", [])}
+    found = {k: sum(v in n for n in trace_names) for k, v in OBS_KERNEL_NAMES.items()}
+    ranges = {n: n in trace_names for n in OBS_TRACE_NAMES}
+    print(f"{label}: on-demand capture {traces[0].relative_to(run_dir)} "
+          f"({traces[0].stat().st_size} bytes): kernels {found}, ranges {ranges}", flush=True)
+    check(all(found.values()) and all(ranges.values()),
+          f"{label}: the capture lacks {found} {ranges}")
+
+    # the probes through the kernels against the plain versions, on the
+    # run's weights and one batch (one numerics step each, bf16 as trained)
+    loaders[0].set_epoch(0)
+    batches = list(loaders[0])
+    stats = {}
+    for route in ("kernels", "plain"):
+        st = _train_copy(model, device)
+        step = make_train_step(st.model, mixed_precision=True, numerics=True)
+        with plain_versions(PLAIN if route == "plain" else ()):
+            out = step(st, batches[0])
+        meta = step._numerics_meta
+        stats[route] = {
+            **{("act", n): finalize_stats(r) for n, r in zip(meta["act_names"], out[3]["act"].cpu())},
+            **{("grad", n): finalize_stats(r) for n, r in zip(meta["grad_names"],
+                                                              out[3]["grad"].cpu())}}
+        del st, step, out
+    worst = 0.0
+    for key, want in stats["plain"].items():
+        got = stats["kernels"][key]
+        gap = max(abs(got[s] - want[s]) / max(abs(want[s]), 1e-30) for s in ("max_abs", "rms"))
+        worst = max(worst, gap)
+        print(f"{label}: probe {key[0]} {key[1]}: max_abs {got['max_abs']:.6g} vs plain "
+              f"{want['max_abs']:.6g}, rms {got['rms']:.6g} vs {want['rms']:.6g} ({gap:.3e})",
+              flush=True)
+    check(stats["kernels"].keys() == stats["plain"].keys() and worst <= OBS_PROBE_RTOL,
+          f"{label}: probes through the kernels {worst:.3e} from the plain versions "
+          f"(limit {OBS_PROBE_RTOL})")
+
+    # one batch poisoned after batching through the numerics step
+    st = _train_copy(model, device)
+    step = make_train_step(st.model, mixed_precision=True, numerics=True)
+    bad = batches[1].replace(x=batches[1].x.clone())
+    bad.x[0, 0] = float("nan")
+    watch = NanWatch(diagnose=step._nan_diagnose, lag=2)
+    flight_dir = Path("obs_poison")
+    recorder = FlightRecorder(str(flight_dir)).install()
+    try:
+        from hydragnn_tpu_torch.obs.events import events as event_log
+
+        n0 = len(event_log().snapshot())
+        st, _, _, _ = train_epoch([batches[0], bad] + batches[2:5], step, st, nan_watch=watch)
+        prov = [e for e in event_log().snapshot()[n0:] if e["kind"] == "numerics_provenance"]
+    finally:
+        recorder.uninstall()
+    skips = watch.take()
+    dumps = [d for d in (flight_dir / "flightrec").iterdir() if not d.name.startswith(".tmp")]
+    files = sorted(p.name for p in dumps[0].iterdir()) if dumps else []
+    print(f"{label}: poisoned batch 1: guard skips {int(st.skipped_steps)}, provenance "
+          f"{skips}, events {prov}, flight dumps {[d.name for d in dumps]} {files}", flush=True)
+    check(int(st.skipped_steps) == 1 and len(skips) == 1 and skips[0]["layer"] == "embedding"
+          and len(prov) == 1 and prov[0]["layer"] == "embedding" and len(dumps) == 1
+          and {"meta.json", "events.json", "spans.json", "metrics.prom",
+               "memory.json"} <= set(files),
+          f"{label}: NaN provenance {skips} {prov} {files}")
+    del st, step, watch
+
+    # the step-time A/Bs on OBS_AB_STEPS batches an epoch, each leg with
+    # its own settings (telemetry_smoke.py legs 3 and 5)
+    ab_batches = batches[:OBS_AB_STEPS]
+    st = _train_copy(model, device)
+    plain_step = make_train_step(st.model, mixed_precision=True)
+    telem = StepTelemetry(resolve_telemetry({"Telemetry": {"enabled": True}}), "obs_ab",
+                          device=device)
+    from hydragnn_tpu_torch.obs.flops import train_flops_for
+
+    telem.attach_flops(train_flops_for(st.model, False, True))
+    train_epoch(ab_batches, plain_step, st)  # warm
+    train_epoch(ab_batches, plain_step, st, telemetry=telem)
+    best = obs_ab(f"{label} telemetry A/B", ab_batches, {
+        "off": lambda: (st, plain_step, {}), "on": lambda: (st, plain_step, {"telemetry": telem})})
+    telem.close()
+    check(best <= 1 + OBS_AB_BUDGET, f"{label}: telemetry costs {(best - 1) * 100:.2f}% a step")
+    num_step = make_train_step(st.model, mixed_precision=True, numerics=True)
+    train_epoch(ab_batches, num_step, st, nan_watch=NanWatch(diagnose=num_step._nan_diagnose))
+    best = obs_ab(f"{label} numerics A/B", ab_batches, {
+        "off": lambda: (st, plain_step, {}),
+        "on": lambda: (st, num_step, {"nan_watch": NanWatch(diagnose=num_step._nan_diagnose)})})
+    check(best <= 1 + OBS_AB_BUDGET, f"{label}: numerics costs {(best - 1) * 100:.2f}% a step")
+    check(int(st.skipped_steps) == 0, f"{label}: the A/B steps skipped {int(st.skipped_steps)}")
+    return launched
+
+
+def run_obs_serve(graphs, device, per_batch):
+    """``obs_serve``: ``api.run_server`` on the egnn serving config with
+    ``Telemetry.trace`` on at ``trace_sample`` 1.0 and
+    ``Serving.step_timeout_s`` ``OBS_STEP_TIMEOUT_S``: 64 requests, each
+    request's span tree complete (its ``serve/request`` root with
+    ``serve/admit`` and ``serve/queue_wait``, and its batch's
+    ``serve/step`` with its four children, in its trace or linked), the
+    ``/metrics`` request histogram counting 64 (its p50 and p99 beside the
+    client's own; the registry is the process's, so the count is what the
+    64 added), ``/readyz`` 200, K1/K2 launches per served batch; then a
+    step that sleeps past the timeout: its request fails with
+    ``WedgedStepError``, ``serve_wedge`` is emitted, the flight recorder
+    dumps, and the next request is answered. Returns the launches by
+    (kernel, case) of the 64 requests."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.api import run_server
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.obs.events import events as event_log
+    from hydragnn_tpu_torch.serve import WedgedStepError
+
+    label = "obs_serve"
+    wrappers = _wrappers()
+    config = serving_config()
+    config["Telemetry"] = {"trace": True, "trace_sample": 1.0}
+    config["Serving"] = {"step_timeout_s": OBS_STEP_TIMEOUT_S, "http_port": 0}
+    run_dir = Path("logs") / get_log_name_config(config)
+    server = run_server(config, datasets=split_dataset(graphs, 0.9, seed=0), device=device,
+                        seed=SEED)
+    try:
+        check(server.wait_ready(timeout=600), f"{label}: warm-up failed: {server.failed}")
+        base = f"http://127.0.0.1:{server.http_port}"
+        ready = http_get(base + "/readyz")[0]
+        requests = [graphs[i % len(graphs)] for i in range(OBS_SERVE_REQUESTS)]
+        batches0 = server.stats()["batches"]
+        hist = "hydragnn_serve_request_latency_seconds"
+        before = histogram_buckets(http_get(base + "/metrics")[1], hist, 'outcome="ok"')
+        _zero_launches(wrappers)
+        handles = [server.submit(g) for g in requests]
+        results = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        batches = server.stats()["batches"] - batches0
+        launched = _check_launches(label, wrappers, per_batch, batches, "batches")
+        check(all(all(np.isfinite(v).all() for v in r.values()) for r in results),
+              f"{label}: a non-finite answer")
+        code, text = http_get(base + "/metrics")
+        lat = np.asarray([h.done_at - h.submitted_at for h in handles])
+        after = histogram_buckets(text, hist, 'outcome="ok"')
+        p50, count = histogram_quantile(after, before, 0.5)
+        p99, _ = histogram_quantile(after, before, 0.99)
+        print(f"{label}: {OBS_SERVE_REQUESTS} requests in {batches} batches; /readyz {ready}; "
+              f"/metrics {code}: request histogram count {count:g}, p50 <= {p50:g} s, p99 <= "
+              f"{p99:g} s (bucket bounds) beside the client's p50 "
+              f"{np.percentile(lat, 50):.4f} s p99 {np.percentile(lat, 99):.4f} s", flush=True)
+        check(ready == 200 and code == 200 and count == OBS_SERVE_REQUESTS,
+              f"{label}: /readyz {ready}, /metrics {code}, count {count}")
+
+        # the watchdog: a step that sleeps past the timeout, then a fresh runner
+        forward, slept = server.forward, []
+
+        def wedged(batch):
+            if not slept:
+                slept.append(1)
+                time.sleep(OBS_WEDGE_SLEEP_S)
+            return forward(batch)
+
+        n0 = len(event_log().snapshot())
+        server.forward = wedged
+        err = server.submit(requests[0]).error(timeout=60)
+        wedge = [e for e in event_log().snapshot()[n0:] if e["kind"] == "serve_wedge"]
+        after = server.predict([requests[1]], timeout=60)[0]
+        print(f"{label}: a step sleeping {OBS_WEDGE_SLEEP_S} s past step_timeout_s "
+              f"{OBS_STEP_TIMEOUT_S}: {type(err).__name__}, events {wedge}; the next request "
+              f"{'answered' if isinstance(after, dict) else after}", flush=True)
+        check(isinstance(err, WedgedStepError) and len(wedge) == 1 and isinstance(after, dict)
+              and server.stats()["wedged_batches"] == 1, f"{label}: the watchdog {err} {wedge}")
+        time.sleep(OBS_WEDGE_SLEEP_S)  # the abandoned step ends before the server closes
+    finally:
+        server.close()
+    dumps = [d.name for d in (run_dir / "flightrec").iterdir()] if (run_dir / "flightrec").exists() else []
+    check(any(d.endswith("serve_wedge-h0") for d in dumps), f"{label}: flight dumps {dumps}")
+    streams = validate_streams(label, run_dir)
+    spans = streams["trace.jsonl"]
+    by_id = {s["spanId"]: s for s in spans}
+    kids = collections.defaultdict(list)
+    for s in spans:
+        if "parentSpanId" in s:
+            kids[s["parentSpanId"]].append(s)
+    roots = [s for s in spans if s["name"] == "serve/request"]
+    ok_roots = [r for r in roots if r.get("status", {}).get("code") == 1]
+    steps = {s["spanId"]: s for s in spans if s["name"] == "serve/step"}
+    incomplete = []
+    for r in ok_roots:
+        names = sorted(k["name"] for k in kids[r["spanId"]])
+        linked = [l["spanId"] for l in r.get("links", [])] + [
+            k["spanId"] for k in kids[r["spanId"]] if k["name"] == "serve/step"]
+        step_ok = all(sorted(k["name"] for k in kids[sid]) == [
+            "serve/batch_form", "serve/bucket_select", "serve/device_step", "serve/respond"]
+            for sid in linked if sid in steps)
+        if not ({"serve/admit", "serve/queue_wait"} <= set(names) and linked and step_ok):
+            incomplete.append((r["spanId"], names, linked))
+    print(f"{label}: {len(spans)} spans, {len(roots)} request roots ({len(ok_roots)} ok, the "
+          f"rest the wedged one), {len(steps)} step spans, {len(incomplete)} incomplete trees",
+          flush=True)
+    check(len(ok_roots) == OBS_SERVE_REQUESTS + 1 == len(roots) - 1 and not incomplete,
+          f"{label}: incomplete span trees {incomplete[:3]}")
+    return launched
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         run_smoke(stack)
@@ -5857,8 +6347,8 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
         ring_launched, ring_config, ring_batches = run_gin_ring(topology, topology_s, device,
                                                                 GIN_RING_REQUESTS)
         launched.update(ring_launched)
-        launched.update(run_egnn_train(oc20_shaped_dataset(TRAIN_GRAPHS),
-                                       paths["egnn"][1], device, TRAIN_PER_STEP))
+        train_graphs = oc20_shaped_dataset(TRAIN_GRAPHS)
+        launched.update(run_egnn_train(train_graphs, paths["egnn"][1], device, TRAIN_PER_STEP))
         launched.update(run_gps_pna_train(gps_pna_dataset(GPS_TRAIN_GRAPHS), device,
                                           GPS_TRAIN_PER_STEP))
         launched.update(run_gin_ring_train(ring_config, ring_batches, device,
@@ -5901,6 +6391,17 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                          for (k, c), n in run_dist_gfm_train(gfm_graphs, device).items()})
         launched.update({(k, f"gfm/{c}"): n for (k, c), n in run_dist_run_training().items()})
         run_dist_ranks(gfm_graphs, device)
+        # the observability plane on the egnn cell, training then serving,
+        # each in its own directory (an empty ./logs)
+        for label, phase in (
+                ("obs_train", lambda: run_obs_train(train_graphs, device, TRAIN_PER_STEP)),
+                ("obs_serve", lambda: run_obs_serve(paths["egnn"][1], device,
+                                                    per_batch_cases["egnn"]))):
+            t0 = time.perf_counter()
+            Path(label).mkdir()
+            with contextlib.chdir(label):
+                launched.update(phase())
+            print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

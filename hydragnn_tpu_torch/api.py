@@ -32,6 +32,13 @@ routed table), trains through the distributed step
 (``parallel/engine.py``), and rank 0 alone writes the config and the
 checkpoints. ``run_prediction`` evaluates each rank's share and gathers
 the predictions to every rank.
+
+The top-level ``Telemetry`` section and ``NeuralNetwork.Profile`` take
+effect as in the JAX package (the observability plane, ``obs/``, wired by
+``train/loop.py``); ``run_training`` also times its phases
+(``utils/timers.py``), logs to ``run.log`` at a positive verbosity, prints
+the parameter summary and writes ``scalars.jsonl``; ``run_prediction`` and
+``run_server`` arm the tracer, the flight recorder and ``events.jsonl``.
 """
 
 from __future__ import annotations
@@ -349,9 +356,18 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
     from .train.optimizer import make_optimizer
     from .train.state import LoaderState, TrainState
     from .utils import preemption
+    from .utils import tracer as tr
+    from .utils.printing import print_model, setup_log
+    from .utils.timers import Timer, print_timers
+    from .utils.writer import MetricsWriter
 
     setup_distributed(device)
-    config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
+    # fresh per-run accumulators (class- and module-level state would
+    # otherwise total repeated runs in one process)
+    Timer.reset()
+    tr.reset()
+    with Timer("load_data"):
+        config, (train_loader, val_loader, test_loader), _ = prepare_data(config, datasets)
     table = resolve_parallel(config)
     world = world_size()
     training = config["NeuralNetwork"]["Training"]
@@ -361,15 +377,20 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
             f"{world}): launch the run over the model axis's {table.model_size} ranks "
             "(python -m hydragnn_tpu_torch.launch --nprocs N)")
     log_name = get_log_name_config(config)
+    verbosity = config["Verbosity"].get("level", 0)
+    if verbosity > 0:
+        setup_log(log_name)
     if is_primary():
         save_config(config, log_name)
-    model = _model(config, variables, resolve_device(device), seed)
+    with Timer("create_model"):
+        model = _model(config, variables, resolve_device(device), seed)
+    # the parameter summary (reference: print_model, model.py:289-297)
+    print_model(model, verbosity=verbosity)
     optimizer = make_optimizer(
         model, training["Optimizer"],
         freeze_conv=bool(config["NeuralNetwork"]["Architecture"].get("freeze_conv_layers", False)),
     )
     state = TrainState.create(model, optimizer)
-    verbosity = config["Verbosity"].get("level", 0)
     if training.get("continue"):
         _resume(state, train_loader, training.get("startfrom") or log_name, log_name, verbosity)
     step_fn = eval_fn = None
@@ -400,15 +421,28 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
         # the rollback policy: the last verified checkpoint of this run
         return load_existing_model(template, log_name)
 
-    state, hist = train_validate_test(
-        model, state, train_loader, val_loader, test_loader, config,
-        log_name=log_name, verbosity=verbosity, save_fn=save_fn, restore_fn=restore_fn,
-        loader_state_fn=loader_state_fn, step_fn=step_fn, eval_fn=eval_fn,
-    )
+    writer = MetricsWriter(log_name)
+
+    def log_fn(epoch, scalars):
+        # per-epoch scalars (reference: train_validate_test.py:198-205)
+        writer.add_scalars({f"loss/{k}": v for k, v in scalars.items() if k != "lr"}, epoch)
+        writer.add_scalar("lr", scalars.get("lr", 0.0), epoch)
+
+    try:
+        with Timer("train_validate_test"):
+            state, hist = train_validate_test(
+                model, state, train_loader, val_loader, test_loader, config,
+                log_name=log_name, verbosity=verbosity, save_fn=save_fn, restore_fn=restore_fn,
+                loader_state_fn=loader_state_fn, step_fn=step_fn, eval_fn=eval_fn,
+                writer=writer, log_fn=log_fn,
+            )
+    finally:
+        writer.close()
     # the end-of-run save, unless the SIGTERM stop has just saved this state
     if not preemption.global_stop_noted():
         final_epoch = len(hist["train"]) - 1
         save_fn(state, final_epoch if final_epoch >= 0 else None)
+    print_timers(verbosity)
     return model, state, hist
 
 
@@ -422,6 +456,51 @@ def _restore_for_inference(model, config) -> str:
 
     _, entry = load_inference_state(InferenceState(model), get_log_name_config(config))
     return entry
+
+
+def _arm_plane(config, log_name: str):
+    """The tracing plane of an inference entry point, as the JAX
+    ``run_server`` arms it: ``Telemetry.trace`` installs a tracer
+    (head-sampled at ``trace_sample``) writing ``./logs/<log_name>/trace.jsonl``;
+    ``Telemetry.trace`` or ``enabled`` attaches ``events.jsonl`` and, under
+    ``flight_recorder``, installs the flight recorder. Returns ``(tracer,
+    flight recorder, events attached)``, the first two None when off."""
+    import os
+
+    from .obs.telemetry import resolve_telemetry
+
+    obs_settings = resolve_telemetry(config)
+    run_dir = os.path.join("./logs", log_name)
+    tracer = flight = None
+    if obs_settings["trace"]:
+        from .obs import trace as obs_trace
+
+        tracer = obs_trace.install(obs_trace.Tracer(
+            run_dir, sample=float(obs_settings["trace_sample"])))
+    armed = obs_settings["trace"] or obs_settings["enabled"]
+    if armed:
+        from .obs.events import attach_stream
+
+        if obs_settings["flight_recorder"]:
+            from .obs.flightrec import FlightRecorder
+
+            flight = FlightRecorder(run_dir, tracer=tracer).install()
+        attach_stream(run_dir)
+    return tracer, flight, armed
+
+
+def _disarm_plane(tracer, flight, armed: bool) -> None:
+    """Tear down what ``_arm_plane`` installed."""
+    from .obs import trace as obs_trace
+    from .obs.events import detach_stream
+
+    if flight is not None:
+        flight.uninstall()
+    if tracer is not None:
+        obs_trace.uninstall(tracer)
+        tracer.close()
+    if armed:
+        detach_stream()
 
 
 def run_prediction(config, variables=None, datasets=None, device: DeviceLike = None):
@@ -448,14 +527,22 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
                                   spec=test_loader.ladder, shuffle=False, host_count=world,
                                   host_index=rank(), sort_edges=test_loader.sort_edges)
     model = _model(config, variables, resolve_device(device), 0)
-    if variables is None:
-        _restore_for_inference(model, config)
-    training = config["NeuralNetwork"]["Training"]
-    tot, tasks, preds, trues = test_model(
-        model, test_loader,
-        mixed_precision=bool(training.get("mixed_precision", False)),
-        compute_grad_energy=bool(training.get("compute_grad_energy", False)),
-    )
+    tracer, flight, armed = _arm_plane(config, get_log_name_config(config))
+    try:
+        if variables is None:
+            _restore_for_inference(model, config)
+        training = config["NeuralNetwork"]["Training"]
+        tot, tasks, preds, trues = test_model(
+            model, test_loader,
+            mixed_precision=bool(training.get("mixed_precision", False)),
+            compute_grad_energy=bool(training.get("compute_grad_energy", False)),
+        )
+    except BaseException as e:
+        if flight is not None and not isinstance(e, KeyboardInterrupt):
+            flight.dump("predict_exception", exc=e)
+        raise
+    finally:
+        _disarm_plane(tracer, flight, armed)
     if world > 1:
         import numpy as np
 
@@ -512,15 +599,26 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
             )
     training = config["NeuralNetwork"]["Training"]
     arch = config["NeuralNetwork"]["Architecture"]
-    server = GraphServer(
-        model,
-        test_loader.ladder,
-        ServeConfig.from_config(config),
-        template_graphs=test_loader.graphs,
-        mixed_precision=bool(training.get("mixed_precision", False)),
-        sort_edges=bool(arch.get("use_sorted_aggregation", False)),
-        device=dev,
-        log_name=log_name,
-        checkpoint_label=entry,
-    )
+    serve_cfg = ServeConfig.from_config(config)
+    # the server owns the tracer and the flight recorder and tears them
+    # down at close()
+    tracer, flight, armed = _arm_plane(config, log_name)
+    try:
+        server = GraphServer(
+            model,
+            test_loader.ladder,
+            serve_cfg,
+            template_graphs=test_loader.graphs,
+            mixed_precision=bool(training.get("mixed_precision", False)),
+            sort_edges=bool(arch.get("use_sorted_aggregation", False)),
+            device=dev,
+            log_name=log_name,
+            checkpoint_label=entry,
+            tracer=tracer,
+            flight_recorder=flight,
+            events_stream=armed,
+        )
+    except BaseException:
+        _disarm_plane(tracer, flight, armed)
+        raise
     return server.start()

@@ -114,6 +114,15 @@ class SampleValidator:
             return
         self._seen.add(key)
         self.counts[reason] = self.counts.get(reason, 0) + 1
+        # a typed incident record (obs/events.py) with its reason
+        try:
+            from ..obs.events import EV_DATA_SKIP
+            from ..obs.events import emit as _emit_event
+
+            _emit_event(EV_DATA_SKIP, severity="warn", reason=reason, source=source,
+                        index=int(index), quarantined=self.policy == "quarantine")
+        except Exception:
+            pass
         if self._reported < self._VERBOSE_LIMIT:
             self._reported += 1
             print(f"[hydragnn_tpu_torch.data] skipping bad sample {index} (dataset_id "

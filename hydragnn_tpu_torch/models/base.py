@@ -24,9 +24,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..obs.numerics import probe
 from ..ops.segment import masked_global_mean_pool
 from .gps import GPSConv
-from .layers import MLP, Dense, MaskedBatchNorm, get_activation
+from .layers import MLP, Dense, MaskedBatchNorm, get_activation, name_probes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,6 +338,7 @@ class HydraModel(nn.Module):
             else:
                 raise ValueError(f"unknown head type {t!r}")
         self.heads_NN = nn.ModuleList(heads)
+        name_probes(self)
 
     def _embedding(self, batch):
         """Input node features and the batch the convs see: under GPS the
@@ -369,9 +371,13 @@ class HydraModel(nn.Module):
         saw): the conv heads run on the same embedded batch."""
         inv, batch = self._embedding(batch)
         equiv = batch.pos
-        for conv, bn in zip(self.graph_convs, self.feature_layers):
+        # numerics taps (obs/numerics.py): no-ops unless a collection is
+        # active (Telemetry.numerics); masked, padding rows are garbage
+        probe("embedding", inv, batch.node_mask)
+        for i, (conv, bn) in enumerate(zip(self.graph_convs, self.feature_layers)):
             inv, equiv = conv(inv, equiv, batch)
             inv = self.act(bn(inv, batch.node_mask, train=self.training))
+            probe(f"conv{i}", inv, batch.node_mask)
         return inv, equiv, batch
 
     def forward(self, batch) -> Dict[str, torch.Tensor]:
@@ -379,6 +385,7 @@ class HydraModel(nn.Module):
         x, equiv, batch = self._encode(batch)
         x_graph = masked_global_mean_pool(x, batch.node_graph, batch.num_graphs,
                                           batch.node_mask, batch.graphs_contiguous)
+        probe("pooled", x_graph, batch.graph_mask)
         outputs: Dict[str, torch.Tensor] = {}
         for ihead, (name, t, d) in enumerate(
             zip(cfg.output_names, cfg.output_type, cfg.output_dim)
@@ -393,6 +400,8 @@ class HydraModel(nn.Module):
                 row_branch = batch.dataset_id[batch.node_graph]
             out = self._select_branch(stacked, row_branch)
             outputs[name] = out[..., :d]
+            probe(f"head:{name}", outputs[name],
+                  batch.graph_mask if t == "graph" else batch.node_mask)
             if cfg.var_output:
                 outputs[f"{name}__var"] = out[..., d:] ** 2
         return outputs

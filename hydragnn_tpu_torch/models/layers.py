@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..obs.numerics import collection_active, probe
 from ..ops.segment import fused_edge_message_sum
 
 # init kinds: ("lecun",) flax's lecun_normal; ("mirror",) its mirrored (w, -w)
@@ -139,8 +140,9 @@ def leaky_relu(v, negative_slope: float = 0.01):
     gradient at 0 is 1 (PyTorch's ``F.leaky_relu`` takes the slope there).
     A ReLU layer's zero outputs (a dead unit, a zero bias) meet it at
     exactly 0."""
-    return torch.where(v >= 0, v, torch.tensor(negative_slope, dtype=v.dtype,
-                                                device=v.device) * v)
+    # the slope in v's dtype, filled on v's device (``torch.tensor`` there
+    # would copy it from the host and sync the stream)
+    return torch.where(v >= 0, v, v.new_full((), negative_slope) * v)
 
 
 ACTIVATIONS = {
@@ -209,6 +211,8 @@ class MaskedBatchNorm(nn.Module):
     statistics."""
 
     momentum = 0.9
+    # the flax module path its numerics tap is named by (``name_probes``)
+    probe_path = "batchnorm"
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -236,7 +240,12 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         y = (x - mean) / torch.sqrt(var + self.epsilon)
-        return y * self.scale + self.bias
+        y = y * self.scale + self.bias
+        # numerics tap (obs/numerics.py): the normalized output, one layer
+        # before the activation tap sees a collapsing variance
+        if collection_active():
+            probe(f"bn:{self.probe_path}", y, mask)
+        return y
 
     @torch.no_grad()
     def _update_running(self, n, mean, var) -> None:
@@ -252,6 +261,16 @@ class MaskedBatchNorm(nn.Module):
         self.mean.copy_(w_old * self.mean.float() + w_new * mean.float())
         self.var.copy_(w_old * self.var.float() + w_new * var.float())
         self.count.copy_(c_new)
+
+
+def name_probes(model: nn.Module) -> None:
+    """Name every batch norm's numerics tap by its module's flax path
+    (``feature_layers_0``, as the JAX package names ``bn:{path}``)."""
+    from ..bridge import flax_path
+
+    for name, m in model.named_modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.probe_path = flax_path(f"{name}.scale")[0].rsplit("/", 1)[0]
 
 
 def pair_message_factored(recv, send, inv, batch, terms=()):

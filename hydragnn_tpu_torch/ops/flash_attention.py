@@ -52,7 +52,8 @@ import math
 import torch
 
 from . import _build
-from .sorted_segment import _DTYPE_CODES, _check_current_device, needs_grad, recompute_backward
+from .sorted_segment import (_DTYPE_CODES, _PLAIN_DEVICES, _check_current_device, needs_grad,
+                             recompute_backward)
 
 # both entries: q, k, v, three row strides, four pointers, four sizes,
 # scale_log2, dtype code, stream
@@ -177,7 +178,7 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int,
     bounds a real graph's nodes (the gradient's recompute gathers that many
     slots per graph; the forward needs no bound). Returns a contiguous
     [N, H, d] in the operand dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return reference_masked_attention(q, k, v, node_graph, node_mask)
     _check_heads("flash_self_attention", q)
     dtype = q.dtype
@@ -253,7 +254,7 @@ def flash_block_summary(q, k, v, key_mask):
     (one dtype, float32 or bfloat16; each may be a row-strided view) with
     ``key_mask [n_k]`` bool, in the operand dtype. ``n_q`` and ``n_k`` may
     differ. Rows with no valid key give ``(-1e30, 0, 0)``."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return reference_block_summary(q, k, v, key_mask)
     fn = "flash_block_summary"
     _check_heads(fn, q)

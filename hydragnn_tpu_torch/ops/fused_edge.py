@@ -33,6 +33,7 @@ import torch
 from . import _build
 from .sorted_segment import (
     _DTYPE_CODES,
+    _PLAIN_DEVICES,
     _check_current_device,
     check_ids,
     needs_grad,
@@ -72,7 +73,7 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     """``node_recv`` [num_segments, Ci], ``edge_in`` [E, Ci], ``weights``
     [Ci, Co], ``bias`` [Co], one dtype (float32 or bfloat16); returns
     [num_segments, Co] in that dtype, accumulated in f32."""
-    if edge_in.device.type == "cpu":
+    if edge_in.device.type in _PLAIN_DEVICES:
         return reference_edge_message_sum(
             node_recv, edge_in, weights, bias, segment_ids, num_segments
         )

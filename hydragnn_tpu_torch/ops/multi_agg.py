@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from . import _build
 from .sorted_segment import (
     _DTYPE_CODES,
+    _PLAIN_DEVICES,
     _check_current_device,
     check_ids,
     needs_grad,
@@ -116,7 +117,7 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
     gate`` over ascending ``segment_ids``. ``edge_in`` [E, C] (and ``gate``
     [E, C]) and ``node_recv`` [num_segments, C], one dtype (float32 or
     bfloat16); ``node_recv`` and ``gate`` may be None. Every moment is f32."""
-    if edge_in.device.type == "cpu":
+    if edge_in.device.type in _PLAIN_DEVICES:
         return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
     if edge_in.device.type != "cuda":
         raise ValueError(f"fused_multi_agg: unsupported device {edge_in.device}")

@@ -32,6 +32,9 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# devices whose tensors take the plain version: the CPU, and ``meta`` (shapes
+# only: the FLOP count of obs/flops.py)
+_PLAIN_DEVICES = ("cpu", "meta")
 
 _SIGNATURES = {
     "hg_sorted_segment_sum": (
@@ -42,16 +45,18 @@ _SIGNATURES = {
 
 
 def _fixed_order_sum(messages, segment_ids, num_segments: int):
-    """``torch.segment_reduce`` in f32 over the row lengths of the ascending
-    ids, returned in the messages' dtype."""
+    """``torch.segment_reduce`` in f32 over the row bounds of the ascending
+    ids, returned in the messages' dtype (on ``meta`` the output's shape
+    alone: the row bounds are data)."""
+    if messages.is_meta:
+        return messages.new_empty((num_segments,) + tuple(messages.shape[1:]))
     ids = segment_ids.long()
     bounds = torch.searchsorted(
         ids, torch.arange(num_segments + 1, dtype=torch.int64, device=ids.device)
     )
-    out = torch.segment_reduce(
-        messages[bounds[0]:bounds[-1]].float(), "sum", lengths=bounds.diff(), axis=0,
-        unsafe=True,
-    )
+    # the row bounds as offsets stay on the device (slicing by them would
+    # read two of them back: a sync a call)
+    out = torch.segment_reduce(messages.float(), "sum", offsets=bounds, axis=0, unsafe=True)
     return out.to(messages.dtype)
 
 
@@ -157,7 +162,7 @@ def recompute_backward(ctx, plain, inputs, douts):
 def sorted_segment_sum(messages, segment_ids, num_segments: int):
     """``out[i] = sum_{e: ids[e] == i} messages[e]`` over ascending ids.
     ``messages`` [E, C] float32/bfloat16; returns [num_segments, C]."""
-    if messages.device.type == "cpu":
+    if messages.device.type in _PLAIN_DEVICES:
         return sorted_segment_sum_plain(messages, segment_ids, num_segments)
     if messages.device.type != "cuda":
         raise ValueError(f"sorted_segment_sum: unsupported device {messages.device}")

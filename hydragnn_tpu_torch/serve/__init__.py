@@ -9,5 +9,6 @@ from .errors import (
     ServerClosedError,
     ServerDrainingError,
     SheddedError,
+    WedgedStepError,
 )
 from .server import GraphServer, PredictionHandle

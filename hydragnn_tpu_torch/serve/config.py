@@ -1,10 +1,10 @@
 """Serving policy knobs, resolved from a run config's ``Serving`` section.
 
 Counterpart of ``hydragnn_tpu/serve/config.py`` for the single-server slice:
-admission (queue bound, deadlines), micro-batching, load shedding and drain.
-Keys of the JAX package's serving surface that this slice does not consume
-(hot reload, int8, fleet, router, cache, HTTP) warn and are ignored, like any
-unknown key.
+admission (queue bound, deadlines), micro-batching, load shedding, drain,
+the device-step watchdog and the ``/metrics`` endpoint. Keys of the JAX
+package's serving surface that this slice does not consume (hot reload,
+int8, fleet, router, cache) warn and are ignored, like any unknown key.
 """
 
 from __future__ import annotations
@@ -26,7 +26,15 @@ class ServeConfig:
     - ``slo_p99_s`` > 0 sheds admissions whose projected queue wait exceeds
       it; ``expected_latency_per_graph_s`` seeds that projection before the
       first measured batch;
-    - ``drain_timeout_s`` bounds how long ``close()`` waits for in-flight work.
+    - ``drain_timeout_s`` bounds how long ``close()`` waits for in-flight work;
+    - ``step_timeout_s`` bounds one device step (0 disables the watchdog): a
+      step past it fails its batch's requests with ``WedgedStepError`` and
+      the server takes a fresh step runner;
+    - ``http_port`` mounts the Prometheus ``/metrics`` + ``/healthz`` /
+      ``/readyz`` endpoint (obs/prometheus.py): 0 (the default) binds an
+      ephemeral port (``GraphServer.http_port`` reads it back), a positive
+      value pins it, a negative one disables it; ``http_host`` is the bind
+      interface (loopback by default).
     """
 
     max_queue_requests: int = 256
@@ -36,14 +44,26 @@ class ServeConfig:
     slo_p99_s: float = 0.0
     expected_latency_per_graph_s: float = 0.0
     drain_timeout_s: float = 30.0
+    step_timeout_s: float = 60.0
+    http_port: int = 0
+    http_host: str = "127.0.0.1"
 
     def __post_init__(self):
         if self.micro_batch_graphs < 1:
             raise ValueError(
                 f"Serving.micro_batch_graphs must be >= 1, got {self.micro_batch_graphs}"
             )
+        if int(self.http_port) > 65535:
+            raise ValueError(
+                f"Serving.http_port must be <= 65535 (0 = ephemeral, negative "
+                f"disables), got {self.http_port!r}"
+            )
+        if not isinstance(self.http_host, str) or not self.http_host:
+            raise ValueError(
+                f"Serving.http_host must be a non-empty bind address, got {self.http_host!r}"
+            )
         for key in ("batch_window_s", "default_deadline_s", "slo_p99_s",
-                    "expected_latency_per_graph_s", "drain_timeout_s"):
+                    "expected_latency_per_graph_s", "drain_timeout_s", "step_timeout_s"):
             if float(getattr(self, key)) < 0:
                 raise ValueError(
                     f"Serving.{key} must be >= 0 (seconds; 0 disables), got "

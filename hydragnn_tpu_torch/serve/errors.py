@@ -74,9 +74,18 @@ class ServerClosedError(RequestError):
     code = "closed"
 
 
+class WedgedStepError(RequestError):
+    """The device step serving this request's batch exceeded
+    ``Serving.step_timeout_s``. The batch's requests fail with this bounded
+    error and the server takes a fresh step runner rather than hang every
+    later request behind a wedged step."""
+
+    code = "wedged_step"
+
+
 ERROR_CODES = {
     cls.code: cls
     for cls in (ServeError, RequestError, InvalidRequestError, QueueFullError,
                 SheddedError, DeadlineExceededError, ServerDrainingError,
-                ServerClosedError)
+                ServerClosedError, WedgedStepError)
 }

@@ -16,10 +16,21 @@ slice:
   flips (this is where the CUDA kernels are built and first launched);
 - **overload**: shedding with ``SheddedError`` when the projected queue wait
   exceeds ``Serving.slo_p99_s``; deadlines expire at dequeue;
-- **drain/close**: ``drain()`` stops admissions while queued work completes.
+- **drain/close**: ``drain()`` stops admissions while queued work completes;
+- **watchdog**: every device step runs on a replaceable step runner; one
+  that blows ``Serving.step_timeout_s`` fails its batch's requests with
+  ``WedgedStepError``, emits ``serve_wedge``, dumps the flight recorder,
+  and a fresh runner takes the next batch;
+- **observability**: the request-lifecycle counters, queue depth,
+  readiness and the batch and request latency histograms in the process
+  registry, scraped at ``/metrics`` (``Serving.http_port``, with
+  ``/healthz`` and ``/readyz``); head-sampled request traces (a
+  ``serve/request`` root with ``serve/admit`` and ``serve/queue_wait``, and
+  the shared ``serve/step`` with ``serve/batch_form``,
+  ``serve/bucket_select``, ``serve/device_step`` and ``serve/respond``);
+  the ``serve_*`` events.
 
-Not in this slice: hot reload, int8, the fleet/router/cache, the HTTP
-endpoint, tracing, the flight recorder and the device-step watchdog.
+Not in this slice: hot reload, int8 and the fleet/router/cache.
 """
 
 from __future__ import annotations
@@ -39,6 +50,10 @@ from ..data.graph import Graph, SpecLadder, batch_graphs
 from ..data.pipeline import spec_template_batches
 from ..data.validate import R_BRANCH, R_BUDGET, R_CHANNELS, describe_reason, validate_graph
 from ..device import DeviceLike, resolve_device
+from ..obs.events import (EV_DEADLINE, EV_DRAIN, EV_QUEUE_FULL, EV_SHED, EV_WEDGE)
+from ..obs.events import emit as _emit_event
+from ..obs.registry import registry as _obs_registry
+from ..obs.trace import STATUS_ERROR, STATUS_OK
 from ..train.loop import cast_batch_bf16, mp_cast_model
 from .config import ServeConfig
 from .errors import (
@@ -49,11 +64,67 @@ from .errors import (
     ServerClosedError,
     ServerDrainingError,
     SheddedError,
+    WedgedStepError,
 )
 
 # serve-loop / waiter wake-up cadence
 _TICK_S = 0.02
 _JOIN_TIMEOUT_S = 5.0
+
+
+def _emit_serve_event(kind, severity=None, trace_id=None, **attrs):
+    """A typed incident record (obs/events.py) that never fails the request
+    path it describes."""
+    try:
+        _emit_event(kind, severity=severity, trace_id=trace_id, **attrs)
+    except Exception:
+        pass
+
+
+class _StepTimeout(Exception):
+    """Internal: the step runner exceeded its watchdog budget."""
+
+
+class _StepRunner:
+    """One daemon worker running device steps, replaceable on a wedge: a step
+    that blows ``step_timeout_s`` leaves its thread abandoned (a daemon: it
+    cannot block process exit) and a fresh runner takes over, so the serve
+    loop never queues behind a hung step."""
+
+    def __init__(self, device, name: str = "serve-step"):
+        self._device = device
+        self._in: "queue.Queue" = queue.Queue(maxsize=1)
+        self._out: "queue.Queue" = queue.Queue()
+        self._thread = threading.Thread(target=self._main, daemon=True, name=name)
+        self._thread.start()
+
+    def _main(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        while True:
+            thunk = self._in.get()
+            if thunk is None:
+                return
+            try:
+                self._out.put(("ok", thunk()))
+            except BaseException as e:  # surfaced in run()
+                self._out.put(("err", e))
+
+    def run(self, thunk, timeout: float):
+        self._in.put(thunk)
+        try:
+            kind, val = self._out.get(timeout=timeout if timeout > 0 else None)
+        except queue.Empty:
+            raise _StepTimeout() from None
+        if kind == "err":
+            raise val
+        return val
+
+    def stop(self) -> None:
+        try:
+            self._in.put_nowait(None)
+        except queue.Full:
+            pass  # wedged mid-step; the daemon thread is simply abandoned
 
 
 class PredictionHandle:
@@ -62,7 +133,7 @@ class PredictionHandle:
     it as a value. ``batch_index`` is the served batch that answered it."""
 
     __slots__ = ("request_id", "deadline", "submitted_at", "done_at", "batch_index", "_event",
-                 "_result", "_error")
+                 "_result", "_error", "trace")
 
     def __init__(self, request_id: int, deadline: float):
         self.request_id = request_id
@@ -74,6 +145,8 @@ class PredictionHandle:
         self._event = threading.Event()
         self._result: Optional[Dict[str, np.ndarray]] = None
         self._error: Optional[RequestError] = None
+        # the open serve/request root span of a sampled request's trace
+        self.trace = None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -140,13 +213,17 @@ class GraphServer:
     must match the model's ``sorted_aggregation``. ``checkpoint_label`` names
     the checkpoint file the weights were restored from (``run_server``
     passes the file its walk-back actually restored); ``stats()`` reports
-    it as ``current_checkpoint``."""
+    it as ``current_checkpoint``. ``tracer`` (obs/trace.Tracer) samples
+    request traces; the server owns it, the ``flight_recorder``
+    (obs/flightrec.FlightRecorder) and, with ``events_stream``, the
+    attached ``events.jsonl``, and tears them down at ``close()``."""
 
     def __init__(self, model: torch.nn.Module, ladder: SpecLadder,
                  serve_config: Optional[ServeConfig] = None, *,
                  template_graphs: Sequence[Graph], mixed_precision: bool = False,
                  sort_edges: bool = False, device: DeviceLike = None,
-                 log_name: str = "serve", checkpoint_label: Optional[str] = None):
+                 log_name: str = "serve", checkpoint_label: Optional[str] = None,
+                 tracer=None, flight_recorder=None, events_stream: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mixed_precision = bool(mixed_precision)
@@ -191,13 +268,52 @@ class GraphServer:
         self._stats: Dict[str, int] = {
             "submitted": 0, "admitted": 0, "completed": 0, "rejected": 0,
             "shed": 0, "queue_full": 0, "deadline_expired": 0,
-            "failed_batches": 0, "batches": 0,
+            "wedged_batches": 0, "failed_batches": 0, "batches": 0,
         }
         # seconds spent per served batch phase, summed: forming the batch
         # (after its first request), host batching, and the model step
         # (device transfer, forward, outputs back on the host)
         self._seconds: Dict[str, float] = {"form": 0.0, "build": 0.0, "step": 0.0}
         self._serve_thread: Optional[threading.Thread] = None
+        self._runner: Optional[_StepRunner] = None
+        self._tracer = tracer
+        self._flight = flight_recorder
+        self._events_stream = bool(events_stream)
+        self._http = None  # obs/prometheus.TelemetryHTTPServer
+        # the registry series behind /metrics: every counter _bump touches,
+        # queue depth, readiness, batch and per-request latency. They are
+        # PROCESS metrics (one server a process is the deployment model);
+        # the series appear at 0 before the first request, and a standby
+        # server never clobbers a live one's readiness (set_default).
+        reg = _obs_registry()
+        self._m_events = reg.counter(
+            "hydragnn_serve_events_total",
+            "Serving request-lifecycle event counts (GraphServer.stats keys)",
+            labelnames=("event",),
+        )
+        for key in self._stats:
+            self._m_events.inc(0, event=key)
+        self._m_queue = reg.gauge(
+            "hydragnn_serve_queue_depth",
+            "Admitted requests waiting in the micro-batcher queue",
+        )
+        self._m_ready = reg.gauge(
+            "hydragnn_serve_ready",
+            "1 once the full ladder is warmed and admissions are open",
+        )
+        self._m_batch_lat = reg.histogram(
+            "hydragnn_serve_batch_latency_seconds",
+            "Device micro-batch service time (form -> outputs on host)",
+        )
+        self._m_req_lat = reg.histogram(
+            "hydragnn_serve_request_latency_seconds",
+            "Per-request latency, admission to delivered outcome (outcome="
+            "error covers deadline/wedge/batch failures — without it the "
+            "p99 would be survivorship-biased exactly under overload)",
+            labelnames=("outcome",),
+        )
+        self._m_queue.set_default(0)
+        self._m_ready.set_default(0)
 
     # -- model step ------------------------------------------------------
 
@@ -211,14 +327,37 @@ class GraphServer:
             out = self._serve_model(batch)
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 
+    def _device_step(self, batch) -> Dict[str, np.ndarray]:
+        """``forward`` on the step runner's thread, inside its profiler range."""
+        with torch.profiler.record_function("serve/device_step"):
+            return self.forward(batch)
+
     # -- lifecycle -------------------------------------------------------
 
     def start(self) -> "GraphServer":
-        """Launch warm-up + the serve loop. Admission opens at once:
-        requests queue while the ladder warms."""
+        """Launch warm-up + the serve loop, and mount the endpoint
+        (``Serving.http_port`` >= 0; a failed bind warns). Admission opens at
+        once: requests queue while the ladder warms."""
         if self._closed:
             raise ServerClosedError("server is closed")
         if self._serve_thread is None:
+            if int(self.cfg.http_port) >= 0:
+                from ..obs.prometheus import start_endpoint
+
+                # readiness IS the full-ladder warm-up flip that opens the
+                # serve loop; draining or closed falls out of the balancer
+                self._http = start_endpoint(
+                    int(self.cfg.http_port),
+                    ready_fn=lambda: (self._ready.is_set() and self.failed is None
+                                      and not self._closed and not self._draining.is_set()),
+                    health_fn=lambda: (
+                        (True, "serving") if self.failed is None and not self._closed
+                        else (False, "closed" if self.failed is None
+                              else f"warm-up failed: {self.failed}")),
+                    label=f"serve[{self.log_name}]",
+                    host=self.cfg.http_host,
+                )
+            self._runner = _StepRunner(self.device)
             self._serve_thread = threading.Thread(
                 target=self._run, daemon=True, name="serve-loop"
             )
@@ -256,11 +395,18 @@ class GraphServer:
             self._fail_queued(ServerClosedError(f"serve warm-up failed: {e}"))
             return
         self._ready.set()
+        self._m_ready.set(1)
         self._serve_loop()
 
     @property
     def ready(self) -> bool:
         return self._ready.is_set()
+
+    @property
+    def http_port(self) -> Optional[int]:
+        """Port of the /metrics, /healthz, /readyz endpoint, or None when
+        disabled (``Serving.http_port`` < 0) or the bind failed."""
+        return self._http.port if self._http is not None else None
 
     @property
     def draining(self) -> bool:
@@ -279,8 +425,13 @@ class GraphServer:
         return True
 
     def initiate_drain(self) -> None:
-        """Stop admitting; queued and in-flight requests still complete."""
+        """Stop admitting; queued and in-flight requests still complete.
+        The ready gauge and ``/readyz`` report not-ready from here on (only
+        the instance that reported ready zeroes the shared gauge)."""
         self._draining.set()
+        if self._ready.is_set():
+            self._m_ready.set(0)
+        _emit_serve_event(EV_DRAIN, severity="info", queued=self._queue.qsize())
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Initiate and wait for the drain. True when every admitted request
@@ -299,13 +450,41 @@ class GraphServer:
             self.drain(timeout)
         self._closed = True
         self._stop.set()
+        if self._ready.is_set():
+            self._m_ready.set(0)
+        if self._http is not None:
+            self._http.close()
+            self._http = None
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=_JOIN_TIMEOUT_S)
             if self._serve_thread.is_alive():
                 warnings.warn("serve loop still alive at close(); leaking the "
                               "daemon thread", RuntimeWarning, stacklevel=2)
+        if self._runner is not None:
+            self._runner.stop()
         self._fail_queued(ServerClosedError("server closed"))
+        self._close_plane()
         self._drained.set()
+
+    def _close_plane(self) -> None:
+        """Tear down the tracing plane the server was handed."""
+        if self._flight is not None:
+            try:
+                self._flight.uninstall()
+            except Exception:
+                pass
+        if self._tracer is not None:
+            from ..obs import trace as _obs_trace
+
+            try:
+                _obs_trace.uninstall(self._tracer)
+                self._tracer.close()
+            except Exception:
+                pass
+        if self._events_stream:
+            from ..obs.events import detach_stream
+
+            detach_stream()
 
     def __enter__(self) -> "GraphServer":
         return self.start()
@@ -319,6 +498,7 @@ class GraphServer:
         """Admit one request. Admission rejections raise the typed error;
         an admitted request's later failures arrive on the handle."""
         idx = next(self._submit_seq)
+        t_admit_wall = time.time()
         self._bump("submitted")
         if self._closed or self.failed is not None:
             self._bump("rejected")
@@ -361,6 +541,8 @@ class GraphServer:
             projected = backlog * self._per_graph_s
             if projected > self.cfg.slo_p99_s:
                 self._bump("shed")
+                _emit_serve_event(EV_SHED, request_id=idx, projected_wait_s=round(projected, 6),
+                                  slo_s=self.cfg.slo_p99_s)
                 raise SheddedError(
                     f"request {idx} shed: projected queue wait {projected:.3f}s "
                     f"exceeds the p99 SLO {self.cfg.slo_p99_s:.3f}s",
@@ -371,16 +553,31 @@ class GraphServer:
             deadline_s = self.cfg.default_deadline_s
         deadline = time.monotonic() + float(deadline_s) if deadline_s else float("inf")
         handle = PredictionHandle(idx, deadline)
+        # the head-sampling decision at the trace root, before the enqueue:
+        # the serve loop may dequeue the request at once
+        if self._tracer is not None and self._tracer.sample_request():
+            # backdated to submit's entry: the root spans admission to outcome
+            root = self._tracer.begin("serve/request", start_unix=t_admit_wall)
+            root.set_attribute("request_id", idx)
+            handle.trace = root
+            self._tracer.emit_completed("serve/admit", t_admit_wall,
+                                        time.time() - t_admit_wall, parent=root)
         try:
             self._queue.put_nowait(_Request(g, handle))
         except queue.Full:
             self._bump("queue_full")
+            _emit_serve_event(
+                EV_QUEUE_FULL,
+                trace_id=handle.trace.trace_id if handle.trace is not None else None,
+                request_id=idx, bound=self.cfg.max_queue_requests)
+            self._end_request_trace(handle, error="queue_full")
             raise QueueFullError(
                 f"request {idx} rejected: admission queue is at its bound "
                 f"({self.cfg.max_queue_requests} requests)",
                 request_id=idx,
             ) from None
         self._bump("admitted")
+        self._m_queue.set(self._queue.qsize())
         return handle
 
     def predict(self, graphs: Sequence[Graph], deadline_s: Optional[float] = None,
@@ -426,10 +623,20 @@ class GraphServer:
                     return None
             if time.monotonic() > req.handle.deadline:
                 self._bump("deadline_expired")
+                _emit_serve_event(
+                    EV_DEADLINE,
+                    trace_id=req.handle.trace.trace_id if req.handle.trace is not None else None,
+                    request_id=req.handle.request_id,
+                    waited_s=round(time.perf_counter() - req.handle.submitted_at, 6))
                 self._fail_request(req.handle, DeadlineExceededError(
                     "deadline expired while queued"
                 ))
                 continue
+            if req.handle.trace is not None:
+                # the queue wait, retroactive at dequeue: admission -> now
+                wait = time.perf_counter() - req.handle.submitted_at
+                self._tracer.emit_completed("serve/queue_wait", time.time() - wait, wait,
+                                            parent=req.handle.trace)
             return req
         return None
 
@@ -474,19 +681,56 @@ class GraphServer:
             self._inflight_graphs = len(reqs)
             batch_index = next(self._batch_seq)
             graphs = [r.graph for r in reqs]
+            step_span = self._begin_step_span(reqs, batch_index)
+            # profiler ranges named as the step's spans (torch.profiler traces)
+            rf_step = torch.profiler.record_function("serve/step")
+            rf_step.__enter__()
             t0 = time.perf_counter()
             try:
                 spec = self.ladder.select_for(graphs)
+                if step_span is not None:
+                    sel_dt = time.perf_counter() - t0
+                    self._tracer.emit_completed(
+                        "serve/bucket_select", time.time() - sel_dt, sel_dt, parent=step_span,
+                        attributes={"level": f"{spec.n_nodes}n/{spec.n_edges}e"})
                 batch = batch_graphs(graphs, spec, sort_edges=self.sort_edges)
                 t_built = time.perf_counter()
-                outputs = self.forward(batch)
+                outputs = self._runner.run(lambda b=batch: self._device_step(b),
+                                           self.cfg.step_timeout_s)
+                if step_span is not None:
+                    dev_dt = time.perf_counter() - t_built
+                    self._tracer.emit_completed("serve/device_step", time.time() - dev_dt,
+                                                dev_dt, parent=step_span)
+            except _StepTimeout:
+                self._bump("wedged_batches")
+                _emit_serve_event(
+                    EV_WEDGE, severity="error",
+                    trace_id=step_span.trace_id if step_span is not None else None,
+                    batch_index=batch_index, graphs=len(reqs),
+                    step_timeout_s=self.cfg.step_timeout_s)
+                # the wedged runner's thread is abandoned (a daemon); recycle
+                self._runner = _StepRunner(self.device)
+                for r in reqs:
+                    self._fail_request(r.handle, WedgedStepError(
+                        f"device step for batch {batch_index} exceeded step_timeout_s="
+                        f"{self.cfg.step_timeout_s}s; the batch was abandoned and the step "
+                        "runner recycled"))
+                self._finish_step_span(step_span, error="wedged_step")
+                # a wedged step is a flight-recorder trigger: the wedge event,
+                # the abandoned batch's spans and the registry
+                self._flight_dump("serve_wedge")
+                self._inflight_graphs = 0
+                rf_step.__exit__(None, None, None)
+                continue
             except Exception as e:  # noqa: BLE001 -- batch-level failure
                 self._bump("failed_batches")
                 for r in reqs:
                     self._fail_request(r.handle, RequestError(
                         f"batch {batch_index} failed: {type(e).__name__}: {e}"
                     ))
+                self._finish_step_span(step_span, error=f"{type(e).__name__}: {e}")
                 self._inflight_graphs = 0
+                rf_step.__exit__(None, None, None)
                 continue
             t_done = time.perf_counter()
             dt = t_done - t0
@@ -494,9 +738,20 @@ class GraphServer:
                 self._seconds["form"] += t0 - self._form_started
                 self._seconds["build"] += t_built - t0
                 self._seconds["step"] += t_done - t_built
-            self._deliver(reqs, batch, outputs, batch_index)
+            self._m_batch_lat.observe(dt)
+            self._m_queue.set(self._queue.qsize())
+            # counted before the answers go out: a client that has its answer
+            # reads stats() that hold its batch
             self._bump("batches")
             self._bump("completed", len(reqs))
+            with torch.profiler.record_function("serve/respond"):
+                self._deliver(reqs, batch, outputs, batch_index)
+            if step_span is not None:
+                resp_dt = time.perf_counter() - t_done
+                self._tracer.emit_completed("serve/respond", time.time() - resp_dt, resp_dt,
+                                            parent=step_span)
+            self._finish_step_span(step_span)
+            rf_step.__exit__(None, None, None)
             # EMA service-time estimate drives the shed projection
             per_graph = dt / len(reqs)
             self._per_graph_s = (per_graph if self._per_graph_s <= 0
@@ -521,11 +776,77 @@ class GraphServer:
                     result[name] = a
             r.handle.batch_index = batch_index
             r.handle._resolve(result)
+            self._m_req_lat.observe(r.handle.done_at - r.handle.submitted_at, outcome="ok")
+            self._end_request_trace(r.handle)
+
+    # -- tracing helpers -------------------------------------------------
+
+    def _begin_step_span(self, reqs: List[_Request], batch_index: int):
+        """Open the shared device-step span of a batch holding sampled
+        requests: it lives in the LEAD sampled request's trace and is
+        cross-linked with every other sampled request of the batch (OTLP
+        links), with the retroactive serve/batch_form child (the lead's
+        dequeue -> now)."""
+        if self._tracer is None:
+            return None
+        sampled = [r.handle.trace for r in reqs if r.handle.trace is not None]
+        if not sampled:
+            return None
+        sp = self._tracer.begin("serve/step", parent=sampled[0])
+        sp.set_attribute("batch_index", batch_index)
+        sp.set_attribute("graphs", len(reqs))
+        for other in sampled[1:]:
+            sp.add_link(other.trace_id, other.span_id)
+            other.add_link(sp.trace_id, sp.span_id)
+        form_dt = time.perf_counter() - self._form_started
+        self._tracer.emit_completed("serve/batch_form", time.time() - form_dt, form_dt,
+                                    parent=sp)
+        return sp
+
+    def _finish_step_span(self, span, error: Optional[str] = None) -> None:
+        if span is None:
+            return
+        try:
+            span.set_status(STATUS_ERROR if error is not None else STATUS_OK, error or "")
+            self._tracer.finish(span)
+        except Exception:
+            pass  # tracing must never fail the serve loop
+
+    def _end_request_trace(self, handle: PredictionHandle, error: Optional[str] = None) -> None:
+        """Close a sampled request's root span with its outcome; its
+        duration IS the request's admission-to-outcome latency."""
+        root = handle.trace
+        if root is None:
+            return
+        handle.trace = None
+        try:
+            root.set_status(STATUS_ERROR if error is not None else STATUS_OK, error or "")
+            self._tracer.finish(root)
+        except Exception:
+            pass
+
+    def _flight_dump(self, reason: str) -> None:
+        """Dump the black box: the server's own recorder, else whatever
+        recorder is process-active."""
+        try:
+            if self._flight is not None:
+                self._flight.dump(reason)
+            else:
+                from ..obs import flightrec as _flightrec
+
+                _flightrec.trigger(reason)
+        except Exception:
+            pass
 
     # -- bookkeeping -----------------------------------------------------
 
     def _fail_request(self, handle: PredictionHandle, err: RequestError) -> None:
+        """Fail one admitted request AND observe its latency with the error
+        outcome: failed requests are the slow tail, so leaving them out
+        would make the scraped p99 improve as the server fails harder."""
         handle._fail(err)
+        self._m_req_lat.observe(handle.done_at - handle.submitted_at, outcome="error")
+        self._end_request_trace(handle, error=getattr(err, "code", type(err).__name__))
 
     def _fail_queued(self, err: RequestError) -> None:
         if self._holdover is not None:
@@ -541,6 +862,7 @@ class GraphServer:
     def _bump(self, key: str, by: int = 1) -> None:
         with self._stats_lock:
             self._stats[key] = self._stats.get(key, 0) + by
+        self._m_events.inc(by, event=key)
 
     def stats(self) -> Dict[str, Any]:
         """Serving counters and the current policy snapshot."""
@@ -558,5 +880,6 @@ class GraphServer:
             device=str(self.device),
             mixed_precision=self.mixed_precision,
             current_checkpoint=self.current_checkpoint,
+            http_port=self.http_port,
         )
         return out

@@ -152,6 +152,35 @@ def _prune_retention(d: str, log_name: str, retention: int) -> None:
                 pass  # best effort: a leftover file is harmless
 
 
+def _observe_duration(op: str, t0: float) -> None:
+    """Publish one checkpoint write/restore duration into the registry, the
+    span plane and the event log (obs/). Observability only: never allowed
+    to fail a save or a restore."""
+    dt = time.perf_counter() - t0
+    try:
+        from ..obs.registry import registry
+
+        registry().histogram(
+            "hydragnn_checkpoint_seconds",
+            "Checkpoint write/restore wall time",
+            labelnames=("op",),
+        ).observe(dt, op=op)
+    except Exception:
+        pass
+    try:
+        # a span under the active tracer (nested in an open span, else its
+        # own trace) and a write event for the flight-recorder window
+        from ..obs import trace as _obs_trace
+        from ..obs.events import EV_CKPT_WRITE
+        from ..obs.events import emit as _emit_event
+
+        _obs_trace.note_completed(f"train/checkpoint_{op}", dt, attributes={"op": op})
+        if op == "write":
+            _emit_event(EV_CKPT_WRITE, seconds=round(dt, 6))
+    except Exception:
+        pass
+
+
 def save_model(state: TrainState, log_name: str, path: str = "./logs",
                epoch: Optional[int] = None, retention: int = 0) -> str:
     """Write ``state``'s checkpoint: payload -> sha256 sidecar -> ``latest``,
@@ -169,10 +198,12 @@ def save_model(state: TrainState, log_name: str, path: str = "./logs",
     if not _primary():
         _barrier()
         return fname
+    t0 = time.perf_counter()
     try:
         _write_payload(payload, fname, log_name, path, retention)
     finally:
         _barrier()
+    _observe_duration("write", t0)
     return fname
 
 
@@ -373,12 +404,16 @@ def _raise_no_checkpoint(log_name: str, d: str, tried: List[str]):
 def _restore(template, log_name: str, path: str, tried: List[str]):
     """Load the newest verified candidate into ``template`` (a
     ``TrainState`` or an ``InferenceState``); ``(state, file name)``."""
+    t0 = time.perf_counter()
     d, entry = _resolve_restore_dir(log_name, path, tried)
     for fn, payload in _verified_payloads(d, entry, tried):
         try:
-            return template.load_payload(payload), fn
+            state = template.load_payload(payload)
         except (ValueError, KeyError, RuntimeError) as e:  # structure drift
             tried.append(f"{fn}: does not fit this model ({e})")
+            continue
+        _observe_duration("restore", t0)
+        return state, fn
     _raise_no_checkpoint(log_name, d, tried)
 
 

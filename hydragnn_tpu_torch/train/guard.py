@@ -13,8 +13,9 @@ take a few multi-tensor launches and one ``torch.where`` per dtype. The
 skip counters advance on the device; the training loop reads them once
 per epoch, where ``NonFinitePolicy`` (the epoch-boundary half,
 ``Training.non_finite_policy``) raises, warns or rolls back to the last
-verified checkpoint. Not ported: the JAX package's guard events and
-flight-recorder trigger (they go with the observability planes).
+verified checkpoint, and emits the ``guard_skip``, ``guard_fatal`` and
+``guard_rollback`` events (obs/events.py); a fatal verdict dumps the
+flight recorder before it raises.
 """
 
 from __future__ import annotations
@@ -127,8 +128,15 @@ class NonFinitePolicy:
         self._prev_skipped = 0
         self.rollbacks_done = 0
 
-    def after_epoch(self, state, epoch: int):
-        """Apply the policy; returns the (possibly restored) state."""
+    def after_epoch(self, state, epoch: int, provenance=None):
+        """Apply the policy; returns the (possibly restored) state.
+        ``provenance`` (optional) is the epoch's per-skip attribution, dicts
+        with ``batch`` / ``level`` / ``sources`` / ``layer`` (the NaN
+        watch's findings, or the epoch's non-finite loss census), carried
+        by the ``guard_skip`` event."""
+        from ..obs.events import EV_GUARD_FATAL, EV_GUARD_ROLLBACK, EV_GUARD_SKIP
+        from ..obs.events import emit as _emit_event
+
         skipped = int(state.skipped_steps)
         consec = int(state.consecutive_skips)
         new_skips = skipped - self._prev_skipped
@@ -137,11 +145,33 @@ class NonFinitePolicy:
             return state
         msg = (f"[{self.log_name}] epoch {epoch}: {new_skips} non-finite step(s) skipped by "
                f"the train-step guard (total {skipped}, {consec} consecutive at epoch end)")
+        extra = {}
+        if provenance:
+            levels = sorted({str(p["level"]) for p in provenance if p.get("level")})
+            sources = sorted({int(s) for p in provenance for s in (p.get("sources") or [])})
+            batches = [int(p["batch"]) for p in provenance if p.get("batch") is not None]
+            layers = sorted({str(p["layer"]) for p in provenance if p.get("layer")})
+            if levels:
+                extra["levels"] = ",".join(levels)
+            if sources:
+                extra["sources"] = ",".join(str(s) for s in sources)
+            if batches:  # bounded: a diverged epoch skips every step
+                extra["batches"] = ",".join(str(b) for b in batches[:16])
+            if layers:
+                extra["layers"] = ",".join(layers[:8])
+        _emit_event(EV_GUARD_SKIP, severity="warn", epoch=epoch, new_skips=new_skips,
+                    total=skipped, consecutive=consec, policy=self.policy, **extra)
         if self.policy == "error":
-            raise RuntimeError(
+            err = RuntimeError(
                 msg + "; Training.non_finite_policy is 'error'. Inspect the "
                 "data/LR, or set 'warn_skip'/'rollback' to ride through."
             )
+            # the black box before raising: this epoch's events and the registry
+            _emit_event(EV_GUARD_FATAL, severity="fatal", epoch=epoch, total=skipped)
+            from ..obs import flightrec as _flightrec
+
+            _flightrec.trigger("fatal_guard", exc=err)
+            raise err
         _say(msg)
         if self.policy != "rollback" or consec < self.rollback_after:
             return state
@@ -162,6 +192,8 @@ class NonFinitePolicy:
                 "checkpoint exists to roll back to."
             )
         state = self.restore_fn(state)
+        _emit_event(EV_GUARD_ROLLBACK, severity="error", epoch=epoch,
+                    rollback=self.rollbacks_done, max_rollbacks=self.max_rollbacks)
         lr = float(state.learning_rate) * self.lr_backoff**self.rollbacks_done
         state = state.with_learning_rate(lr)
         # the restored checkpoint carries its own (older) counters

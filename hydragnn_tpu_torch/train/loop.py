@@ -5,9 +5,11 @@ Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
 ``BestCheckpoint``, ``train_validate_test`` and ``test_model``, with the
 JAX package's recovery plane (the non-finite policy, the warmup ramp, the
 SIGTERM stop mid-epoch and at the epoch boundary, mid-epoch resume, ``HYDRAGNN_VALTEST`` / ``HYDRAGNN_MAX_NUM_BATCH``,
-``HYDRAGNN_STEP_GUARD`` and ``HYDRAGNN_DUMP_TESTDATA``), without its numerics
-and fault-injection hooks, compile plane, and telemetry and tracing
-planes.
+``HYDRAGNN_STEP_GUARD`` and ``HYDRAGNN_DUMP_TESTDATA``) and its
+observability plane (the per-step telemetry, step spans and region timers,
+the numerics step with its NaN watch, the flight recorder, the event
+stream and the ``Profile`` section), without its fault-injection hooks and
+compile plane.
 
 Under ``mixed_precision`` a train step runs the model on bf16 copies of
 its parameters made inside the differentiated function
@@ -26,6 +28,7 @@ import copy
 import os
 import pickle
 import sys
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -95,7 +98,7 @@ def guard_enabled() -> bool:
 
 
 def make_train_step(model, compute_grad_energy: bool = False,
-                    mixed_precision: bool = False):
+                    mixed_precision: bool = False, numerics: bool = False):
     """``train_step(state, batch) -> (state, loss, per-task losses)``: one
     optimizer step of ``state`` (updated in place) on ``batch``, the losses
     as device tensors. ``compute_grad_energy`` trains the energy-force
@@ -103,26 +106,45 @@ def make_train_step(model, compute_grad_energy: bool = False,
     ``state.guard`` is set (``TrainState.create``'s default) a step whose
     loss or global gradient norm is not finite is skipped on the device
     (train/guard.py). The update is ``optimizer_step`` (the optimizer's
-    clip, then its step)."""
+    clip, then its step).
+
+    ``numerics`` (``Telemetry.numerics``): the step returns a fourth
+    output, ``{"ok", "act", "grad"}`` (the guard's ok flag, the probe
+    stack and the gradient-group stack of obs/numerics.py, on the device),
+    and the function carries ``_numerics_meta`` (the tensor name tables,
+    written by its first step) and ``_nan_diagnose`` (the provenance
+    drill-down). Off, nothing of it runs."""
     apply = _apply_fn(model, mixed_precision, cast_buffers=False)
     guarded = guard_enabled()
+    meta = {"act_names": None, "grad_names": None} if numerics else None
 
     def train_step(state: TrainState, batch: GraphBatch):
         batch = batch.to(module_device(model), non_blocking=True)
         if mixed_precision:
             batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
-        return step_on(state, model, batch, apply, compute_grad_energy, guard=guarded)
+        return step_on(state, model, batch, apply, compute_grad_energy, guard=guarded,
+                       numerics=meta)
 
+    if numerics:
+        from ..obs.numerics import make_nan_diagnostic
+
+        train_step._numerics_meta = meta
+        train_step._nan_diagnose = make_nan_diagnostic(model, compute_grad_energy,
+                                                       mixed_precision)
     return train_step
 
 
 def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callable] = None,
-            compute_grad_energy: bool = False, guard: bool = True):
+            compute_grad_energy: bool = False, guard: bool = True,
+            numerics: Optional[Dict[str, Any]] = None):
     """One optimizer step of ``state`` on ``batch`` (placed and cast): the
     train-mode forward of ``apply`` (``model`` when None) and its loss, the
     backward into ``model``'s parameters, then the update, skipped on the
     device for a non-finite step where ``guard`` is set and the state has
-    the guard's copies. Returns ``(state, loss, per-task losses)``."""
+    the guard's copies. Returns ``(state, loss, per-task losses)``; with a
+    ``numerics`` name table (``make_train_step``'s), the probe and
+    gradient-group statistics and the ok flag as a fourth output, the
+    names written into the table."""
     params = list(model.parameters())
     opt = state.optimizer
     guarded = guard and state.guard is not None
@@ -133,20 +155,43 @@ def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callabl
         state.guard.save()
     for p in params:
         p.grad = None
-    tot, tasks, _ = compute_loss(apply or model, batch, model.cfg, compute_grad_energy)
+    if numerics is None:
+        tot, tasks, _ = compute_loss(apply or model, batch, model.cfg, compute_grad_energy)
+    else:
+        from ..obs.numerics import run_probed
+
+        (tot, tasks, _), acts = run_probed(
+            True, numerics,
+            lambda: compute_loss(apply or model, batch, model.cfg, compute_grad_energy))
     tot = tot.float()
     tot.backward()
+    numer = None
     with torch.no_grad():
         for p in params:  # an unused parameter gets a zero gradient, as in optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        ok = None
+        if numerics is not None:
+            from ..obs.numerics import grad_group_stats, param_groups
+
+            if "groups" not in numerics:
+                numerics["groups"] = param_groups(model)
+            # each gradient's 2-norm once, for the ok flag (step_ok's global
+            # norm) and the groups' sums of squares
+            leaf_norms = torch.stack(torch._foreach_norm(grads))
+            ok = torch.isfinite(tot) & torch.isfinite(torch.linalg.vector_norm(leaf_norms))
+            numerics["grad_names"], gstats = grad_group_stats(model, grads, numerics["groups"],
+                                                              leaf_norms)
+            numer = {"ok": ok, "act": acts, "grad": gstats}
         if guarded:
-            guarded_update(state, step_ok(tot, grads), lambda: optimizer_step(opt, grads))
+            guarded_update(state, ok if ok is not None else step_ok(tot, grads),
+                           lambda: optimizer_step(opt, grads))
         else:
             optimizer_step(opt, grads)
             state.step.add_(1)
-    return state, tot.detach(), {k: v.detach() for k, v in tasks.items()}
+    out = (state, tot.detach(), {k: v.detach() for k, v in tasks.items()})
+    return out if numer is None else out + (numer,)
 
 
 def make_eval_step(model, compute_grad_energy: bool = False,
@@ -199,7 +244,8 @@ def _count(fn, batch) -> Any:
     return n if n is not None else int(batch.graph_mask.sum())
 
 
-def train_epoch(loader, step_fn, state: TrainState):
+def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
+                nan_watch=None, guard_log=None):
     """One training epoch: ``(state, mean loss, mean per-task losses,
     cursor)``, the means over real graphs. A guarded-and-skipped step's
     non-finite loss is left out of the means unless every step was
@@ -208,7 +254,22 @@ def train_epoch(loader, step_fn, state: TrainState):
     every step): the loop then checkpoints it for a mid-epoch resume. A
     loader armed with ``resume()`` skips its first batches itself, and its
     ``start_batch`` offsets the cursor. ``HYDRAGNN_MAX_NUM_BATCH`` > 0
-    caps the batches of the epoch."""
+    caps the batches of the epoch.
+
+    The observability hooks, each None by default and then one check a
+    step: ``telemetry`` (obs/telemetry.StepTelemetry) gets every step
+    (``step_begin`` before the dispatch, ``on_step`` after it); ``tracer``
+    (obs/trace.Tracer) emits a ``train/step`` span with its
+    ``train/host_batch_build`` and ``train/device_dispatch`` children for
+    every sampled step; ``nan_watch`` (obs/numerics.NanWatch) gets every
+    step's ok flag and batch (a step of ``make_train_step(numerics=True)``);
+    ``guard_log`` (a dict) is filled with the epoch's ``nonfinite`` census
+    (batch index and pad level of every step whose loss came back
+    non-finite), the provenance of the ``guard_skip`` event. The
+    ``dataload`` and ``train_step`` regions (utils/tracer.py) time the
+    batch's host build and the step's dispatch."""
+    from ..utils import tracer as tr
+
     offset = int(getattr(loader, "start_batch", 0) or 0)
     max_batches = envflags.env_int("HYDRAGNN_MAX_NUM_BATCH", 0)
     # the SIGTERM stop is one process's decision: over several ranks it
@@ -216,16 +277,74 @@ def train_epoch(loader, step_fn, state: TrainState):
     single = world_size() == 1
     entries = []
     cursor = None
-    for i, batch in enumerate(loader):
-        state, tot, tasks = step_fn(state, batch)
-        # graph_mask is host data: reading it never waits on the device
-        entries.append((tot, tasks, _count(step_fn, batch)))
-        if single and preemption.preempted():
-            cursor = offset + i + 1
-            break
-        if max_batches > 0 and i + 1 >= max_batches:
-            break
+    step_meta = [] if (guard_log is not None or nan_watch is not None) else None
+    # the watch keys a step by the state's counter: one host read an epoch
+    step0 = int(state.step) if nan_watch is not None else 0
+    it = iter(loader)
+    i = -1
+    while True:
+        # profiler ranges named as the step's spans, so a torch.profiler
+        # trace (the Profile section, the on-demand trigger) shows them
+        with torch.profiler.record_function("train/step"):
+            t_build = time.perf_counter()
+            with torch.profiler.record_function("train/host_batch_build"):
+                tr.start("dataload")
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    batch = None
+                tr.stop("dataload")
+            if batch is None:
+                break
+            build_dt = time.perf_counter() - t_build
+            i += 1
+            sp = None
+            if tracer is not None and tracer.sample_step():
+                sp = tracer.begin("train/step")
+                sp.set_attribute("batch_index", offset + i)
+                tracer.emit_completed("train/host_batch_build", time.time() - build_dt,
+                                      build_dt, parent=sp)
+            with torch.profiler.record_function("train/device_dispatch"):
+                tr.start("train_step")
+                if telemetry is not None:
+                    telemetry.step_begin()
+                t_step = time.perf_counter()
+                out = step_fn(state, batch)
+                state, tot, tasks = out[0], out[1], out[2]
+                numer = out[3] if len(out) > 3 else None
+                # graph_mask is host data: reading it never waits on the device
+                n = int(batch.graph_mask.sum())
+                tr.stop("train_step")
+            last = getattr(step_fn, "last_count", None)
+            entries.append((tot, tasks, n if last is None else last))
+            if step_meta is not None:
+                idx = offset + i
+                level = f"{int(batch.node_mask.shape[-1])}n/{int(batch.edge_mask.shape[-1])}e"
+                step_meta.append((idx, level))
+                if nan_watch is not None:
+                    nan_watch.on_step(state, batch, step0 + len(entries) - 1, idx, numer,
+                                      level=level)
+            if sp is not None:
+                dispatch_dt = time.perf_counter() - t_step
+                tracer.emit_completed("train/device_dispatch", time.time() - dispatch_dt,
+                                      dispatch_dt, parent=sp, attributes={"real_graphs": n})
+                sp.set_attribute("real_graphs", n)
+                tracer.finish(sp)
+            if telemetry is not None:
+                telemetry.on_step(batch, time.perf_counter() - t_step, real_graphs=n,
+                                  numerics=numer)
+            if single and preemption.preempted():
+                cursor = offset + i + 1
+                break
+            if max_batches > 0 and i + 1 >= max_batches:
+                break
+    if nan_watch is not None:
+        # drain the watch at the boundary the loop syncs on anyway
+        nan_watch.end_epoch(state)
     entries = _read_entries(entries)
+    if guard_log is not None and step_meta is not None:
+        guard_log["nonfinite"] = [{"batch": m[0], "level": m[1]}
+                                  for e, m in zip(entries, step_meta) if not np.isfinite(e[0])]
     finite = [e for e in entries if np.isfinite(e[0])]
     if finite and len(finite) < len(entries):
         entries = finite
@@ -280,6 +399,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                         restore_fn: Optional[Callable[[TrainState], TrainState]] = None,
                         loader_state_fn: Optional[Callable[[Dict[str, int]], None]] = None,
                         step_fn: Optional[Callable] = None, eval_fn: Optional[Callable] = None,
+                        writer=None, log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
                         ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """The epoch loop: the ``warmup_epochs`` LR ramp, train, the
     non-finite policy (``NonFinitePolicy``: a rollback restores through
@@ -298,13 +418,40 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     multibranch model included) under ``"train_tasks"``. ``step_fn`` and
     ``eval_fn`` replace ``make_train_step`` / ``make_eval_step`` (the
     distributed steps of ``parallel/engine.py``); over several ranks only
-    rank 0 prints, and the SIGTERM stop is not checked."""
+    rank 0 prints, and the SIGTERM stop is not checked.
+
+    The observability plane, as the JAX loop wires it: the top-level
+    ``Telemetry`` section (``resolve_telemetry``) turns on the per-step
+    layer (``StepTelemetry``: ``metrics.jsonl``, the MFU of obs/flops.py,
+    the ``/metrics`` endpoint, the profile trigger), the step spans of
+    ``trace.jsonl``, the numerics step and its NaN watch, the flight
+    recorder and ``events.jsonl``, all under ``./logs/<log_name>/``;
+    ``NeuralNetwork.Profile`` (or the legacy top-level ``Profile``)
+    captures one epoch with ``torch.profiler``. ``writer``
+    (utils/writer.MetricsWriter) receives the epoch's health counters
+    and the telemetry mirror, ``log_fn(epoch, {train, val, test, lr})``
+    every epoch's losses (the SIGTERM stop's carried row too). Numerics on
+    a distributed step (``step_fn`` given) raises ``NotImplementedError``."""
+    from ..obs.telemetry import StepTelemetry, resolve_telemetry
+    from ..utils import tracer as tr
+    from ..utils.profile import Profiler
+
     training = config["NeuralNetwork"]["Training"]
     do_valtest = envflags.env_flag("HYDRAGNN_VALTEST") is not False
     compute_grad_energy = bool(training.get("compute_grad_energy", False))
     mixed_precision = bool(training.get("mixed_precision", False))
-    step_fn = step_fn or make_train_step(model, compute_grad_energy, mixed_precision)
+    # resolved before the step is built: Telemetry.numerics changes it
+    obs_settings = resolve_telemetry(config)
+    if obs_settings["numerics"] and (world_size() > 1 or step_fn is not None):
+        raise NotImplementedError(
+            "Telemetry.numerics on the distributed step (parallel/engine.py) is not "
+            "in hydragnn_tpu_torch yet: it comes with the port's fleet slice. Train "
+            "on one process, or set Telemetry.numerics to false (and unset "
+            "HYDRAGNN_NUMERICS).")
+    step_fn = step_fn or make_train_step(model, compute_grad_energy, mixed_precision,
+                                         numerics=obs_settings["numerics"])
     eval_fn = eval_fn or make_eval_step(model, compute_grad_energy, mixed_precision)
+    numerics_meta = getattr(step_fn, "_numerics_meta", None)
     verbosity = verbosity if is_primary() else 0
     single = world_size() == 1
     scheduler = ReduceLROnPlateau()
@@ -319,6 +466,11 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
         max_rollbacks=int(training.get("non_finite_max_rollbacks", 3)),
         restore_fn=restore_fn, log_name=log_name,
     )
+    profiler = Profiler(
+        # the documented home first; the legacy top-level section still works
+        config["NeuralNetwork"].get("Profile") or config.get("Profile"),
+        log_dir=f"./logs/{log_name}/profile",
+    )
     return_best = bool(training.get("return_best", stopper is not None
                                     or checkpointer is not None)) and do_valtest
     # Training.warmup_epochs: a linear LR ramp over the first epochs, ending
@@ -330,13 +482,69 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     validator = getattr(train_loader, "validator", None)
     reported_skips = 0
     best_val, best_state = float("inf"), None
+    run_dir = os.path.join("./logs", log_name)
     preemption.install()
+    tr.enable()
+    telemetry = (StepTelemetry(obs_settings, log_name, writer=writer,
+                               device=module_device(model))
+                 if obs_settings["enabled"] else None)
+    if telemetry is not None:
+        if numerics_meta is not None:
+            telemetry.attach_numerics(numerics_meta)
+        if telemetry.want_mfu:
+            from ..obs.flops import train_flops_for
+
+            telemetry.attach_flops(train_flops_for(model, compute_grad_energy,
+                                                   mixed_precision))
+    elif numerics_meta is not None:
+        import warnings
+
+        warnings.warn(
+            "Telemetry.numerics is on but Telemetry.enabled is off: the "
+            "hydragnn_numerics_* gauges and metrics.jsonl 'numerics' records are "
+            "published by the enabled per-step layer and will not appear; NaN "
+            "provenance events and flight-recorder dumps still fire. Set "
+            "Telemetry.enabled: true for the full observatory.",
+            RuntimeWarning, stacklevel=2)
+    nan_watch = None
+    if numerics_meta is not None:
+        from ..obs.numerics import NanWatch
+
+        nan_watch = NanWatch(diagnose=step_fn._nan_diagnose, log_name=log_name)
+    tracer = None
+    if obs_settings["trace"]:
+        from ..obs import trace as obs_trace
+
+        tracer = obs_trace.install(obs_trace.Tracer(
+            run_dir, sample=float(obs_settings["trace_sample"]),
+            every_n_steps=int(obs_settings["trace_interval_steps"])))
+    plane_on = obs_settings["enabled"] or obs_settings["trace"] or obs_settings["numerics"]
+    flight = None
+    if obs_settings["flight_recorder"] and plane_on:
+        from ..obs.flightrec import FlightRecorder
+
+        flight = FlightRecorder(run_dir, tracer=tracer).install()
+    events_armed = False
+    if plane_on:
+        from ..obs.events import attach_stream
+
+        events_armed = attach_stream(run_dir) is not None
+    # guard-skip EVENT accounting for the telemetry counter: positive deltas
+    # of the state's counter (a rollback restore lowers it), from the
+    # incoming state's total (a resumed run's earlier skips are not ours)
+    guard_seen = int(state.skipped_steps) if writer is not None or telemetry is not None else 0
+    guard_events = 0
     try:
         for epoch in range(int(training["num_epoch"])):
             if warmup_epochs and epoch < warmup_epochs:
                 state = state.with_learning_rate(base_lr * (epoch + 1) / warmup_epochs)
+            profiler.epoch_begin(epoch)
             train_loader.set_epoch(epoch)
-            state, tr_loss, tr_tasks, cursor = train_epoch(train_loader, step_fn, state)
+            guard_log: Dict[str, Any] = {}
+            with tr.timer("train"):
+                state, tr_loss, tr_tasks, cursor = train_epoch(
+                    train_loader, step_fn, state, telemetry=telemetry, tracer=tracer,
+                    nan_watch=nan_watch, guard_log=guard_log)
             hist["train"].append(tr_loss)
             hist["train_tasks"].append(tr_tasks)
             if (validator is not None and validator.skipped_total != reported_skips
@@ -345,14 +553,44 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 reported_skips = validator.skipped_total
                 print(f"[{log_name}] epoch {epoch}: data-plane skips: {validator.tally()}",
                       file=sys.stderr)
+            if writer is not None or telemetry is not None:
+                # the run's health counters into the metric sinks
+                skipped_total = int(state.skipped_steps)
+                guard_events += max(skipped_total - guard_seen, 0)
+                guard_seen = skipped_total
+                if writer is not None:
+                    writer.add_scalars({
+                        "guard/skipped_steps": skipped_total,
+                        "data/skipped_samples": (validator.skipped_total
+                                                 if validator is not None else 0),
+                        # the port compiles nothing: no retrace, no cache
+                        "compile/retrace_violations": 0,
+                        "compile/cache_hits": 0,
+                        "compile/cache_misses": 0,
+                    }, epoch)
+                if telemetry is not None:
+                    telemetry.absorb_counters(
+                        guard_skipped=guard_events,
+                        data_skipped=dict(validator.counts) if validator is not None else None)
             if cursor is not None:
                 # SIGTERM between steps: save the state and the loader's
                 # cursor now (the grace window is ticking: no val/test, no
                 # policy) and stop. The history row carries the last
                 # measured val/test losses (the train loss in epoch 0)
-                hist["val"].append(hist["val"][-1] if hist["val"] else tr_loss)
-                hist["test"].append(hist["test"][-1] if hist["test"] else tr_loss)
+                last_val = hist["val"][-1] if hist["val"] else tr_loss
+                last_test = hist["test"][-1] if hist["test"] else tr_loss
+                hist["val"].append(last_val)
+                hist["test"].append(last_test)
                 hist["lr"].append(state.learning_rate)
+                filler_row = {"train": tr_loss, "val": last_val, "test": last_test,
+                              "lr": state.learning_rate}
+                if log_fn is not None:
+                    log_fn(epoch, filler_row)
+                if writer is not None:
+                    # this epoch's val/test are carried, not measured
+                    writer.add_scalar("loss/filler", 1.0, epoch)
+                if telemetry is not None:
+                    telemetry.on_epoch(epoch, filler_row, filler=True)
                 preemption.note_global_stop()
                 if save_fn is not None:
                     save_fn(state, epoch)
@@ -363,23 +601,39 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                           f"{cursor}, stopping")
                 break
             # the policy before val/test, so a rollback epoch evaluates the
-            # restored state
+            # restored state; the skips' provenance from the NaN watch when
+            # numerics is on, else the epoch's non-finite loss census
+            provenance = nan_watch.take() if nan_watch is not None else guard_log.get("nonfinite")
             rollbacks_before = nf_policy.rollbacks_done
-            state = nf_policy.after_epoch(state, epoch)
+            if tracer is not None:
+                # the guard's events attach to this span's trace
+                with tracer.span("train/guard_verdict", epoch=epoch):
+                    state = nf_policy.after_epoch(state, epoch, provenance=provenance)
+            else:
+                state = nf_policy.after_epoch(state, epoch, provenance=provenance)
             if nf_policy.rollbacks_done > rollbacks_before:
                 # the ramp recomputes the LR from base_lr: scale it too, or
                 # the next ramp epoch would erase the backoff
                 base_lr *= nf_policy.lr_backoff ** (nf_policy.rollbacks_done - rollbacks_before)
             if do_valtest:
-                va_loss, _ = evaluate(val_loader, eval_fn, state)
-                te_loss, _ = evaluate(test_loader, eval_fn, state)
+                with tr.timer("validate"):
+                    va_loss, _ = evaluate(val_loader, eval_fn, state)
+                with tr.timer("test"):
+                    te_loss, _ = evaluate(test_loader, eval_fn, state)
             else:
                 va_loss = te_loss = tr_loss
             hist["val"].append(va_loss)
             hist["test"].append(te_loss)
+            profiler.epoch_end(epoch)
             if epoch >= warmup_epochs:
                 state = state.with_learning_rate(scheduler.step(va_loss, state.learning_rate))
             hist["lr"].append(state.learning_rate)
+            row = {"train": tr_loss, "val": va_loss, "test": te_loss,
+                   "lr": state.learning_rate}
+            if log_fn is not None:
+                log_fn(epoch, row)
+            if telemetry is not None:
+                telemetry.on_epoch(epoch, row)
             if verbosity > 0:
                 branches = "".join(f" {k} {v:.5f}" for k, v in tr_tasks.items()
                                    if k.startswith("branch"))
@@ -399,11 +653,82 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 if verbosity > 0:
                     print(f"[{log_name}] SIGTERM: checkpointed at epoch {epoch}, stopping")
                 break
+    except BaseException as e:
+        # the black box while it is still armed (an interrupt is a shutdown)
+        if flight is not None and not isinstance(e, KeyboardInterrupt):
+            try:
+                flight.dump("train_exception", exc=e)
+            except Exception:  # noqa: BLE001 -- never mask the real error
+                pass
+        raise
     finally:
+        profiler.close()
         preemption.uninstall()
+        _close_plane(telemetry, state, guard_seen, guard_events, validator, log_name, hist,
+                     flight, tracer, events_armed)
     if best_state is not None:
         state.load_state_dict(best_state)
     return state, hist
+
+
+# the ``run`` record's ``compile`` field: what the JAX package writes under
+# ``Training.precompile: "off"`` (the port compiles no executables)
+_NO_COMPILE = {"precompiled": 0, "specializations": 0, "cache_hits": 0, "cache_misses": 0,
+               "violations": 0, "time_to_first_step": None}
+
+
+def _close_plane(telemetry, state, guard_seen, guard_events, validator, log_name, hist,
+                 flight, tracer, events_armed) -> None:
+    """The observability plane's teardown: the run's last counters and the
+    ``run`` record, then the sinks; never raises past the run's result."""
+    import warnings
+
+    if telemetry is not None:
+        try:
+            try:
+                guard_events += max(int(state.skipped_steps) - guard_seen, 0)
+            except Exception:  # noqa: BLE001 -- a state lost to an error
+                pass
+            telemetry.absorb_counters(
+                guard_skipped=guard_events,
+                data_skipped=dict(validator.counts) if validator is not None else None)
+            telemetry.run_record({
+                "log_name": log_name,
+                "epochs": len(hist["train"]),
+                "global_step": telemetry.global_step,
+                "endpoint_port": telemetry.endpoint_port,
+                "compile": dict(_NO_COMPILE),
+            })
+        except Exception as e:  # noqa: BLE001
+            warnings.warn(f"telemetry teardown failed ({type(e).__name__}: {e}); the run "
+                          "result is unaffected", RuntimeWarning, stacklevel=2)
+        finally:
+            try:
+                telemetry.close()
+            except Exception:  # noqa: BLE001 -- the same contract
+                pass
+    # the recorder stays armed while the telemetry teardown could raise;
+    # the tracer's close flushes the span tail
+    if flight is not None:
+        try:
+            flight.uninstall()
+        except Exception:  # noqa: BLE001
+            pass
+    if tracer is not None:
+        from ..obs import trace as obs_trace
+
+        try:
+            obs_trace.uninstall(tracer)
+            tracer.close()
+        except Exception:  # noqa: BLE001
+            pass
+    if events_armed:
+        from ..obs.events import detach_stream
+
+        try:
+            detach_stream()
+        except Exception:  # noqa: BLE001
+            pass
 
 
 def test_model(model, loader, mixed_precision: bool = False,

@@ -5,7 +5,9 @@ copy: it imports nothing of the JAX package). The flags read today:
 ``HYDRAGNN_CKPT_RETRIES`` / ``HYDRAGNN_CKPT_RETRY_BASE`` and
 ``HYDRAGNN_EPOCH`` (train/checkpoint.py), ``HYDRAGNN_VALTEST``,
 ``HYDRAGNN_MAX_NUM_BATCH``, ``HYDRAGNN_STEP_GUARD`` and
-``HYDRAGNN_DUMP_TESTDATA`` (train/loop.py).
+``HYDRAGNN_DUMP_TESTDATA`` (train/loop.py); ``HYDRAGNN_TELEMETRY``,
+``HYDRAGNN_NUMERICS``, ``HYDRAGNN_FLEET`` and ``HYDRAGNN_TRIAL_ID``
+(obs/telemetry.py); ``HYDRAGNN_TRACE_LEVEL`` (utils/tracer.py).
 
 - ``env_flag``: tri-state on/off: None unset, else False for ``0``/``off``/
   ``false``/empty (any case) and True otherwise;

@@ -1237,3 +1237,128 @@ def pytest_run_training_from_a_columnar_config_on_card(cuda, tmp_path, monkeypat
     assert state.step.device.type == "cuda" and int(state.step) == len(loaders[0])
     assert all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k])
     assert list((tmp_path / "logs").glob("*/config.json"))
+
+
+def _numerics_step(model, batch, swap=()):
+    """One numerics train step (f32, AdamW, guard on) of a copy of
+    ``model`` on ``batch``: (its statistics bundle, names, K1/K2 launches
+    by case); ``swap`` names the kernels taken by their plain versions."""
+    from chip_smoke import plain_versions
+
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    m = copy.deepcopy(model)
+    state = TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+    wrappers = {"K1": t_sorted.sorted_segment_sum, "K2": t_fused.fused_edge_message_sum}
+    before = {k: dict(w.launches_by_case) for k, w in wrappers.items()}
+    step = make_train_step(m, numerics=True)
+    with plain_versions(swap):
+        out = step(state, batch)
+    torch.cuda.synchronize()
+    launched = {k: {c: n - before[k].get(c, 0) for c, n in w.launches_by_case.items()
+                    if n != before[k].get(c, 0)} for k, w in wrappers.items()}
+    return out[3], step._numerics_meta, launched, len(out)
+
+
+@pytest.mark.gpu
+def pytest_numerics_probes_through_k1_k2_match_the_plain_versions_on_card(cuda):
+    """The EGNN of the zoo tests (3 layers, hidden 64, f32: K1 and K2 on its
+    path) under deterministic algorithms: every probe's and gradient
+    group's raw moments through the kernels against the same step through
+    their plain versions (max |x| and the sum of squares to 1e-4
+    relative, the counts exactly), the ok flag set; and the numerics step
+    launches K1 and K2 exactly as the step without numerics does."""
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    model, _, batch = _zoo_models(cuda, "EGNN", 3)
+    with deterministic_algorithms():
+        got, meta, launched, _ = _numerics_step(model, batch)
+        want, _, none, _ = _numerics_step(model, batch, swap=("K1", "K2"))
+    assert launched["K1"] and launched["K2"] and none == {"K1": {}, "K2": {}}
+    assert meta["act_names"][0] == "embedding" and bool(got["ok"])
+    for key in ("act", "grad"):
+        g, w = got[key].double().cpu(), want[key].double().cpu()
+        assert torch.equal(g[:, 2:], w[:, 2:]), key
+        torch.testing.assert_close(g[:, :2], w[:, :2], rtol=1e-4, atol=0)
+    m = copy.deepcopy(model)
+    state = TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+    before = {"K1": dict(t_sorted.sorted_segment_sum.launches_by_case),
+              "K2": dict(t_fused.fused_edge_message_sum.launches_by_case)}
+    assert len(make_train_step(m)(state, batch)) == 3
+    torch.cuda.synchronize()
+    off = {"K1": {c: n - before["K1"].get(c, 0)
+                  for c, n in t_sorted.sorted_segment_sum.launches_by_case.items()
+                  if n != before["K1"].get(c, 0)},
+           "K2": {c: n - before["K2"].get(c, 0)
+                  for c, n in t_fused.fused_edge_message_sum.launches_by_case.items()
+                  if n != before["K2"].get(c, 0)}}
+    assert off == launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def pytest_flop_count_per_level_equal_on_kernel_and_plain_routes_on_card(cuda,
+                                                                         mixed_precision):
+    """The MFU's FLOP count of a train step (obs/flops.py, on ``meta``
+    copies) for the kernel route's model equals ``FlopCounterMode`` over
+    the same step on the card through the kernels' plain versions, at the
+    batch's level, in f32 and under mixed precision; counting launches no
+    kernel."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from chip_smoke import plain_versions
+    from hydragnn_tpu_torch.obs.flops import train_flops_for
+    from hydragnn_tpu_torch.train.loop import _apply_fn, cast_batch_bf16
+    from hydragnn_tpu_torch.train.loss import compute_loss
+
+    model, _, batch = _zoo_models(cuda, "EGNN", 3)
+    b = batch.to("cpu")
+    launches = (t_sorted.sorted_segment_sum.launches, t_fused.fused_edge_message_sum.launches)
+    key = (int(b.node_mask.numel()), int(b.edge_mask.numel()))
+    counted = train_flops_for(model, mixed_precision=mixed_precision)(key, b)
+    assert (t_sorted.sorted_segment_sum.launches,
+            t_fused.fused_edge_message_sum.launches) == launches
+    m = copy.deepcopy(model).train()
+    db = batch
+    if mixed_precision:
+        db = cast_batch_bf16(db)
+    with plain_versions(("K1", "K2")), FlopCounterMode(display=False) as counter:
+        tot, _, _ = compute_loss(_apply_fn(m, mixed_precision, False), db, m.cfg, False)
+        tot.float().backward()
+    assert counted == counter.get_total_flops() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("numerics", [False, True])
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def pytest_egnn_train_step_makes_no_synchronizing_call_on_card(cuda, mixed_precision, numerics):
+    """A train step of the egnn_train cell (``chip_smoke.train_config`` at
+    hidden 24: K1 and K2 on its path, the graph head's fixed-order mean
+    pool, the decoders' leaky relu), with and without the numerics bundle,
+    on a batch already on the card, makes no call PyTorch flags as
+    synchronizing: the host never waits for the card inside a step, so the
+    loop's own host work (telemetry, the next batch) overlaps the card's."""
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    splits = split_dataset(oc20_shaped_dataset(24, mean_atoms=20, min_atoms=10, max_atoms=40),
+                           0.9, seed=0)
+    config, (loader, _, _), _ = prepare_data(
+        copy.deepcopy(cs.train_config(batch_size=4, hidden=24, head=16)), splits)
+    loader.set_epoch(0)
+    batches = [b.to(cuda) for b in list(loader)[:2]]
+    state = cs._train_copy(create_model(config, device=cuda, seed=0), cuda)
+    step = make_train_step(state.model, mixed_precision=mixed_precision, numerics=numerics)
+    step(state, batches[0])  # the cached layouts, the kernels' first load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(out) == (4 if numerics else 3) and bool(torch.isfinite(out[1]))
+

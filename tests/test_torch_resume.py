@@ -328,7 +328,12 @@ def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
     assert hist["val"][1] == hist["val"][0] and hist["test"][1] == hist["test"][0]
     ls = tck.load_loader_state(log_name)
     assert ls is not None and (ls.epoch, ls.next_batch) == (1, 2)
-    assert sorted(os.listdir(os.path.join("logs", log_name))) == sorted(
+    files = os.listdir(os.path.join("logs", log_name))
+    # beside the checkpoint's files, run_training's metric writer
+    # (utils/writer.py): scalars.jsonl and, where TensorBoard imports, its events
+    assert "scalars.jsonl" in files
+    assert sorted(f for f in files if f != "scalars.jsonl"
+                  and not f.startswith("events.out.tfevents.")) == sorted(
         [f"{log_name}_epoch1.pt", f"{log_name}_epoch1.pt.sha256", "latest", "loader_state.json",
          "config.json"])
 

@@ -176,9 +176,11 @@ def pytest_admission_errors_are_typed():
 
 def pytest_serve_config_resolution():
     with pytest.warns(UserWarning, match="not consumed"):
-        cfg = ServeConfig.from_config({"Serving": {"http_port": 0},
+        cfg = ServeConfig.from_config({"Serving": {"hot_reload": True, "http_port": 0,
+                                                   "step_timeout_s": 5.0},
                                        "NeuralNetwork": {"Training": {"batch_size": 7}}})
     assert cfg.micro_batch_graphs == 7
+    assert (cfg.http_port, cfg.step_timeout_s) == (0, 5.0)
     with pytest.raises(ValueError):
         ServeConfig(micro_batch_graphs=0)
     with pytest.raises(ValueError):
