@@ -5,12 +5,15 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only (a short first run)
+    python3 chip_smoke.py --plane    # build + capture checks + the compile plane's phases
 
 Phases, each fatal on failure (exit code 1):
 
 1. card: name and power limit from nvidia-smi, ``torch.cuda.get_device_name``;
 2. build: every kernel of the paths, built by nvcc for sm_90a from
-   ``hydragnn_tpu_torch/csrc/`` (one nvcc per source, all started together);
+   ``hydragnn_tpu_torch/csrc/`` (one nvcc per source, all started together,
+   in a thread while the paths' data, cases and gin_ring's requests are
+   made);
 3. kernels: each kernel's wrapper on the card at the shapes its path gives
    it (one real batch of that path: an OC20-shaped packed batch of 32
    graphs for K1/K2, an unpacked batch of 16 for K3/K4, the spanning BCC
@@ -27,7 +30,9 @@ Phases, each fatal on failure (exit code 1):
    ~17k edges), off the kernels line; a K3 call that is more than one
    device kernel fails. Then the ring-merge check: K4b over four key blocks
    merged through the ring's ``_block_attend`` against one K4b call over
-   all keys; K1's fixed-order plain version twice on the gin_ring shapes
+   all keys; each kernel (K1, K2, K3, K4, K4b) at its first case's shapes
+   captured in a CUDA graph and replayed, against the eager call bit for
+   bit and its plain version (``capture_checks``); K1's fixed-order plain version twice on the gin_ring shapes
    (the same bits, or it fails); then, for every kernel library, each
    kernel's tensor-core instruction count (``cuobjdump -sass``), registers
    and spills (``ptxas -v``): a flash or fused-edge instance without
@@ -237,7 +242,7 @@ Phases, each fatal on failure (exit code 1):
    share the card over gloo (NCCL refuses two ranks on one device; a
    collective gloo lacks fails the phase), 2 ranks under dp, zero1, zero2
    and zero3, AdamW, in one spawn, and 5 ranks under branch (one branch
-   each; SGD for 3 steps, as Adam would hide a branch's loss weight, and
+   each; SGD for 2 steps, as Adam would hide a branch's loss weight, and
    the recipe's AdamW for 1), at batch 32 a rank: each rank's own tensors
    after its job's steps against one process's emulation of the same
    steps (``_emulated``: each row's gradients and statistics from the
@@ -265,7 +270,7 @@ Phases, each fatal on failure (exit code 1):
    it, ``numerics_provenance`` names ``embedding`` and one flight dump
    holds its files; the step-time A/Bs of run-scripts/telemetry_smoke.py
    (legs 3 and 5: telemetry on against off, numerics on against off, the
-   best of 3 blocks of 10 interleaved pairs) within 2%, every pair printed.
+   best of 3 blocks of 5 interleaved pairs) within 2%, every pair printed.
    ``obs_serve``: ``api.run_server`` on the egnn serving config with
    ``Telemetry.trace`` at ``trace_sample`` 1.0, 64 requests: every request's
    span tree complete, the ``/metrics`` request histogram counting 64 (its
@@ -273,6 +278,29 @@ Phases, each fatal on failure (exit code 1):
    batch; a step sleeping past ``Serving.step_timeout_s``: its request gets
    ``WedgedStepError``, ``serve_wedge`` is emitted, the flight recorder
    dumps, a fresh runner answers the next request.
+
+17. The compile and memory plane on the egnn cell (after ``egnn_train``).
+   ``graphs_train``: ``api.run_training`` of the egnn_train cell unpacked on
+   a 4-level ladder under ``precompile`` blocking and background, against
+   off under deterministic algorithms (losses, history, every state tensor
+   bit for bit) and, blocking, with atomics (egnn_train's trajectory
+   limit); each level's capture seconds, pool bytes and launches a step
+   through its graph; the eager step against the replayed one in
+   alternating legs (ms, busy share, peak memory); an off-ladder batch
+   under ``retrace_policy`` warn (one warning, one event) and error
+   (``RetraceError``). ``graphs_serve``: the egnn server, every level
+   captured at warm-up, the sentinel armed at error: 192 requests through
+   the graphs and through the eager route in alternating rounds, the
+   graphs' answers against the eager forward bit for bit. ``remat``: the
+   step with ``conv_checkpointing`` under each ``remat_policy`` against the
+   unwrapped step (gradients 0 apart, deterministic; peak memory, ms).
+   ``tune``: the tune CLI over the energy-force cell's ladder (a columnar
+   copy of its graphs), the table's entries keyed on the card and each
+   kernel's source digest, a second run that sweeps nothing, every launch
+   taking its tuned plan, the tuned outputs against the defaults' (bit for
+   bit where only the row split changes). ``run_training`` and every
+   server replay one CUDA graph per ladder level by default: the launch
+   gates count the wrappers' launches and the graphs' replays.
 
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
@@ -294,6 +322,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1366,12 +1395,14 @@ def run_kernels(cases):
 
 def profile_batch(server, graphs, label: str) -> None:
     """Where one served batch spends its time: host batching, then
-    ``profile_forward`` on its forward."""
+    ``profile_forward`` on its forward (the level's CUDA graph replay: the
+    graphs stripped of their targets, as the server admits requests)."""
     from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.serve.server import _strip_targets
 
     spec = server.ladder.specs[-1]
     gs, n, e = [], 0, 0
-    for g in graphs:  # the first graphs that fit one batch, as the batcher takes them
+    for g in map(_strip_targets, graphs):  # the first that fit one batch, as the batcher takes them
         if len(gs) == spec.n_graphs - 1 or n + g.num_nodes > spec.n_nodes - 1 \
                 or e + g.num_edges > spec.n_edges:
             break
@@ -1439,16 +1470,22 @@ def _wrappers():
 
 
 def _zero_launches(wrappers) -> None:
+    """Every wrapper's launches, run and replayed (train/compile_plane.py), to 0."""
     for w in wrappers.values():
-        w.launches = 0
+        w.launches = w.replayed = 0
         w.launches_by_case.clear()
+        w.replayed_by_case.clear()
 
 
 def _check_launches(label, wrappers, per_unit, units, unit="steps"):
     """Every kernel's launches against ``per_unit`` (by case) times the
     ``units`` (batches, requests or steps) driven; a kernel not named must
-    not launch. Returns them by (kernel, case)."""
-    launches = {k: (w.launches, dict(w.launches_by_case)) for k, w in wrappers.items()}
+    not launch. A launch is one the wrapper ran or one a CUDA graph's
+    replay ran (``replayed``: ``run_training`` and ``run_server`` replay
+    each ladder level's captured step). Returns them by (kernel, case)."""
+    launches = {k: (w.launches + w.replayed,
+                    dict(collections.Counter(w.launches_by_case) + w.replayed_by_case))
+                for k, w in wrappers.items()}
     print(f"{label}: launches in {units} {unit} " + ", ".join(
         f"{k} {n} {cases}" for k, (n, cases) in launches.items()), flush=True)
     for k, (_, cases) in launches.items():
@@ -1650,11 +1687,13 @@ def run_serving(label, config, graphs, device, n_requests: int, per_batch_cases,
     return launched
 
 
-def run_gin_ring(topology, topology_s: float, device, n_requests: int):
+def run_gin_ring(topology, topology_s: float, device, n_requests: int, requests=None):
     """SP evaluation of one spanning graph per request through
-    ``parallel.make_sp_eval_step`` (a ring of one rank) and its checks.
-    Returns the launches by (kernel, case), the completed config and the
-    requests' batches (on the host)."""
+    ``parallel.make_sp_eval_step`` (a ring of one rank) and its checks;
+    ``requests`` is ``gin_ring_requests``' result when made already (the
+    smoke makes it while the kernels build). Returns the launches by
+    (kernel, case), the completed config and the requests' batches (on the
+    host)."""
     import numpy as np
     import torch
 
@@ -1665,7 +1704,7 @@ def run_gin_ring(topology, topology_s: float, device, n_requests: int):
 
     label = "gin_ring"
     wrappers = _wrappers()
-    graphs, pe_s = gin_ring_requests(topology, n_requests)
+    graphs, pe_s = requests or gin_ring_requests(topology, n_requests)
     n_atoms = topology.num_nodes
     print(f"{label}: BCC supercell of {GIN_RING_CELLS}^3 cells, {n_atoms} atoms, "
           f"{topology.num_edges} periodic edges: topology built in {topology_s:.2f} s, "
@@ -4158,7 +4197,7 @@ GFM_CONVHEAD_PER_STEP = {"K1": {"bfloat16/C866": 1, "float32/C866": 17,
                                 "bfloat16/C3": 1, "float32/C3": 17},
                          "K2": {"float32/866x866": 6}}
 GFM_CONVHEAD_BATCH = 32  # the egnn_train batch (PERF.md: the batch cut)
-GFM_CONVHEAD_GRAPHS = 384  # 345 train graphs: 11 balanced batches of 32
+GFM_CONVHEAD_GRAPHS = 352  # 316 train graphs: 10 balanced batches of 32 (cut from 11: PERF.md §4)
 # gfm_train's gates are egnn_train's (TRAIN_RTOL): the same unpinned
 # comparison, read 1.27e-2 to 1.55e-2 / 2.6e-3 to 3.8e-3 in f32 beside the
 # plain route again at 5.9e-3 to 1.5e-2. The conv-head cell's step-0
@@ -5171,7 +5210,7 @@ DIST_PRESETS = ("dp", "zero1", "zero2", "zero3")
 DIST_GFM_STEPS = 4
 DIST_RANKS_BATCH = 32
 # (job, preset, ranks, optimizer, steps): the recipe's AdamW where the
-# optimizer's own state is placed (ZeRO); branch under SGD for 3 steps,
+# optimizer's own state is placed (ZeRO); branch under SGD,
 # since Adam hides a branch's gradient weight (any constant factor cancels
 # in m / sqrt(v)) and, from the second step on, turns the 5-term sum's
 # order into +-lr flips that cascade (under AdamW for 3 steps this script
@@ -5179,9 +5218,10 @@ DIST_RANKS_BATCH = 32
 # under the recipe's AdamW for 1 step, where a flip can only come from a
 # step-0 sum that rounds to either sign, which the emulation marks
 DIST_SGD = {"type": "SGD", "learning_rate": 1e-3}
-DIST_RANKS_JOBS = (("dp", "dp", 2, None, 3), ("zero1", "zero1", 2, None, 3),
-                   ("zero2", "zero2", 2, None, 3), ("zero3", "zero3", 2, None, 3),
-                   ("branch", "branch", 5, DIST_SGD, 3), ("branch_adamw", "branch", 5, None, 1))
+# (2 steps a job, cut from 3: PERF.md §4)
+DIST_RANKS_JOBS = (("dp", "dp", 2, None, 2), ("zero1", "zero1", 2, None, 2),
+                   ("zero2", "zero2", 2, None, 2), ("zero3", "zero3", 2, None, 2),
+                   ("branch", "branch", 5, DIST_SGD, 2), ("branch_adamw", "branch", 5, None, 1))
 DIST_LR = 1e-3  # the recipe's and DIST_SGD's: a noise element moves at most 2 lr a step
 # largest relative difference, by job: 2 ranks add two terms, which
 # commutes, so they equal the emulation bit for bit (0 in every run);
@@ -5732,7 +5772,7 @@ OBS_TELEMETRY = {"enabled": True, "interval_steps": 5, "trace": True, "trace_int
 OBS_WINDOW_RTOL = 0.10  # each window's step time and graphs/s against the phase's own events
 OBS_AB_BUDGET = 0.02  # telemetry_smoke.py's step-time budget, best of interleaved blocks
 OBS_AB_BLOCKS = 3
-OBS_AB_TRIALS = 10  # pairs a block, as telemetry_smoke.py's trials
+OBS_AB_TRIALS = 5  # pairs a block (cut from telemetry_smoke.py's 10: PERF.md §4)
 OBS_AB_STEPS = 10  # steps an epoch of the A/B (one window of the default interval)
 OBS_PROBE_RTOL = TRAIN_RTOL["bf16 gradients"][0]  # egnn_train's largest-gradient limit
 OBS_SERVE_REQUESTS = 64
@@ -5875,7 +5915,6 @@ def run_obs_train(graphs, device, per_step):
     import torch
 
     import hydragnn_tpu_torch.obs.telemetry as obs_telemetry
-    import hydragnn_tpu_torch.train.loop as loop
     from hydragnn_tpu_torch.api import prepare_data, run_training
     from hydragnn_tpu_torch.config import get_log_name_config
     from hydragnn_tpu_torch.data.pipeline import split_dataset
@@ -5899,16 +5938,20 @@ def run_obs_train(graphs, device, per_step):
     (run_dir / "profile_trigger").touch()
 
     # this phase's own clock: CUDA events around every train step the run
-    # dispatches, and a scrape of /metrics and /healthz mid-run
+    # dispatches (the compile plane's step: a level's first visit runs
+    # eagerly, the rest replay its CUDA graph), and a scrape of /metrics
+    # and /healthz mid-run
+    from hydragnn_tpu_torch.train import compile_plane as cp
+
     events, scraped, telems = [], {}, []
-    real_make, real_init = loop.make_train_step, obs_telemetry.StepTelemetry.__init__
+    real_launch, real_init = cp.CompilePlane.launch, obs_telemetry.StepTelemetry.__init__
 
     def init(self, *a, **kw):
         real_init(self, *a, **kw)
         telems.append(self)
 
-    def make(*a, **kw):
-        step = real_make(*a, **kw)
+    def launch(self, *a, **kw):
+        step, eval_step = real_launch(self, *a, **kw)
 
         def timed(state, batch):
             before = torch.cuda.Event(enable_timing=True)
@@ -5924,11 +5967,11 @@ def run_obs_train(graphs, device, per_step):
             return out
 
         timed.__dict__.update(step.__dict__)
-        return timed
+        return timed, eval_step
 
     _zero_launches(wrappers)
     t0 = time.perf_counter()
-    with swapped([(loop, "make_train_step", make),
+    with swapped([(cp.CompilePlane, "launch", launch),
                   (obs_telemetry.StepTelemetry, "__init__", init)]):
         model, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
     torch.cuda.synchronize()
@@ -6029,9 +6072,11 @@ def run_obs_train(graphs, device, per_step):
     try:
         from hydragnn_tpu_torch.obs.events import events as event_log
 
-        n0 = len(event_log().snapshot())
+        # the ring is bounded: earlier phases' events (each run's tile-plan
+        # choices among them) may fill it, so it starts empty here
+        event_log().clear()
         st, _, _, _ = train_epoch([batches[0], bad] + batches[2:5], step, st, nan_watch=watch)
-        prov = [e for e in event_log().snapshot()[n0:] if e["kind"] == "numerics_provenance"]
+        prov = [e for e in event_log().snapshot() if e["kind"] == "numerics_provenance"]
     finally:
         recorder.uninstall()
     skips = watch.take()
@@ -6183,6 +6228,581 @@ def run_obs_serve(graphs, device, per_batch):
     return launched
 
 
+# -- the compile and memory plane (train/compile_plane.py, ops/remat.py, tune/)
+
+GRAPHS_TRAIN_BUCKETS = 4  # num_pad_buckets of the graphs_* cells (unpacked batches)
+GRAPHS_AB_PAIRS = 4  # alternating (eager, replayed) legs of the step-time A/B
+GRAPHS_AB_STEPS = 8  # steps a leg
+REMAT_STEPS = 3  # timed steps a policy
+TUNE_BUDGET = 3  # candidate plans a slot
+TUNE_TRIALS = 3  # timed calls a candidate
+PLANE_KERNELS = {"sorted_segment_sum": "K1", "fused_edge_message_sum": "K2",
+                 "fused_multi_agg": "K3", "flash_self_attention": "K4",
+                 "flash_block_summary": "K4b"}
+
+
+def capture_checks(cases):
+    """Each kernel (K1, K2, K3, K4, K4b) at its first case's path shapes
+    captured in a CUDA graph and replayed: the replay's outputs (zeroed
+    before it, so the replay writes them) equal the eager call's bit for
+    bit and the plain version's within the case's tolerance; the capture
+    counts one launch as ``captured`` and none as run, so the ``ctypes``
+    launch landed on the capturing stream."""
+    import torch
+
+    seen = set()
+    for kc in cases:
+        k = kc["kernel"]
+        if k in seen:
+            continue
+        seen.add(k)
+        w = _wrappers()[k]
+        name = kc["name"]
+        eager = _outputs(kc["fn"]())
+        plain = _outputs(kc["plain"]())
+        torch.cuda.synchronize()
+        launches, captured = w.launches, w.captured
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            static = _outputs(kc["fn"]())
+        capture_s = time.perf_counter() - t0
+        check(w.launches == launches and w.captured == captured + 1,
+              f"capture {name}: {w.launches - launches} launches run, "
+              f"{w.captured - captured} recorded (want 0 and 1)")
+        with torch.no_grad():
+            for t in static:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(static, eager))
+        atol, rtol = TOLERANCES[(k, kc["dtype"])]
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(static, plain)]
+        tols = [atol + rtol * (kc["scale"] if kc["scale"] is not None
+                               else float(b.float().abs().max())) for b in plain]
+        print(f"capture {name}: captured in {capture_s * 1e3:.1f} ms, replayed: equal to the "
+              f"eager call bit for bit {same}; against the plain version max_abs_err "
+              f"{[f'{e:.3g}' for e in errs]} (tolerance {[f'{t:.3g}' for t in tols]})",
+              flush=True)
+        check(same, f"capture {name}: the replay differs from the eager call")
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"capture {name}: the replay disagrees with the plain version")
+        del graph, static
+    check(seen == set(KERNELS), f"capture checks cover {sorted(seen)}, not {sorted(KERNELS)}")
+
+
+@contextlib.contextmanager
+def recorded_planes():
+    """Within the block, every compile plane that finishes is appended to
+    the returned list (``run_training`` keeps its plane to itself)."""
+    from hydragnn_tpu_torch.train import compile_plane as cp
+
+    planes = []
+    real = cp.CompilePlane.finish
+
+    def finish(self, verbosity: int = 0):
+        planes.append(self)
+        return real(self, verbosity)
+
+    with swapped([(cp.CompilePlane, "finish", finish)]):
+        yield planes
+
+
+@contextlib.contextmanager
+def step_losses():
+    """Within the block, each epoch's per-step train losses, as
+    ``train_epoch`` reads them back, appended to the returned list (its
+    val and test reads land there too, one list each)."""
+    import hydragnn_tpu_torch.train.loop as loop
+
+    got = []
+    real = loop._read_entries
+
+    def reading(entries):
+        rows = real(entries)
+        got.append([r[0] for r in rows])
+        return rows
+
+    with swapped([(loop, "_read_entries", reading)]):
+        yield got
+
+
+def graphs_config(mode: str = "off", policy: str = "warn"):
+    """The egnn_train cell unpacked on a ladder of ``GRAPHS_TRAIN_BUCKETS``
+    levels, with ``Training.precompile`` ``mode``."""
+    config = train_config()
+    config["NeuralNetwork"]["Training"].update(
+        pack_batches=False, num_pad_buckets=GRAPHS_TRAIN_BUCKETS, precompile=mode,
+        retrace_policy=policy)
+    return config
+
+
+def plane_launches(rep, kind: str):
+    """kernel -> case -> launches of each ``kind`` graph of a compile
+    plane's report, one dict per graph (the same for every level of a
+    step)."""
+    return [{PLANE_KERNELS[w]: cases for w, cases in g["launches"].items()}
+            for label, g in rep["graphs"].items() if label.startswith(kind)]
+
+
+def replayed_by_kernel(rep):
+    """(kernel, case) -> launches the report's graph replays ran."""
+    out = collections.Counter()
+    for g in rep["graphs"].values():
+        for w, cases in g["launches"].items():
+            for c, n in cases.items():
+                out[PLANE_KERNELS[w], c] += n * g["replays"]
+    return out
+
+
+def _state_tensors(state):
+    return [t.detach().clone() for t in state.held] + [
+        state.step.clone(), state.skipped_steps.clone()]
+
+
+def run_graphs_train(graphs, device, per_step):
+    """``graphs_train``: the egnn_train cell (bf16, K1 and K2) on a ladder
+    of 4 levels through ``api.run_training`` under ``precompile`` blocking
+    and background against off: under deterministic algorithms the
+    per-step losses, the history and every tensor of the state equal off's
+    bit for bit; with atomics, blocking's per-step losses within
+    egnn_train's trajectory limit. Each plane: every (train, eval) level
+    captured (capture seconds, pool bytes), ``time_to_first_step``, K1 and
+    K2 launches a step counted through the graphs (each train and eval
+    graph records egnn_train's table). Then the step-time A/B of the same
+    cell's eager step against its replayed graphs in alternating legs over
+    prebuilt batches, each leg's busy share, peak memory with and without
+    graphs; and the sentinel: an off-ladder batch gives one warning and
+    one ``retrace_violation`` event under ``warn`` and ``RetraceError``
+    under ``error``. Returns the launches by (kernel, case) of the
+    replayed steps."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data, run_training
+    from hydragnn_tpu_torch.data.graph import PadSpec, batch_graphs
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.obs.events import EV_RETRACE_VIOLATION, events
+    from hydragnn_tpu_torch.train import compile_plane as cp
+    from hydragnn_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    label = "graphs_train"
+    t_phase = time.perf_counter()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    runs = {}
+    for det, modes in ((True, ("off", "blocking", "background")), (False, ("blocking",))):
+        for mode in modes:
+            key = ("deterministic" if det else "atomics", mode)
+            with contextlib.ExitStack() as stack:
+                if det:
+                    stack.enter_context(deterministic())
+                planes = stack.enter_context(recorded_planes())
+                losses = stack.enter_context(step_losses())
+                t0 = time.perf_counter()
+                _, state, hist = run_training(copy.deepcopy(graphs_config(mode)),
+                                              datasets=splits, seed=SEED)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            rep = planes[-1].report()
+            runs[key] = dict(state=_state_tensors(state), hist=hist, losses=losses[0], rep=rep,
+                             seconds=seconds)
+            print(f"{label}: run_training, {key[0]}, precompile {mode}: {seconds:.2f} s, "
+                  f"{len(losses[0])} steps, losses {losses[0][0]:.6g} -> {losses[0][-1]:.6g}; "
+                  f"{cp.format_report(rep)}", flush=True)
+            if mode != "off":
+                # blocking captures every level before step 0; background
+                # each level the run visits, after its first (eager) visit
+                want = (rep["specializations"] if mode == "blocking"
+                        else rep["precompiled"])
+                check(len(rep["graphs"]) == rep["precompiled"] == want > 2,
+                      f"{label} {key}: {len(rep['graphs'])} graphs, {rep['precompiled']} of "
+                      f"{rep['specializations']} levels captured")
+                check(rep["violations"] == 0 and not rep["warmup_errors"],
+                      f"{label} {key}: violations or warm-up errors")
+                for g_label, g in rep["graphs"].items():
+                    print(f"{label}: {key[0]} {mode} {g_label}: capture {g['capture_s']:.4f} s, "
+                          f"{g['replays']} replays, pool {g['pool_bytes']} bytes (kept "
+                          f"{g['kept_bytes']}), launches {g['launches']}", flush=True)
+                for kind in ("train", "eval"):
+                    for got in plane_launches(rep, kind):
+                        check(got == per_step, f"{label} {key}: a {kind} graph records "
+                                               f"{got}, expected {per_step}")
+                replays = sum(g["replays"] for lbl, g in rep["graphs"].items()
+                              if lbl.startswith("train"))
+                check(replays >= len(losses[0]) - (GRAPHS_TRAIN_BUCKETS if mode == "background"
+                                                   else 0),
+                      f"{label} {key}: {replays} train replays for {len(losses[0])} steps")
+    base = runs["deterministic", "off"]
+    for mode in ("blocking", "background"):
+        r = runs["deterministic", mode]
+        diff = sum(0 if torch.equal(a, b) else 1 for a, b in zip(r["state"], base["state"]))
+        print(f"{label}: deterministic, {mode} against off: {diff} of {len(r['state'])} state "
+              f"tensors differ, per-step losses equal {r['losses'] == base['losses']}, history "
+              f"equal {r['hist'] == base['hist']}", flush=True)
+        check(diff == 0 and r["losses"] == base["losses"] and r["hist"] == base["hist"],
+              f"{label}: precompile {mode} parts from off under deterministic algorithms")
+    # with PyTorch's atomics (index_add_ and the gathers' backwards add in
+    # an order that changes from run to run) against off's deterministic run
+    lk = np.asarray(runs["atomics", "blocking"]["losses"])
+    lo = np.asarray(base["losses"])
+    trajectory_gate(f"{label} (atomics, blocking against off)", lk, lo, TRAIN_RTOL["trajectory"])
+
+    # the step-time A/B: the cell's eager step against its replayed graphs
+    done, (tl, _, _), _ = prepare_data(copy.deepcopy(graphs_config("blocking")), splits)
+    tl.set_epoch(0)
+    batches = list(tl)[:GRAPHS_AB_STEPS]
+    model = create_model(done, device=device, seed=SEED)
+    state = _train_copy(model, device)
+    del model
+    eager = make_train_step(state.model, mixed_precision=True)
+    plane = cp.CompilePlane(mode="blocking", retrace_policy="warn", log_name=label)
+    t0 = time.perf_counter()
+    graphed, _ = plane.launch(eager, make_eval_step(state.model, mixed_precision=True), state,
+                              tl, skip_eval=True)
+    blocking_s = time.perf_counter() - t0
+    legs = {"eager": eager, "replayed": graphed}
+
+    def leg_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(state, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    for fn in legs.values():
+        leg_ms(fn)  # warm: the first visits, the allocator
+    times = {k: [] for k in legs}
+    for p in range(GRAPHS_AB_PAIRS):
+        for k in (("eager", "replayed") if p % 2 == 0 else ("replayed", "eager")):
+            times[k].append(leg_ms(legs[k]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    busy, peak = {}, {}
+    for k, fn in legs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dev_ms, _ = device_ms(lambda: [fn(state, b) for b in batches], 1)
+        peak[k] = torch.cuda.max_memory_allocated() / 2**20
+        wall = leg_ms(fn) * len(batches)
+        busy[k] = None if dev_ms is None else dev_ms / wall
+    rep = plane.report()
+    replayed = plane_launches(rep, "train")
+    print(f"{label}: the step, eager against replayed, {GRAPHS_AB_PAIRS} alternating legs of "
+          f"{len(batches)} steps (ms a step): eager {[round(x, 2) for x in times['eager']]}, "
+          f"replayed {[round(x, 2) for x in times['replayed']]}; medians eager "
+          f"{med['eager']:.2f}, replayed {med['replayed']:.2f} ({med['eager'] / med['replayed']:.2f}x)"
+          f"; device busy share "
+          + ", ".join(f"{k} {'not measured' if v is None else f'{v:.1%}'}" for k, v in busy.items())
+          + f"; peak memory {', '.join(f'{k} {v:.1f} MiB' for k, v in peak.items())}; blocking "
+          f"captures in {blocking_s:.2f} s, pool bytes {rep['hbm_by_spec']}; launches a step "
+          f"through the graph {replayed}", flush=True)
+    for got in replayed:
+        check(got == per_step, f"{label}: a replayed step launches {got}, expected {per_step}")
+
+    # the sentinel, armed by the blocking plane: batches past the top
+    # level's nodes
+    top = tl.ladder.specs[-1]
+    g0 = splits[0][0]
+    off = [batch_graphs([g0], PadSpec(top.n_nodes + 8 * i, top.n_edges, top.n_graphs),
+                        sort_edges=True) for i in (1, 2)]
+    check(cp.sentinel().armed, f"{label}: the blocking plane left the sentinel unarmed")
+    events().clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        graphed(state, off[0])
+    warned = [w for w in caught if "retrace sentinel" in str(w.message)]
+    viol = [e for e in events().snapshot() if e["kind"] == EV_RETRACE_VIOLATION]
+    print(f"{label}: an off-ladder batch ({off[0].num_nodes} nodes) under warn: "
+          f"{len(warned)} warning(s), {len(viol)} violation event(s); first lines: "
+          f"{str(warned[0].message).splitlines()[:3] if warned else None}", flush=True)
+    check(len(warned) == 1 and len(viol) == 1, f"{label}: warn policy")
+    cp.sentinel().arm("error")
+    try:
+        graphed(state, off[1])
+        raised = False
+    except cp.RetraceError:
+        raised = True
+    plane.finish()
+    del legs, graphed, plane, state, eager
+    torch.cuda.empty_cache()
+    print(f"{label}: the next off-ladder batch under error raises RetraceError: {raised}",
+          flush=True)
+    check(raised, f"{label}: error policy")
+    launched = collections.Counter()
+    for r in runs.values():
+        launched.update(replayed_by_kernel(r["rep"]))
+    print(f"{label}: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+def run_graphs_serve(graphs, device, per_batch):
+    """``graphs_serve``: the egnn server (``api.run_server``) with every
+    ladder level captured at warm-up and the sentinel armed at ``error``;
+    192 requests served by the graphs and by the same server's eager route
+    in alternating rounds (graphs/s, p50 / p99); every served micro-batch
+    replayed against the eager forward on the same batch, bit for bit, and
+    the served answers against it; K1/K2 launches per batch counted
+    through the graphs. Returns the launches by (kernel, case)."""
+    import numpy as np
+    import torch
+
+    from hydragnn_tpu_torch.api import run_server
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.serve.server import _strip_targets
+    from hydragnn_tpu_torch.train import compile_plane as cp
+    from hydragnn_tpu_torch.train.compile_plane import _signature_of
+
+    label = "graphs_serve"
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    server = run_server(serving_config(), datasets=split_dataset(graphs, 0.9, seed=0),
+                        device=device, seed=SEED)
+    check(server.wait_ready(timeout=600), f"{label}: warm-up failed: {server.failed}")
+    graph_set = server._graphs
+    print(f"{label}: ready in {time.perf_counter() - t0:.2f} s; levels captured "
+          + ", ".join(f"{g.label} in {g.capture_s:.4f} s (pool {g.pool_bytes} bytes)"
+                      for g in graph_set.graphs.values())
+          + f"; sentinel armed {cp.sentinel().armed} at {cp.sentinel()._policy}", flush=True)
+    check(len(graph_set.graphs) == len(server.warmup_compiled) > 0, f"{label}: levels captured")
+    check(cp.sentinel().armed and cp.sentinel()._policy == "error", f"{label}: sentinel")
+    requests = [graphs[i % len(graphs)] for i in range(N_REQUESTS)]
+    rounds = {"graphs": [], "eager": []}
+    launched = None
+    for r in range(4):
+        route = ("graphs", "eager", "eager", "graphs")[r]
+        server._graphs = graph_set if route == "graphs" else None
+        batches0 = server.stats()["batches"]
+        _zero_launches(wrappers)
+        t_start = time.perf_counter()
+        handles = [server.submit(g) for g in requests]
+        results = [h.result(timeout=600) for h in handles]
+        t_end = max(h.done_at for h in handles)
+        torch.cuda.synchronize()
+        n_batches = server.stats()["batches"] - batches0
+        lat = np.asarray([h.done_at - h.submitted_at for h in handles]) * 1e3
+        rounds[route].append((N_REQUESTS / (t_end - t_start), np.percentile(lat, 50),
+                              np.percentile(lat, 99), n_batches))
+        if route == "graphs" and launched is None:
+            launched = {(k, c): w.replayed_by_case[c] for k, w in wrappers.items()
+                        for c in w.replayed_by_case}
+            ran = {k: w.launches for k, w in wrappers.items()}
+            want = {(k, c): n * n_batches for k, cases in per_batch.items()
+                    for c, n in cases.items()}
+            print(f"{label}: launches in {n_batches} batches through the graphs {launched}, "
+                  f"run eagerly {ran}", flush=True)
+            check(launched == want and not any(ran.values()),
+                  f"{label}: launches {launched} (eager {ran}), expected {want}")
+            graphed = (handles, results)
+    server._graphs = graph_set
+    for route, rows in rounds.items():
+        print(f"{label}: {route}: " + "; ".join(
+            f"{gps:.1f} graphs/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms ({n} batches)"
+            for gps, p50, p99, n in rows), flush=True)
+    # each micro-batch the graphs served, again through the graph and the
+    # eager forward: the same kernels on the same batch
+    handles, results = graphed
+    by_batch = {}
+    for i, h in enumerate(handles):
+        by_batch.setdefault(h.batch_index, []).append(i)
+    diff = 0
+    for idx in by_batch.values():
+        gs = [_strip_targets(requests[i]) for i in idx]  # as the server admits them
+        batch = batch_graphs(gs, server.ladder.select_for(gs), sort_edges=server.sort_edges)
+        g = graph_set.graphs[_signature_of(batch)]
+        out_g = {k: v.float().cpu().numpy() for k, v in g.run(batch, clone=False).items()}
+        with torch.inference_mode():
+            out_e = {k: v.float().cpu().numpy()
+                     for k, v in server._placed_forward(batch.to(device)).items()}
+        diff += sum(int(not np.array_equal(out_g[k], out_e[k])) for k in out_e)
+        off = 0
+        for j, gr in zip(idx, gs):
+            rows = {"energy": slice(idx.index(j), idx.index(j) + 1),
+                    "forces": slice(off, off + gr.num_nodes)}
+            off += gr.num_nodes
+            for k in ("energy", "forces"):
+                diff += int(not np.array_equal(results[j][k], out_e[k][rows[k]].reshape(
+                    results[j][k].shape)))
+    print(f"{label}: {len(by_batch)} served batches replayed and run eagerly, their answers "
+          f"and the served ones: {diff} differ", flush=True)
+    check(diff == 0, f"{label}: the graphs' answers part from the eager route")
+    server.close()
+    check(not cp.sentinel().armed, f"{label}: close() left the sentinel armed")
+    print(f"{label}: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+def run_remat(graphs, device):
+    """``remat``: the egnn_train cell's step (bf16, K1 and K2) unwrapped and
+    with ``conv_checkpointing`` under each ``remat_policy``: every
+    gradient of the first step 0 apart from the unwrapped step's under
+    deterministic algorithms; peak memory above the state and ms a step
+    of each, eager and replayed from a CUDA graph of the step (what the
+    default ``precompile`` runs: a selective policy's dispatch mode costs
+    host time only where the step runs eagerly)."""
+    import dataclasses as dc
+
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.remat import REMAT_POLICIES
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer
+    from hydragnn_tpu_torch.train.compile_plane import GraphSet, _signature_of
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    label = "remat"
+    t_phase = time.perf_counter()
+    done, (tl, _, _), _ = prepare_data(copy.deepcopy(train_config()),
+                                       split_dataset(graphs, 0.9, seed=0))
+    tl.set_epoch(0)
+    host_batch = next(iter(tl))
+    batch = host_batch.to(device)
+    model = create_model(done, device=device, seed=SEED)
+    base = None
+    for name, ckpt, policy in [("unwrapped", False, "full")] + [
+            (f"conv_checkpointing, {p}", True, p) for p in REMAT_POLICIES]:
+        m = copy.deepcopy(model)
+        m.cfg = dc.replace(m.cfg, conv_checkpointing=ckpt, remat_policy=policy)
+        state = TrainState.create(m, make_optimizer(m, {"type": "AdamW", "learning_rate": 1e-3}))
+        step = make_train_step(m, mixed_precision=True)
+        with deterministic():
+            step(state, batch)
+        grads = _grads(state)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**20
+        ms = cuda_ms(lambda: step(state, batch), REMAT_STEPS, warmup=1)
+        graph = GraphSet(lambda b, s=state, f=step: f.placed(s, b), device).capture(
+            _signature_of(host_batch), f"{label}: {name}", host_batch)
+        replayed = cuda_ms(lambda: graph.replay(clone=False), REMAT_STEPS, warmup=1)
+        check(bool(torch.isfinite(graph.out[1])), f"{label}: {name}: a replayed loss not finite")
+        if base is None:
+            base = (grads, peak, ms, replayed)
+        worst = max(float((grads[k] - base[0][k]).abs().max()) for k in grads)
+        print(f"{label}: {name}: peak {peak:.1f} MiB above the state ({base[1]:.1f} "
+              f"unwrapped), {ms:.2f} ms a step ({base[2]:.2f} unwrapped), replayed {replayed:.2f} "
+              f"({base[3]:.2f} unwrapped); first-step gradients against the unwrapped step, "
+              f"deterministic: largest difference {worst:.3g}", flush=True)
+        check(worst == 0.0, f"{label}: {name}: the gradients part from the unwrapped step")
+        del m, state, step, grads, graph
+    print(f"{label}: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def run_tune(graphs, device, root: Path):
+    """``tune``: the ``python -m hydragnn_tpu_torch.tune`` CLI's ``main``
+    over the ladder of the egnn_train cell's energy-force form (f32: K1 at C = 866 and 3, K2;
+    its graphs written to a columnar directory under ``root``) on a small
+    budget; the table's entries, keyed on the card's name and each
+    kernel's source digest; a second run (cached) sweeps nothing and hits
+    every slot; with the table installed, every slot's launch takes its
+    tuned plan; each tuned plan's outputs against the defaults' on the
+    sweep's operands: bit for bit where the plan only splits rows among
+    blocks (K1 wide), else within the kernel's tolerance."""
+    import torch
+
+    from hydragnn_tpu_torch.data import ColumnarWriter
+    from hydragnn_tpu_torch.obs.events import EV_TILE_PLAN, events
+    from hydragnn_tpu_torch.tune import plans, runtime
+    from hydragnn_tpu_torch.tune.__main__ import main as tune_main
+    from hydragnn_tpu_torch.tune.sweep import build_call
+    from hydragnn_tpu_torch.tune.table import TunedTable
+
+    label = "tune"
+    t_phase = time.perf_counter()
+    data = root / "egnn_columnar"
+    ColumnarWriter(str(data)).add(graphs).save()
+    config = graphs_config("off")
+    config = energy_force_config(config)
+    config["Dataset"].update(format="columnar", path={"total": str(data)})
+    config["NeuralNetwork"]["Training"]["perc_train"] = 0.9
+    path = root / "egnn_tune.json"
+    path.write_text(json.dumps(config))
+    table_dir = root / "tuned_table"
+    argv = [str(path), "--budget", str(TUNE_BUDGET), "--trials", str(TUNE_TRIALS),
+            "--cache-dir", str(table_dir)]
+    # the CLI's main (what ``python -m hydragnn_tpu_torch.tune`` runs; a CPU
+    # test runs the module itself) in this process: a second process would
+    # pay ~20 s to reach the card and read the data again (PERF.md §4)
+    t0 = time.perf_counter()
+    first = tune_main(argv)
+    first_s = time.perf_counter() - t0
+    check(first["swept"] == first["entries"] > 0, f"{label}: the first run swept {first}")
+    entries = [json.loads(p.read_text()) for p in sorted(table_dir.glob("*.json"))]
+    kind = torch.cuda.get_device_name()
+    for e in entries:
+        f = e["key_fields"]
+        print(f"{label}: entry {f['kernel']} version {f['version']} on {f['device']} "
+              f"{f['dtype']} {f['shape']}: {e['plan']} ({e['measured_us']:.2f} us, defaults "
+              f"{e['meta'].get('default_us')} us, {e['meta']['candidates']} candidates)",
+              flush=True)
+        check(f["device"] == kind and f["version"] == plans.kernel_version(f["kernel"]),
+              f"{label}: an entry keyed on {f['device']} / {f['version']}")
+    t0 = time.perf_counter()
+    census = tune_main(argv)
+    second_s = time.perf_counter() - t0
+    print(f"{label}: first run {first_s:.2f} s, {len(entries)} entries; second "
+          f"run {second_s:.2f} s: {census['entries']} slots, {census['hits']} hits, "
+          f"{census['swept']} swept", flush=True)
+    check(census["swept"] == 0 and census["hits"] == census["entries"] == len(entries) > 0,
+          f"{label}: the second run swept")
+    table = TunedTable(str(table_dir))
+    runtime.install(table, "cached")
+    events().clear()
+    for res in census["results"]:
+        kernel, shape, tuned = res["kernel"], res["shape"], res["plan"]
+        dtype = "float32"
+        call = build_call(kernel, shape, dtype, device)
+        call()
+        torch.cuda.synchronize()
+        default = plans.default_plan(kernel, {**shape, "dtype": dtype})
+        with runtime.forced(kernel, default):
+            want = _outputs(call())
+        with runtime.forced(kernel, tuned):
+            got = _outputs(call())
+        torch.cuda.synchronize()
+        k = {"segment_sum": "K1", "fused_edge": "K2"}[kernel]
+        rows_only = kernel == "segment_sum" and shape["channels"] * 4 > 16
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        atol, rtol = TOLERANCES[(k, dtype)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        tol = max(atol + rtol * float(b.abs().max()) for b in want)
+        print(f"{label}: {kernel} {shape}: tuned {tuned} against defaults {default}: bit for "
+              f"bit {same}, max_abs_err {err:.3g} (tolerance {tol:.3g}; "
+              f"{'rows split only: exact' if rows_only else 'another summation grouping'})",
+              flush=True)
+        check(same if rows_only or tuned == default else err <= tol,
+              f"{label}: {kernel} {shape}: the tuned plan's outputs part from the defaults'")
+    sources = collections.Counter(e["source"] for e in events().snapshot()
+                                  if e["kind"] == EV_TILE_PLAN)
+    runtime.deactivate()
+    print(f"{label}: lookups with the table installed: {dict(sources)}", flush=True)
+    check(sources.get("tuned", 0) == len(entries) and not sources.get("default"),
+          f"{label}: a launch did not take its tuned plan")
+    print(f"{label}: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def run_plane_phases(device, train_graphs, serve_graphs, root: Path):
+    """The compile and memory plane's phases in order: ``graphs_train``,
+    ``graphs_serve``, ``remat``, ``tune``; returns the graphs' launches by
+    (kernel, case)."""
+    launched = collections.Counter()
+    launched.update(run_graphs_train(train_graphs, device, TRAIN_PER_STEP))
+    launched.update(run_graphs_serve(serve_graphs, device, TRAIN_PER_STEP))
+    run_remat(train_graphs, device)
+    run_tune(train_graphs, device, root)
+    return launched
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         run_smoke(stack)
@@ -6190,9 +6810,16 @@ def main() -> None:
 
 def run_smoke(stack: contextlib.ExitStack) -> None:
     t_main = time.perf_counter()
+
+    def clock(phase: str) -> None:  # the script time each phase ends at (PERF.md §4)
+        print(f"clock: {phase} done at {time.perf_counter() - t_main:.1f} s", flush=True)
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
                     help="build and check the kernels only (no serving phase)")
+    ap.add_argument("--plane", action="store_true",
+                    help="build, the kernels' CUDA-graph capture checks and the compile and "
+                         "memory plane's phases only (graphs_train, graphs_serve, remat, tune)")
     ap.add_argument("--md17", choices=MD17_ROUTES,
                     help="run only the MD17 recipe through this route (K1's kernel or its "
                          "plain version, with or without deterministic algorithms), ungated")
@@ -6234,15 +6861,23 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return
-    t0 = time.perf_counter()
-    seconds = _build.build(LIBRARIES)
-    print(f"build: {seconds} s per kernel from {_build.CSRC.relative_to(REPO)}/ "
-          f"(wall {time.perf_counter() - t0:.2f} s; nvcc {' '.join(_build.NVCC_FLAGS)}) "
-          f"into {_build.BUILD_DIR.relative_to(REPO)}/", flush=True)
-    for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+    # the kernels build (one nvcc per source, all together) while this
+    # thread makes the paths' data, their cases and gin_ring's requests
+    # (its dense PE); a wrapper that loads a library meanwhile waits for
+    # the build (``_build.load`` takes the same lock)
+    build_out = {}
+
+    def build_all():
+        try:
+            with _build._lock:
+                t0 = time.perf_counter()
+                build_out["seconds"] = _build.build(LIBRARIES)
+                build_out["wall"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 -- raised in the main thread
+            build_out["error"] = e
+
+    nvcc_thread = threading.Thread(target=build_all, name="nvcc", daemon=True)
+    nvcc_thread.start()
 
     from hydragnn_tpu_torch.api import prepare_data
     from hydragnn_tpu_torch.data.graph import batch_graphs
@@ -6312,13 +6947,44 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
     print(f"batch gin_ring: 1 graph, {int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
           f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += gin_ring_kernel_cases(batch, device)
+    ring_requests = None
+    if not (args.kernels or args.plane):
+        ring_requests = gin_ring_requests(topology, GIN_RING_REQUESTS)
+        print(f"gin_ring requests and their PE made while the kernels built, in "
+              f"{ring_requests[1]:.2f} s", flush=True)
+    nvcc_thread.join()
+    if "error" in build_out:
+        raise build_out["error"]
+    print(f"build: {build_out['seconds']} s per kernel from {_build.CSRC.relative_to(REPO)}/ "
+          f"(wall {build_out['wall']:.2f} s; nvcc {' '.join(_build.NVCC_FLAGS)}) "
+          f"into {_build.BUILD_DIR.relative_to(REPO)}/", flush=True)
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
     warm_up_card()
+    if args.plane:
+        capture_checks(cases)
+        del cases
+        work = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                                               dir=REPO / "build"))
+        stack.enter_context(contextlib.chdir(work))
+        run_plane_phases(device, oc20_shaped_dataset(TRAIN_GRAPHS), paths["egnn"][1], data_root)
+        print(f"chip_smoke: every phase in {time.perf_counter() - t_main:.1f} s", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+    clock("build and cases")
     kernels = run_kernels(cases)
+    clock("kernels")
+    capture_checks(cases)
     del cases  # their inputs, so the phases' memory readings start clean
     ring_merge_check(batch, device)
     plain_route_repeat_check(batch, device)
     torch.cuda.synchronize()
     library_report(LIBRARIES)
+    clock("kernel checks")
 
     launched = collections.Counter()
     if not args.kernels:
@@ -6344,16 +7010,26 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
             launched.update(run_serving(label, config, graphs, device, N_REQUESTS,
                                         per_batch_cases[label]))
             print(f"serve {label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+        clock("serving")
         ring_launched, ring_config, ring_batches = run_gin_ring(topology, topology_s, device,
-                                                                GIN_RING_REQUESTS)
+                                                                GIN_RING_REQUESTS, ring_requests)
         launched.update(ring_launched)
+        clock("gin_ring")
         train_graphs = oc20_shaped_dataset(TRAIN_GRAPHS)
         launched.update(run_egnn_train(train_graphs, paths["egnn"][1], device, TRAIN_PER_STEP))
+        clock("egnn_train")
+        t0 = time.perf_counter()
+        launched.update(run_plane_phases(device, train_graphs, paths["egnn"][1], data_root))
+        print(f"plane phases in {time.perf_counter() - t0:.1f} s", flush=True)
+        clock("plane phases")
         launched.update(run_gps_pna_train(gps_pna_dataset(GPS_TRAIN_GRAPHS), device,
                                           GPS_TRAIN_PER_STEP))
+        clock("gps_pna_train")
         launched.update(run_gin_ring_train(ring_config, ring_batches, device,
                                            GIN_RING_TRAIN_PER_STEP))
+        clock("gin_ring_train")
         launched.update(run_egnn_ckpt(paths["egnn"][1], device, TRAIN_PER_STEP))
+        clock("egnn_ckpt")
         launched.update(run_cell_train(
             "pnaplus_train", pna_cell_config(), oc20_shaped_dataset(PNAPLUS_TRAIN_GRAPHS), device,
             PNAPLUS_PER_UNIT, ("K3",), PNAPLUS_TRAIN_RTOL, {
@@ -6364,33 +7040,42 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                 "scatter and gather backwards (K3's min/max, the gathers)":
                     ["scatter", "indexing_backward", "indexFuncLargeIndex", "index_add"],
             }))
+        clock("pnaplus_train")
         for m in MODEL_CELLS:
             launched.update(run_model_cell_train(m, oc20_shaped_dataset(MODEL_TRAIN_GRAPHS),
                                                  device))
+        clock("model cells")
         t0 = time.perf_counter()
         launched.update(run_zoo({**{name: (pna_cell_config(name), oc20) for name in ZOO_CELL},
                                  "performer": (performer_cell_config(), paths["gps_pna"][1])},
                                 device, ZOO_PER_UNIT))
         print(f"zoo: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+        clock("zoo")
         launched.update(run_schnet_md17(md17, device, MD17_PER_UNIT, MD17_EPOCHS))
+        clock("schnet_md17")
         t0 = time.perf_counter()
         gfm_launched, rest = run_gfm_phases(device, gfm_graphs, oc20,
                                             oc20_shaped_dataset(MODEL_TRAIN_GRAPHS))
         launched.update({(k, f"gfm/{c}"): n for (k, c), n in gfm_launched.items()})
         launched.update(rest)
         print(f"gfm phases in {time.perf_counter() - t0:.1f} s", flush=True)
+        clock("gfm phases")
         for label, config in config_phases.items():
             t0 = time.perf_counter()
             prefix = label.split("_")[0]
             launched.update({(k, f"{prefix}/{c}"): n for (k, c), n in run_config_phase(
                 label, config, device, N_REQUESTS).items()})
             print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+        clock("config phases")
         # the multi-GPU slice: the GFM recipe through the distributed step
         # (its K1/K2 calls at the gfm/ shapes), then ranks sharing the card
         launched.update({(k, f"gfm/{c}"): n
                          for (k, c), n in run_dist_gfm_train(gfm_graphs, device).items()})
+        clock("dist_gfm_train")
         launched.update({(k, f"gfm/{c}"): n for (k, c), n in run_dist_run_training().items()})
+        clock("dist_run_training")
         run_dist_ranks(gfm_graphs, device)
+        clock("dist_ranks")
         # the observability plane on the egnn cell, training then serving,
         # each in its own directory (an empty ./logs)
         for label, phase in (
@@ -6402,6 +7087,7 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
             with contextlib.chdir(label):
                 launched.update(phase())
             print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
+            clock(label)
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

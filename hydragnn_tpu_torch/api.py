@@ -377,6 +377,10 @@ def run_training(config, datasets=None, variables=None, device: DeviceLike = Non
             f"{world}): launch the run over the model axis's {table.model_size} ranks "
             "(python -m hydragnn_tpu_torch.launch --nprocs N)")
     log_name = get_log_name_config(config)
+    # the compile plane's cache directory (train/compile_plane.py)
+    from .train.compile_plane import setup_compile_cache
+
+    setup_compile_cache(training, log_name)
     verbosity = config["Verbosity"].get("level", 0)
     if verbosity > 0:
         setup_log(log_name)
@@ -527,7 +531,14 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
                                   spec=test_loader.ladder, shuffle=False, host_count=world,
                                   host_index=rank(), sort_edges=test_loader.sort_edges)
     model = _model(config, variables, resolve_device(device), 0)
-    tracer, flight, armed = _arm_plane(config, get_log_name_config(config))
+    log_name = get_log_name_config(config)
+    from .train.compile_plane import setup_compile_cache
+    from .tune.runtime import setup_autotune
+
+    setup_compile_cache(config["NeuralNetwork"]["Training"], log_name)
+    # the kernels' tuned table before the first launch (tune/)
+    setup_autotune(config, test_loader, log_name)
+    tracer, flight, armed = _arm_plane(config, log_name)
     try:
         if variables is None:
             _restore_for_inference(model, config)
@@ -586,6 +597,9 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
     config, (_, _, test_loader), _ = prepare_data(config, datasets)
     dev = resolve_device(device)
     log_name = get_log_name_config(config)
+    from .train.compile_plane import setup_compile_cache
+
+    setup_compile_cache(config["NeuralNetwork"]["Training"], log_name)
     model = _model(config, variables, dev, seed)
     entry = None
     if variables is None:

@@ -103,7 +103,8 @@ def update_config(
     ``mixed_precision``, ``loss_function_type``, the checkpoint keys
     ``Checkpoint``, ``checkpoint_warmup``, ``checkpoint_retention``, the
     guard's ``non_finite_*`` policy keys, ``warmup_epochs``, ``continue``
-    and ``startfrom``), and ``Dataset.bad_sample_policy``.
+    and ``startfrom``, and the compile and memory plane's eight keys,
+    ``_complete_compile_plane``), and ``Dataset.bad_sample_policy``.
     ``checkpoint_backend: "orbax"`` raises
     ``NotImplementedError``."""
     config = copy.deepcopy(config)
@@ -247,6 +248,10 @@ def update_config(
     arch.setdefault("max_neighbours", None)
     arch.setdefault("activation_function", "relu")
     arch.setdefault("num_conv_layers", 1)
+    # the compile and memory plane: the remat wraps (ops/remat.py), the
+    # CUDA graphs of the ladder and the retrace sentinel
+    # (train/compile_plane.py), and the kernels' tuned table (tune/)
+    _complete_compile_plane(training)
     training.setdefault("loss_function_type", "mse")
     training.setdefault("batch_size", 32)
     training.setdefault("num_epoch", 1)
@@ -312,6 +317,37 @@ def update_config(
     config.setdefault("Verbosity", {"level": 0})
     config.setdefault("Visualization", {})
     return config
+
+
+def _complete_compile_plane(training: Dict[str, Any]) -> None:
+    """Defaults and checks of the plane's eight Training keys, the JAX
+    package's: ``conv_checkpointing`` (False) and ``remat_policy``
+    (``full``); ``compile_cache_dir`` (None: ``./logs/<run>/xla_cache``;
+    false disables; ``HYDRAGNN_COMPILE_CACHE`` overrides), ``precompile``
+    (``background``) and ``retrace_policy`` (``warn``); ``autotune``
+    (``cached``), ``autotune_budget`` (32 candidate plans a slot, 0 the
+    defaults only) and ``autotune_cache_dir`` (None:
+    ``./logs/<run>/tuned_table``; ``HYDRAGNN_TUNE_CACHE`` overrides). A
+    value outside its set raises ``ValueError`` naming the key."""
+    from ..ops.remat import REMAT_POLICIES
+    from ..train.compile_plane import PRECOMPILE_MODES, RETRACE_POLICIES
+    from ..tune.runtime import MODES as AUTOTUNE_MODES
+
+    training.setdefault("conv_checkpointing", False)
+    for key, default, allowed in (("remat_policy", "full", REMAT_POLICIES),
+                                  ("precompile", "background", PRECOMPILE_MODES),
+                                  ("retrace_policy", "warn", RETRACE_POLICIES),
+                                  ("autotune", "cached", AUTOTUNE_MODES)):
+        training.setdefault(key, default)
+        if training[key] not in allowed:
+            raise ValueError(f"Training.{key} {training[key]!r} must be one of {allowed}")
+    training.setdefault("compile_cache_dir", None)
+    training.setdefault("autotune_budget", 32)
+    if int(training["autotune_budget"] or 0) < 0:
+        raise ValueError(
+            "Training.autotune_budget must be >= 0 (candidate plans per kernel slot; 0 = "
+            f"defaults only), got {training['autotune_budget']!r}")
+    training.setdefault("autotune_cache_dir", None)
 
 
 def get_log_name_config(config: Dict[str, Any]) -> str:

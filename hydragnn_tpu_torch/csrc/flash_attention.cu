@@ -126,13 +126,15 @@ template <> struct Traits<__nv_bfloat16> {
   static constexpr int kPad = 8;
 };
 
-// the tile shapes of one instance
-template <typename T, int D>
+// the tile shapes of one instance; BKO > 0 overrides the keys per tile (a
+// launch plan's block_k, tune/plans.py)
+template <typename T, int D, int BKO = 0>
 struct Shape {
   static constexpr int DP = D > Traits<T>::kDepth ? D : Traits<T>::kDepth;  // padded d
   static constexpr int LD = DP + Traits<T>::kPad;  // shared-memory row stride
   static constexpr int ROW_BYTES = DP * static_cast<int>(sizeof(T));
-  static constexpr int BK = ROW_BYTES <= 128 ? 64 : ROW_BYTES <= 256 ? 32 : 16;
+  static constexpr int BK_DEFAULT = ROW_BYTES <= 128 ? 64 : ROW_BYTES <= 256 ? 32 : 16;
+  static constexpr int BK = BKO > 0 ? BKO : BK_DEFAULT;
   static constexpr int NT = BK / 8;              // 8-key n tiles of S
   static constexpr int KS = DP / Traits<T>::kDepth;  // k steps of q . k^T
   static constexpr int ND = DP / 8;              // 8-wide d tiles of the output
@@ -228,10 +230,10 @@ __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wai
 
 // rows k0 .. k0 + BK - 1 of head h of src (row stride ld) into dst [BK][LD];
 // rows at or past nk are zero-filled
-template <typename T, int D, int N>
+template <typename T, int D, int BKO, int N>
 __device__ __forceinline__ void copy_chunks(T* dst, const T* src, int ld, int k0, int nk,
                                             int h, int tid) {
-  using S = Shape<T, D>;
+  using S = Shape<T, D, BKO>;
   constexpr int per_row = D * static_cast<int>(sizeof(T)) / N;
   for (int idx = tid; idx < S::BK * per_row; idx += kThreads) {
     const int j = idx / per_row, ch = idx % per_row;
@@ -242,17 +244,17 @@ __device__ __forceinline__ void copy_chunks(T* dst, const T* src, int ld, int k0
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BKO>
 __device__ __forceinline__ void copy_tile(T* dst, const T* src, int ld, int k0, int nk, int h,
                                           int cw, int tid) {
-  using S = Shape<T, D>;
+  using S = Shape<T, D, BKO>;
   constexpr int row_bytes = D * static_cast<int>(sizeof(T));
   if (cw == 16 && row_bytes % 16 == 0) {
-    copy_chunks<T, D, 16>(dst, src, ld, k0, nk, h, tid);
+    copy_chunks<T, D, BKO, 16>(dst, src, ld, k0, nk, h, tid);
   } else if (cw >= 8 && row_bytes % 8 == 0) {
-    copy_chunks<T, D, 8>(dst, src, ld, k0, nk, h, tid);
+    copy_chunks<T, D, BKO, 8>(dst, src, ld, k0, nk, h, tid);
   } else if (cw >= 4) {
-    copy_chunks<T, D, 4>(dst, src, ld, k0, nk, h, tid);
+    copy_chunks<T, D, BKO, 4>(dst, src, ld, k0, nk, h, tid);
   } else {  // 2-byte-aligned bf16 views: element copies
     for (int idx = tid; idx < S::BK * D; idx += kThreads) {
       const int j = idx / D, c = idx % D;
@@ -261,10 +263,10 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, int ld, int k0, 
   }
 }
 
-template <typename T, int D, bool SUMMARY>
-__global__ void __launch_bounds__(kThreads, (Shape<T, D>::MIN_BLOCKS))
+template <typename T, int D, bool SUMMARY, int BKO = 0>
+__global__ void __launch_bounds__(kThreads, (Shape<T, D, BKO>::MIN_BLOCKS))
     flash_attention_kernel(const Args a) {
-  using S = Shape<T, D>;
+  using S = Shape<T, D, BKO>;
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int BK = S::BK, LD = S::LD, NT = S::NT, ND = S::ND, DP = S::DP;
   // q's fragments in registers up to d = 64, re-read through L1 per tile at
@@ -360,8 +362,8 @@ __global__ void __launch_bounds__(kThreads, (Shape<T, D>::MIN_BLOCKS))
 
   auto load = [&](int t) {
     const int st = t & 1, k0 = kbeg + t * BK, nk = min(BK, kend - k0);
-    copy_tile<T, D>(ks[st], k, a.ldk, k0, nk, h, a.cw, tid);
-    copy_tile<T, D>(vs[st], v, a.ldv, k0, nk, h, a.cw, tid);
+    copy_tile<T, D, BKO>(ks[st], k, a.ldk, k0, nk, h, a.cw, tid);
+    copy_tile<T, D, BKO>(vs[st], v, a.ldv, k0, nk, h, a.cw, tid);
     for (int j = tid; j < BK; j += kThreads) gks[st][j] = j < nk ? gid_of<SUMMARY>(a, k0 + j) : -1;
   };
 
@@ -559,13 +561,23 @@ int copy_width(const Args& a, int d, int size) {
   return 0;
 }
 
+// block_k: the launch plan's keys per tile, 0 or the instance's own
+// (Shape::BK_DEFAULT); d = 32 also has an instance of half its own
 template <typename T, bool SUMMARY>
-cudaError_t launch_for(int d, Args a, cudaStream_t s) {
+cudaError_t launch_for(int d, int block_k, Args a, cudaStream_t s) {
   const dim3 grid((a.NQ + QB - 1) / QB, a.H);
   a.cw = copy_width(a, d, static_cast<int>(sizeof(T)));
-#define HG_CASE(D)                                                      \
-  case D:                                                               \
-    flash_attention_kernel<T, D, SUMMARY><<<grid, kThreads, 0, s>>>(a); \
+  constexpr int kHalf32 = Shape<T, 32>::BK_DEFAULT / 2;
+  if (d == 32 && block_k == kHalf32) {
+    flash_attention_kernel<T, 32, SUMMARY, kHalf32><<<grid, kThreads, 0, s>>>(a);
+    return cudaSuccess;
+  }
+#define HG_CASE(D)                                                        \
+  case D:                                                                 \
+    if (block_k != 0 && block_k != Shape<T, D>::BK_DEFAULT) {             \
+      return cudaErrorInvalidValue;                                       \
+    }                                                                     \
+    flash_attention_kernel<T, D, SUMMARY><<<grid, kThreads, 0, s>>>(a);   \
     return cudaSuccess;
   switch (d) {
     HG_CASE(4)
@@ -581,9 +593,9 @@ cudaError_t launch_for(int d, Args a, cudaStream_t s) {
 }
 
 template <bool SUMMARY>
-cudaError_t launch_dtype(int dtype, int d, const Args& a, cudaStream_t s) {
-  return dtype == hg::kFloat32 ? launch_for<float, SUMMARY>(d, a, s)
-                               : launch_for<__nv_bfloat16, SUMMARY>(d, a, s);
+cudaError_t launch_dtype(int dtype, int d, int block_k, const Args& a, cudaStream_t s) {
+  return dtype == hg::kFloat32 ? launch_for<float, SUMMARY>(d, block_k, a, s)
+                               : launch_for<__nv_bfloat16, SUMMARY>(d, block_k, a, s);
 }
 
 }  // namespace
@@ -592,13 +604,13 @@ cudaError_t launch_dtype(int dtype, int d, const Args& a, cudaStream_t s) {
 // (elements; the head and dimension axes contiguous), out [N, H, d]
 // contiguous; d in {4, 8, 16, 32, 64, 128}. node_graph [N] int64 ascending
 // in [0, G); node_mask [N] bool; graph_ptr [G + 1] int32 scratch, filled
-// here. scale_log2 = log2(e) / sqrt(d). Returns cudaGetLastError() after the
-// launches.
+// here. scale_log2 = log2(e) / sqrt(d); block_k: the launch plan's keys per
+// tile (launch_for). Returns cudaGetLastError() after the launches.
 extern "C" int hg_flash_attention(const void* q, const void* k, const void* v, int ldq,
                                   int ldk, int ldv, const int64_t* node_graph,
                                   const uint8_t* node_mask, int* graph_ptr, void* out,
                                   int N, int H, int d, int G, float scale_log2, int dtype,
-                                  void* stream) {
+                                  int block_k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != hg::kFloat32 && dtype != hg::kBFloat16) || G < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -607,7 +619,7 @@ extern "C" int hg_flash_attention(const void* q, const void* k, const void* v, i
     hg::launch_rowptr(node_graph, N, G, graph_ptr, s);
     const Args a{q, k, v, ldq, ldk, ldv, node_graph, node_mask, graph_ptr, out,
                  nullptr, nullptr, N, N, H, G, scale_log2, 0};
-    const cudaError_t err = launch_dtype<false>(dtype, d, a, s);
+    const cudaError_t err = launch_dtype<false>(dtype, d, block_k, a, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -616,12 +628,14 @@ extern "C" int hg_flash_attention(const void* q, const void* k, const void* v, i
 // q [NQ, H, d] and k, v [NK, H, d] in `dtype` with row strides ldq, ldk,
 // ldv (elements; the head and dimension axes contiguous); key_mask [NK]
 // bool; out [NQ, H, d] contiguous in `dtype`; m_out, l_out [NQ, H] f32
-// contiguous; d in {4, 8, 16, 32, 64, 128}; scale_log2 = log2(e) / sqrt(d).
-// Returns cudaGetLastError() after the launch.
+// contiguous; d in {4, 8, 16, 32, 64, 128}; scale_log2 = log2(e) / sqrt(d);
+// block_k as hg_flash_attention's. Returns cudaGetLastError() after the
+// launch.
 extern "C" int hg_flash_block_summary(const void* q, const void* k, const void* v, int ldq,
                                       int ldk, int ldv, const uint8_t* key_mask, void* out,
                                       float* m_out, float* l_out, int NQ, int NK, int H,
-                                      int d, float scale_log2, int dtype, void* stream) {
+                                      int d, float scale_log2, int dtype, int block_k,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != hg::kFloat32 && dtype != hg::kBFloat16) || NK < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -629,7 +643,7 @@ extern "C" int hg_flash_block_summary(const void* q, const void* k, const void* 
   if (NQ > 0 && H > 0) {
     const Args a{q, k, v, ldq, ldk, ldv, nullptr, key_mask, nullptr, out,
                  m_out, l_out, NQ, NK, H, 1, scale_log2, 0};
-    const cudaError_t err = launch_dtype<true>(dtype, d, a, s);
+    const cudaError_t err = launch_dtype<true>(dtype, d, block_k, a, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

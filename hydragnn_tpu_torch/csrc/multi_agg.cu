@@ -59,7 +59,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kChunk = kThreads;    // edges per chunk of a split row: one id per thread
+constexpr int kChunk = kThreads;    // edges per chunk of a split row (the default plan; 512 too)
 constexpr int kMaxRows = kThreads;  // rows of a row block (kThreads / TX, TX >= 1)
 constexpr int kScanMax = 4 * kThreads;  // boundaries a row block scans (four a thread)
 constexpr int kArrive = 1 << 30;    // a split row's counter reaches this when all arrived
@@ -227,9 +227,10 @@ struct BlockRows {
 };
 
 // does the row [beg, end) cover a whole chunk (and so take the chunk route)?
+template <int CHUNK>
 __device__ __forceinline__ bool is_split(int beg, int end, int E) {
-  const int s0 = (beg + kChunk - 1) / kChunk * kChunk;
-  return end > beg && s0 < E && min(E, s0 + kChunk) <= end;
+  const int s0 = (beg + CHUNK - 1) / CHUNK * CHUNK;
+  return end > beg && s0 < E && min(E, s0 + CHUNK) <= end;
 }
 
 // a node_recv row's VEC columns, as loaded and widened (0 without one)
@@ -337,7 +338,7 @@ __device__ __forceinline__ void store_row(const Args a, int r, int c, const Mome
 // the last arrival of split row r: its chunks' partial moments in chunk
 // order, then the row; the counter back to 0 for the next call. By the TX
 // threads of one group.
-template <int VEC>
+template <int VEC, int CHUNK>
 __device__ __forceinline__ void combine(const Args a, int r, int beg, int end, int c, bool has, int tx) {
   if (has) {
     Moments t[VEC];
@@ -345,13 +346,13 @@ __device__ __forceinline__ void combine(const Args a, int r, int beg, int end, i
     for (int k = 0; k < VEC; ++k) t[k].init();
     // kBatch chunks' partials in flight at a time, merged in chunk order
     constexpr int kBatch = 4;
-    const int jb = beg / kChunk, je = (end - 1) / kChunk;
+    const int jb = beg / CHUNK, je = (end - 1) / CHUNK;
     for (int j0 = jb; j0 <= je; j0 += kBatch) {
       float4 v[kBatch][VEC];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
         const int j = j0 + b;
-        const int side = j * kChunk >= beg ? 0 : 1;  // the row is the chunk's first or last
+        const int side = j * CHUNK >= beg ? 0 : 1;  // the row is the chunk's first or last
         const float4* p = reinterpret_cast<const float4*>(a.part) +
                           ((int64_t)j * 2 + side) * a.C + c;
 #pragma unroll
@@ -381,10 +382,10 @@ __device__ __forceinline__ void combine(const Args a, int r, int beg, int end, i
   }
 }
 
-template <int VEC>
+template <int VEC, int CHUNK>
 union Shared {
   struct {
-    int64_t sid[kChunk];
+    int64_t sid[CHUNK];
     int64_t prev_first, next_last;
     Moments red[kThreads][VEC];
     int last;
@@ -395,9 +396,9 @@ union Shared {
   } row;
 };
 
-template <typename T, int VEC, bool GATE>
+template <typename T, int VEC, bool GATE, int CHUNK>
 __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(const Args a) {
-  __shared__ Shared<VEC> sh;
+  __shared__ Shared<VEC, CHUNK> sh;
   const int TX = blockDim.x, G = blockDim.y;
   const int tx = threadIdx.x, g = threadIdx.y;
   const int tid = tx + g * TX;
@@ -419,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(const Args a) {
     bool split = false;
     if (g < R) {
       sh.row.rows.range(g, beg, end);
-      split = is_split(beg, end, E);
+      split = is_split<CHUNK>(beg, end, E);
       if (!split) {
         if (tx == 0 && blockIdx.y == 0) a.cnt[r] = static_cast<float>(end - beg);
         if (has) {
@@ -438,14 +439,14 @@ __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(const Args a) {
       if (split && tx == 0) {
         a.info[r] = make_int2(beg, end);
         __threadfence();
-        const int parts = (end - 1) / kChunk - beg / kChunk + 1;
+        const int parts = (end - 1) / CHUNK - beg / CHUNK + 1;
         const int old = atomicAdd(&a.counters[(int64_t)r * a.cb + blockIdx.y], kArrive - parts);
         sh.row.last[g] = old + kArrive - parts == kArrive;
       }
       __syncthreads();
       if (split && sh.row.last[g]) {
         __threadfence();
-        combine<VEC>(a, r, beg, end, c, has, tx);
+        combine<VEC, CHUNK>(a, r, beg, end, c, has, tx);
       }
     }
     return;
@@ -453,15 +454,19 @@ __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(const Args a) {
 
   // a chunk block: the parts of the split rows at its ends inside its edges
   const int j = blockIdx.x;
-  const int e0 = j * kChunk, e1 = min(E, e0 + kChunk), n = e1 - e0;
-  if (tid < n) sh.chunk.sid[tid] = a.ids[e0 + tid];
-  if (tid == 0) sh.chunk.prev_first = j > 0 ? a.ids[e0 - kChunk] : -1;
-  if (tid == 1) sh.chunk.next_last = e1 < E ? a.ids[min(E, e1 + kChunk) - 1] : -1;
+  const int e0 = j * CHUNK, e1 = min(E, e0 + CHUNK), n = e1 - e0;
+  for (int t = tid; t < n; t += kThreads) sh.chunk.sid[t] = a.ids[e0 + t];
+  if (tid == 0) sh.chunk.prev_first = j > 0 ? a.ids[e0 - CHUNK] : -1;
+  if (tid == 1) sh.chunk.next_last = e1 < E ? a.ids[min(E, e1 + CHUNK) - 1] : -1;
   __syncthreads();
   const int64_t ra = sh.chunk.sid[0], rb = sh.chunk.sid[n - 1];
   const bool full = ra == rb;
-  const int n_ra = __syncthreads_count(tid < n && sh.chunk.sid[tid] == ra);
-  const int n_rb = __syncthreads_count(tid < n && sh.chunk.sid[tid] == rb);
+  int n_ra = 0, n_rb = 0;
+  for (int t0 = 0; t0 < CHUNK; t0 += kThreads) {  // uniform across the block
+    const int t = t0 + tid;
+    n_ra += __syncthreads_count(t < n && sh.chunk.sid[t] == ra);
+    n_rb += __syncthreads_count(t < n && sh.chunk.sid[t] == rb);
+  }
   for (int side = 0; side < 2; ++side) {  // uniform across the block
     const int64_t r = side == 0 ? ra : rb;
     const bool split = side == 0 ? full || sh.chunk.prev_first == ra
@@ -503,24 +508,31 @@ __global__ void __launch_bounds__(kThreads, 2) multi_agg_kernel(const Args a) {
     if (sh.chunk.last && g == 0) {
       __threadfence();
       const int2 be = __ldcg(&a.info[r]);
-      combine<VEC>(a, static_cast<int>(r), be.x, be.y, c, has, tx);
+      combine<VEC, CHUNK>(a, static_cast<int>(r), be.x, be.y, c, has, tx);
     }
     __syncthreads();  // red and last are reused by the next side
   }
 }
 
 template <typename T, int VEC, bool GATE>
-void launch(const Args a, cudaStream_t stream) {
-  // column threads: just enough for C (VEC columns each), at most a warp
+void launch(const Args a, int chunk, int col_threads, cudaStream_t stream) {
+  // column threads: just enough for C (VEC columns each), at most
+  // col_threads (a warp in the default plan)
   int tx = 1;
-  while (tx < 32 && tx * VEC < a.C) tx *= 2;
+  while (tx < col_threads && tx * VEC < a.C) tx *= 2;
   const int g = kThreads / tx;
   const dim3 grid(a.n_chunks + (a.N + g - 1) / g, (a.C + tx * VEC - 1) / (tx * VEC));
-  multi_agg_kernel<T, VEC, GATE><<<grid, dim3(tx, g), 0, stream>>>(a);
+  Args b = a;
+  b.cb = grid.y;  // a row's counters: one a column block
+  if (chunk == kChunk) {
+    multi_agg_kernel<T, VEC, GATE, kChunk><<<grid, dim3(tx, g), 0, stream>>>(b);
+  } else {
+    multi_agg_kernel<T, VEC, GATE, 2 * kChunk><<<grid, dim3(tx, g), 0, stream>>>(b);
+  }
 }
 
 template <typename T>
-void launch_for(const Args a, cudaStream_t stream) {
+void launch_for(const Args a, int chunk, int col_threads, cudaStream_t stream) {
   // four columns a thread: 16-byte loads in f32, 8-byte in bf16 (eight bf16
   // columns a thread halve the threads and double each one's arithmetic:
   // slower at the serving sizes)
@@ -530,9 +542,11 @@ void launch_for(const Args a, cudaStream_t stream) {
                          reinterpret_cast<uintptr_t>(a.gate);
   const bool vec = a.C % V == 0 && addr % (V * sizeof(T)) == 0;
   if (a.gate != nullptr) {
-    vec ? launch<T, V, true>(a, stream) : launch<T, 1, true>(a, stream);
+    vec ? launch<T, V, true>(a, chunk, col_threads, stream)
+        : launch<T, 1, true>(a, chunk, col_threads, stream);
   } else {
-    vec ? launch<T, V, false>(a, stream) : launch<T, 1, false>(a, stream);
+    vec ? launch<T, V, false>(a, chunk, col_threads, stream)
+        : launch<T, 1, false>(a, chunk, col_threads, stream);
   }
 }
 
@@ -542,28 +556,33 @@ inline int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
 
 // edge_in (and gate) [E, C], node_recv [N, C], row-major in `dtype`
 // (hg::DType); node_recv and gate may be null. ids [E] int64 ascending.
-// counters: N * ceil(C / 32) int32, all 0 (the kernel leaves them 0);
+// counters: N * ceil(C / min(col_threads, C rounded up to a power of two))
+// int32, all 0 (the kernel leaves them 0; a row uses one a column block);
 // scratch: int32 words, round4(2 N) for the split rows' edge ranges, then
-// ceil(E / 256) * 2 * C * 4 floats of partial moments. Outputs f32: s, mn,
-// mx, ssq [N, C] and cnt [N]. One kernel launch; returns cudaGetLastError()
+// ceil(E / chunk) * 2 * C * 4 floats of partial moments. Outputs f32: s, mn,
+// mx, ssq [N, C] and cnt [N]. The launch plan: chunk (edges per chunk of a
+// split row, 256 or 512) and col_threads (column threads of a row, at most;
+// 1-32, a power of two). One kernel launch; returns cudaGetLastError()
 // after it.
 extern "C" int hg_multi_agg(const void* node_recv, const void* edge_in, const void* gate,
                             const int64_t* ids, int* counters, int* scratch, float* s,
                             float* cnt, float* mn, float* mx, float* ssq, int E, int N, int C,
-                            int dtype, void* stream) {
+                            int dtype, int chunk, int col_threads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != hg::kFloat32 && dtype != hg::kBFloat16) {
+  if ((dtype != hg::kFloat32 && dtype != hg::kBFloat16) ||
+      (chunk != kChunk && chunk != 2 * kChunk) || col_threads < 1 || col_threads > 32 ||
+      (col_threads & (col_threads - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N > 0 && C > 0) {
     Args a{node_recv, edge_in, gate, ids, s, cnt, mn, mx, ssq, counters,
            reinterpret_cast<int2*>(scratch),
            reinterpret_cast<Moments*>(scratch + round4(2 * (int64_t)N)),
-           E, N, C, (E + kChunk - 1) / kChunk, (C + 31) / 32};
+           E, N, C, (E + chunk - 1) / chunk, 0};
     if (dtype == hg::kFloat32) {
-      launch_for<float>(a, st);
+      launch_for<float>(a, chunk, col_threads, st);
     } else {
-      launch_for<__nv_bfloat16>(a, st);
+      launch_for<__nv_bfloat16>(a, chunk, col_threads, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -50,13 +50,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;      // wide rows
 constexpr int kNarrowThreads = 128;
 constexpr int kGroup = 8;          // lanes per narrow row
-constexpr int kNarrowEdges = 256;  // edges per narrow block
+constexpr int kNarrowEdges = 256;  // edges per narrow block (the default plan; 128 and 512 too)
 constexpr int kLook = 32;          // ids a narrow block reads past its edges
 constexpr int kMaxRows = 128;      // rows per block, at most (wide: TY = 256 / TX, TX >= 2)
+constexpr int kMaxRowsCap = 512;   // the largest a plan may ask (the second wide instance)
 constexpr int kLongRow = 64;       // rows with more edges are walked by the whole block
 constexpr int kUnroll = 8;         // independent loads in flight per thread (wide)
 constexpr int kLongUnroll = 8;     // message rows in flight per thread (a narrow tail row)
-constexpr int kWideIters = 4;      // row groups of TY rows per wide block
+constexpr int kWideIters = 4;      // row groups of TY rows per wide block (the default plan)
 constexpr int kScanUnroll = 8;     // row boundaries per thread in flight together
 
 // the first edge e in [0, E] with ids[e] >= key, by the 32 lanes of one warp.
@@ -95,10 +96,11 @@ __device__ int warp_lower_bound(const int64_t* __restrict__ ids, int E, int64_t 
 }
 
 // rowptr[i] = the first edge of row r0 + i within the block's edges
-// [ebeg, eend), for i in [0, R]; rows are clamped into [ebeg, eend]
+// [ebeg, eend), for i in [0, R <= CAP]; rows are clamped into [ebeg, eend]
+template <int CAP>
 struct BlockRows {
   int ebeg, eend;
-  int rowptr[kMaxRows + 1];
+  int rowptr[CAP + 1];
 
   __device__ void find(const int64_t* __restrict__ ids, int E, int N, int r0, int R) {
     const int tid = threadIdx.x + threadIdx.y * blockDim.x;
@@ -216,12 +218,11 @@ __device__ __forceinline__ void walk_narrow(const T* __restrict__ msg, int beg, 
 
 // narrow rows (NC = 16 / sizeof(T) columns at most): a block owns EB edges
 // and the rows that start among them
-template <typename T>
+template <typename T, int EB>
 __global__ void __launch_bounds__(kNarrowThreads)
 sorted_segment_sum_narrow(const T* __restrict__ msg, const int64_t* __restrict__ ids,
                           T* __restrict__ out, int E, int num_segments, int C) {
   constexpr int NC = 16 / sizeof(T);
-  constexpr int EB = kNarrowEdges;
   constexpr int kWarpsN = kNarrowThreads / 32;
   __shared__ int64_t sid[EB + 1];  // sid[t + 1] = ids[e0 + t]; sid[0] = ids[e0 - 1], or -1
   __shared__ float smsg[EB][NC];
@@ -352,14 +353,14 @@ sorted_segment_sum_narrow(const T* __restrict__ msg, const int64_t* __restrict__
   }
 }
 
-// wide rows: a block of up to kWideIters * TY rows (one edge search) x 2 * TX
-// columns, TY rows at a time
-template <typename T>
+// wide rows: a block of up to wide_iters * TY <= CAP rows (one edge search)
+// x 2 * TX columns, TY rows at a time
+template <typename T, int CAP>
 __global__ void __launch_bounds__(kThreads)
 sorted_segment_sum_wide(const T* __restrict__ msg, const int64_t* __restrict__ ids,
                         T* __restrict__ out, int E, int num_segments, int C,
                         int rows_per_block) {
-  __shared__ BlockRows rows;
+  __shared__ BlockRows<CAP> rows;
   __shared__ float part[kThreads][2];
   const int TX = blockDim.x, TY = blockDim.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -413,44 +414,70 @@ sorted_segment_sum_wide(const T* __restrict__ msg, const int64_t* __restrict__ i
   }
 }
 
+template <typename T, int EB>
+void launch_narrow(const T* m, const int64_t* ids, T* o, int E, int num_segments, int C,
+                   cudaStream_t stream) {
+  const int blocks = max(1, (E + EB - 1) / EB);
+  sorted_segment_sum_narrow<T, EB><<<blocks, kNarrowThreads, 0, stream>>>(m, ids, o, E,
+                                                                          num_segments, C);
+}
+
+// the launch plan (tune/plans.py): narrow_edges in {128, 256, 512}, wide
+// rows per block min(max_rows, TY * wide_iters) <= kMaxRowsCap; the default
+// plan (256, 128, 4) is the launch of the constants above
 template <typename T>
-void launch(const void* msg, const int64_t* ids, void* out, int E, int num_segments, int C,
-            cudaStream_t stream) {
+cudaError_t launch(const void* msg, const int64_t* ids, void* out, int E, int num_segments,
+                   int C, int narrow_edges, int max_rows, int wide_iters,
+                   cudaStream_t stream) {
   const T* m = static_cast<const T*>(msg);
   T* o = static_cast<T*>(out);
   if (C * static_cast<int>(sizeof(T)) <= 16) {
-    const int blocks = max(1, (E + kNarrowEdges - 1) / kNarrowEdges);
-    sorted_segment_sum_narrow<T><<<blocks, kNarrowThreads, 0, stream>>>(m, ids, o, E,
-                                                                       num_segments, C);
-    return;
+    switch (narrow_edges) {
+      case 128: launch_narrow<T, 128>(m, ids, o, E, num_segments, C, stream); break;
+      case kNarrowEdges: launch_narrow<T, kNarrowEdges>(m, ids, o, E, num_segments, C, stream); break;
+      case 512: launch_narrow<T, 512>(m, ids, o, E, num_segments, C, stream); break;
+      default: return cudaErrorInvalidValue;
+    }
+    return cudaSuccess;
   }
   // column threads: just enough for C (two columns each), at most a warp
   int tx = 2;
   while (tx < 32 && 2 * tx < C) tx *= 2;
   const int ty = kThreads / tx;
-  const int rows = min(kMaxRows, ty * kWideIters);
+  const int rows = min(max_rows, ty * wide_iters);
+  if (rows < 1 || rows > kMaxRowsCap) return cudaErrorInvalidValue;
   const dim3 block(tx, ty);
   const dim3 grid((num_segments + rows - 1) / rows, (C + 2 * tx - 1) / (2 * tx));
-  sorted_segment_sum_wide<T><<<grid, block, 0, stream>>>(m, ids, o, E, num_segments, C, rows);
+  if (rows <= kMaxRows) {
+    sorted_segment_sum_wide<T, kMaxRows><<<grid, block, 0, stream>>>(m, ids, o, E, num_segments,
+                                                                     C, rows);
+  } else {
+    sorted_segment_sum_wide<T, kMaxRowsCap><<<grid, block, 0, stream>>>(m, ids, o, E,
+                                                                        num_segments, C, rows);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // msg [E, C] and out [num_segments, C] row-major in `dtype` (hg::DType);
-// ids [E] int64 ascending. One kernel launch. Returns cudaGetLastError()
-// after it.
+// ids [E] int64 ascending; narrow_edges, max_rows, wide_iters: the launch
+// plan. One kernel launch. Returns cudaGetLastError() after it.
 extern "C" int hg_sorted_segment_sum(const void* msg, const int64_t* ids, void* out, int E,
-                                     int num_segments, int C, int dtype, void* stream) {
+                                     int num_segments, int C, int dtype, int narrow_edges,
+                                     int max_rows, int wide_iters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != hg::kFloat32 && dtype != hg::kBFloat16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_segments > 0 && C > 0) {
-    if (dtype == hg::kFloat32) {
-      launch<float>(msg, ids, out, E, num_segments, C, s);
-    } else {
-      launch<__nv_bfloat16>(msg, ids, out, E, num_segments, C, s);
-    }
+    const cudaError_t err =
+        dtype == hg::kFloat32
+            ? launch<float>(msg, ids, out, E, num_segments, C, narrow_edges, max_rows,
+                            wide_iters, s)
+            : launch<__nv_bfloat16>(msg, ids, out, E, num_segments, C, narrow_edges, max_rows,
+                                    wide_iters, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -116,6 +116,11 @@ class ModelConfig:
     fused_edge_kernel: bool = False
     decoder_mirror_init: bool = True
     decoder_recovery_slope: float = 0.1
+    # the remat wraps of a train step (ops/remat.py): the whole loss
+    # checkpointed under conv_checkpointing, with remat_policy's save rule
+    # there and at the kernel call sites
+    conv_checkpointing: bool = False
+    remat_policy: str = "full"
 
     @property
     def normalized_task_weights(self) -> Tuple[float, ...]:

@@ -133,6 +133,8 @@ def model_config_from(config: Dict[str, Any]) -> ModelConfig:
             0.1 if arch.get("decoder_recovery_slope") is None
             else arch["decoder_recovery_slope"]
         ),
+        conv_checkpointing=bool(training.get("conv_checkpointing", False)),
+        remat_policy=str(training.get("remat_policy", "full")),
     )
 
 

@@ -109,7 +109,7 @@ class DimeNetConv(nn.Module):
         a = torch.sum(pos_ji * pos_ki, dim=-1)
         cross = torch.linalg.cross(pos_ji, pos_ki, dim=-1)
         b = torch.sqrt(torch.sum(cross * cross, dim=-1)
-                       + torch.tensor(1e-12, dtype=cross.dtype, device=cross.device))
+                       + cross.new_full((), 1e-12))
         angle = torch.atan2(b, a)
         sbf = spherical_basis(dist, angle, batch.trip_kj, self.radius, self.num_spherical,
                               self.num_radial, self.envelope_exponent,

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_self_attention
+from ..ops.remat import at_site
 from ..ops.segment import segment_sum
 from ..parallel.ring_attention import ring_self_attention
 from ..parallel.sp import current_sp
@@ -82,14 +83,17 @@ class MultiheadSelfAttention(nn.Module):
         n = x.shape[0]
         q, k, v = self.Dense_0(x).split(C, dim=-1)
         # sqrt(d) rounded to f32, then to the input dtype (jnp.sqrt(d).astype)
-        scale = torch.tensor(math.sqrt(d), dtype=torch.float32, device=x.device).to(x.dtype)
+        # (filled on the card: a host tensor would be a copy a CUDA graph cannot capture)
+        scale = x.new_full((), math.sqrt(d), dtype=torch.float32).to(x.dtype)
         prob_dropout = self.dropout > 0 and self.training
         nmax = self.max_nodes_per_graph
         if self.use_flash_attention and nmax > 0 and not prob_dropout:
-            out = flash_self_attention(
-                q.view(n, H, d), k.view(n, H, d), v.view(n, H, d),
-                batch.node_graph, batch.node_mask, batch.num_graphs, nmax,
-            ).reshape(n, C)
+            def attend(q_, k_, v_):  # the remat site (ops/remat.py): K4
+                return flash_self_attention(q_, k_, v_, batch.node_graph, batch.node_mask,
+                                            batch.num_graphs, nmax)
+
+            out = at_site(attend, q.view(n, H, d), k.view(n, H, d),
+                          v.view(n, H, d)).reshape(n, C)
             out = _poison_overflow(out, batch, nmax)
         elif nmax > 0:
             G = batch.num_graphs
@@ -154,7 +158,7 @@ class RingSelfAttention(nn.Module):
             out = ring_self_attention(q, k, v, batch.node_mask, group=group,
                                       use_flash=self.use_flash_attention)
         else:
-            scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=q.dtype, device=q.device))
+            scale = 1.0 / torch.sqrt(q.new_full((), float(d)))
             logits = torch.einsum("ihd,jhd->hij", q, k) * scale
             logits = torch.where(batch.node_mask[None, None, :], logits,
                                  torch.finfo(q.dtype).min)
@@ -182,7 +186,7 @@ class PerformerSelfAttention(nn.Module):
     def forward(self, x, batch):
         H, C = self.heads, self.channels
         d = C // H
-        eps = torch.tensor(1e-6, dtype=x.dtype, device=x.device)
+        eps = x.new_full((), 1e-6)
         q = torch.relu(self.Dense_0(x)).reshape(-1, H, d) + eps
         k = torch.relu(self.Dense_1(x)).reshape(-1, H, d) + eps
         v = self.Dense_2(x).reshape(-1, H, d)

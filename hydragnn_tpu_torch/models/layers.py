@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..obs.numerics import collection_active, probe
+from ..ops.remat import at_site, recomputing
 from ..ops.segment import fused_edge_message_sum
 
 # init kinds: ("lecun",) flax's lecun_normal; ("mirror",) its mirrored (w, -w)
@@ -252,7 +253,10 @@ class MaskedBatchNorm(nn.Module):
         """Count-weighted EMA: a batch with few real rows moves the running
         statistics proportionally less (for constant batch sizes the torch
         BatchNorm1d update). The buffers keep their own dtype (f32 under
-        mixed precision, whatever the activations')."""
+        mixed precision, whatever the activations'). A remat recompute
+        (ops/remat.py) leaves them alone: its forward moved them once."""
+        if recomputing():
+            return
         count = self.count.float()
         # (1 - momentum) * n in n's dtype, then widened, as jnp promotes it
         c_new = self.momentum * count + ((1 - self.momentum) * n).float()
@@ -304,11 +308,14 @@ def fused_pair_dense_sum(layer, inv, batch, terms=(), max_in_degree: int = 0):
                                                inv, batch, terms)
     lin2 = layer.edge_lin2
     dt = _promote(node_recv, edge_in, lin2.weight, lin2.bias)
-    return fused_edge_message_sum(
-        node_recv.to(dt).contiguous(), edge_in.to(dt).contiguous(),
-        lin2.weight.to(dt).t().contiguous(), lin2.bias.to(dt).contiguous(),
-        batch.receivers, batch.num_nodes, max_in_degree,
-    )
+
+    def call(nr, ei, w, b):  # the remat site (ops/remat.py): casts and K2
+        return fused_edge_message_sum(
+            nr.to(dt).contiguous(), ei.to(dt).contiguous(), w.to(dt).t().contiguous(),
+            b.to(dt).contiguous(), batch.receivers, batch.num_nodes, max_in_degree,
+        )
+
+    return at_site(call, node_recv, edge_in, lin2.weight, lin2.bias)
 
 
 def glorot_uniform_(w, gen: torch.Generator) -> None:

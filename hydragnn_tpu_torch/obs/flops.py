@@ -14,7 +14,12 @@ The convention: ``FlopCounterMode`` counts matrix products (``mm``,
 ``addmm``, ``bmm``, convolutions, attention), at 2 FLOPs a multiply-add,
 and nothing elementwise; XLA's count also holds the elementwise work, so
 the port's ``mfu_est`` is not the JAX package's number on other hardware.
-The optimizer update is not counted.
+The optimizer update is not counted. The step's remat wraps are
+(``train_loss``: ``Training.conv_checkpointing`` under
+``Training.remat_policy``, whose recompute adds its products), as the
+JAX package's count holds its remat's: the cache key carries the model
+configuration, the policy included, and the compile plane's report names
+the policy beside the count.
 """
 
 from __future__ import annotations
@@ -40,8 +45,7 @@ def train_step_flops(model, batch, compute_grad_energy: bool = False,
     ``meta`` copies of both."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..train.loop import _apply_fn, cast_batch_bf16
-    from ..train.loss import compute_loss
+    from ..train.loop import _apply_fn, cast_batch_bf16, train_loss
 
     with torch.inference_mode(False):
         meta = copy.deepcopy(model).to("meta")
@@ -51,7 +55,7 @@ def train_step_flops(model, batch, compute_grad_energy: bool = False,
         apply = _apply_fn(meta, mixed_precision, cast_buffers=False)
         meta.train()
         with FlopCounterMode(display=False) as counter, torch.enable_grad():
-            tot, _, _ = compute_loss(apply, b, meta.cfg, compute_grad_energy)
+            tot, _, _ = train_loss(apply, b, meta.cfg, compute_grad_energy)
             tot.float().backward()
     return float(counter.get_total_flops())
 

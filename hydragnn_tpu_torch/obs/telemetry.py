@@ -1047,16 +1047,25 @@ class StepTelemetry:
         self,
         guard_skipped: Optional[int] = None,
         data_skipped: Optional[Dict[str, int]] = None,
+        retrace_violations: Optional[int] = None,
+        compile_metrics: Optional[Dict[str, float]] = None,
     ) -> None:
         """Absorb externally maintained monotonic totals (idempotent:
         counters max-merge). ``guard_skipped`` must be a monotonic event
         count: the loop accumulates positive deltas of the state's counter,
-        which a rollback restore can lower. The port compiles nothing, so
-        its retrace and compile-cache counters stay at 0."""
+        which a rollback restore can lower. ``retrace_violations`` and
+        ``compile_metrics`` are the compile plane's (train/compile_plane.py:
+        the sentinel's violations, the kernel libraries found built or
+        built)."""
         if guard_skipped is not None:
             self._c_guard.set_total(int(guard_skipped))
         for reason, count in (data_skipped or {}).items():
             self._c_data_skip.set_total(int(count), reason=reason)
+        if retrace_violations is not None:
+            self._c_retrace.set_total(int(retrace_violations))
+        if compile_metrics:
+            self._c_cache_hits.set_total(int(compile_metrics["cache_hits"]))
+            self._c_cache_misses.set_total(int(compile_metrics["cache_misses"]))
 
     def run_record(self, info: Dict[str, Any]) -> None:
         if self.stream is not None:

@@ -38,6 +38,9 @@ NVCC_FLAGS = (
 # name -> loaded library; name -> compiler output of the build that made it
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
+# libraries ``build`` found already built (hits) or had to build (misses):
+# the compile plane's cache counters (train/compile_plane.py)
+build_counts: Dict[str, int] = {"hits": 0, "misses": 0}
 _lock = threading.Lock()
 
 
@@ -63,13 +66,25 @@ def _sources(name: str):
     return src, sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(name: str) -> Path:
-    """Where the library for the current source of ``name`` lives."""
+def _source_hash(name: str):
     src, headers = _sources(name)
     h = hashlib.sha256()
     for p in (src, *headers):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    return h
+
+
+def source_digest(name: str) -> str:
+    """sha256 (16 hex digits) of the kernel's source and the shared
+    headers: its ``KERNEL_VERSION`` in the tuned table (tune/plans.py), so
+    an edited kernel never reads the plans swept for the old one."""
+    return _source_hash(name).hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library for the current source of ``name`` lives."""
+    h = _source_hash(name)
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -97,8 +112,10 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     for name in names:
         out = library_path(name)
         if out.exists():
+            build_counts["hits"] += 1
             seconds[name] = 0.0
             continue
+        build_counts["misses"] += 1
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [compiler, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),

@@ -24,8 +24,11 @@ the un-normalized partial ``(m, l, acc)`` of every query against one key
 block, which ``parallel/ring_attention.py`` merges across ring steps;
 ``reference_block_summary`` is its plain version.
 
-Each wrapper runs its plain version for a CPU tensor and its kernel for a
-CUDA tensor; anything else raises. Unlike the TPU kernel, K4's forward
+Each wrapper reaches its operator (``hydragnn::flash_attention_out``,
+``hydragnn::flash_block_summary``: the ``names`` remat policy saves their
+outputs; ops/remat.py), which runs the kernel for CUDA tensors and the
+plain version for CPU ones, through the same Function; on ``meta`` tensors
+(the FLOP count) the wrapper takes the plain version; anything else raises. Unlike the TPU kernel, K4's forward
 needs no static node bound: each q tile's key window is derived on the
 card from ``node_graph``. ``<wrapper>.launches`` counts kernel launches
 (``launches_by_case`` splits them by dtype and head shape).
@@ -45,20 +48,23 @@ the Functions.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
+from ..tune.plans import FLASH
+from ..tune.runtime import tile_plan
 from . import _build
-from .sorted_segment import (_DTYPE_CODES, _PLAIN_DEVICES, _check_current_device, needs_grad,
-                             recompute_backward)
+from .sorted_segment import (_DTYPE_CODES, _check_current_device, count_launch,
+                             init_counters, needs_grad, recompute_backward)
 
 # both entries: q, k, v, three row strides, four pointers, four sizes,
-# scale_log2, dtype code, stream
+# scale_log2, dtype code, the plan's keys per tile, stream
 _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 4
-             + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+             + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p))
 _SIGNATURES = {"hg_flash_attention": (ctypes.c_int, _ARGTYPES),
                "hg_flash_block_summary": (ctypes.c_int, _ARGTYPES)}
 
@@ -178,8 +184,11 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int,
     bounds a real graph's nodes (the gradient's recompute gathers that many
     slots per graph; the forward needs no bound). Returns a contiguous
     [N, H, d] in the operand dtype."""
-    if q.device.type in _PLAIN_DEVICES:
+    if q.is_meta:
         return reference_masked_attention(q, k, v, node_graph, node_mask)
+    if q.device.type == "cpu":
+        return _attention_call(q, k, v, node_graph, node_mask, num_graphs,
+                               max_nodes_per_graph)
     _check_heads("flash_self_attention", q)
     dtype = q.dtype
     n, h, d = q.shape
@@ -194,12 +203,32 @@ def flash_self_attention(q, k, v, node_graph, node_mask, num_graphs: int,
         raise ValueError("flash_self_attention: more than 2**31 elements")
     if num_graphs < 1:
         raise ValueError("flash_self_attention: num_graphs must be positive")
+    return _attention_call(q, k, v, node_graph, node_mask, num_graphs, max_nodes_per_graph)
+
+
+def _attention_call(q, k, v, node_graph, node_mask, num_graphs: int,
+                    max_nodes_per_graph: int):
     if needs_grad(q, k, v):
         if max_nodes_per_graph < 1:
             raise ValueError("flash_self_attention: a gradient needs max_nodes_per_graph >= 1")
         return _FlashSelfAttention.apply(q, k, v, node_graph, node_mask, num_graphs,
                                          max_nodes_per_graph)
-    return _launch_attention(q, k, v, node_graph, node_mask, num_graphs)
+    return _attention_op(q, k, v, node_graph, node_mask, num_graphs)
+
+
+@torch.library.custom_op("hydragnn::flash_attention_out", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, node_graph: torch.Tensor,
+                  node_mask: torch.Tensor, num_graphs: int) -> torch.Tensor:
+    """K4 as an operator (the ``names`` remat policy saves its output): the
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    if q.device.type == "cuda":
+        return _launch_attention(q, k, v, node_graph, node_mask, num_graphs)
+    return reference_masked_attention(q, k, v, node_graph, node_mask)
+
+
+@_attention_op.register_fake
+def _(q, k, v, node_graph, node_mask, num_graphs):
+    return q.new_empty(q.shape)
 
 
 class _FlashSelfAttention(torch.autograd.Function):
@@ -207,7 +236,7 @@ class _FlashSelfAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, node_graph, node_mask, num_graphs, max_nodes_per_graph):
         ctx.save_for_backward(q, k, v, node_graph, node_mask)
         ctx.shape = (num_graphs, max_nodes_per_graph)
-        return _launch_attention(q, k, v, node_graph, node_mask, num_graphs)
+        return _attention_op(q, k, v, node_graph, node_mask, num_graphs)
 
     @staticmethod
     def backward(ctx, dout):
@@ -228,6 +257,9 @@ def _launch_attention(q, k, v, node_graph, node_mask, num_graphs: int):
     node_mask = node_mask.contiguous()
     # graph row pointer scratch, filled by the library's first kernel
     graph_ptr = torch.empty(num_graphs + 1, dtype=torch.int32, device=q.device)
+    plan = tile_plan(FLASH, {"nodes": int(n), "keys": int(n), "heads": int(h),
+                             "head_dim": int(d), "summary": False,
+                             "graphs": int(num_graphs)}, dtype)
     lib = _build.load("flash_attention", _SIGNATURES)
     _check_current_device(q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -235,17 +267,15 @@ def _launch_attention(q, k, v, node_graph, node_mask, num_graphs: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.stride(0)), int(k.stride(0)),
         int(v.stride(0)), node_graph.data_ptr(), node_mask.data_ptr(), graph_ptr.data_ptr(),
         out.data_ptr(), int(n), int(h), int(d), int(num_graphs),
-        math.log2(math.e) / math.sqrt(d), _DTYPE_CODES[dtype], stream,
+        math.log2(math.e) / math.sqrt(d), _DTYPE_CODES[dtype], plan["block_k"], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_self_attention kernel launch failed: CUDA error {rc}")
-    flash_self_attention.launches += 1
-    flash_self_attention.launches_by_case[f"{str(dtype)[6:]}/H{h}xd{d}"] += 1
+    count_launch(flash_self_attention, f"{str(dtype)[6:]}/H{h}xd{d}")
     return out
 
 
-flash_self_attention.launches = 0
-flash_self_attention.launches_by_case = collections.Counter()
+init_counters(flash_self_attention)
 
 
 def flash_block_summary(q, k, v, key_mask):
@@ -254,8 +284,10 @@ def flash_block_summary(q, k, v, key_mask):
     (one dtype, float32 or bfloat16; each may be a row-strided view) with
     ``key_mask [n_k]`` bool, in the operand dtype. ``n_q`` and ``n_k`` may
     differ. Rows with no valid key give ``(-1e30, 0, 0)``."""
-    if q.device.type in _PLAIN_DEVICES:
+    if q.is_meta:
         return reference_block_summary(q, k, v, key_mask)
+    if q.device.type == "cpu":
+        return _summary_call(q, k, v, key_mask)
     fn = "flash_block_summary"
     _check_heads(fn, q)
     dtype = q.dtype
@@ -269,16 +301,35 @@ def flash_block_summary(q, k, v, key_mask):
                          f"{tuple(key_mask.shape)} {key_mask.dtype} on {key_mask.device}")
     if max(nq * q.stride(0), nk * max(k.stride(0), v.stride(0))) >= 2**31:
         raise ValueError(f"{fn}: more than 2**31 elements")
+    return _summary_call(q, k, v, key_mask)
+
+
+def _summary_call(q, k, v, key_mask):
     if needs_grad(q, k, v):
         return _FlashBlockSummary.apply(q, k, v, key_mask)
-    return _launch_summary(q, k, v, key_mask)
+    return _summary_op(q, k, v, key_mask)
+
+
+@torch.library.custom_op("hydragnn::flash_block_summary", mutates_args=())
+def _summary_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4b as an operator (the ``names`` remat policy saves its outputs):
+    the kernel for CUDA tensors, the plain version for CPU ones."""
+    if q.device.type == "cuda":
+        return _launch_summary(q, k, v, key_mask)
+    return reference_block_summary(q, k, v, key_mask)
+
+
+@_summary_op.register_fake
+def _(q, k, v, key_mask):
+    return q.new_empty(q.shape[:2]), q.new_empty(q.shape[:2]), q.new_empty(q.shape)
 
 
 class _FlashBlockSummary(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
         ctx.save_for_backward(q, k, v, key_mask)
-        return _launch_summary(q, k, v, key_mask)
+        return _summary_op(q, k, v, key_mask)
 
     @staticmethod
     def backward(ctx, dm, dl, dacc):
@@ -307,6 +358,8 @@ def _launch_summary(q, k, v, key_mask):
     if out.numel() == 0:
         return _unnormalize(out, m, l)
     key_mask = key_mask.contiguous()
+    plan = tile_plan(FLASH, {"nodes": int(nq), "keys": int(nk), "heads": int(h),
+                             "head_dim": int(d), "summary": True, "graphs": 1}, dtype)
     lib = _build.load("flash_attention", _SIGNATURES)
     _check_current_device(q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -314,14 +367,12 @@ def _launch_summary(q, k, v, key_mask):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.stride(0)), int(k.stride(0)),
         int(v.stride(0)), key_mask.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
         int(nq), int(nk), int(h), int(d), math.log2(math.e) / math.sqrt(d),
-        _DTYPE_CODES[dtype], stream,
+        _DTYPE_CODES[dtype], plan["block_k"], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_block_summary kernel launch failed: CUDA error {rc}")
-    flash_block_summary.launches += 1
-    flash_block_summary.launches_by_case[f"{str(dtype)[6:]}/H{h}xd{d}"] += 1
+    count_launch(flash_block_summary, f"{str(dtype)[6:]}/H{h}xd{d}")
     return _unnormalize(out, m, l)
 
 
-flash_block_summary.launches = 0
-flash_block_summary.launches_by_case = collections.Counter()
+init_counters(flash_block_summary)

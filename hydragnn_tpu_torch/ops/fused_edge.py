@@ -10,10 +10,14 @@ over ascending ``ids``, with per-edge messages kept out of device memory.
 Padding edges are NOT masked here (as in the JAX package): they all land on
 the final dummy node, whose row is garbage that every consumer masks.
 
-The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor; anything else raises. ``fused_edge_message_sum.launches``
+The wrapper reaches the operator ``hydragnn::fused_edge_sum`` (the
+``names`` remat policy saves its output; ops/remat.py), which runs the
+kernel for CUDA tensors and the plain version's forward for CPU ones,
+through the same Function; on ``meta`` tensors (the FLOP count) the
+wrapper takes the plain version; anything else raises. ``fused_edge_message_sum.launches``
 counts kernel launches (``launches_by_case`` splits them by dtype and
-widths).
+widths). A launch's rows per block come from ``tune.tile_plan`` (0 in the
+plan: today's mean-degree rule, ``rows_per_block``).
 
 The kernel's route is differentiable to any order, as the JAX kernel's
 ``custom_jvp`` (whose tangent rule is the dense reference, rematerialized)
@@ -25,17 +29,19 @@ version is ordinary autograd.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
+from ..tune.plans import FUSED_EDGE, fused_edge_default_rows
+from ..tune.runtime import tile_plan
 from . import _build
 from .sorted_segment import (
     _DTYPE_CODES,
-    _PLAIN_DEVICES,
     _check_current_device,
     check_ids,
+    count_launch,
+    init_counters,
     needs_grad,
     recompute_backward,
     segment_sum_plain,
@@ -48,12 +54,6 @@ _SIGNATURES = {
     ),
 }
 
-# edges a block should own: rows per block follow the batch's mean in-degree
-# so a block walks about four 128-edge tiles (csrc/fused_edge.cu)
-_EDGES_PER_BLOCK = 512
-_MAX_ROWS_PER_BLOCK = 32
-
-
 def reference_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
                                num_segments: int):
     """Dense plain statement of the fused function: the per-edge messages
@@ -64,8 +64,10 @@ def reference_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
 
 
 def rows_per_block(n_edges: int, num_segments: int) -> int:
-    mean_degree = max(n_edges, 1) / max(num_segments, 1)
-    return int(min(max(round(_EDGES_PER_BLOCK / mean_degree), 1), _MAX_ROWS_PER_BLOCK))
+    """Today's rows a block owns (the default plan): the batch's mean
+    in-degree sets them so a block walks about four 128-edge tiles
+    (csrc/fused_edge.cu), at most 32."""
+    return fused_edge_default_rows(n_edges, num_segments)
 
 
 def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
@@ -73,10 +75,11 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     """``node_recv`` [num_segments, Ci], ``edge_in`` [E, Ci], ``weights``
     [Ci, Co], ``bias`` [Co], one dtype (float32 or bfloat16); returns
     [num_segments, Co] in that dtype, accumulated in f32."""
-    if edge_in.device.type in _PLAIN_DEVICES:
-        return reference_edge_message_sum(
-            node_recv, edge_in, weights, bias, segment_ids, num_segments
-        )
+    inputs = (node_recv, edge_in, weights, bias)
+    if edge_in.is_meta:
+        return reference_edge_message_sum(*inputs, segment_ids, num_segments)
+    if edge_in.device.type == "cpu":
+        return _call(inputs, segment_ids, num_segments)
     if edge_in.device.type != "cuda":
         raise ValueError(f"fused_edge_message_sum: unsupported device {edge_in.device}")
     dtype = edge_in.dtype
@@ -105,10 +108,30 @@ def fused_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
     check_ids(segment_ids, e, edge_in.device)
     if max(edge_in.numel(), node_recv.numel(), num_segments * co, ci * co) >= 2**31:
         raise ValueError("fused_edge_message_sum: more than 2**31 elements")
-    inputs = (node_recv, edge_in, weights, bias)
+    return _call(inputs, segment_ids, num_segments)
+
+
+def _call(inputs, segment_ids, num_segments: int):
     if needs_grad(*inputs):
         return _FusedEdgeMessageSum.apply(*inputs, segment_ids, num_segments)
-    return _launch(*inputs, segment_ids, num_segments)
+    return _fused_edge_op(*inputs, segment_ids, num_segments)
+
+
+@torch.library.custom_op("hydragnn::fused_edge_sum", mutates_args=())
+def _fused_edge_op(node_recv: torch.Tensor, edge_in: torch.Tensor, weights: torch.Tensor,
+                   bias: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """K2 as an operator (the ``names`` remat policy saves its output): the
+    kernel for CUDA tensors, the plain version's forward for CPU ones."""
+    if edge_in.device.type == "cuda":
+        return _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments)
+    return reference_edge_message_sum(node_recv, edge_in, weights, bias, segment_ids,
+                                      num_segments)
+
+
+@_fused_edge_op.register_fake
+def _(node_recv, edge_in, weights, bias, segment_ids, num_segments):
+    return edge_in.new_empty((num_segments, weights.shape[1]))
 
 
 class _FusedEdgeMessageSum(torch.autograd.Function):
@@ -116,7 +139,7 @@ class _FusedEdgeMessageSum(torch.autograd.Function):
     def forward(ctx, node_recv, edge_in, weights, bias, segment_ids, num_segments):
         ctx.save_for_backward(node_recv, edge_in, weights, bias, segment_ids)
         ctx.num_segments = num_segments
-        return _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments)
+        return _fused_edge_op(node_recv, edge_in, weights, bias, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, dout):
@@ -143,6 +166,8 @@ def _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments: int):
     n_w = (2 if dtype == torch.float32 else 1) * co * ci_pad
     scratch = torch.empty(-(-(num_segments + 1) // 4) * 16 + n_w * size,
                           dtype=torch.uint8, device=edge_in.device)
+    plan = tile_plan(FUSED_EDGE, {"edges": int(e), "ci": int(ci), "co": int(co),
+                                  "num_segments": int(num_segments)}, dtype)
     lib = _build.load("fused_edge", _SIGNATURES)
     _check_current_device(edge_in.device)
     stream = torch.cuda.current_stream(edge_in.device).cuda_stream
@@ -150,14 +175,12 @@ def _launch(node_recv, edge_in, weights, bias, segment_ids, num_segments: int):
         node_recv.data_ptr(), edge_in.data_ptr(), weights.data_ptr(),
         bias.data_ptr(), ids.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         int(e), int(num_segments), int(ci), int(co),
-        rows_per_block(e, num_segments), _DTYPE_CODES[dtype], stream,
+        plan["rows_per_block"], _DTYPE_CODES[dtype], stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_edge_message_sum kernel launch failed: CUDA error {rc}")
-    fused_edge_message_sum.launches += 1
-    fused_edge_message_sum.launches_by_case[f"{str(dtype)[6:]}/{ci}x{co}"] += 1
+    count_launch(fused_edge_message_sum, f"{str(dtype)[6:]}/{ci}x{co}")
     return out
 
 
-fused_edge_message_sum.launches = 0
-fused_edge_message_sum.launches_by_case = collections.Counter()
+init_counters(fused_edge_message_sum)

@@ -11,8 +11,11 @@ JAX reference; a row without edges gets min = max = 0. ``segment_ids`` must
 ascend; unlike the TPU kernel, every row is exact whatever its degree, the
 dummy padding row included.
 
-The wrapper runs the plain version for a CPU tensor and the kernel for a
-CUDA tensor (one launch, one scratch tensor); anything else raises.
+The wrapper reaches the operator ``hydragnn::multi_agg_moments`` (the
+``names`` remat policy saves its outputs; ops/remat.py), which runs the
+kernel for CUDA tensors (one launch, one scratch tensor) and the plain
+version for CPU ones, through the same Function; on ``meta`` tensors (the
+FLOP count) the wrapper takes the plain version; anything else raises.
 ``fused_multi_agg.launches`` counts kernel launches (``launches_by_case``
 splits them by dtype and width, and by variant where it is not PNA's
 ``node_recv`` without a gate: ``/gate`` with one, ``/edge_in only``
@@ -31,18 +34,21 @@ runs without the Function.
 
 from __future__ import annotations
 
-import collections
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..tune.plans import MULTI_AGG
+from ..tune.runtime import tile_plan
 from . import _build
 from .sorted_segment import (
     _DTYPE_CODES,
-    _PLAIN_DEVICES,
     _check_current_device,
     check_ids,
+    count_launch,
+    init_counters,
     needs_grad,
     recompute_backward,
 )
@@ -50,23 +56,42 @@ from .sorted_segment import (
 _SIGNATURES = {
     "hg_multi_agg": (
         ctypes.c_int,
-        (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
     ),
 }
 
-# edges per chunk of a split row (csrc/multi_agg.cu kChunk)
-_CHUNK = 256
 # per device: the split rows' arrival counters, all 0 between calls (each
 # call's kernel resets what it counted), grown as a call needs more. Calls
-# that share a device run one after another on its current stream.
+# that share a device run one after another on its current stream. A CUDA
+# graph keeps the address it captured, so an outgrown buffer is kept alive
+# (``_outgrown``), never freed; and none grows under capture, where its
+# zeroing would run only at a replay.
 _counters = {}
+_outgrown = []
 
 
 def _zeroed_counters(device, n: int):
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
-        buf = _counters[device] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_multi_agg: the arrival counters must grow under CUDA graph capture; "
+                "run the call once eagerly before capturing it")
+        if buf is not None:
+            _outgrown.append(buf)
+        size = max(n, 1) if buf is None else max(n, 2 * buf.numel())
+        buf = _counters[device] = torch.zeros(size, dtype=torch.int32, device=device)
     return buf
+
+
+def counter_blocks(c: int, col_threads: int) -> int:
+    """Column blocks of a row whose arrival counters a launch may use: the
+    grid's column extent with one column a thread (csrc/multi_agg.cu
+    ``launch``; four a thread need no more)."""
+    tx = 1
+    while tx < col_threads and tx < c:
+        tx *= 2
+    return -(-c // tx)
 
 
 def _round4(n: int) -> int:
@@ -117,8 +142,10 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
     gate`` over ascending ``segment_ids``. ``edge_in`` [E, C] (and ``gate``
     [E, C]) and ``node_recv`` [num_segments, C], one dtype (float32 or
     bfloat16); ``node_recv`` and ``gate`` may be None. Every moment is f32."""
-    if edge_in.device.type in _PLAIN_DEVICES:
+    if edge_in.is_meta:
         return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
+    if edge_in.device.type == "cpu":
+        return _call(node_recv, edge_in, gate, segment_ids, num_segments)
     if edge_in.device.type != "cuda":
         raise ValueError(f"fused_multi_agg: unsupported device {edge_in.device}")
     dtype = edge_in.dtype
@@ -143,9 +170,32 @@ def fused_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments: int):
     check_ids(segment_ids, e, edge_in.device)
     if max(edge_in.numel(), num_segments * c) >= 2**31:
         raise ValueError("fused_multi_agg: more than 2**31 elements")
+    return _call(node_recv, edge_in, gate, segment_ids, num_segments)
+
+
+def _call(node_recv, edge_in, gate, segment_ids, num_segments: int):
     if needs_grad(node_recv, edge_in, gate):
         return _FusedMultiAgg.apply(node_recv, edge_in, gate, segment_ids, num_segments)
-    return _launch(node_recv, edge_in, gate, segment_ids, num_segments)
+    return _multi_agg_op(node_recv, edge_in, gate, segment_ids, num_segments)
+
+
+@torch.library.custom_op("hydragnn::multi_agg_moments", mutates_args=())
+def _multi_agg_op(node_recv: Optional[torch.Tensor], edge_in: torch.Tensor,
+                  gate: Optional[torch.Tensor], segment_ids: torch.Tensor, num_segments: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """K3 as an operator (the ``names`` remat policy saves its outputs):
+    the kernel for CUDA tensors, the plain version for CPU ones."""
+    if edge_in.device.type == "cuda":
+        return _launch(node_recv, edge_in, gate, segment_ids, num_segments)
+    return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments)
+
+
+@_multi_agg_op.register_fake
+def _(node_recv, edge_in, gate, segment_ids, num_segments):
+    rows = edge_in.new_empty((num_segments, edge_in.shape[1]), dtype=torch.float32)
+    return (rows, edge_in.new_empty((num_segments,), dtype=torch.float32), rows.clone(),
+            rows.clone(), rows.clone())
 
 
 class _FusedMultiAgg(torch.autograd.Function):
@@ -153,7 +203,8 @@ class _FusedMultiAgg(torch.autograd.Function):
     def forward(ctx, node_recv, edge_in, gate, segment_ids, num_segments):
         ctx.save_for_backward(node_recv, edge_in, gate, segment_ids)
         ctx.num_segments = num_segments
-        s, cnt, mn, mx, ssq = _launch(node_recv, edge_in, gate, segment_ids, num_segments)
+        s, cnt, mn, mx, ssq = _multi_agg_op(node_recv, edge_in, gate, segment_ids,
+                                            num_segments)
         ctx.mark_non_differentiable(cnt)
         return s, cnt, mn, mx, ssq
 
@@ -178,29 +229,32 @@ def _launch(node_recv, edge_in, gate, segment_ids, num_segments: int):
     if num_segments == 0:
         return s, cnt, mn, mx, ssq
     ids = segment_ids.to(torch.int64).contiguous()
+    plan = tile_plan(MULTI_AGG, {"edges": int(e), "channels": int(c),
+                                 "num_segments": int(num_segments),
+                                 "has_recv": node_recv is not None,
+                                 "has_gate": gate is not None}, dtype)
     lib = _build.load("multi_agg", _SIGNATURES)
     # the one scratch tensor: the split rows' edge ranges, then each edge
     # chunk's partial moments of the rows at its ends (csrc/multi_agg.cu)
-    n_chunks = -(-e // _CHUNK)
+    n_chunks = -(-e // plan["chunk_edges"])
     scratch = torch.empty(_round4(2 * num_segments) + n_chunks * 2 * c * 4,
                           dtype=torch.int32, device=dev)
-    counters = _zeroed_counters(dev, num_segments * -(-c // 32))
+    counters = _zeroed_counters(dev, num_segments * counter_blocks(c, plan["col_threads"]))
     _check_current_device(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hg_multi_agg(
         None if node_recv is None else node_recv.data_ptr(), edge_in.data_ptr(),
         None if gate is None else gate.data_ptr(), ids.data_ptr(), counters.data_ptr(),
         scratch.data_ptr(), s.data_ptr(), cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-        ssq.data_ptr(), int(e), int(num_segments), int(c), _DTYPE_CODES[dtype], stream,
+        ssq.data_ptr(), int(e), int(num_segments), int(c), _DTYPE_CODES[dtype],
+        plan["chunk_edges"], plan["col_threads"], stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_multi_agg kernel launch failed: CUDA error {rc}")
-    fused_multi_agg.launches += 1
     variant = ("" if node_recv is not None or gate is not None else "/edge_in only") + (
         "/gate" if gate is not None else "")
-    fused_multi_agg.launches_by_case[f"{str(dtype)[6:]}/C{c}{variant}"] += 1
+    count_launch(fused_multi_agg, f"{str(dtype)[6:]}/C{c}{variant}")
     return s, cnt, mn, mx, ssq
 
 
-fused_multi_agg.launches = 0
-fused_multi_agg.launches_by_case = collections.Counter()
+init_counters(fused_multi_agg)

@@ -57,8 +57,9 @@ def edge_vectors(pos, senders, receivers, edge_shifts: Optional[torch.Tensor] = 
 
 
 def _const(value: float, like):
-    """``value`` as a 0-d tensor of ``like``'s dtype and device."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    """``value`` as a 0-d tensor of ``like``'s dtype and device (filled
+    there: a copy from the host could not be captured in a CUDA graph)."""
+    return like.new_full((), value)
 
 
 def _ipow(x, y: int):

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from .fused_edge import fused_edge_message_sum as _fused_edge_message_sum
+from .remat import at_site
 from .multi_agg import fused_multi_agg, reference_multi_agg
 from .sorted_segment import segment_sum_plain, sorted_segment_sum, sorted_segment_sum_plain
 
@@ -71,11 +72,14 @@ def multi_moment_agg(edge_in, segment_ids, num_segments: int, node_recv=None,
     if sorted_ids and max_degree and edge_in.dim() == 2:
         # the kernel takes one operand dtype, edge_in's: node_recv and gate
         # are cast to it, as the JAX kernel casts them
-        def operand(t):
-            return None if t is None else t.to(edge_in.dtype).contiguous()
+        def call(nr, ei, g):  # the remat site (ops/remat.py): casts and K3
+            def operand(t):
+                return None if t is None else t.to(ei.dtype).contiguous()
 
-        return fused_multi_agg(operand(node_recv), edge_in.contiguous(), operand(gate),
-                               segment_ids, num_segments)
+            return fused_multi_agg(operand(nr), ei.contiguous(), operand(g), segment_ids,
+                                   num_segments)
+
+        return at_site(call, node_recv, edge_in, gate)
     return reference_multi_agg(node_recv, edge_in, gate, segment_ids, num_segments,
                                mask=mask)
 

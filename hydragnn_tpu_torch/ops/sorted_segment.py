@@ -12,7 +12,8 @@ The wrapper runs the plain version for a CPU tensor and the kernel for a
 CUDA tensor (one launch: the kernel finds each row's edges itself, with no
 row-pointer scratch); anything else raises. ``sorted_segment_sum.launches``
 counts kernel launches (``launches_by_case`` splits them by dtype and
-width).
+width; ``count_launch``: ``captured`` counts launches recorded into a CUDA
+graph, ``replayed`` those its replays ran).
 
 Both are differentiable to any order, as the JAX kernel's ``custom_jvp``
 is: one ``torch.autograd.Function`` whose backward is the gather
@@ -20,6 +21,14 @@ is: one ``torch.autograd.Function`` whose backward is the gather
 kernel, so neither has this one). Edges whose id lies outside
 ``[0, num_segments)`` are dropped by the forward and get a zero gradient.
 With no gradient asked for, the forward runs without the Function.
+
+Each launch takes its launch constants from ``tune.tile_plan`` (the tuned
+table's entry for the shape, else today's constants; tune/plans.py). The
+wrapper reaches the kernel through the operator ``hydragnn::segment_sum``
+(``torch.library``; on a CPU tensor it runs the plain version's forward),
+so the dispatcher sees it: the ``names`` remat policy saves its output
+(ops/remat.py). On ``meta`` tensors (shapes only: the FLOP count of
+obs/flops.py) the wrapper takes the plain version.
 """
 
 from __future__ import annotations
@@ -29,17 +38,16 @@ import ctypes
 
 import torch
 
+from ..tune.plans import SEGMENT
+from ..tune.runtime import tile_plan
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# devices whose tensors take the plain version: the CPU, and ``meta`` (shapes
-# only: the FLOP count of obs/flops.py)
-_PLAIN_DEVICES = ("cpu", "meta")
 
 _SIGNATURES = {
     "hg_sorted_segment_sum": (
         ctypes.c_int,
-        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,),
     ),
 }
 
@@ -128,6 +136,27 @@ def _check_current_device(device) -> None:
         )
 
 
+def count_launch(wrapper, case: str) -> None:
+    """One launch of ``wrapper``'s kernel for ``case``: counted in
+    ``launches`` / ``launches_by_case`` where the kernel runs now, in
+    ``captured`` / ``captured_by_case`` where it is recorded into a CUDA
+    graph (the compile plane adds each replay's launches to ``replayed`` /
+    ``replayed_by_case``; train/compile_plane.py)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+        wrapper.captured_by_case[case] += 1
+    else:
+        wrapper.launches += 1
+        wrapper.launches_by_case[case] += 1
+
+
+def init_counters(wrapper) -> None:
+    """``wrapper``'s launch counters, all at 0 (``count_launch``)."""
+    for name in ("launches", "captured", "replayed"):
+        setattr(wrapper, name, 0)
+        setattr(wrapper, f"{name}_by_case", collections.Counter())
+
+
 def check_ids(segment_ids, n_edges: int, device) -> None:
     if segment_ids.device != device:
         raise ValueError(f"segment_ids on {segment_ids.device}, messages on {device}")
@@ -162,8 +191,10 @@ def recompute_backward(ctx, plain, inputs, douts):
 def sorted_segment_sum(messages, segment_ids, num_segments: int):
     """``out[i] = sum_{e: ids[e] == i} messages[e]`` over ascending ids.
     ``messages`` [E, C] float32/bfloat16; returns [num_segments, C]."""
-    if messages.device.type in _PLAIN_DEVICES:
+    if messages.is_meta:
         return sorted_segment_sum_plain(messages, segment_ids, num_segments)
+    if messages.device.type == "cpu":
+        return _differentiable(_segment_sum_op, messages, segment_ids, num_segments)
     if messages.device.type != "cuda":
         raise ValueError(f"sorted_segment_sum: unsupported device {messages.device}")
     if messages.dtype not in _DTYPE_CODES:
@@ -174,7 +205,22 @@ def sorted_segment_sum(messages, segment_ids, num_segments: int):
     check_ids(segment_ids, e, messages.device)
     if messages.numel() >= 2**31 or num_segments * c >= 2**31:
         raise ValueError("sorted_segment_sum: more than 2**31 elements")
-    return _differentiable(_launch, messages, segment_ids, num_segments)
+    return _differentiable(_segment_sum_op, messages, segment_ids, num_segments)
+
+
+@torch.library.custom_op("hydragnn::segment_sum", mutates_args=())
+def _segment_sum_op(messages: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """K1 as an operator: the kernel for a CUDA tensor, the plain version's
+    forward for a CPU one."""
+    if messages.device.type == "cuda":
+        return _launch(messages, segment_ids, num_segments)
+    return _fixed_order_sum(messages, segment_ids, num_segments)
+
+
+@_segment_sum_op.register_fake
+def _(messages, segment_ids, num_segments):
+    return messages.new_empty((num_segments,) + tuple(messages.shape[1:]))
 
 
 def _launch(messages, segment_ids, num_segments: int):
@@ -183,19 +229,20 @@ def _launch(messages, segment_ids, num_segments: int):
     if out.numel() == 0:
         return out
     ids = segment_ids.to(torch.int64).contiguous()
+    plan = tile_plan(SEGMENT, {"edges": int(e), "channels": int(c),
+                               "num_segments": int(num_segments)}, messages.dtype)
     lib = _build.load("sorted_segment_sum", _SIGNATURES)
     _check_current_device(messages.device)
     stream = torch.cuda.current_stream(messages.device).cuda_stream
     rc = lib.hg_sorted_segment_sum(
         messages.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        int(e), int(num_segments), int(c), _DTYPE_CODES[messages.dtype], stream,
+        int(e), int(num_segments), int(c), _DTYPE_CODES[messages.dtype],
+        plan["narrow_edges"], plan["max_rows"], plan["wide_iters"], stream,
     )
     if rc != 0:
         raise RuntimeError(f"sorted_segment_sum kernel launch failed: CUDA error {rc}")
-    sorted_segment_sum.launches += 1
-    sorted_segment_sum.launches_by_case[f"{str(messages.dtype)[6:]}/C{c}"] += 1
+    count_launch(sorted_segment_sum, f"{str(messages.dtype)[6:]}/C{c}")
     return out
 
 
-sorted_segment_sum.launches = 0
-sorted_segment_sum.launches_by_case = collections.Counter()
+init_counters(sorted_segment_sum)

@@ -59,7 +59,7 @@ from ..bridge import FlaxLeaf, flax_leaves
 from ..data.graph import GraphBatch
 from ..device import module_device
 from ..train.guard import StepCopies, guarded_update
-from ..train.loop import _apply_fn, cast_batch_bf16, guard_enabled
+from ..train.loop import _apply_fn, cast_batch_bf16, guard_enabled, train_loss
 from ..train.loss import compute_loss
 from ..train.optimizer import OptaxRule, _init_state, state_tensors
 from . import rules as R
@@ -655,7 +655,7 @@ class _TrainStep(_Step):
         for p in params:
             p.grad = None
         apply = _apply_fn(model, self.objective.mixed_precision, cast_buffers=False)
-        tot, tasks, _ = compute_loss(apply, batch, model.cfg, self.objective.compute_grad_energy)
+        tot, tasks, _ = train_loss(apply, batch, model.cfg, self.objective.compute_grad_energy)
         tot = tot.float()
         tot.backward()
         with torch.no_grad():

@@ -2,7 +2,8 @@
 
 Counterpart of ``hydragnn_tpu/serve/config.py`` for the single-server slice:
 admission (queue bound, deadlines), micro-batching, load shedding, drain,
-the device-step watchdog and the ``/metrics`` endpoint. Keys of the JAX
+the device-step watchdog, the ``/metrics`` endpoint and the retrace
+sentinel's policy. Keys of the JAX
 package's serving surface that this slice does not consume (hot reload,
 int8, fleet, router, cache) warn and are ignored, like any unknown key.
 """
@@ -34,7 +35,11 @@ class ServeConfig:
       ``/readyz`` endpoint (obs/prometheus.py): 0 (the default) binds an
       ephemeral port (``GraphServer.http_port`` reads it back), a positive
       value pins it, a negative one disables it; ``http_host`` is the bind
-      interface (loopback by default).
+      interface (loopback by default);
+    - ``retrace_policy`` is the retrace sentinel's answer, once every ladder
+      level is captured, to a batch of a shape and dtype no level has
+      (train/compile_plane.py): ``error`` (the default) fails the batch
+      with ``RetraceError``, ``warn`` serves it eagerly with a warning.
     """
 
     max_queue_requests: int = 256
@@ -47,8 +52,11 @@ class ServeConfig:
     step_timeout_s: float = 60.0
     http_port: int = 0
     http_host: str = "127.0.0.1"
+    retrace_policy: str = "error"
 
     def __post_init__(self):
+        from ..train.compile_plane import RETRACE_POLICIES
+
         if self.micro_batch_graphs < 1:
             raise ValueError(
                 f"Serving.micro_batch_graphs must be >= 1, got {self.micro_batch_graphs}"
@@ -61,6 +69,11 @@ class ServeConfig:
         if not isinstance(self.http_host, str) or not self.http_host:
             raise ValueError(
                 f"Serving.http_host must be a non-empty bind address, got {self.http_host!r}"
+            )
+        if self.retrace_policy not in RETRACE_POLICIES:
+            raise ValueError(
+                f"Serving.retrace_policy {self.retrace_policy!r} must be one "
+                f"of {RETRACE_POLICIES}"
             )
         for key in ("batch_window_s", "default_deadline_s", "slo_p99_s",
                     "expected_latency_per_graph_s", "drain_timeout_s", "step_timeout_s"):

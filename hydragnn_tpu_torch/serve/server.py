@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph, SpecLadder, batch_graphs
+from ..train.compile_plane import GraphSet, _signature_of, sentinel, serve_warmup
 from ..data.pipeline import spec_template_batches
 from ..data.validate import R_BRANCH, R_BUDGET, R_CHANNELS, describe_reason, validate_graph
 from ..device import DeviceLike, resolve_device
@@ -264,6 +265,11 @@ class GraphServer:
         self._closed = False
         self.failed: Optional[Exception] = None
         self.warmup_compiled: List[Tuple[str, float]] = []
+        # the levels' CUDA graphs (the card only), the signatures the
+        # sentinel has seen, and whether warm-up armed it
+        self._graphs: Optional[GraphSet] = None
+        self._seen: set = set()
+        self._armed = False
         self._stats_lock = threading.Lock()
         self._stats: Dict[str, int] = {
             "submitted": 0, "admitted": 0, "completed": 0, "rejected": 0,
@@ -317,14 +323,29 @@ class GraphServer:
 
     # -- model step ------------------------------------------------------
 
-    def forward(self, batch) -> Dict[str, np.ndarray]:
-        """One served forward on a CPU ``GraphBatch``: per-head outputs as
-        f32 host arrays."""
-        batch = batch.to(self.device, non_blocking=True)
+    def _placed_forward(self, batch) -> Dict[str, torch.Tensor]:
+        """The served forward on a batch on the server's device (what each
+        level's CUDA graph captures)."""
         if self.mixed_precision:
             batch = cast_batch_bf16(batch)
         with torch.inference_mode():
-            out = self._serve_model(batch)
+            return self._serve_model(batch)
+
+    def forward(self, batch) -> Dict[str, np.ndarray]:
+        """One served forward on a CPU ``GraphBatch``: per-head outputs as
+        f32 host arrays. A batch of a level captured at warm-up replays its
+        CUDA graph; any other runs eagerly, after the retrace sentinel's
+        verdict (``Serving.retrace_policy``: ``error`` raises
+        ``RetraceError``, failing the batch)."""
+        sig = _signature_of(batch)
+        g = self._graphs.graphs.get(sig) if self._graphs is not None else None
+        if g is not None:
+            out = g.run(batch, clone=False)
+        else:
+            if sig not in self._seen:
+                sentinel().note_signature("serve_predict", sig)  # a raise leaves it unseen
+                self._seen.add(sig)
+            out = self._placed_forward(batch.to(self.device, non_blocking=True))
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     def _device_step(self, batch) -> Dict[str, np.ndarray]:
@@ -364,7 +385,23 @@ class GraphServer:
             self._serve_thread.start()
         return self
 
+    def _warm_level(self, spec, batch) -> None:
+        """Warm one ladder level: on the card one eager forward, then its
+        CUDA graph captured (a failed capture raises, naming the level);
+        a captured level replays."""
+        sig = _signature_of(batch)
+        if self._graphs is not None and sig not in self._graphs.graphs:
+            self._placed_forward(batch.to(self.device))
+            self._graphs.capture(sig, f"serve:{spec.n_nodes}n/{spec.n_edges}e", batch)
+            sentinel().note_signature("serve_predict", sig)
+            self._seen.add(sig)
+            return
+        self.forward(batch)
+
     def _warmup(self) -> None:
+        """``serve_warmup`` over the ladder (train/compile_plane.py): every
+        level warmed (and on the card captured) before readiness, then the
+        retrace sentinel armed at ``Serving.retrace_policy``."""
         templates = spec_template_batches(
             self._template_graphs, self.ladder, sort_edges=self.sort_edges
         )
@@ -373,12 +410,19 @@ class GraphServer:
                 "no template graph fits any ladder level: the ladder does not "
                 "describe the template dataset"
             )
-        exec_s = 0.0
-        for spec, batch in templates:
-            t0 = time.perf_counter()
-            self.forward(batch)
-            exec_s = time.perf_counter() - t0
-            self.warmup_compiled.append((f"{spec.n_nodes}n/{spec.n_edges}e", exec_s))
+        if self.device.type == "cuda":
+            self._graphs = GraphSet(self._placed_forward, self.device)
+        compiled, errors, exec_s = serve_warmup(self._warm_level, templates,
+                                                policy=self.cfg.retrace_policy, label="serve")
+        self.warmup_compiled = [(label.split(":", 1)[1], t) for label, t in compiled]
+        if errors:
+            raise RuntimeError(f"serve warm-up failed for {len(errors)} level(s): {errors}")
+        if self._stop.is_set():
+            # close() raced warm-up: the sentinel serve_warmup just armed
+            # must not leak into the rest of the process
+            sentinel().disarm()
+            return
+        self._armed = True
         if self._per_graph_s <= 0 and exec_s > 0:
             # one real graph per template batch
             self._per_graph_s = exec_s
@@ -463,6 +507,10 @@ class GraphServer:
         if self._runner is not None:
             self._runner.stop()
         self._fail_queued(ServerClosedError("server closed"))
+        if self._armed:
+            sentinel().disarm()
+            self._armed = False
+        self._graphs = None  # the levels' graphs and their pool, released now
         self._close_plane()
         self._drained.set()
 

@@ -8,8 +8,10 @@ SIGTERM stop mid-epoch and at the epoch boundary, mid-epoch resume, ``HYDRAGNN_V
 ``HYDRAGNN_STEP_GUARD`` and ``HYDRAGNN_DUMP_TESTDATA``) and its
 observability plane (the per-step telemetry, step spans and region timers,
 the numerics step with its NaN watch, the flight recorder, the event
-stream and the ``Profile`` section), without its fault-injection hooks and
-compile plane.
+stream and the ``Profile`` section) and its compile and memory plane (the
+remat wraps of ``train_loss``; the tuned table and the compile plane,
+CUDA graphs per ladder level and the retrace sentinel, launched by
+``train_validate_test``), without its fault-injection hooks.
 
 Under ``mixed_precision`` a train step runs the model on bf16 copies of
 its parameters made inside the differentiated function
@@ -36,6 +38,7 @@ import torch
 
 from ..data.graph import GraphBatch
 from ..device import module_device
+from ..ops.remat import loss_remat, site_policy
 from ..utils import envflags, preemption
 from ..utils.ranks import is_primary, rank, world_size
 from .guard import NonFinitePolicy, guarded_update, step_ok
@@ -91,6 +94,23 @@ def _apply_fn(model, mixed_precision: bool, cast_buffers: bool) -> Callable:
     return apply
 
 
+def train_loss(apply, batch: GraphBatch, cfg, compute_grad_energy: bool = False):
+    """``compute_loss`` of a train step: its kernel call sites under
+    ``cfg.remat_policy`` (``remat.site_policy``), and under
+    ``cfg.conv_checkpointing`` the whole loss checkpointed with that
+    policy's save rule (``remat.loss_remat``), as the JAX package's
+    ``make_train_step`` wraps its ``loss_fn``. No wrap changes a value."""
+    policy = getattr(cfg, "remat_policy", "full")
+
+    def loss():
+        with site_policy(policy):
+            return compute_loss(apply, batch, cfg, compute_grad_energy)
+
+    if getattr(cfg, "conv_checkpointing", False):
+        return loss_remat(loss, policy)()
+    return loss()
+
+
 def guard_enabled() -> bool:
     """``HYDRAGNN_STEP_GUARD``: on unless set to anything but ``1``, as the
     JAX package reads it."""
@@ -113,17 +133,27 @@ def make_train_step(model, compute_grad_energy: bool = False,
     stack and the gradient-group stack of obs/numerics.py, on the device),
     and the function carries ``_numerics_meta`` (the tensor name tables,
     written by its first step) and ``_nan_diagnose`` (the provenance
-    drill-down). Off, nothing of it runs."""
+    drill-down). Off, nothing of it runs.
+
+    ``train_step.placed(state, batch)`` is the step on a batch already on
+    the model's device (what the compile plane captures), and
+    ``train_step.objective`` its objective flags."""
     apply = _apply_fn(model, mixed_precision, cast_buffers=False)
     guarded = guard_enabled()
     meta = {"act_names": None, "grad_names": None} if numerics else None
 
-    def train_step(state: TrainState, batch: GraphBatch):
-        batch = batch.to(module_device(model), non_blocking=True)
+    def placed(state: TrainState, batch: GraphBatch):
         if mixed_precision:
             batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
         return step_on(state, model, batch, apply, compute_grad_energy, guard=guarded,
                        numerics=meta)
+
+    def train_step(state: TrainState, batch: GraphBatch):
+        return placed(state, batch.to(module_device(model), non_blocking=True))
+
+    train_step.placed = placed
+    train_step.objective = {"compute_grad_energy": bool(compute_grad_energy),
+                            "mixed_precision": bool(mixed_precision)}
 
     if numerics:
         from ..obs.numerics import make_nan_diagnostic
@@ -156,13 +186,13 @@ def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callabl
     for p in params:
         p.grad = None
     if numerics is None:
-        tot, tasks, _ = compute_loss(apply or model, batch, model.cfg, compute_grad_energy)
+        tot, tasks, _ = train_loss(apply or model, batch, model.cfg, compute_grad_energy)
     else:
         from ..obs.numerics import run_probed
 
         (tot, tasks, _), acts = run_probed(
             True, numerics,
-            lambda: compute_loss(apply or model, batch, model.cfg, compute_grad_energy))
+            lambda: train_loss(apply or model, batch, model.cfg, compute_grad_energy))
     tot = tot.float()
     tot.backward()
     numer = None
@@ -198,12 +228,12 @@ def make_eval_step(model, compute_grad_energy: bool = False,
                    mixed_precision: bool = False):
     """``eval_step(state, batch) -> (loss, per-task losses, outputs)`` with
     the model in eval mode (running statistics), on the bf16 eval cast
-    under ``mixed_precision``. ``state`` may be None."""
+    under ``mixed_precision``. ``state`` may be None. ``eval_step.placed``
+    is the step on a batch already on the model's device."""
     cfg = model.cfg
     apply = _apply_fn(model, mixed_precision, cast_buffers=True)
 
-    def eval_step(state, batch: GraphBatch):
-        batch = batch.to(module_device(model), non_blocking=True)
+    def placed(state, batch: GraphBatch):
         if mixed_precision:
             batch = cast_batch_bf16(batch, keep_pos=compute_grad_energy)
         model.eval()
@@ -213,6 +243,10 @@ def make_eval_step(model, compute_grad_energy: bool = False,
         return (tot.detach(), {k: v.detach() for k, v in tasks.items()},
                 {k: v.detach() for k, v in outputs.items()})
 
+    def eval_step(state, batch: GraphBatch):
+        return placed(state, batch.to(module_device(model), non_blocking=True))
+
+    eval_step.placed = placed
     return eval_step
 
 
@@ -448,6 +482,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
             "in hydragnn_tpu_torch yet: it comes with the port's fleet slice. Train "
             "on one process, or set Telemetry.numerics to false (and unset "
             "HYDRAGNN_NUMERICS).")
+    distributed = step_fn is not None or world_size() > 1
     step_fn = step_fn or make_train_step(model, compute_grad_energy, mixed_precision,
                                          numerics=obs_settings["numerics"])
     eval_fn = eval_fn or make_eval_step(model, compute_grad_energy, mixed_precision)
@@ -534,7 +569,22 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     # incoming state's total (a resumed run's earlier skips are not ours)
     guard_seen = int(state.skipped_steps) if writer is not None or telemetry is not None else 0
     guard_events = 0
+    # the kernels' tuned table, installed before the first launch (tune/),
+    # then the compile plane: a CUDA graph per ladder level and the retrace
+    # sentinel (train/compile_plane.py)
+    from ..tune.runtime import setup_autotune
+    from .compile_plane import CompilePlane, compile_metrics
+
+    setup_autotune(config, train_loader, log_name)
+    plane = CompilePlane(mode=str(training.get("precompile", "background")),
+                         retrace_policy=str(training.get("retrace_policy", "warn")),
+                         log_name=log_name,
+                         remat_policy=str(training.get("remat_policy", "full")))
+    plane_rep = None
     try:
+        step_fn, eval_fn = plane.launch(step_fn, eval_fn, state, train_loader, val_loader,
+                                        test_loader, skip_eval=not do_valtest,
+                                        distributed=distributed)
         for epoch in range(int(training["num_epoch"])):
             if warmup_epochs and epoch < warmup_epochs:
                 state = state.with_learning_rate(base_lr * (epoch + 1) / warmup_epochs)
@@ -558,20 +608,22 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 skipped_total = int(state.skipped_steps)
                 guard_events += max(skipped_total - guard_seen, 0)
                 guard_seen = skipped_total
+                rep_now = plane.report()
                 if writer is not None:
                     writer.add_scalars({
                         "guard/skipped_steps": skipped_total,
                         "data/skipped_samples": (validator.skipped_total
                                                  if validator is not None else 0),
-                        # the port compiles nothing: no retrace, no cache
-                        "compile/retrace_violations": 0,
-                        "compile/cache_hits": 0,
-                        "compile/cache_misses": 0,
+                        "compile/retrace_violations": rep_now["violations"],
+                        "compile/cache_hits": rep_now["cache_hits"],
+                        "compile/cache_misses": rep_now["cache_misses"],
                     }, epoch)
                 if telemetry is not None:
                     telemetry.absorb_counters(
                         guard_skipped=guard_events,
-                        data_skipped=dict(validator.counts) if validator is not None else None)
+                        data_skipped=dict(validator.counts) if validator is not None else None,
+                        retrace_violations=rep_now["violations"],
+                        compile_metrics=compile_metrics())
             if cursor is not None:
                 # SIGTERM between steps: save the state and the loader's
                 # cursor now (the grace window is ticking: no val/test, no
@@ -662,26 +714,30 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 pass
         raise
     finally:
+        plane_rep = plane.finish(verbosity)
         profiler.close()
         preemption.uninstall()
         _close_plane(telemetry, state, guard_seen, guard_events, validator, log_name, hist,
-                     flight, tracer, events_armed)
+                     flight, tracer, events_armed, plane_rep)
     if best_state is not None:
         state.load_state_dict(best_state)
     return state, hist
 
 
-# the ``run`` record's ``compile`` field: what the JAX package writes under
-# ``Training.precompile: "off"`` (the port compiles no executables)
-_NO_COMPILE = {"precompiled": 0, "specializations": 0, "cache_hits": 0, "cache_misses": 0,
-               "violations": 0, "time_to_first_step": None}
+# the ``run`` record's ``compile`` field: the JAX package's keys of the
+# compile plane's report
+_COMPILE_KEYS = ("precompiled", "specializations", "cache_hits", "cache_misses", "violations",
+                 "time_to_first_step")
 
 
 def _close_plane(telemetry, state, guard_seen, guard_events, validator, log_name, hist,
-                 flight, tracer, events_armed) -> None:
+                 flight, tracer, events_armed, plane_rep) -> None:
     """The observability plane's teardown: the run's last counters and the
-    ``run`` record, then the sinks; never raises past the run's result."""
+    ``run`` record (its ``compile`` field from ``plane_rep``, the compile
+    plane's report), then the sinks; never raises past the run's result."""
     import warnings
+
+    from .compile_plane import compile_metrics
 
     if telemetry is not None:
         try:
@@ -691,13 +747,15 @@ def _close_plane(telemetry, state, guard_seen, guard_events, validator, log_name
                 pass
             telemetry.absorb_counters(
                 guard_skipped=guard_events,
-                data_skipped=dict(validator.counts) if validator is not None else None)
+                data_skipped=dict(validator.counts) if validator is not None else None,
+                retrace_violations=plane_rep["violations"],
+                compile_metrics=compile_metrics())
             telemetry.run_record({
                 "log_name": log_name,
                 "epochs": len(hist["train"]),
                 "global_step": telemetry.global_step,
                 "endpoint_port": telemetry.endpoint_port,
-                "compile": dict(_NO_COMPILE),
+                "compile": {k: plane_rep[k] for k in _COMPILE_KEYS},
             })
         except Exception as e:  # noqa: BLE001
             warnings.warn(f"telemetry teardown failed ({type(e).__name__}: {e}); the run "

@@ -15,6 +15,7 @@ the per-branch totals as ``branch<i>`` task losses.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -73,6 +74,15 @@ def _per_branch_head_loss(per_elem, mask, branch_of_row, num_branches: int, loss
     return torch.sqrt(out) if loss_type.lower() == "rmse" else out
 
 
+@functools.lru_cache(maxsize=None)
+def _branch_weights(weights: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The per-branch loss weights as an f32 tensor on ``device``, made once
+    (outside inference mode, so a training step can use it; and before any
+    CUDA graph capture, which could not copy it from the host)."""
+    with torch.inference_mode(False):
+        return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
 def multitask_loss(outputs: Dict[str, torch.Tensor], batch, cfg
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total weighted loss + per-task unweighted losses (and, for a
@@ -82,8 +92,7 @@ def multitask_loss(outputs: Dict[str, torch.Tensor], batch, cfg
     graph_branch = batch.dataset_id.long()
     gw = None
     if B > 1 and cfg.branch_loss_weights:
-        w_arr = torch.tensor(cfg.branch_loss_weights, dtype=torch.float32,
-                             device=graph_branch.device)
+        w_arr = _branch_weights(tuple(cfg.branch_loss_weights), graph_branch.device)
         gw = w_arr[torch.clamp(graph_branch, 0, B - 1)]
     want_branch = B > 1 and cfg.branch_loss_metrics
     branch_tot = None

@@ -938,22 +938,18 @@ ZOO_ARCH = {"DimeNet": dict(num_radial=6, num_spherical=7, basis_emb_size=8, int
             "MACE": dict(num_radial=8, max_ell=2, node_max_ell=2, correlation=3)}
 
 
-def _zoo_models(device, model, layers, node_type="mlp", branches=1, loss="mae"):
-    """A zoo conv's model (hidden 64, f32) on the sorted route, the same
-    weights on the unsorted plain route (no kernel), and one batch of 8
-    OC20-shaped graphs (DimeNet's with its triplets). ``node_type``,
-    ``branches`` and ``loss`` give it another node head, that many decoder
-    branches (graph i in branch i % branches, per-branch loss weights and
-    scalars) and another loss."""
+def _zoo_config(model, layers, node_type="mlp", branches=1, loss="mae", gps=False):
+    """``(config, splits)`` of a zoo conv's model (hidden 64) on the sorted
+    route over 16 OC20-shaped graphs (see ``_zoo_models``); ``gps``: GPS
+    global attention (2 heads) over it, the graphs with Laplacian PE."""
     import dataclasses
-    import copy
 
-    from hydragnn_tpu_torch.config import update_config
-    from hydragnn_tpu_torch.data import GraphLoader, oc20_shaped_dataset, split_dataset
-    from hydragnn_tpu_torch.models import create_model
+    from hydragnn_tpu_torch.data import add_dataset_pe, oc20_shaped_dataset, split_dataset
 
     graphs = [dataclasses.replace(g, dataset_id=i % branches) for i, g in enumerate(
         oc20_shaped_dataset(16, mean_atoms=20, min_atoms=10, max_atoms=40))]
+    if gps:
+        graphs = add_dataset_pe(graphs, 4)
     splits = split_dataset(graphs, 0.75)
     heads = {"graph": {"num_sharedlayers": 1, "dim_sharedlayers": 16,
                        "num_headlayers": 1, "dim_headlayers": [16]},
@@ -967,6 +963,9 @@ def _zoo_models(device, model, layers, node_type="mlp", branches=1, loss="mae"):
             **ZOO_ARCH.get(model, {})}
     if model == "EGNN":
         arch["equivariance"] = True
+    if gps:
+        arch.update(global_attn_engine="GPS", global_attn_type="multihead",
+                    global_attn_heads=2, pe_dim=4, dropout=0.0)
     if branches > 1:
         arch.update(branch_loss_weights=[1.0 + b for b in range(branches)],
                     branch_loss_metrics=True)
@@ -977,6 +976,23 @@ def _zoo_models(device, model, layers, node_type="mlp", branches=1, loss="mae"):
                                  "input_node_features": [0, 1],
                                  "output_names": ["energy", "forces"],
                                  "output_index": [0, 2], "type": ["graph", "node"]}}}
+    return cfg, splits
+
+
+def _zoo_models(device, model, layers, node_type="mlp", branches=1, loss="mae"):
+    """A zoo conv's model (hidden 64, f32) on the sorted route, the same
+    weights on the unsorted plain route (no kernel), and one batch of 8
+    OC20-shaped graphs (DimeNet's with its triplets). ``node_type``,
+    ``branches`` and ``loss`` give it another node head, that many decoder
+    branches (graph i in branch i % branches, per-branch loss weights and
+    scalars) and another loss."""
+    import copy
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data import GraphLoader
+    from hydragnn_tpu_torch.models import create_model
+
+    cfg, splits = _zoo_config(model, layers, node_type, branches, loss)
     plain_cfg = copy.deepcopy(cfg)
     plain_cfg["NeuralNetwork"]["Architecture"].update(use_sorted_aggregation=False,
                                                       use_fused_edge_kernel=False)
@@ -1209,7 +1225,8 @@ def pytest_run_training_from_a_columnar_config_on_card(cuda, tmp_path, monkeypat
     no device given: the kernels on by config completion, K2 four times in
     each train step and eval batch (every EGNN layer, equivariance off), the
     state on the card, every loss finite, the completed config written to
-    the run directory."""
+    the run directory. Under the default ``precompile: background`` most
+    launches are CUDA-graph replays (``replayed_by_case``)."""
     import json
     import math
     from pathlib import Path
@@ -1228,11 +1245,15 @@ def pytest_run_training_from_a_columnar_config_on_card(cuda, tmp_path, monkeypat
     done, loaders, mm = prepare_data(copy.deepcopy(config))
     arch = done["NeuralNetwork"]["Architecture"]
     assert mm is None and arch["use_sorted_aggregation"] and arch["use_fused_edge_kernel"]
-    before = dict(t_fused.fused_edge_message_sum.launches_by_case)
+    k2 = t_fused.fused_edge_message_sum
+
+    def k2_launches():  # run by the wrapper, and by replays of the levels' CUDA graphs
+        return k2.launches_by_case["float32/32x32"] + k2.replayed_by_case["float32/32x32"]
+
+    before = k2_launches()
     _, state, hist = run_training(copy.deepcopy(config))
     torch.cuda.synchronize()
-    after = t_fused.fused_edge_message_sum.launches_by_case
-    launched = after["float32/32x32"] - before.get("float32/32x32", 0)
+    launched = k2_launches() - before
     assert launched == 4 * (int(state.step) + len(loaders[1]) + len(loaders[2]))
     assert state.step.device.type == "cuda" and int(state.step) == len(loaders[0])
     assert all(math.isfinite(v) for k in ("train", "val", "test") for v in hist[k])
@@ -1362,3 +1383,365 @@ def pytest_egnn_train_step_makes_no_synchronizing_call_on_card(cuda, mixed_preci
         torch.cuda.set_sync_debug_mode(0)
     assert len(out) == (4 if numerics else 3) and bool(torch.isfinite(out[1]))
 
+
+
+# -- the compile plane (train/compile_plane.py): CUDA graphs of the kernels and the step
+
+
+def _capture_case(kernel, cuda):
+    """``(wrapper, zero-argument call)`` of ``kernel``'s wrapper on small
+    operands on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, e, c = 40, 300, 16
+    ids = torch.sort(torch.randint(0, n, (e,), generator=gen, device=cuda)).values
+    x = torch.randn(e, c, generator=gen, device=cuda)
+    if kernel == "K1":
+        return t_sorted.sorted_segment_sum, lambda: t_sorted.sorted_segment_sum(x, ids, n)
+    if kernel == "K2":
+        ops = (torch.randn(n, c, generator=gen, device=cuda), x,
+               torch.randn(c, c, generator=gen, device=cuda) / 4,
+               torch.randn(c, generator=gen, device=cuda))
+        return (t_fused.fused_edge_message_sum,
+                lambda: t_fused.fused_edge_message_sum(*ops, ids, n))
+    if kernel == "K3":
+        nr = torch.randn(n, c, generator=gen, device=cuda)
+        return t_multi.fused_multi_agg, lambda: t_multi.fused_multi_agg(nr, x, None, ids, n)
+    q, k, v = (torch.randn(64, 2, 32, generator=gen, device=cuda) for _ in range(3))
+    if kernel == "K4":
+        graph = torch.arange(64, device=cuda) // 16
+        mask = torch.ones(64, dtype=torch.bool, device=cuda)
+        return (t_flash.flash_self_attention,
+                lambda: t_flash.flash_self_attention(q, k, v, graph, mask, 4, 16))
+    key_mask = torch.arange(64, device=cuda) % 5 != 0
+    return (t_flash.flash_block_summary,
+            lambda: t_flash.flash_block_summary(q, k, v, key_mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K4b"])
+def pytest_kernel_captured_and_replayed_equals_eager_on_card(cuda, kernel):
+    """Each kernel's wrapper captured in a CUDA graph and replayed (its
+    outputs zeroed first, so the replay writes them): bit for bit the eager
+    call's outputs; the capture counts one launch recorded and none run, so
+    the ``ctypes`` launch went onto the capturing stream."""
+    wrapper, call = _capture_case(kernel, cuda)
+    eager = call()
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    torch.cuda.synchronize()
+    launches, captured = wrapper.launches, wrapper.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    static = static if isinstance(static, tuple) else (static,)
+    assert (wrapper.launches, wrapper.captured) == (launches, captured + 1)
+    for t in static:
+        t.zero_()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(static, eager))
+
+
+def _graph_cell(cuda, copies: int = 2):
+    """The egnn_train cell at hidden 24 on a 3-level ladder: the train
+    loader and ``copies`` states from one init."""
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+
+    splits = split_dataset(oc20_shaped_dataset(48, mean_atoms=20, min_atoms=8, max_atoms=40),
+                           0.9, seed=0)
+    config = cs.train_config(batch_size=4, hidden=24, head=16)
+    config["NeuralNetwork"]["Training"].update(pack_batches=False, num_pad_buckets=3)
+    config, (loader, _, _), _ = prepare_data(config, splits)
+    loader.set_epoch(0)
+    model = create_model(config, device=cuda, seed=0)
+    return loader, [cs._train_copy(model, cuda) for _ in range(copies)]
+
+
+def _tensors(state):
+    return [t.detach().clone() for t in state.held] + [state.step.clone()]
+
+
+def _graphed(state, loader, policy="warn"):
+    from hydragnn_tpu_torch.train import compile_plane as cp
+    from hydragnn_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    plane = cp.CompilePlane(mode="blocking", retrace_policy=policy)
+    step, _ = plane.launch(make_train_step(state.model, mixed_precision=True),
+                           make_eval_step(state.model, mixed_precision=True), state, loader,
+                           skip_eval=True)
+    return plane, step
+
+
+@pytest.mark.gpu
+def pytest_graphed_train_step_equals_eager_on_card(cuda):
+    """The egnn_train cell's step (bf16, K1 and K2) at hidden 24 over an
+    epoch of a 3-level ladder, eagerly and through a blocking compile
+    plane's CUDA graphs from the same init, under deterministic
+    algorithms: every loss, parameter, moment, buffer and the step counter
+    bit for bit; every step a replay, no kernel run eagerly."""
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    loader, (a, b) = _graph_cell(cuda)
+    batches = list(loader)
+    eager = make_train_step(a.model, mixed_precision=True)
+    plane, graphed = _graphed(b, loader, "error")
+    try:
+        assert len(plane.graphs()) == len(loader.spec_template_batches()) > 1
+        with deterministic_algorithms():
+            la = [eager(a, x)[1] for x in batches]
+            before = t_sorted.sorted_segment_sum.launches
+            lb = [graphed(b, x)[1] for x in batches]
+        torch.cuda.synchronize()
+        assert t_sorted.sorted_segment_sum.launches == before
+        assert sum(g.replays for g in plane.graphs().values()) == len(batches)
+        assert torch.equal(torch.stack(la), torch.stack(lb))
+        assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+    finally:
+        plane.finish()
+
+
+@pytest.mark.gpu
+def pytest_lr_change_takes_effect_under_replay_on_card(cuda):
+    """A learning rate is baked into a captured step: after
+    ``with_learning_rate`` (the plateau schedule, the guard's backoff) the
+    level is captured again, and the replayed trajectory equals the eager
+    one under the same change bit for bit (deterministic algorithms), and
+    parts from a run that kept the old rate."""
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    loader, (a, b, c) = _graph_cell(cuda, copies=3)
+    batches = list(loader)[:4]
+    eager = make_train_step(a.model, mixed_precision=True)
+    kept = make_train_step(c.model, mixed_precision=True)
+    plane, graphed = _graphed(b, loader)
+    try:
+        with deterministic_algorithms():
+            for i, x in enumerate(batches):
+                if i == 2:
+                    a.with_learning_rate(1e-2)
+                    b.with_learning_rate(1e-2)
+                eager(a, x)
+                graphed(b, x)
+                kept(c, x)
+        torch.cuda.synchronize()
+        assert sum(g.captures for g in plane.graphs().values()) > len(plane.graphs())
+        assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+        assert not all(torch.equal(x, y) for x, y in zip(_tensors(c), _tensors(b)))
+    finally:
+        plane.finish()
+
+
+@pytest.mark.gpu
+def pytest_k3_counters_outgrown_under_a_captured_graph_on_card(cuda):
+    """K3's arrival counters grow with the largest call; a graph captured at
+    a smaller one keeps the buffer it recorded alive: capture a small call,
+    run a larger one eagerly (the counters grow), then replay the small
+    one: its moments equal the plain version's (count, min and max exactly)
+    and every counter reads 0 after it."""
+    def case(n, seed):
+        ids, gen = _ascending_ids(cuda, n, 8, seed)
+        # a long dummy last row: the split rows that count their arrivals
+        ids = torch.cat([ids, torch.full((2000,), n - 1, dtype=ids.dtype, device=cuda)])
+        x = torch.randn(ids.shape[0], 32, generator=gen, device=cuda)
+        return (torch.randn(n, 32, generator=gen, device=cuda), x, None, ids, n)
+
+    small = case(50, 1)
+    t_multi.fused_multi_agg(*small)  # sizes the counters for the small call
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = t_multi.fused_multi_agg(*small)
+    held = t_multi._counters[cuda]
+    large = case(held.numel() + 1, 2)  # more rows than the buffer has counters
+    t_multi.fused_multi_agg(*large)
+    torch.cuda.synchronize()
+    assert t_multi._counters[cuda] is not held  # grown, the captured one kept
+    for t in static:
+        t.zero_()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = t_multi.reference_multi_agg(*small)
+    for name, a, b in zip(("sum", "count", "min", "max", "sumsq"), static, want):
+        if name in ("count", "min", "max"):
+            assert torch.equal(a, b), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0), name
+    assert int(held.abs().sum()) == 0
+    assert int(t_multi._counters[cuda].abs().sum()) == 0
+
+
+# every launch plan a tuned table may pick beside today's (tune/plans.py),
+# forced: (kernel, channels or head dim, plan)
+NON_DEFAULT_PLANS = [
+    ("K1", 3, {"narrow_edges": 128}), ("K1", 4, {"narrow_edges": 512}),
+    ("K1", 33, {"max_rows": 256, "wide_iters": 8}),
+    ("K1", 126, {"max_rows": 512, "wide_iters": 64}),
+    ("K1", 866, {"max_rows": 32, "wide_iters": 2}),
+    ("K2", 64, {"rows_per_block": 1}), ("K2", 130, {"rows_per_block": 32}),
+    ("K2", 866, {"rows_per_block": 7}),
+    ("K3", 50, {"chunk_edges": 512, "col_threads": 16}),
+    ("K3", 50, {"chunk_edges": 256, "col_threads": 1}),
+    ("K3", 3, {"chunk_edges": 512, "col_threads": 2}),
+    ("K3", 128, {"chunk_edges": 512, "col_threads": 8}),
+    ("K3", 256, {"chunk_edges": 512, "col_threads": 32}),
+    ("K4", 32, {"block_k": 32}), ("K4b", 32, {"block_k": 32}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,width,plan", NON_DEFAULT_PLANS)
+def pytest_non_default_plans_match_plain_on_card(cuda, kernel, width, plan, dtype):
+    """Each kernel under a forced plan that is not its default launch, on
+    the operands of its default-plan test above (empty rows, long rows, a
+    long dummy last row), against its plain version at that test's
+    tolerance; one launch."""
+    from hydragnn_tpu_torch.tune import plans, runtime
+
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    dt = str(dtype)[6:]
+    if kernel in ("K1", "K2", "K3"):
+        n = 400
+        deg = torch.randint(0, 30, (n,), generator=gen, device=cuda)
+        deg[10:25] = 0
+        deg[200:203] = torch.tensor([65, 1300, 64], device=cuda)
+        deg[-1] = 2500
+        ids = torch.repeat_interleave(torch.arange(n, device=cuda), deg)
+        e = ids.shape[0]
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=cuda) * scale).to(dtype)
+    if kernel == "K1":
+        kid, shapes = plans.SEGMENT, {"channels": width}
+        wrapper, msg = t_sorted.sorted_segment_sum, rand(e, width)
+        call = lambda: t_sorted.sorted_segment_sum(msg, ids, n)  # noqa: E731
+        want = t_sorted.sorted_segment_sum_plain(msg, ids, n)
+    elif kernel == "K2":
+        kid, shapes = plans.FUSED_EDGE, {"edges": e, "num_segments": n}
+        ops = [rand(n, width), rand(e, width), rand(width, width, scale=width ** -0.5),
+               rand(width)]
+        wrapper = t_fused.fused_edge_message_sum
+        call = lambda: t_fused.fused_edge_message_sum(*ops, ids, n)  # noqa: E731
+        want = t_fused.reference_edge_message_sum(*ops, ids, n)
+    elif kernel == "K3":
+        kid, shapes = plans.MULTI_AGG, {}
+        ops = [rand(n, width), rand(e, width), rand(e, width)]
+        wrapper = t_multi.fused_multi_agg
+        call = lambda: t_multi.fused_multi_agg(*ops, ids, n)  # noqa: E731
+        want = t_multi.reference_multi_agg(*ops, ids, n)
+    elif kernel == "K4":
+        kid, shapes = plans.FLASH, {"head_dim": width}
+        sizes = [1, 40, 225, 3, 70, 1, 128, 17]
+        qkv, node_graph, node_mask, g = _attention_case(cuda, dtype, 8, width, sizes, 37, 5)
+        wrapper = t_flash.flash_self_attention
+        call = lambda: t_flash.flash_self_attention(  # noqa: E731
+            *qkv, node_graph, node_mask, g, max(sizes))
+        want = t_flash.reference_masked_attention(*qkv, node_graph, node_mask)
+    else:
+        kid, shapes = plans.FLASH, {"head_dim": width}
+        q, k, v, key_mask = _block_case(cuda, dtype, 300, 170, 8, width, seed=9)
+        wrapper = t_flash.flash_block_summary
+        call = lambda: t_flash.flash_block_summary(q, k, v, key_mask)  # noqa: E731
+        want = t_flash.reference_block_summary(q, k, v, key_mask)
+    shapes["dtype"] = dt
+    assert plans.normalize(kid, plan, shapes) != plans.default_plan(kid, shapes)
+    before = wrapper.launches
+    with runtime.forced(kid, plan):
+        got = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    f32 = dtype == torch.float32
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        if kernel == "K1":
+            torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-4 if f32 else 2e-2)
+        elif kernel == "K2":
+            assert float((a - b).abs().max()) <= (1e-4 if f32 else 2e-2) * max(scale, 1.0)
+        elif kernel == "K3" and i in (1, 2, 3):  # count, min, max
+            assert torch.equal(a, b), i
+        elif kernel == "K3":
+            assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0), i
+        elif kernel == "K4":
+            tol = (1e-5 if f32 else 2e-2) * float(qkv[2].float().abs().max())
+            assert float((a - b).abs().max()) <= tol
+        else:
+            assert float((a - b).abs().max()) <= (1e-5 if f32 else 2e-2) * scale, i
+
+
+# every model family the port ships: each zoo conv, EGNN, PNA, GIN, and GPS
+# global attention over PNA
+CAPTURE_FAMILIES = ["EGNN", "PNA", "GIN", "GPS"] + list(ZOO_LAUNCHES)
+
+
+def _family_capture_check(device, model):
+    """A blocking compile plane over ``model``'s family (2 conv layers,
+    hidden 64, f32, a 2-level ladder): every train and eval level is
+    captured (on the card); from the same state, each train batch through
+    the plane gives the eager step's loss and gradients, and each eval
+    batch its outputs. Returns the plane's graphs' replays."""
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import compile_plane as cp
+    from hydragnn_tpu_torch.train.loop import make_eval_step, make_train_step
+
+    gps = model == "GPS"
+    cfg, splits = _zoo_config("PNA" if gps else model, 2, gps=gps)
+    cfg["NeuralNetwork"]["Training"].update(num_pad_buckets=2, pack_batches=False)
+    config, (train, val, _), _ = prepare_data(cfg, splits)
+    train.set_epoch(0)
+    net = create_model(config, device=device, seed=0)
+    a, b = (cs._train_copy(net, device) for _ in range(2))
+    eager_step, eager_eval = make_train_step(a.model), make_eval_step(a.model)
+    plane = cp.CompilePlane(mode="blocking", retrace_policy="error")
+    step, evaluate = plane.launch(make_train_step(b.model), make_eval_step(b.model), b, train,
+                                  val)
+    try:
+        batches = 0
+        with deterministic_algorithms():
+            for x in train:
+                b.load_state_dict(a.state_dict())
+                _, la, _ = eager_step(a, x)
+                _, lb, _ = step(b, x)
+                assert abs(float(la) - float(lb)) <= 1e-5 * abs(float(la)), (model, la, lb)
+                grads = [(p.grad, q.grad) for p, q in zip(a.model.parameters(),
+                                                          b.model.parameters())]
+                top = max(float(ga.abs().max()) for ga, _ in grads)
+                for ga, gb in grads:
+                    scale = max(float(ga.abs().max()), 1e-3 * top)
+                    assert float((ga - gb).abs().max()) <= 1e-4 * scale, model
+                batches += 1
+            for x in val:
+                b.load_state_dict(a.state_dict())
+                want, got = eager_eval(a, x)[2], evaluate(b, x)[2]
+                for k in want:
+                    scale = max(float(want[k].abs().max()), 1e-30)
+                    assert float((want[k] - got[k]).abs().max()) <= 1e-5 * scale, (model, k)
+                batches += 1
+        if device.type == "cuda":
+            kinds = {label.split(":")[0] for label in plane.graphs()}
+            assert kinds == {"train", "eval"}, (model, kinds)
+            assert sum(g.replays for g in plane.graphs().values()) == batches, model
+        return batches
+    finally:
+        plane.finish()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", CAPTURE_FAMILIES)
+def pytest_every_family_steps_through_captured_graphs_on_card(cuda, model):
+    """``precompile: blocking`` (and so ``background``, the default, whose
+    captures are the same) captures a train and an eval level of every
+    model family, and each replay computes what the eager step does:
+    losses to 1e-5, gradients to 1e-4 of each one's largest value (floored
+    at 1e-3 of the largest anywhere), eval outputs to 1e-5, deterministic
+    algorithms on."""
+    assert _family_capture_check(cuda, model) > 0
