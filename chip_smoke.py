@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only (a short first run)
     python3 chip_smoke.py --plane    # build + capture checks + the compile plane's phases
+    python3 chip_smoke.py --data-plane  # build + the host data plane's phase
 
 Phases, each fatal on failure (exit code 1):
 
@@ -17,7 +18,9 @@ Phases, each fatal on failure (exit code 1):
 3. kernels: each kernel's wrapper on the card at the shapes its path gives
    it (one real batch of that path: an OC20-shaped packed batch of 32
    graphs for K1/K2, an unpacked batch of 16 for K3/K4, the spanning BCC
-   supercell of 8,192 atoms for K4b and K1 at C = 256), held against its
+   supercell of 8,192 atoms for K4b and K1 at C = 256; N1, the numerics
+   step's statistics, on the egnn model's taps and gradients of that
+   packed batch), held against its
    plain PyTorch version with a stated tolerance, then timed with CUDA
    events (and its device time under torch.profiler) beside the plain
    version, one library call where PyTorch has one, and the bound (the
@@ -30,7 +33,7 @@ Phases, each fatal on failure (exit code 1):
    ~17k edges), off the kernels line; a K3 call that is more than one
    device kernel fails. Then the ring-merge check: K4b over four key blocks
    merged through the ring's ``_block_attend`` against one K4b call over
-   all keys; each kernel (K1, K2, K3, K4, K4b) at its first case's shapes
+   all keys; each kernel (K1, K2, K3, K4, K4b, N1) at its first case's shapes
    captured in a CUDA graph and replayed, against the eager call bit for
    bit and its plain version (``capture_checks``); K1's fixed-order plain version twice on the gin_ring shapes
    (the same bits, or it fails); then, for every kernel library, each
@@ -115,7 +118,7 @@ Phases, each fatal on failure (exit code 1):
    for bit; else within 4x their spread), its launches per served batch;
    a byte of the newest payload flipped: the server walks back to the
    previous epoch's file, reports it, and answers as its weights do; a
-   SIGTERM sent as the loader hands out batch 1 of epoch 1: the run
+   SIGTERM sent as the step of batch 1 of epoch 1 starts: the run
    checkpoints with a loader-state sidecar and stops, ``continue: true``
    replays the rest of that epoch (the same graphs in the same order as an
    uninterrupted run), and those steps' losses are held against the
@@ -302,6 +305,35 @@ Phases, each fatal on failure (exit code 1):
    server replay one CUDA graph per ladder level by default: the launch
    gates count the wrappers' launches and the graphs' replays.
 
+18. ``data_plane``, the host data plane (after ``obs_serve``): (a) the
+   egnn_train cell on a 4-level ladder, every level's graph captured
+   (``precompile`` blocking), through ``api.run_training`` for 3 epochs of
+   10 steps with device staging (``double_buffer: true``) and the loader's
+   prefetch thread (2 batches) against both off, under deterministic
+   algorithms: every loss and state tensor bit for bit, K1/K2 launches a
+   step through the graphs as egnn_train's; the second epoch's ms a step
+   and graphs/s, the third's device time under the profiler (the busy
+   share against the second's wall), and the gauges ``hydragnn_device_prefetch_depth``
+   and ``hydragnn_loader_prefetch_depth``; (b) the loader's stall watchdog:
+   a fetch blocking past a 0.5 s ``stall_timeout`` raises
+   ``LoaderStallError`` within the timeout plus one watchdog period,
+   ``hydragnn_loader_stalls_total`` 1, a fetch that raises reaches the
+   consumer, no producer thread left alive; (c)
+   ``examples/ani1_x/ani1x_forces.json`` (EGNN 50 x 3, K1 and K2) and (d)
+   ``examples/csce/csce_gap.json`` (PNA 200 x 6, K3) from their committed
+   JSON, their data made by ``ani1x_shaped_dataset`` and
+   ``smiles_table_dataset`` and written by ``ColumnarWriter`` (CSCE's with
+   its SMILES strings): ``prepare_data``, ``run_training`` for 4 steps,
+   then step 0's loss and gradients (and ANI-1x's forces head) and the
+   same steps against the plain versions of the recipe's kernels
+   (oc20_config's and lsms_config's limits); the kernel checks of phase 3
+   hold K1 and K2 at ANI-1x's first batch and K3 at CSCE's (``ani1x/``
+   and ``csce/`` in the kernels line); (e) a ``DistDataset`` (POSIX shared memory)
+   over the egnn cell's graphs feeding ``GraphLoader`` with prefetch: its
+   batches equal the list-backed loader's bit for bit, one step's loss
+   the same; (f) the native cell-list builder (``g++`` at first use) on an
+   open cluster of 32,768 atoms: the same edge set as cKDTree, both timed.
+
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
 ``egnn_ckpt`` phase and the phases of 14 print none). Every path runs in a temporary directory
@@ -348,13 +380,17 @@ GIN_RING_REQUESTS = 4
 MERGE_BLOCKS = 4
 
 # the kernel libraries of the paths (hydragnn_tpu_torch/csrc/<name>.cu)
-LIBRARIES = ("sorted_segment_sum", "fused_edge", "multi_agg", "flash_attention")
+LIBRARIES = ("sorted_segment_sum", "fused_edge", "multi_agg", "flash_attention",
+             "numerics_stats")
+NATIVE_LIBRARIES = ("neighbors", "ddstore")  # hydragnn_tpu_torch/native/*.cpp, by g++
 KERNELS = {  # kernel -> (module, wrapper) of hydragnn_tpu_torch.ops
     "K1": ("sorted_segment", "sorted_segment_sum"),
     "K2": ("fused_edge", "fused_edge_message_sum"),
     "K3": ("multi_agg", "fused_multi_agg"),
     "K4": ("flash_attention", "flash_self_attention"),
     "K4b": ("flash_attention", "flash_block_summary"),
+    # no TPU kernel: the JAX package's numerics reductions, which XLA fuses
+    "N1": ("numerics_stats", "numerics_stats"),
 }
 
 
@@ -676,6 +712,8 @@ def _case(kernel, dtype, name, case, fn, plain, library, nbytes, ops_ms, iters, 
                "hydragnn_tpu/ops/pallas_flash_attention.py:299"),
         "K4b": ("hydragnn_tpu_torch/csrc/flash_attention.cu",
                 "hydragnn_tpu/ops/pallas_flash_attention.py:420"),
+        "N1": ("hydragnn_tpu_torch/csrc/numerics_stats.cu",
+               "hydragnn_tpu/obs/numerics.py:168"),
     }[kernel]
     return dict(kernel=kernel, dtype=str(dtype)[6:], name=name, case=case, fn=fn, plain=plain,
                 library=library, nbytes=nbytes, ops_ms=ops_ms, iters=iters, shape=shape,
@@ -793,6 +831,55 @@ def egnn_kernel_cases(batch, device, prefix: str = "", k2_dtypes=None):
             continue
         cases.append(_k2_case(ids, n, e, dtype, gen, prefix))
     return cases
+
+
+def numerics_kernel_case(config, batch, device):
+    """N1 at the obs_train step's shapes: the model of ``config`` (the egnn
+    cell, random weights from the seed) on ``batch``, one bf16 train-mode
+    forward with every probe on and its backward; its taps, their masks and
+    the gradient leaves by group, against the plain version. The outputs:
+    each statistic's column and the ok flag."""
+    import torch
+
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.obs.numerics import ProbeRecord, collecting, param_groups
+    from hydragnn_tpu_torch.ops.numerics_stats import numerics_stats, numerics_stats_plain
+    from hydragnn_tpu_torch.train.loop import _apply_fn, cast_batch_bf16, train_loss
+
+    model = create_model(config, device=device, seed=SEED)
+    model.train()
+    rec = ProbeRecord()
+    with collecting(rec):
+        tot, _, _ = train_loss(_apply_fn(model, True, cast_buffers=False),
+                               cast_batch_bf16(batch.to(device)), model.cfg)
+    tot = tot.float()
+    tot.backward()
+    _, _, order, gshapes = param_groups(model)
+    params = list(model.parameters())
+    leaves = [params[k].grad if params[k].grad is not None else torch.zeros_like(params[k])
+              for k in order]
+    taps = [x.detach() for _, x, _ in rec.entries]
+    masks = [m for _, _, m in rec.entries]
+    sizes = tuple(len(g) for g in gshapes)
+    tot = tot.detach()
+    t, g = len(taps), len(sizes)
+    elements = sum(x.numel() for x in taps) + sum(x.numel() for x in leaves)
+    distinct = {id(m): m for m in masks if m is not None}.values()
+    nbytes = (sum(x.numel() * x.element_size() for x in taps + leaves)
+              + sum(m.numel() for m in distinct) + (t + g) * 5 * 4)
+
+    def columns(out_ok):
+        out, ok = out_ok
+        return (*out.unbind(1), ok)
+
+    return _case(
+        "N1", torch.float32, f"numerics_stats ({t} taps, {g} groups)", f"{t}taps/{g}groups",
+        lambda: columns(numerics_stats(taps, masks, leaves, sizes, tot)),
+        lambda: columns(numerics_stats_plain(taps, masks, leaves, sizes, tot)),
+        None, nbytes,
+        elements * 6 / PEAK_FLOPS["float32"] * 1e3,  # |x|, x * x, three adds, a max
+        20, dict(taps=t, groups=g, elements=elements), check_exact=(0, 2, 3, 4, 5),
+    )
 
 
 def _k2_case(ids, n, e, dtype, gen, prefix: str = "", ci: int = 866, co: int = 866):
@@ -1090,6 +1177,9 @@ TOLERANCES = {
     ("K4", "bfloat16"): (0.0, 2e-2),
     ("K4b", "float32"): (0.0, 1e-5),
     ("K4b", "bfloat16"): (0.0, 2e-2),
+    # max |x| and the counts exact (the same values), the sums of squares
+    # in another order
+    ("N1", "float32"): (0.0, 1e-5),
 }
 
 
@@ -1494,7 +1584,7 @@ def _check_launches(label, wrappers, per_unit, units, unit="steps"):
     return {(k, case): n for k, (_, cases) in launches.items() for case, n in cases.items()}
 
 
-PLAIN = ("K1", "K2", "K3", "K4", "K4b")
+PLAIN = ("K1", "K2", "K3", "K4", "K4b", "N1")
 
 
 @contextlib.contextmanager
@@ -1522,6 +1612,7 @@ def plain_swaps(k1=None):
         reference_masked_attention,
     )
     from hydragnn_tpu_torch.ops.fused_edge import reference_edge_message_sum
+    import hydragnn_tpu_torch.ops.numerics_stats as nstats
     from hydragnn_tpu_torch.ops.multi_agg import reference_multi_agg
     from hydragnn_tpu_torch.ops.sorted_segment import sorted_segment_sum_plain
 
@@ -1532,6 +1623,7 @@ def plain_swaps(k1=None):
         "K1": (segment, "sorted_segment_sum", k1 or sorted_segment_sum_plain),
         "K2": (segment, "_fused_edge_message_sum", reference_edge_message_sum),
         "K4b": (ring, "flash_block_summary", reference_block_summary),
+        "N1": (nstats, "numerics_stats", nstats.numerics_stats_plain),
     }
 
 
@@ -2698,7 +2790,7 @@ def run_gin_ring_train(config, batches, device, per_step):
 # on the same terms; the rollback bit for bit, its LR backed off.
 CKPT_EPOCHS = 3
 CKPT_RETENTION = 2
-CKPT_KILL = (1, 1)  # SIGTERM as batch 1 of epoch 1 is handed out
+CKPT_KILL = (1, 1)  # SIGTERM as the step of batch 1 of epoch 1 starts
 CKPT_WALKBACK_REQUESTS = 64
 CKPT_REPEAT = 4.0
 CKPT_ROLLBACK = {"non_finite_policy": "rollback", "non_finite_rollback_after": 2,
@@ -2711,7 +2803,9 @@ def ckpt_probes(log=None, kill_at=None, poison=(), losses=None, saves=None, rest
     """Within the block, each ``run_training`` / ``run_prediction`` /
     ``run_server`` call records what the arguments ask for: ``log`` gets
     each train batch handed out as ((epoch, index), graph ids); the process
-    gets SIGTERM as batch ``kill_at`` is handed out; the batches of the
+    gets SIGTERM as the step of batch ``kill_at`` starts (device staging
+    draws the batches ahead of their steps, so the signal is keyed on the
+    step, through the hand-out order); the batches of the
     epochs in ``poison`` have NaN features; ``losses`` gets each train
     step's loss (on the device); ``saves`` (file, seconds, bytes) of each
     checkpoint save; ``restores`` (file, seconds, payload right after) of
@@ -2728,16 +2822,17 @@ def ckpt_probes(log=None, kill_at=None, poison=(), losses=None, saves=None, rest
     base, make_step = api.GraphLoader, loop.make_train_step
     save, load, policy = ck.save_model, ck.load_existing_model, loop.NonFinitePolicy
 
+    handed, stepped = [], []  # the train batches' positions handed out; the steps run
+
     class Loader(base):
         def __iter__(self):
             groups = self._groups()[self.start_batch:]
             for k, (grp, batch) in enumerate(zip(groups, super().__iter__())):
                 if self.shuffle:  # the train split
                     pos = (self.epoch, self.start_batch + k)
+                    handed.append(pos)
                     if log is not None:
                         log.append((pos, tuple(int(i) for i in grp)))
-                    if pos == kill_at:
-                        os.kill(os.getpid(), signal.SIGTERM)
                     if self.epoch in poison:
                         batch = batch.replace(x=torch.full_like(batch.x, float("nan")))
                 yield batch
@@ -2746,6 +2841,9 @@ def ckpt_probes(log=None, kill_at=None, poison=(), losses=None, saves=None, rest
         step = make_step(model, *a, **kw)
 
         def run(state, batch):
+            if kill_at is not None and handed[len(stepped)] == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            stepped.append(1)
             out = step(state, batch)
             if losses is not None:
                 losses.append(out[1].clone())
@@ -3035,14 +3133,15 @@ def run_egnn_ckpt(graphs, device, per_step):
     spread = float(np.max(np.abs(losses_b - losses_a[:steps]) / np.abs(losses_a[:steps])))
     os.makedirs("sigterm")
     with contextlib.chdir("sigterm"):
-        log_k, saves_k = [], []
-        with ckpt_probes(log=log_k, kill_at=CKPT_KILL, saves=saves_k):
+        log_k, saves_k, losses_k = [], [], []
+        with ckpt_probes(log=log_k, kill_at=CKPT_KILL, saves=saves_k, losses=losses_k):
             _, _, hist_k = run_training(copy.deepcopy(two), datasets=splits, seed=SEED)
         stopped = preemption.global_stop_noted()
         ls = load_loader_state(name_two)
         files_k = sorted(os.listdir(os.path.join("logs", name_two)))
-        print(f"{label}: SIGTERM as batch {CKPT_KILL[1]} of epoch {CKPT_KILL[0]} was handed out: "
-              f"{len(log_k)} batches stepped, history {hist_k}, loader state "
+        print(f"{label}: SIGTERM as the step of batch {CKPT_KILL[1]} of epoch {CKPT_KILL[0]} "
+              f"started: {len(losses_k)} batches stepped ({len(log_k)} handed out to the "
+              f"staging), history {hist_k}, loader state "
               f"{ls.to_dict() if ls else None}, saves {saves_k}, on disk {files_k}", flush=True)
         cursor = CKPT_KILL[1] + 1
         check(stopped and len(hist_k["train"]) == 2 and ls is not None
@@ -4873,6 +4972,32 @@ def config_kernel_cases(batches, device):
     return cases
 
 
+def example_kernel_cases(batches, device):
+    """The data_plane recipes' kernels at their first train batches (f32),
+    named ``ani1x/`` and ``csce/``: K1 at ANI-1x's hidden width and at the
+    coordinates' 3 channels and K2 at hidden x hidden (EGNN); K3 at CSCE's
+    input width and hidden width (PNA's variant)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    cases = []
+    for label, (config, b) in batches.items():
+        nn_cfg = config["NeuralNetwork"]
+        hidden = nn_cfg["Architecture"]["hidden_dim"]
+        prefix = f"{label.split('_')[0]}/"
+        ids = b.receivers.to(device)
+        if label == "ani1x_config":
+            cases += [_k1_case(ids, b.edge_mask.to(device), b.num_nodes, c, torch.float32, gen,
+                               c, prefix) for c in (hidden, 3)]
+            cases.append(_k2_case(ids, b.num_nodes, b.num_edges, torch.float32, gen, prefix,
+                                  hidden, hidden))
+        else:
+            width = len(nn_cfg["Variables_of_interest"]["input_node_features"])
+            cases += [_k3_pna_case(ids, b.node_mask.to(device), b.num_nodes, b.num_edges, c,
+                                   torch.float32, gen, prefix)[0] for c in (width, hidden)]
+    return cases
+
+
 def read_back(label: str, config):
     """The phase's own read of its data into model-ready graphs, with the
     port's readers: the columnar dataset (its ``Dataset.mode``) with the
@@ -5854,14 +5979,19 @@ def obs_ab(label: str, batches, legs, blocks: int = OBS_AB_BLOCKS,
     the legs' medians; and the objects alive before it are frozen out of
     the garbage collector's passes (``gc.freeze``: their cost grows with
     this process's heap, not with what a leg does). Prints every pair, and
-    each block's allocator churn (device allocations and frees, retries)."""
+    each block's allocator churn (device allocations and frees, retries),
+    and first the host's load and this process's live threads (what else
+    shares the host clock)."""
     import gc
+    import os
 
     import numpy as np
     import torch
 
     from hydragnn_tpu_torch.train.loop import train_epoch
 
+    print(f"{label}: host load {[round(x, 2) for x in os.getloadavg()]} on {os.cpu_count()} "
+          f"cores; threads alive {sorted(t.name for t in threading.enumerate())}", flush=True)
     gc.collect()
     gc.freeze()
     ratios = []
@@ -5905,9 +6035,9 @@ def run_obs_train(graphs, device, per_step):
     the run holds the train series and ``/healthz`` answers 200; the
     capture of ``profile_steps`` steps names K1's and K2's kernels and the
     step's spans and regions; K1/K2 launches per step and eval batch as
-    egnn_train's. Then, on the run's weights: each probe's and gradient
-    group's max |x| and rms through the kernels against the plain versions
-    on one batch; one batch poisoned after batching through the numerics
+    egnn_train's, N1 (the numerics) once a train step. Then, on the run's
+    weights: each probe's and gradient group's max |x| and rms through the
+    kernels (N1 among them) against the plain versions on one batch; one batch poisoned after batching through the numerics
     step (the guard skips it, ``numerics_provenance`` names ``embedding``,
     one flight dump with its files); and the step-time A/Bs, telemetry on
     against off and numerics on against off, within 2%. Returns the
@@ -5976,9 +6106,17 @@ def run_obs_train(graphs, device, per_step):
         model, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = _check_launches(f"{label} run_training", wrappers, per_step, units,
+    # N1 runs in each train step's numerics, not in the eval batches
+    numerics_runs = dict(collections.Counter(wrappers["N1"].launches_by_case)
+                         + wrappers["N1"].replayed_by_case)
+    launched = _check_launches(f"{label} run_training",
+                               {k: w for k, w in wrappers.items() if k != "N1"}, per_step, units,
                                "steps and eval batches")
     steps = len(events)
+    print(f"{label}: N1 launches in {steps} train steps {numerics_runs}", flush=True)
+    check(len(numerics_runs) == 1 and sum(numerics_runs.values()) == steps,
+          f"{label}: N1 launched {numerics_runs} in {steps} train steps, expected one a step")
+    launched.update({("N1", c): n for c, n in numerics_runs.items()})
     print(f"{label}: run_training with Telemetry {OBS_TELEMETRY}, 1 epoch in {seconds:.2f} s: "
           f"{steps} steps, history {hist}, guard skips {int(state.skipped_steps)}", flush=True)
     check(steps == int(state.step) == len(loaders[0]) >= 16 and int(state.skipped_steps) == 0,
@@ -6101,17 +6239,24 @@ def run_obs_train(graphs, device, per_step):
     from hydragnn_tpu_torch.obs.flops import train_flops_for
 
     telem.attach_flops(train_flops_for(st.model, False, True))
-    train_epoch(ab_batches, plain_step, st)  # warm
-    train_epoch(ab_batches, plain_step, st, telemetry=telem)
+    # the legs copy each batch inline, as before device staging was the
+    # loop's default: its producer thread is host-clock noise to a 2% A/B
+    # and the same in both legs (PERF.md §4)
+    inline = {"prefetch_depth": 0}
+    train_epoch(ab_batches, plain_step, st, **inline)  # warm
+    train_epoch(ab_batches, plain_step, st, telemetry=telem, **inline)
     best = obs_ab(f"{label} telemetry A/B", ab_batches, {
-        "off": lambda: (st, plain_step, {}), "on": lambda: (st, plain_step, {"telemetry": telem})})
+        "off": lambda: (st, plain_step, inline),
+        "on": lambda: (st, plain_step, {"telemetry": telem, **inline})})
     telem.close()
     check(best <= 1 + OBS_AB_BUDGET, f"{label}: telemetry costs {(best - 1) * 100:.2f}% a step")
     num_step = make_train_step(st.model, mixed_precision=True, numerics=True)
-    train_epoch(ab_batches, num_step, st, nan_watch=NanWatch(diagnose=num_step._nan_diagnose))
+    train_epoch(ab_batches, num_step, st, nan_watch=NanWatch(diagnose=num_step._nan_diagnose),
+                **inline)
     best = obs_ab(f"{label} numerics A/B", ab_batches, {
-        "off": lambda: (st, plain_step, {}),
-        "on": lambda: (st, num_step, {"nan_watch": NanWatch(diagnose=num_step._nan_diagnose)})})
+        "off": lambda: (st, plain_step, inline),
+        "on": lambda: (st, num_step, {"nan_watch": NanWatch(diagnose=num_step._nan_diagnose),
+                                      **inline})})
     check(best <= 1 + OBS_AB_BUDGET, f"{label}: numerics costs {(best - 1) * 100:.2f}% a step")
     check(int(st.skipped_steps) == 0, f"{label}: the A/B steps skipped {int(st.skipped_steps)}")
     return launched
@@ -6238,11 +6383,11 @@ TUNE_BUDGET = 3  # candidate plans a slot
 TUNE_TRIALS = 3  # timed calls a candidate
 PLANE_KERNELS = {"sorted_segment_sum": "K1", "fused_edge_message_sum": "K2",
                  "fused_multi_agg": "K3", "flash_self_attention": "K4",
-                 "flash_block_summary": "K4b"}
+                 "flash_block_summary": "K4b", "numerics_stats": "N1"}
 
 
 def capture_checks(cases):
-    """Each kernel (K1, K2, K3, K4, K4b) at its first case's path shapes
+    """Each kernel (K1, K2, K3, K4, K4b, N1) at its first case's path shapes
     captured in a CUDA graph and replayed: the replay's outputs (zeroed
     before it, so the replay writes them) equal the eager call's bit for
     bit and the plain version's within the case's tolerance; the capture
@@ -6803,6 +6948,506 @@ def run_plane_phases(device, train_graphs, serve_graphs, root: Path):
     return launched
 
 
+# data_plane: the host data plane on the egnn cell and two example
+# recipes. (a) the egnn_train cell through run_training with device staging
+# and loader prefetch on against both off, under deterministic algorithms;
+# (b) the loader's stall watchdog; (c) examples/ani1_x/ani1x_forces.json and
+# (d) examples/csce/csce_gap.json from their committed JSON, their data made
+# by the port's generators; (e) a DistDataset feeding GraphLoader; (f) the
+# native cell-list neighbor builder against cKDTree.
+DATA_PLANE_GRAPHS = 356  # 320 train graphs: 10 steps of 32 an epoch
+# epoch 0 the warm-up, epoch 1 timed, epoch 2 profiled (the profiler, even
+# recording device activity alone, slows the host's launches)
+DATA_PLANE_EPOCHS = 3
+DATA_PLANE_LEGS = {"staged": (True, 2), "inline": (False, 0)}  # double_buffer, loader prefetch
+STALL_TIMEOUT_S = 0.5
+STALL_BLOCK_S = 1.5  # the wedged fetch: past the timeout, within the teardown join
+STALL_SLACK_S = 0.05  # thread scheduling beyond the timeout plus one watchdog period
+EXAMPLE_STEPS = 4  # the example recipes' steps (HYDRAGNN_MAX_NUM_BATCH)
+EXAMPLE_GRAPHS = {"ani1x_config": 192, "csce_config": 192}  # 134 train graphs: 4 full batches
+EXAMPLE_JSON = {"ani1x_config": "examples/ani1_x/ani1x_forces.json",
+                "csce_config": "examples/csce/csce_gap.json"}
+EXAMPLE_KERNELS = {"ani1x_config": ("K1", "K2"), "csce_config": ("K3",)}
+# each recipe's first steps against the plain versions of its kernels,
+# under the limits of the config phase on the same kernels (oc20_config:
+# K1 and K2, lsms_config: K3), and the kernel whose sums the rounding draw
+# evaluates in f64
+EXAMPLE_RTOL = {"ani1x_config": ("K2", CONFIG_RTOL["oc20_config"]),
+                "csce_config": ("K3", CONFIG_RTOL["lsms_config"])}
+DIST_DATASET_GRAPHS = 288  # of the egnn cell's graphs: 259 train graphs, 9 batches
+NATIVE_ATOMS = 32768
+NATIVE_RADIUS = 5.0
+NATIVE_DENSITY = 0.05  # atoms per cubic Angstrom (~50 neighbours within 5 A)
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Within the block, each environment variable set (a value) or unset
+    (None)."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+
+def run_staging(graphs, device, per_step):
+    """(a) The egnn_train cell (bf16, a 4-level ladder, ``precompile``
+    blocking: a graph replayed per level) through ``api.run_training`` for
+    ``DATA_PLANE_EPOCHS`` epochs, once with ``double_buffer: true`` and the
+    loader's prefetch at 2 (``HYDRAGNN_NUM_WORKERS``), once with both off,
+    under deterministic algorithms: every loss and every state tensor equal
+    bit for bit; K1/K2 launches a step through the graphs as egnn_train's.
+    The second epoch is timed (synchronized at both ends): ms a step and
+    graphs/s; the third profiled (device time, CUDA activity only): the
+    busy share against the second's wall; and the two gauges. Returns the
+    launches by (kernel, case)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import hydragnn_tpu_torch.train.loop as loop
+    from hydragnn_tpu_torch.api import run_training
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.obs.registry import registry
+
+    label = "data_plane (a)"
+    splits = split_dataset(graphs, 0.9, seed=0)
+    with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI up before the timed epochs
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+    runs = {}
+    for leg, (db, workers) in DATA_PLANE_LEGS.items():
+        config = graphs_config("blocking")
+        config["NeuralNetwork"]["Training"].update(double_buffer=db,
+                                                   num_epoch=DATA_PLANE_EPOCHS)
+        epochs = []
+        real_epoch = loop.train_epoch
+
+        def timed_epoch(loader, step_fn, state, **kw):
+            profiled = len(epochs) == DATA_PLANE_EPOCHS - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = real_epoch(loader, step_fn, state, **kw)
+                    torch.cuda.synchronize()
+            else:
+                out = real_epoch(loader, step_fn, state, **kw)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dev = (sum(_device_us(ev) for ev in _device_events(prof)) / 1e3
+                   if profiled else None)
+            epochs.append((wall, len(loader), dev))
+            return out
+
+        registry().gauge("hydragnn_loader_prefetch_depth", labelnames=("source",)).remove(
+            source="train")
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(deterministic())
+            stack.enter_context(_env(HYDRAGNN_NUM_WORKERS=workers,
+                                     HYDRAGNN_DEVICE_PREFETCH=None))
+            planes = stack.enter_context(recorded_planes())
+            losses = stack.enter_context(step_losses())
+            stack.enter_context(swapped([(loop, "train_epoch", timed_epoch)]))
+            _, state, hist = run_training(copy.deepcopy(config), datasets=splits, seed=SEED)
+            torch.cuda.synchronize()
+        rep = planes[-1].report()
+        gauges = {name: registry().get(name).value(**lab) for name, lab in (
+            ("hydragnn_device_prefetch_depth", {}),
+            ("hydragnn_loader_prefetch_depth", {"source": "train"}))}
+        # the timed epoch's wall against the profiled epoch's device time
+        # (the same graphs in another order, on the same ladder)
+        wall, steps, _ = epochs[-2]
+        prof_wall, prof_steps, dev = epochs[-1]
+        dev = dev * steps / prof_steps if dev else None
+        n_graphs = len(splits[0])
+        runs[leg] = dict(state=_state_tensors(state), losses=losses, hist=hist, rep=rep)
+        print(f"{label}: {leg} (double_buffer {db}, loader prefetch {workers}): epoch "
+              f"{DATA_PLANE_EPOCHS - 2} {wall * 1e3 / steps:.2f} ms a step over {steps} steps, "
+              f"{n_graphs / wall:.1f} graphs/s; device busy "
+              f"{'not measured' if not dev else f'{dev / (wall * 1e3):.1%}'} "
+              f"({'-' if dev is None else f'{dev / steps:.2f}'} ms of device time a step in "
+              f"epoch {DATA_PLANE_EPOCHS - 1}, profiled: {prof_wall * 1e3 / prof_steps:.2f} ms "
+              f"a step of wall); gauges {gauges}; losses {losses[0][0]:.6g} -> "
+              f"{losses[-3][-1]:.6g}", flush=True)
+        check(gauges["hydragnn_device_prefetch_depth"] == (2.0 if db else 0.0),
+              f"{label}: {leg}: the device staging gauge reads "
+              f"{gauges['hydragnn_device_prefetch_depth']}")
+        check(rep["precompiled"] == rep["specializations"] > 2 and rep["violations"] == 0,
+              f"{label}: {leg}: {rep['precompiled']} of {rep['specializations']} levels "
+              "captured, or a violation")
+        for kind in ("train", "eval"):
+            for got in plane_launches(rep, kind):
+                check(got == per_step, f"{label}: {leg}: a {kind} graph records {got}, "
+                                       f"expected {per_step}")
+    a, b = runs["staged"], runs["inline"]
+    diff = sum(0 if torch.equal(x, y) else 1 for x, y in zip(a["state"], b["state"]))
+    same_losses = a["losses"] == b["losses"] and a["hist"] == b["hist"]
+    print(f"{label}: staged against inline: {diff} of {len(a['state'])} state tensors differ, "
+          f"every loss equal {same_losses} ({sum(map(len, a['losses']))} readings)", flush=True)
+    check(diff == 0 and same_losses, f"{label}: staging changed the run")
+    check(np.isfinite(np.asarray(a["losses"][0])).all(), f"{label}: a non-finite loss")
+    launched = collections.Counter()
+    for r in runs.values():
+        launched.update(replayed_by_kernel(r["rep"]))
+    return launched
+
+
+class _StallingGraphs:
+    """A dataset whose ``__getitem__`` blocks ``seconds`` once, at index
+    ``at`` (a wedged fetch), or raises there (``fail``)."""
+
+    def __init__(self, graphs, at: int, seconds: float = 0.0, fail: bool = False):
+        self.graphs, self.at, self.seconds, self.fail = graphs, at, seconds, fail
+        self.blocked = 0
+
+    def __len__(self):
+        return len(self.graphs)
+
+    def __getitem__(self, i):
+        if i == self.at and not self.blocked:
+            self.blocked += 1
+            if self.fail:
+                raise OSError(f"fetch of sample {i} failed")
+            time.sleep(self.seconds)
+        return self.graphs[i]
+
+
+def run_watchdog(graphs) -> None:
+    """(b) The loader's stall watchdog: a fetch blocking past
+    ``stall_timeout`` raises ``LoaderStallError`` within the timeout plus
+    one watchdog period of the consumer's ask, counted once in
+    ``hydragnn_loader_stalls_total`` with a ``loader_stall`` event; a
+    fetch that raises delivers its exception to the consumer; neither
+    leaves the producer thread alive."""
+    from hydragnn_tpu_torch.data import pipeline
+    from hydragnn_tpu_torch.data.graph import SpecLadder
+    from hydragnn_tpu_torch.obs.events import EV_LOADER_STALL, events
+    from hydragnn_tpu_torch.obs.registry import registry
+
+    label = "data_plane (b)"
+    ladder = SpecLadder.for_dataset(graphs, 8)
+    events().clear()
+    stall = _StallingGraphs(graphs, at=40, seconds=STALL_BLOCK_S)
+    loader = pipeline.GraphLoader(stall, 8, spec=ladder, shuffle=False, prefetch=2,
+                                  stall_timeout=STALL_TIMEOUT_S, source="stall_check")
+    delivered, raised, t_ask = 0, None, None
+    it = iter(loader)
+    try:
+        while True:
+            t_ask = time.time()
+            next(it)
+            delivered += 1
+    except pipeline.LoaderStallError as e:
+        raised = e
+    except StopIteration:
+        pass
+    ev = [e for e in events().snapshot() if e["kind"] == EV_LOADER_STALL]
+    waited = ev[0]["ts"] - t_ask if ev else float("nan")
+    stalls = registry().get("hydragnn_loader_stalls_total").value(source="stall_check")
+    thread = loader._producer_thread
+    thread.join(timeout=STALL_BLOCK_S)
+    limit = STALL_TIMEOUT_S + pipeline._WATCHDOG_TICK_S + STALL_SLACK_S
+    print(f"{label}: a fetch blocking {STALL_BLOCK_S} s after {delivered} batches: "
+          f"{type(raised).__name__} {waited:.3f} s after the consumer's ask (limit {limit:.3f} "
+          f"s: timeout {STALL_TIMEOUT_S} + one watchdog period "
+          f"{pipeline._WATCHDOG_TICK_S} + {STALL_SLACK_S}); hydragnn_loader_stalls_total "
+          f"{stalls}; {len(ev)} loader_stall event(s) ({ev[0]['cause'] if ev else None}); the "
+          f"producer alive afterwards {thread.is_alive()}", flush=True)
+    check(raised is not None and waited <= limit, f"{label}: the wedged producer")
+    check(stalls == 1 and len(ev) == 1 and not thread.is_alive(),
+          f"{label}: the stall's counter, event or producer thread")
+    failing = _StallingGraphs(graphs, at=40, fail=True)
+    loader = pipeline.GraphLoader(failing, 8, spec=ladder, shuffle=False, prefetch=2,
+                                  stall_timeout=STALL_TIMEOUT_S, source="stall_check")
+    got = None
+    try:
+        for _ in loader:
+            pass
+    except OSError as e:
+        got = e
+    thread = loader._producer_thread
+    thread.join(timeout=STALL_BLOCK_S)
+    print(f"{label}: a fetch raising in the producer reaches the consumer as "
+          f"{type(got).__name__}: {got}; the producer alive afterwards {thread.is_alive()}",
+          flush=True)
+    check(got is not None and "sample 40" in str(got) and not thread.is_alive(),
+          f"{label}: the producer's exception")
+
+
+def example_data(label: str, root: Path):
+    """The recipe's data made by the port's generator and written by the
+    port's ``ColumnarWriter`` (CSCE's with its SMILES strings), and its
+    config: the committed JSON with the data's path. Returns (config,
+    seconds)."""
+    from hydragnn_tpu_torch.data import ColumnarWriter, ani1x_shaped_dataset
+    from hydragnn_tpu_torch.data import smiles as port_smiles
+
+    t0 = time.perf_counter()
+    config = json.loads((REPO / EXAMPLE_JSON[label]).read_text())
+    arch = config["NeuralNetwork"]["Architecture"]
+    path = root / label
+    n = EXAMPLE_GRAPHS[label]
+    if label == "ani1x_config":
+        ColumnarWriter(str(path)).add(ani1x_shaped_dataset(
+            number_configurations=n, radius=arch["radius"],
+            max_neighbours=arch["max_neighbours"])).save()
+    else:
+        strings = []
+        parse = port_smiles.smiles_to_graph
+
+        def recording(s, *a, **kw):
+            g = parse(s, *a, **kw)
+            strings.append(s)
+            return g
+
+        with swapped([(port_smiles, "smiles_to_graph", recording)]):
+            graphs = port_smiles.smiles_table_dataset(number_configurations=n)
+        check(len(strings) == len(graphs), f"{label}: {len(strings)} strings for "
+                                           f"{len(graphs)} molecules")
+        w = ColumnarWriter(str(path)).add(graphs)
+        w.add_string("smiles", strings)
+        w.save()
+        check(port_smiles.columnar_schema_current(str(path)),
+              f"{label}: the written feature table is not the current SMILES schema")
+    config["Dataset"]["path"]["total"] = str(path)
+    config["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    return config, time.perf_counter() - t0
+
+
+def run_example_config(label: str, config, data_s: float, device):
+    """(c), (d) One example recipe from its committed JSON: ``prepare_data``
+    then ``run_training`` (the config written to ``<label>.json`` and passed
+    as a path, no device given; ``EXAMPLE_STEPS`` steps, no val/test)
+    under deterministic algorithms, each kernel of the path launched every
+    step; then the same first steps through the kernels against the plain
+    versions of the recipe's kernels (``EXAMPLE_RTOL``): step 0's loss and
+    gradients (and ANI-1x's forces head at the initial weights), and the
+    later steps within the trajectory limit or three rounding draws.
+    Returns the launches by (kernel, case) of ``run_training``."""
+    import numpy as np
+
+    from hydragnn_tpu_torch import api
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    wrappers = _wrappers()
+    kernel, rtol = EXAMPLE_RTOL[label]
+    t0 = time.perf_counter()
+    done, loaders, _ = api.prepare_data(copy.deepcopy(config))
+    prep_s = time.perf_counter() - t0
+    arch = done["NeuralNetwork"]["Architecture"]
+    cfg_path = Path(f"{label}.json").resolve()
+    cfg_path.write_text(json.dumps(config))
+    losses, seconds, graphs = [], [], []
+    _zero_launches(wrappers)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(deterministic())
+        stack.enter_context(_env(HYDRAGNN_MAX_NUM_BATCH=EXAMPLE_STEPS, HYDRAGNN_VALTEST=0))
+        stack.enter_context(step_probe(losses, seconds, graphs))
+        _, state, hist = api.run_training(str(cfg_path), seed=SEED)
+    steps = int(state.step)
+    counts = {k: dict(collections.Counter(w.launches_by_case) + w.replayed_by_case)
+              for k, w in wrappers.items()}
+    per_step = {k: {c: n // steps for c, n in cases.items()} for k, cases in counts.items()
+                if cases}
+    print(f"{label}: {EXAMPLE_JSON[label]}: {EXAMPLE_GRAPHS[label]} graphs made and written in "
+          f"{data_s:.2f} s; {arch['mpnn_type']} hidden {arch['hidden_dim']} x "
+          f"{arch['num_conv_layers']}, heads {head_dims(arch)}, batch "
+          f"{done['NeuralNetwork']['Training']['batch_size']}, sorted aggregation "
+          f"{arch['use_sorted_aggregation']}, fused {arch['use_fused_edge_kernel']}; "
+          f"prepare_data {prep_s:.2f} s; run_training {steps} steps, losses "
+          f"{[round(float(v), 6) for v in losses]}, step ms {[round(s * 1e3, 2) for s in seconds]}"
+          f"; launches {counts}", flush=True)
+    check(state.step.device.type == "cuda" and steps == EXAMPLE_STEPS == len(losses)
+          and int(state.skipped_steps) == 0 and all(math.isfinite(float(v)) for v in losses),
+          f"{label}: run_training did not take {EXAMPLE_STEPS} finite steps on the card")
+    for k in EXAMPLE_KERNELS[label]:
+        check(bool(counts[k]), f"{label}: {k} never launched")
+    check(all(n % steps == 0 for cases in counts.values() for n in cases.values())
+          and set(k for k, c in counts.items() if c) == set(EXAMPLE_KERNELS[label]),
+          f"{label}: launches {counts} are not the same every step of its kernels")
+    lr = config["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"]
+    loaders[0].set_epoch(0)
+    batches = list(loaders[0])[:EXAMPLE_STEPS]
+    model = create_model(done, device=device, seed=SEED)
+
+    def make_step(st):
+        return lambda b: make_train_step(st.model)(st, b)
+
+    swap = EXAMPLE_KERNELS[label]
+    with deterministic():
+        grads = route_gradients(model, batches[0], device,
+                                {"kernels": ((), None), "plain": (swap, None),
+                                 "the plain route again": (swap, None)}, make_step, lr=lr)
+        gradients_present(f"{label}: step 0", grads["kernels"], grads["plain"])
+        grad_gate("step-0 gradients vs plain route", grads["kernels"], grads["plain"],
+                  rtol["gradients"], {"the plain route again": grads["the plain route again"]},
+                  cell=label)
+        del grads
+        if "forces" in rtol:
+            forces_gate(label, model, batches[0].to(device), swap, rtol["forces"])
+        lk, lp, _, _, _, _, _ = trajectories(label, model, batches, device, make_step, swap,
+                                             per_step, lr=lr)
+        st = _train_copy(model, device, lr=lr)
+        step = make_step(st)
+        mod, name, plain = plain_swaps()[kernel]
+        with swapped([(mod, name, _rounded_f64(plain))]):
+            lc = np.asarray([float(step(b)[1]) for b in batches])
+        del st, step, model
+    la = np.asarray([float(v) for v in losses])
+    step0 = abs(float(lk[0]) - float(lp[0])) / abs(float(lp[0]))
+    print(f"{label}: step 0's loss through the kernels {lk[0]:.8g}, the plain versions of "
+          f"{'/'.join(swap)} {lp[0]:.8g}, relative {step0:.3g} (limit {rtol['loss']}); the "
+          f"kernel route's losses equal run_training's: {bool(np.array_equal(lk, la))}",
+          flush=True)
+    check(step0 <= rtol["loss"], f"{label}: step 0's loss disagrees with the plain versions")
+    draw = float((np.abs(lc - lp) / np.abs(lp)).max())
+    trajectory_gate(label, lk, lp, max(rtol["trajectory"], 3 * draw),
+                    f"; the rounding draw {lc.tolist()}, largest relative {draw:.3g}")
+    return {(k, c): n for k, cases in counts.items() for c, n in cases.items()}
+
+
+def forces_gate(label: str, model, batch, swap, lim) -> None:
+    """The node head ``forces`` at ``model``'s initial weights (eval),
+    through the kernels against the plain versions of ``swap``: each real
+    row's largest difference over the plain route's largest value, the
+    largest and the median row against ``lim``."""
+    import torch
+
+    forces = {}
+    for route, kernels in (("kernels", ()), ("plain", swap)):
+        m = copy.deepcopy(model).eval()
+        with deterministic(), plain_versions(kernels):
+            forces[route] = m(batch)["forces"].float().detach()
+        del m
+    mask = batch.node_mask
+    rows = ((forces["kernels"] - forces["plain"])[mask].abs().max(dim=1).values
+            / float(forces["plain"][mask].abs().max()))
+    print(f"{label}: the forces head at the initial weights (eval), kernels vs plain: largest "
+          f"row {float(rows.max()):.6g}, median row {float(rows.median()):.6g} (limits {lim})",
+          flush=True)
+    check(bool(torch.isfinite(forces["kernels"]).all()) and float(rows.max()) <= lim[0]
+          and float(rows.median()) <= lim[1], f"{label}: the forces disagree with the plain route")
+
+
+def run_dist_dataset(graphs, device) -> None:
+    """(e) A ``DistDataset`` over the egnn cell's graphs (a POSIX
+    shared-memory store named after this process, unlinked at the end)
+    feeding ``GraphLoader`` with prefetch on: every batch equal to the
+    list-backed loader's bit for bit, and one train step on the first
+    batch of each gives the same loss (deterministic, one init)."""
+    import os
+
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data import DistDataset, GraphLoader, split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import make_train_step
+
+    label = "data_plane (e)"
+    done, (tl, _, _), _ = prepare_data(copy.deepcopy(graphs_config("off")),
+                                       split_dataset(graphs, 0.9, seed=0))
+    from hydragnn_tpu_torch.data.ddstore import _pack_graph
+
+    t0 = time.perf_counter()
+    # the arena sized by the samples (POSIX shared memory may be small)
+    need = sum(len(_pack_graph(g)) for g in tl.graphs)
+    store = DistDataset(tl.graphs, name=f"chip_smoke_dds_{os.getpid()}",
+                        capacity_bytes=need + need // 4 + (1 << 20),
+                        max_items=len(tl.graphs) + 1)
+    put_s = time.perf_counter() - t0
+    try:
+        kw = dict(spec=tl.ladder, shuffle=True, seed=0, sort_edges=tl.sort_edges)
+        listed = list(GraphLoader(tl.graphs, 32, **kw))
+        t0 = time.perf_counter()
+        stored = list(GraphLoader(store, 32, prefetch=2, **kw))
+        read_s = time.perf_counter() - t0
+        same = len(listed) == len(stored) and all(same_batches(a, b)
+                                                  for a, b in zip(listed, stored))
+        model = create_model(done, device=device, seed=SEED)
+        loss = {}
+        with deterministic():
+            for name, b in (("list", listed[0]), ("store", stored[0])):
+                st = _train_copy(model, device)
+                loss[name] = float(make_train_step(st.model, mixed_precision=True)(st, b)[1])
+                del st
+        del model
+        print(f"{label}: DistDataset of {len(store)} graphs ({store.store.used_bytes} bytes) "
+              f"populated in {put_s:.2f} s; {len(stored)} batches through GraphLoader(prefetch "
+              f"2) in {read_s:.2f} s, equal to the list-backed loader's bit for bit {same}; one "
+              f"step's loss {loss}", flush=True)
+        check(same and loss["list"] == loss["store"] and math.isfinite(loss["list"]),
+              f"{label}: the store's batches or step")
+    finally:
+        store.close(unlink=True)
+
+
+def run_native_neighbors() -> None:
+    """(f) The native cell-list builder on an open-boundary cluster of
+    ``NATIVE_ATOMS`` atoms (uniform at ``NATIVE_DENSITY``): its edge set
+    equals cKDTree's; both times printed."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data import neighbors
+
+    label = "data_plane (f)"
+    rng = np.random.default_rng(SEED)
+    side = (NATIVE_ATOMS / NATIVE_DENSITY) ** (1.0 / 3.0)
+    pos = rng.uniform(0.0, side, (NATIVE_ATOMS, 3))
+    t0 = time.perf_counter()
+    neighbors._native_lib()
+    build_s = time.perf_counter() - t0
+    times, keys = {}, {}
+    for route, flag in (("native", "1"), ("cKDTree", "0")):
+        with _env(HYDRAGNN_NATIVE_NEIGHBORS=flag):
+            t0 = time.perf_counter()
+            s, r = neighbors.radius_graph(pos, NATIVE_RADIUS)
+            times[route] = time.perf_counter() - t0
+        keys[route] = np.sort(r.astype(np.int64) * NATIVE_ATOMS + s)
+    same = np.array_equal(keys["native"], keys["cKDTree"])
+    print(f"{label}: {NATIVE_ATOMS} atoms, radius {NATIVE_RADIUS}: {keys['native'].size} edges "
+          f"native in {times['native']:.3f} s (library ready in {build_s:.2f} s), "
+          f"{keys['cKDTree'].size} cKDTree in {times['cKDTree']:.3f} s; the same edge set "
+          f"{same}", flush=True)
+    check(same and keys["native"].size > 0, f"{label}: the edge sets differ")
+
+
+def run_data_plane(device, train_graphs, examples):
+    """The ``data_plane`` phase: (a)-(f) above, in order (``examples``:
+    label -> ``example_data``'s (config, seconds), made while the kernels
+    built). Returns the launches by (kernel, case)."""
+    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+
+    t_phase = time.perf_counter()
+    launched = collections.Counter()
+    launched.update(run_staging(oc20_shaped_dataset(DATA_PLANE_GRAPHS), device,
+                                TRAIN_PER_STEP))
+    run_watchdog(train_graphs[:128])
+    for label, (config, data_s) in examples.items():
+        prefix = label.split("_")[0]
+        launched.update({(k, f"{prefix}/{c}"): n for (k, c), n in run_example_config(
+            label, config, data_s, device).items()})
+    run_dist_dataset(train_graphs[:DIST_DATASET_GRAPHS], device)
+    run_native_neighbors()
+    print(f"data_plane: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         run_smoke(stack)
@@ -6820,6 +7465,8 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
     ap.add_argument("--plane", action="store_true",
                     help="build, the kernels' CUDA-graph capture checks and the compile and "
                          "memory plane's phases only (graphs_train, graphs_serve, remat, tune)")
+    ap.add_argument("--data-plane", action="store_true",
+                    help="build, then the host data plane's phase only (data_plane)")
     ap.add_argument("--md17", choices=MD17_ROUTES,
                     help="run only the MD17 recipe through this route (K1's kernel or its "
                          "plain version, with or without deterministic algorithms), ungated")
@@ -6873,6 +7520,12 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                 t0 = time.perf_counter()
                 build_out["seconds"] = _build.build(LIBRARIES)
                 build_out["wall"] = time.perf_counter() - t0
+            # the data plane's C++ (g++), after the kernels' nvcc
+            from hydragnn_tpu_torch.native.build import build_library
+
+            t0 = time.perf_counter()
+            build_out["native"] = [build_library(n) for n in NATIVE_LIBRARIES]
+            build_out["native_s"] = time.perf_counter() - t0
         except BaseException as e:  # noqa: BLE001 -- raised in the main thread
             build_out["error"] = e
 
@@ -6909,6 +7562,7 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
               f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
         if label == "egnn":
             cases += egnn_kernel_cases(batch, device)
+            egnn_config = done
         elif label == "gps_pna":
             nmax = int(done["NeuralNetwork"]["Architecture"]["max_nodes_per_graph"])
             cases += gps_kernel_cases(batch, device, nmax)
@@ -6940,6 +7594,19 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
               f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
               f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += config_kernel_cases(config_batches, device)
+    # the data plane's example recipes' data, made while the kernels build;
+    # their first train batches give the shapes of their cases
+    examples = ({label: example_data(label, data_root) for label in EXAMPLE_JSON}
+                if not args.plane else {})
+    example_batches = {}
+    for label, (config, _) in examples.items():
+        done, (loader, _, _), _ = prepare_data(copy.deepcopy(config))
+        loader.set_epoch(0)
+        example_batches[label] = (done, batch := next(iter(loader)))
+        print(f"batch {label}: {int(batch.graph_mask.sum())} graphs, "
+              f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
+              f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
+    cases += example_kernel_cases(example_batches, device)
     t0 = time.perf_counter()
     topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
     topology_s = time.perf_counter() - t0
@@ -6948,21 +7615,38 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
           f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += gin_ring_kernel_cases(batch, device)
     ring_requests = None
-    if not (args.kernels or args.plane):
+    if not (args.kernels or args.plane or args.data_plane):
         ring_requests = gin_ring_requests(topology, GIN_RING_REQUESTS)
         print(f"gin_ring requests and their PE made while the kernels built, in "
               f"{ring_requests[1]:.2f} s", flush=True)
+    # the obs_train step's numerics (its cell is the egnn model, trained):
+    # its forward runs K1 and K2, so it comes after the data, once the
+    # kernels are built
+    cases.append(numerics_kernel_case(egnn_config, first["egnn"], device))
     nvcc_thread.join()
     if "error" in build_out:
         raise build_out["error"]
     print(f"build: {build_out['seconds']} s per kernel from {_build.CSRC.relative_to(REPO)}/ "
           f"(wall {build_out['wall']:.2f} s; nvcc {' '.join(_build.NVCC_FLAGS)}) "
-          f"into {_build.BUILD_DIR.relative_to(REPO)}/", flush=True)
+          f"into {_build.BUILD_DIR.relative_to(REPO)}/; the native C++ "
+          f"{[Path(p).name for p in build_out['native']]} by g++ in "
+          f"{build_out['native_s']:.2f} s", flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     warm_up_card()
+    if args.data_plane:
+        del cases
+        work = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                                               dir=REPO / "build"))
+        stack.enter_context(contextlib.chdir(work))
+        run_data_plane(device, oc20_shaped_dataset(TRAIN_GRAPHS), examples)
+        print(f"chip_smoke: every phase in {time.perf_counter() - t_main:.1f} s", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if args.plane:
         capture_checks(cases)
         del cases
@@ -7088,6 +7772,12 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                 launched.update(phase())
             print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
             clock(label)
+        # the host data plane: staging, the watchdog, two example recipes,
+        # the sample store, the native neighbor builder
+        Path("data_plane").mkdir()
+        with contextlib.chdir("data_plane"):
+            launched.update(run_data_plane(device, train_graphs, examples))
+        clock("data_plane")
     for k in kernels:
         k["launches"] = launched.get((k["kernel"], k["case"]), 0)
     # the bf16 fused edge and block-summary cases are measured but not on a

@@ -58,6 +58,7 @@ from .data.pipeline import (
 )
 from .data.transforms import apply_dataset_transforms, wants_transforms
 from .device import DeviceLike, resolve_device
+from .utils import envflags
 from .utils.ranks import is_primary, joined, rank, world_size
 
 
@@ -274,15 +275,20 @@ def prepare_data(config, datasets: Optional[Tuple[Sequence[Graph], ...]] = None)
                                            oversampling=False, **route),
                         BranchRoutedLoader(testset, batch_size, shuffle=False,
                                            oversampling=False, **route)), mm
+    # the prefetch watchdog turns a wedged producer into LoaderStallError
     kw = dict(spec=spec, pack=pack, size_bucketing=size_bucketing, validator=validator,
-              sort_edges=sort_edges, host_count=world, host_index=me)
+              sort_edges=sort_edges, host_count=world, host_index=me,
+              stall_timeout=float(training.get("loader_stall_timeout", 600.0) or 0.0))
     balance = bool(training.get("balance_branch_sampling", False))
     sample_weights = branch_sample_weights(trainset) if balance else None
     train_loader = GraphLoader(
         trainset, batch_size, shuffle=True, seed=0, source="train",
         oversampling=bool(training.get("oversampling", False)) or balance,
         num_samples=training.get("num_samples"), sample_weights=sample_weights,
-        drop_last=world > 1, **kw)
+        drop_last=world > 1,
+        # batches built ahead in a producer thread (HYDRAGNN_NUM_WORKERS=0
+        # builds them inline), as in the JAX package
+        prefetch=max(envflags.env_int("HYDRAGNN_NUM_WORKERS", 2), 0), **kw)
     val_loader = GraphLoader(valset, batch_size, shuffle=False, source="val", **kw)
     test_loader = GraphLoader(testset, batch_size, shuffle=False, source="test", **kw)
     return config, (train_loader, val_loader, test_loader), mm

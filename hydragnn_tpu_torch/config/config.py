@@ -310,6 +310,7 @@ def update_config(
     if ds_cfg["bad_sample_policy"] not in POLICIES:
         raise ValueError(f"Dataset.bad_sample_policy {ds_cfg['bad_sample_policy']!r} must be "
                          f"one of {POLICIES}")
+    _complete_host_pipeline(training)
     if config.get("Serving"):
         from ..serve.config import ServeConfig
 
@@ -317,6 +318,44 @@ def update_config(
     config.setdefault("Verbosity", {"level": 0})
     config.setdefault("Visualization", {})
     return config
+
+
+def _complete_host_pipeline(training: Dict[str, Any]) -> None:
+    """Defaults and checks of the JAX package's three host-pipeline keys,
+    with its ``ValueError``s: ``loader_stall_timeout`` (600.0 s, >= 0; 0
+    disables the loader's stall clock, data/pipeline.py),
+    ``double_buffer`` (true: device staging 2 batches deep, false: inline
+    copies, an int: that depth; ``HYDRAGNN_DEVICE_PREFETCH`` wins,
+    train/loop.py) and ``elastic`` (``enabled`` false, ``min_hosts`` 1,
+    ``grace_s`` 30.0). ``elastic.enabled: true`` raises
+    ``NotImplementedError``: the elastic coordinator is not ported."""
+    training.setdefault("loader_stall_timeout", 600.0)
+    if float(training["loader_stall_timeout"] or 0) < 0:
+        raise ValueError(
+            "Training.loader_stall_timeout must be >= 0 (seconds; 0 "
+            f"disables), got {training['loader_stall_timeout']!r}")
+    training.setdefault("double_buffer", True)
+    db = training["double_buffer"]
+    if not isinstance(db, (bool, int)) or (not isinstance(db, bool) and int(db) < 0):
+        raise ValueError(
+            "Training.double_buffer must be true/false or a queue depth "
+            f">= 0, got {db!r}")
+    el = training.setdefault("elastic", {})
+    if not isinstance(el, dict):
+        raise ValueError(f"Training.elastic must be a dict of elastic-fleet keys, got {el!r}")
+    el.setdefault("enabled", False)
+    el.setdefault("min_hosts", 1)
+    el.setdefault("grace_s", 30.0)
+    if int(el["min_hosts"]) < 1:
+        raise ValueError(f"Training.elastic.min_hosts must be >= 1, got {el['min_hosts']!r}")
+    if float(el["grace_s"]) < 0:
+        raise ValueError(
+            f"Training.elastic.grace_s must be >= 0 (seconds), got {el['grace_s']!r}")
+    if el["enabled"]:
+        raise NotImplementedError(
+            "Training.elastic.enabled (the elastic fleet coordinator, train/elastic.py of the "
+            "JAX package) comes with the port's robustness slice; the port restarts a shrunk "
+            "or grown world from its checkpoint by hand (Training.continue)")
 
 
 def _complete_compile_plane(training: Dict[str, Any]) -> None:

@@ -138,9 +138,11 @@ class GraphBatch:
     def replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)
 
-    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+    def apply(self, fn) -> "GraphBatch":
+        """A new batch with ``fn(tensor)`` in place of each tensor, visited
+        in field order (the target tables by their insertion order)."""
         def mv(v):
-            return None if v is None else v.to(device, non_blocking=non_blocking)
+            return None if v is None else fn(v)
 
         kw = {
             f.name: mv(getattr(self, f.name))
@@ -153,6 +155,9 @@ class GraphBatch:
             graphs_contiguous=self.graphs_contiguous,
             **kw,
         )
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        return self.apply(lambda v: v.to(device, non_blocking=non_blocking))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,16 @@
 """Host-side radius-graph construction (open and periodic boundaries).
 
-Counterpart of ``hydragnn_tpu/data/neighbors.py``, scipy KD-tree path only:
-the JAX package hands open-boundary graphs of 4096 nodes and more to a C++
-cell list, and the OC20-shaped graphs this port serves stay far below that
-(at most 225 atoms). The periodic path is scipy in both packages. Same
-edge sets in the same order as the JAX package's scipy paths, so the two
-packages build byte-identical datasets.
+Counterpart of ``hydragnn_tpu/data/neighbors.py``. Open-boundary systems of
+``_NATIVE_MIN_N`` (4,096) nodes and more go to the C++ cell list
+(native/neighbors.cpp, the port's copy of the JAX package's source, built
+with ``g++`` at first use); smaller ones to scipy's KD-tree.
+``HYDRAGNN_NATIVE_NEIGHBORS`` forces the cell list on (``1``) or off
+(``0``). A cell list that cannot be built raises: the KD-tree takes over
+only where the caller turned the route off. The periodic path is scipy in
+both packages. Each route gives the same edges in the same order as the
+JAX package's same route (the cell list: receiver-major, senders
+ascending; the KD-tree: its pair order), so the two packages build
+byte-identical datasets; the two routes give the same edge set.
 
 Edge direction: an edge (sender j -> receiver i) carries a message from j
 aggregated at i; both directions are emitted.
@@ -19,6 +24,57 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy.spatial import cKDTree
 
+from ..utils import envflags
+
+# node count from which the cell list takes over from the KD-tree (the JAX
+# package's threshold; the cell list scales linearly in N)
+_NATIVE_MIN_N = 4096
+_native = None
+
+
+def _native_lib():
+    """The cell-list library (native/neighbors.cpp), built at first use;
+    a failed build raises ``RuntimeError`` with the compiler's output."""
+    global _native
+    if _native is None:
+        import ctypes
+
+        from ..native.build import build_library
+
+        lib = ctypes.CDLL(build_library("neighbors"))
+        lib.rg_open.restype = ctypes.c_long
+        lib.rg_open.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_long, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32), ctypes.c_long,
+        ]
+        _native = lib
+    return _native
+
+
+def _radius_graph_native(pos: np.ndarray, radius: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Every directed edge within ``radius`` from the cell list,
+    receiver-major with ascending senders."""
+    import ctypes
+
+    lib = _native_lib()
+    pos = np.ascontiguousarray(pos, np.float64)
+    n = pos.shape[0]
+    cap = max(64 * n, 1024)
+    while True:
+        senders = np.empty(cap, np.int32)
+        receivers = np.empty(cap, np.int32)
+        m = lib.rg_open(pos.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n, float(radius),
+                        senders.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                        receivers.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap)
+        if m >= 0:
+            return senders[:m].copy(), receivers[:m].copy()
+        cap = -m  # the exact size needed
+
+
+def _use_native(n: int) -> bool:
+    pref = envflags.env_str("HYDRAGNN_NATIVE_NEIGHBORS")
+    return pref == "1" or (pref != "0" and n >= _NATIVE_MIN_N)
+
 
 def radius_graph(
     pos: np.ndarray,
@@ -28,15 +84,19 @@ def radius_graph(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """All directed edges (j -> i) with ||pos_j - pos_i|| <= radius;
     ``max_neighbours`` keeps the nearest k incoming edges per receiver.
-    Returns (senders, receivers) int32 arrays."""
+    Returns (senders, receivers) int32 arrays. Systems of ``_NATIVE_MIN_N``
+    nodes and more go through the cell list (``_use_native``)."""
     pos = np.asarray(pos, np.float64)
-    pairs = cKDTree(pos).query_pairs(r=radius, output_type="ndarray")  # i<j
-    if pairs.size == 0:
-        senders = np.zeros((0,), np.int32)
-        receivers = np.zeros((0,), np.int32)
+    if _use_native(pos.shape[0]):
+        senders, receivers = _radius_graph_native(pos, radius)
     else:
-        senders = np.concatenate([pairs[:, 0], pairs[:, 1]]).astype(np.int32)
-        receivers = np.concatenate([pairs[:, 1], pairs[:, 0]]).astype(np.int32)
+        pairs = cKDTree(pos).query_pairs(r=radius, output_type="ndarray")  # i<j
+        if pairs.size == 0:
+            senders = np.zeros((0,), np.int32)
+            receivers = np.zeros((0,), np.int32)
+        else:
+            senders = np.concatenate([pairs[:, 0], pairs[:, 1]]).astype(np.int32)
+            receivers = np.concatenate([pairs[:, 1], pairs[:, 0]]).astype(np.int32)
     if loop:
         idx = np.arange(pos.shape[0], dtype=np.int32)
         senders = np.concatenate([senders, idx])

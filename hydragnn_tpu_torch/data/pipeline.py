@@ -3,18 +3,24 @@
 Counterpart of ``hydragnn_tpu/data/pipeline.py`` for a single host. Host
 work is numpy and gives the same padded arrays as the JAX package for the
 same graphs, seed and settings; ``GraphLoader`` yields CPU ``GraphBatch``es
-that the caller moves to its device: shuffled or weighted draws with
+that the caller moves to its device (train/loop.py ``device_prefetch``
+stages them ahead on a side stream): shuffled or weighted draws with
 replacement (``oversampling``, ``num_samples``, ``sample_weights``; the
 per-branch ``branch_sample_weights``), size-bucketed composition, packing,
-and the sample validator's gate, and per-rank sharding (``host_count`` /
+the sample validator's gate, per-rank sharding (``host_count`` /
 ``host_index``: each rank of a data-parallel run draws its own 1/world
-of every epoch, in lockstep with the others). Not ported here: the
-prefetch thread, stacked shards and the mixture plane.
+of every epoch, in lockstep with the others), and the bounded prefetch
+producer thread with its stall watchdog (``prefetch``, ``stall_timeout``,
+``LoaderStallError``). Not ported here: stacked shards and the mixture
+plane.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+import warnings
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +34,76 @@ from .graph import (
     _round_up,
     batch_graphs,
 )
+
+
+# prefetch watchdog cadence: how often the consumer wakes to check the
+# producer's liveness and the stall clock, and how long the teardown join
+# waits before declaring the producer thread leaked (module-level so tests
+# can pin them)
+_WATCHDOG_TICK_S = 0.1
+_PRODUCER_JOIN_TIMEOUT_S = 2.0
+
+
+class Producer:
+    """A daemon thread that puts what ``items()`` yields into a queue of
+    ``depth`` slots, then ``END``; an exception it raises is re-raised by
+    ``get`` in the consumer. ``items`` is called in the thread. The
+    loader's prefetch and the loop's device staging (train/loop.py
+    ``device_prefetch``) both run on it."""
+
+    END = object()
+
+    def __init__(self, items, depth: int, name: str):
+        self.q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(items,), daemon=True, name=name)
+        self.thread.start()
+
+    def _put(self, item) -> bool:
+        while not self.stop.is_set():
+            try:
+                self.q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, items) -> None:
+        try:
+            for item in items():
+                if not self._put(item):
+                    return
+            self._put(self.END)
+        except BaseException as e:  # noqa: BLE001 — surfaced in the consumer
+            self._put(_Raised(e))
+
+    def get(self, timeout: Optional[float] = None, block: bool = True):
+        """The next item, ``END``, or the producer's exception raised;
+        ``queue.Empty`` when nothing came within ``timeout``."""
+        item = self.q.get(block=block, timeout=timeout)
+        if isinstance(item, _Raised):
+            raise item.error
+        return item
+
+    def close(self, join_s: float) -> bool:
+        """Stop the producer and join it for at most ``join_s`` seconds;
+        True where it is still alive (blocked inside ``items``)."""
+        self.stop.set()
+        self.thread.join(timeout=join_s)
+        return self.thread.is_alive()
+
+
+@dataclasses.dataclass
+class _Raised:
+    error: BaseException
+
+
+class LoaderStallError(RuntimeError):
+    """The prefetch producer thread died without delivering its end-of-epoch
+    sentinel, or produced nothing for longer than
+    ``Training.loader_stall_timeout``: a wedged worker (deadlocked fetch,
+    hung filesystem) that would otherwise hang the run on a bare queue get.
+    The message names the batch cursor so the stall is attributable."""
 
 
 def _pack_spec(graphs: Sequence[Graph], per_shard: int, with_triplets: bool = False) -> PadSpec:
@@ -268,7 +344,18 @@ class GraphLoader:
     packing from the shared stream and stops at the smallest count, with
     no collective. Each rank picks its own ladder level per batch: the
     collectives of a step move parameter-shaped tensors only, so the ranks'
-    batch shapes need not agree."""
+    batch shapes need not agree.
+
+    ``prefetch`` > 0 builds up to that many batches ahead in a bounded
+    producer thread (the same batches in the same order as without it);
+    the consumer waits on it with a watchdog: a producer that died without
+    its end-of-epoch sentinel, or that produced nothing for
+    ``stall_timeout`` seconds (0 disables the clock), raises
+    ``LoaderStallError``, counted in ``hydragnn_loader_stalls_total`` and
+    emitted as a ``loader_stall`` event; ``hydragnn_loader_prefetch_depth``
+    is the queue's depth at each hand-off. An exception in the producer
+    reaches the consumer; an abandoned epoch stops the producer and joins
+    it (a warning where it stays blocked in a batch build)."""
 
     def __init__(
         self,
@@ -291,9 +378,13 @@ class GraphLoader:
         size_bucketing: bool = False,
         validator=None,
         source: str = "dataset",
+        prefetch: int = 0,
+        stall_timeout: float = 600.0,
     ):
         self.validator = validator
         self.source = source
+        self.prefetch = int(prefetch)
+        self.stall_timeout = float(stall_timeout or 0.0)
         if validator is not None:
             # content checks always; budget caps only under a given spec
             worst = spec.specs[-1] if isinstance(spec, SpecLadder) else spec
@@ -489,11 +580,102 @@ class GraphLoader:
         """The epoch's batch count, the skipped ones of a resume included."""
         return len(self._groups())
 
-    def __iter__(self) -> Iterator[GraphBatch]:
-        for grp in self._groups()[max(int(self.start_batch), 0):]:
+    def _batches(self, groups: List[List[int]]) -> Iterator[GraphBatch]:
+        for grp in groups[max(int(self.start_batch), 0):]:
             graphs = [self.graphs[i] for i in grp]
             spec = self.spec if self.pack else self.ladder.select_for(graphs)
             yield batch_graphs(graphs, spec, sort_edges=self.sort_edges)
+
+    def __iter__(self) -> Iterator[GraphBatch]:
+        # the epoch's groups are made here, on the consumer's thread, so
+        # the producer and a concurrent ``len()`` share one computation
+        groups = self._groups()
+        if self.prefetch <= 0:
+            yield from self._batches(groups)
+            return
+        yield from self._prefetched(groups)
+
+    def _emit_stall_event(self, cause: str, batch_index: int) -> None:
+        """The ``loader_stall`` event of a stall verdict (obs/events.py):
+        which batch wedged, not just a counter. Never fails the watchdog."""
+        try:
+            from ..obs.events import EV_LOADER_STALL, emit
+
+            emit(EV_LOADER_STALL, severity="error", cause=cause, source=self.source,
+                 batch_index=int(batch_index), epoch=int(self.epoch))
+        except Exception:  # noqa: BLE001 — observability only
+            pass
+
+    def _prefetched(self, groups: List[List[int]]) -> Iterator[GraphBatch]:
+        """The bounded producer thread and the consumer's watchdog (the JAX
+        package's, verdict for verdict)."""
+        from ..obs.registry import registry
+
+        _NOTSET = object()
+        epoch_start = int(self.start_batch)
+        p = Producer(lambda: self._batches(groups), self.prefetch, f"loader-{self.source}")
+        t = p.thread
+        # kept for callers checking that the thread is reaped
+        self._producer_thread = t
+        g_depth = registry().gauge("hydragnn_loader_prefetch_depth",
+                                   "Prefetch queue depth observed at each batch handoff",
+                                   labelnames=("source",))
+        c_stall = registry().counter("hydragnn_loader_stalls_total",
+                                     "LoaderStallError raised (dead or wedged prefetch producer)",
+                                     labelnames=("source",))
+        c_stall.inc(0, source=self.source)  # the series exists from 0
+        timeout = self.stall_timeout
+        delivered = 0
+        try:
+            while True:
+                # a timed wait with a liveness check instead of a bare get:
+                # a dead or stalled producer raises instead of hanging
+                item = _NOTSET
+                waited = 0.0
+                while item is _NOTSET:
+                    try:
+                        item = p.get(timeout=_WATCHDOG_TICK_S)
+                    except queue.Empty:
+                        if not t.is_alive():
+                            # a last item may have landed between the
+                            # timeout and the liveness check
+                            try:
+                                item = p.get(block=False)
+                                break
+                            except queue.Empty:
+                                c_stall.inc(source=self.source)
+                                self._emit_stall_event("producer_died", epoch_start + delivered)
+                                raise LoaderStallError(
+                                    "prefetch producer thread exited without an end-of-epoch "
+                                    f"sentinel after batch {epoch_start + delivered - 1} (epoch "
+                                    f"{self.epoch}); the worker died outside python (or was "
+                                    "killed) — restarting the epoch is required") from None
+                        waited += _WATCHDOG_TICK_S
+                        if timeout and waited >= timeout:
+                            c_stall.inc(source=self.source)
+                            self._emit_stall_event("producer_wedged", epoch_start + delivered)
+                            raise LoaderStallError(
+                                f"prefetch producer produced nothing for {waited:.1f}s "
+                                f"(> loader_stall_timeout={timeout}s) while building batch "
+                                f"{epoch_start + delivered} of epoch {self.epoch}; the worker "
+                                "is wedged (hung fetch/filesystem?) — raise "
+                                "Training.loader_stall_timeout if batches legitimately take "
+                                "this long") from None
+                if item is Producer.END:
+                    break
+                delivered += 1
+                g_depth.set(p.q.qsize(), source=self.source)
+                yield item
+        finally:
+            # an abandoned epoch (break, exception): release the producer and
+            # reap it with a bounded join. A producer blocked inside a batch
+            # build cannot see ``stop`` until the build ends, so it is left
+            # (a daemon) with a warning rather than blocking the teardown
+            if p.close(_PRODUCER_JOIN_TIMEOUT_S):
+                warnings.warn(
+                    f"prefetch producer thread still alive {_PRODUCER_JOIN_TIMEOUT_S}s after "
+                    "the epoch was abandoned (blocked in a batch build?); leaking the daemon "
+                    "thread", RuntimeWarning, stacklevel=2)
 
     def spec_template_batches(self) -> List[Tuple[PadSpec, GraphBatch]]:
         return spec_template_batches(self.graphs, self.ladder, sort_edges=self.sort_edges)

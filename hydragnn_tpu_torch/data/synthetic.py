@@ -14,7 +14,11 @@ port's slices use; for the same seed both packages return the same arrays.
   (aspirin-composition) molecule with Lennard-Jones energy and force
   targets — the MD17 energy-force recipe (examples/md17);
 - ``lennard_jones_dataset``: perturbed cubic lattices with exact
-  Lennard-Jones energies and forces (examples/LennardJones).
+  Lennard-Jones energies and forces (examples/LennardJones);
+- ``qm9_shaped_dataset`` and ``mptrj_shaped_dataset``: QM9-shaped
+  molecules and MPTrj-shaped periodic crystals (examples/qm9,
+  examples/mptrj), with the shared geometry helpers ``grow_molecule`` and
+  ``supercell_frac`` that data/shaped.py builds on.
 """
 
 from __future__ import annotations
@@ -75,30 +79,65 @@ def deterministic_graph_dataset(
             rng.integers(unit_cell_y_range[0], unit_cell_y_range[1]),
             rng.integers(unit_cell_z_range[0], unit_cell_z_range[1]),
         )
-        pos = bcc_positions(*uc)
-        n = pos.shape[0]
-        node_type = rng.integers(min(types), max(types) + 1, (n, 1)).astype(np.float64)
-        out1 = node_type.copy() if linear_only else knn_average(
-            pos, node_type, number_neighbors
+        graphs.append(
+            _configuration(rng, uc, types, number_neighbors, linear_only, radius, max_neighbours)
         )
-        out2 = out1**2 + node_type
-        out3 = out1**3
-        if linear_only:
-            total = out1.sum(keepdims=False)
-            x_table = node_type.astype(np.float32)
-        else:
-            total = out1.sum() + out2.sum() + out3.sum()
-            x_table = np.concatenate([node_type, out2, out3], axis=1).astype(np.float32)
-        senders, receivers = radius_graph(pos, radius, max_neighbours)
-        graphs.append(Graph(
-            x=x_table,
-            pos=pos.astype(np.float32),
-            senders=senders,
-            receivers=receivers,
-            graph_y=np.asarray([float(total)], np.float32),
-            z=node_type[:, 0].astype(np.int32),
-        ))
     return graphs
+
+
+def _configuration(rng, uc, types, number_neighbors, linear_only, radius, max_neighbours):
+    """One BCC configuration of ``uc`` unit cells with its closed-form
+    targets (``deterministic_graph_dataset``'s sample)."""
+    pos = bcc_positions(*uc)
+    n = pos.shape[0]
+    node_type = rng.integers(min(types), max(types) + 1, (n, 1)).astype(np.float64)
+    out1 = node_type.copy() if linear_only else knn_average(pos, node_type, number_neighbors)
+    out2 = out1**2 + node_type
+    out3 = out1**3
+    if linear_only:
+        total = out1.sum(keepdims=False)
+        x_table = node_type.astype(np.float32)
+    else:
+        total = out1.sum() + out2.sum() + out3.sum()
+        # columns as ci.json selects them: [type, out2, out3]
+        x_table = np.concatenate([node_type, out2, out3], axis=1).astype(np.float32)
+    senders, receivers = radius_graph(pos, radius, max_neighbours)
+    return Graph(
+        x=x_table,
+        pos=pos.astype(np.float32),
+        senders=senders,
+        receivers=receivers,
+        graph_y=np.asarray([float(total)], np.float32),
+        z=node_type[:, 0].astype(np.int32),
+    )
+
+
+def grow_molecule(rng, n: int, lo: float = 1.0, hi: float = 1.9,
+                  step: float = 1.5, max_tries: int = 8000) -> np.ndarray:
+    """Bonded-molecule geometry by rejection sampling at covalent distances:
+    each new atom anchors off a random placed atom and must land within
+    [lo, hi] of its nearest neighbour (the molecular generators' geometry:
+    qm9 here; ani1x, qm7x, transition1x, omol25 and uv in data/shaped.py)."""
+    pos = np.zeros((n, 3))
+    placed, tries = 1, 0
+    while placed < n and tries < max_tries:
+        tries += 1
+        anchor = pos[int(rng.integers(placed))]
+        cand = anchor + rng.normal(0.0, 1.0, 3) * step
+        d = np.linalg.norm(pos[:placed] - cand, axis=1)
+        if d.min() > lo and d.min() < hi:
+            pos[placed] = cand
+            placed += 1
+    return pos[:placed]
+
+
+def supercell_frac(basis: np.ndarray, reps: int) -> np.ndarray:
+    """Fractional coordinates of a ``reps^3`` supercell of ``basis`` (one
+    row per atom, x-major cell order): the periodic generators' lattice
+    (mptrj here; alexandria, omat24 and eam in data/shaped.py)."""
+    cells = np.array([(x, y, z) for x in range(reps) for y in range(reps) for z in range(reps)],
+                     np.float64)
+    return (cells[:, None, :] + basis[None, :, :]).reshape(-1, 3) / reps
 
 
 def _symmetrize_edges(senders: np.ndarray, receivers: np.ndarray):
@@ -110,10 +149,13 @@ def _symmetrize_edges(senders: np.ndarray, receivers: np.ndarray):
     return np.asarray(s, np.int32), np.asarray(r, np.int32)
 
 
-def _lj_targets(pos, senders, receivers, epsilon: float, sigma: float):
+def _lj_targets(pos, senders, receivers, epsilon: float, sigma: float, shifts=None):
     """Lennard-Jones total energy and per-atom forces over the edge list:
-    half the pair energy per directed edge, forces the exact gradient."""
+    half the pair energy per directed edge, forces the exact gradient;
+    ``shifts`` makes the displacements periodic."""
     diff = pos[receivers] - pos[senders]
+    if shifts is not None:
+        diff = diff - shifts
     r = np.linalg.norm(diff, axis=1)
     s6 = (sigma / r) ** 6
     s12 = s6**2
@@ -261,6 +303,89 @@ def md17_shaped_dataset(
     e_mean = float(np.mean([g.graph_targets["energy"][0] for g in graphs]))
     for g in graphs:
         g.graph_targets["energy"] = (g.graph_targets["energy"] - e_mean).astype(np.float32)
+    return graphs
+
+
+def qm9_shaped_dataset(
+    number_configurations: int = 1000,
+    radius: float = 7.0,
+    max_neighbours: int = 5,
+    seed: int = 0,
+) -> List[Graph]:
+    """QM9-shaped molecules (3-29 atoms of H/C/N/O/F, ~18 on average, the
+    real benchmark's statistics): node table ``[Z]``, graph table
+    ``[LJ energy per atom]`` (examples/qm9's data contract)."""
+    rng = np.random.default_rng(seed)
+    graphs: List[Graph] = []
+    heavy_choices = np.array([6, 7, 8, 9])  # C N O F
+    heavy_probs = np.array([0.72, 0.12, 0.13, 0.03])
+    for _ in range(number_configurations):
+        n_heavy = int(rng.integers(1, 10))  # QM9: up to 9 heavy atoms
+        # at least 2 hydrogens on a lone heavy atom: every graph has edges
+        n_h = int(np.clip(rng.poisson(1.3 * n_heavy), 2 if n_heavy < 2 else 0, 20))
+        z = np.concatenate([rng.choice(heavy_choices, size=n_heavy, p=heavy_probs),
+                            np.ones(n_h, np.int64)]).astype(np.int32)
+        n = z.shape[0]
+        pos = grow_molecule(rng, n)
+        z = z[: pos.shape[0]]
+        n = pos.shape[0]
+        senders, receivers = radius_graph(pos, radius, max_neighbours)
+        senders, receivers = _symmetrize_edges(senders, receivers)
+        energy, _ = _lj_targets(pos, senders, receivers, 0.15, 1.2)
+        graphs.append(Graph(
+            x=z[:, None].astype(np.float32),
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            graph_y=np.asarray([energy / n], np.float32),
+            z=z.copy(),
+        ))
+    return graphs
+
+
+def mptrj_shaped_dataset(
+    number_configurations: int = 128,
+    radius: float = 5.0,
+    max_neighbours: int = 20,
+    seed: int = 23,
+) -> List[Graph]:
+    """MPTrj-shaped periodic crystals (examples/mptrj): SC/BCC/FCC
+    supercells of a random binary composition, rattled, with periodic
+    radius-graph edges and their shifts, LJ energy per atom (graph) and
+    forces (node) on the periodic displacements."""
+    rng = np.random.default_rng(seed)
+    bases = {
+        "sc": np.zeros((1, 3)),
+        "bcc": np.array([[0, 0, 0], [0.5, 0.5, 0.5]], np.float64),
+        "fcc": np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], np.float64),
+    }
+    element_pool = np.array([3, 8, 13, 14, 22, 26, 28, 29])  # Li O Al Si Ti Fe Ni Cu
+    graphs: List[Graph] = []
+    for _ in range(number_configurations):
+        kind = ("sc", "bcc", "fcc")[int(rng.integers(3))]
+        basis = bases[kind]
+        a = float(rng.uniform(3.4, 4.4))
+        reps = int(rng.integers(2, 4))
+        frac = supercell_frac(basis, reps)
+        cell = np.diag([a * reps] * 3)
+        pos = frac @ cell + rng.normal(0.0, 0.08, (frac.shape[0], 3))
+        n = pos.shape[0]
+        zs = rng.choice(element_pool, size=2, replace=False)
+        z = np.where(rng.random(n) < rng.uniform(0.2, 0.8), zs[0], zs[1]).astype(np.int32)
+        senders, receivers, shifts = radius_graph_pbc(pos, cell, radius, max_neighbours)
+        sigma = a / np.sqrt(2.0) / 2.0 ** (1.0 / 6.0)
+        energy, forces = _lj_targets(pos, senders, receivers, 0.5, sigma, shifts=shifts)
+        graphs.append(Graph(
+            x=z[:, None].astype(np.float32),
+            pos=pos.astype(np.float32),
+            senders=senders,
+            receivers=receivers,
+            edge_shifts=shifts.astype(np.float32),
+            cell=cell.astype(np.float32),
+            graph_targets={"energy": np.asarray([energy / n], np.float32)},
+            node_targets={"forces": forces.astype(np.float32)},
+            z=z.copy(),
+        ))
     return graphs
 
 

@@ -77,6 +77,12 @@ class BadSampleError(ValueError):
     """A sample failed validation under ``bad_sample_policy: error``."""
 
 
+class CorruptSampleError(ValueError):
+    """Stored sample bytes failed to deserialize (bit rot, a torn write,
+    wire corruption). Raised by the blob-store datasets (data/ddstore.py)
+    with the store's name and the sample's id, so the bad blob is findable."""
+
+
 class SampleValidator:
     """The run's policy for bad samples and its tally of them. One
     instance spans the run's data plane (the per-split gate and every

@@ -11,22 +11,21 @@ three pieces say where:
    ``head:{name}``) and ``models/layers.py`` (``bn:{path}``), the JAX
    package's names in its order. A tap does nothing, and launches
    nothing, unless a collection (``collecting``) is active on the thread.
-   A collection holds each tapped tensor (detached) and its mask, and
-   ``ProbeRecord.stack`` reduces them all at once, from the tensors as
-   they are, accumulating in f32 (``probe_stats``: padding rows zeroed
-   by ``where``, so their garbage never counts; every statistic one
-   reduction over fixed-size chunks of all taps, then each tap's chunk
-   partials combined by index: a few dozen launches a step and no read
-   back to the host). Stats are RAW moments (``STAT_FIELDS``: max |x|, sum of squares,
-   element count, non-finite count, bf16-underflow count; the last for
-   bf16 tensors only) so they merge over a window (max/sum); the host
-   finalizes rms and fractions at flush time.
+   A collection holds each tapped tensor and its mask in forward order.
+   Stats are RAW moments (``STAT_FIELDS``: max |x|, sum of
+   squares, element count, non-finite count, bf16-underflow count; the
+   last for bf16 tensors only) so they merge over a window (max/sum); the
+   host finalizes rms and fractions at flush time.
 
-2. **Step ride-along**: ``make_train_step(numerics=True)`` returns the
-   probe stack, the gradient-group stack (``grad_group_stats``) and the
-   guard's ok flag as a fourth output, all device tensors: nothing syncs
-   the host. The telemetry layer reads them at a later flush
-   (obs/telemetry.py).
+2. **Step ride-along** (``StepStats``): ``make_train_step(numerics=True)``
+   holds the taps until the backward ends, then ops/numerics_stats.py
+   reduces them and the gradients of every top-level parameter group (the
+   JAX package's ``grad_group_stats``) at once: on the card one kernel
+   reads each tensor once and a second folds the tiles (N1), two launches
+   a step. The probe stack, the gradient-group stack and the guard's ok
+   flag (from the groups' sums of squares) are the step's fourth output,
+   all device tensors: nothing syncs the host. The telemetry layer reads
+   them at a later flush (obs/telemetry.py).
 
 3. **NaN provenance** (``NanWatch``): the loop feeds every step's ok flag
    (and its batch) into a small ring; an entry is read once it is ``lag``
@@ -42,10 +41,9 @@ three pieces say where:
 
 from __future__ import annotations
 
-import math
 import threading
 import warnings
-from collections import OrderedDict, deque
+from collections import deque
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -59,156 +57,40 @@ import torch
 STAT_FIELDS = ("max_abs", "sum_sq", "count", "nonfinite", "bf16_underflow")
 STAT_WIDTH = len(STAT_FIELDS)
 
-# smallest positive NORMAL bfloat16/float32 magnitude (bf16 shares f32's
-# exponent): a nonzero bf16 value below it is subnormal
-BF16_TINY = 1.1754944e-38
-
 
 # ---------------------------------------------------------------------------
 # the reductions
 # ---------------------------------------------------------------------------
 
-# segments are laid out in chunks of this many elements: each statistic is
-# one reduction over every chunk at once (a launch over the whole card),
-# then each segment's chunk partials are combined by index
-_CHUNK = 1 << 16
-# the layouts (each with its persistent buffer) kept, newest last
-_LAYOUTS: "OrderedDict[Tuple, Any]" = OrderedDict()
-_MAX_LAYOUTS = 16
 
+class StepStats:
+    """One step's numerics: the taps of ``record`` (the forward's, in
+    forward order) and, at ``finish``, the gradients of the ``groups``
+    (``param_groups``), reduced at once by ops/numerics_stats.py (the
+    kernel on the card). Drops the record's tensors."""
 
-def _cached(key, make):
-    """A layout or constant made once per signature (a host-to-device copy
-    would sync the stream), the least recently used dropped past
-    ``_MAX_LAYOUTS``."""
-    got = _LAYOUTS.get(key)
-    if got is None:
-        with torch.inference_mode(False):
-            got = make()
-        _LAYOUTS[key] = got
-        while len(_LAYOUTS) > _MAX_LAYOUTS:
-            _LAYOUTS.popitem(last=False)
-    else:
-        _LAYOUTS.move_to_end(key)
-    return got
+    def __init__(self, record: "ProbeRecord", groups):
+        gnames, _, self.order, gshapes = groups
+        entries, record.entries, record._seen = record.entries, [], {}
+        self.names = tuple(n for n, _, _ in entries)
+        self.group_names = tuple(gnames)
+        self.taps = [x for _, x, _ in entries]
+        self.masks = [m for _, _, m in entries]
+        self.group_sizes = tuple(len(s) for s in gshapes)
 
+    def finish(self, grads: Sequence[torch.Tensor], tot: Optional[torch.Tensor] = None):
+        """(probe stack [P, 5], gradient-group stack [G, 5], the ok flag
+        from ``tot`` or None), device tensors; ``grads`` in
+        ``model.parameters()`` order."""
+        from ..ops import numerics_stats as ops
 
-class _Chunks:
-    """A persistent f32 buffer of ``_CHUNK``-element chunks for segments of
-    fixed shapes, each segment (a tensor, or a list of tensors taken
-    together) on chunks of its own, the bf16 ones first: the views each
-    step writes into, made once; the chunks' tails zeroed once (padding is
-    finite and counts for nothing); each chunk's segment on the device."""
-
-    def __init__(self, device, shapes: Tuple, bf16: Tuple[bool, ...]):
-        order = [i for i, b in enumerate(bf16) if b] + [i for i, b in enumerate(bf16) if not b]
-        sizes = [sum(math.prod(s) for s in shapes[i]) for i in range(len(shapes))]
-        chunks = {i: max(1, -(-sizes[i] // _CHUNK)) for i in order}
-        self.nchunks = sum(chunks.values())
-        self.n16 = sum(chunks[i] for i in order if bf16[i])
-        self.buf = torch.zeros((self.nchunks, _CHUNK), dtype=torch.float32, device=device)
-        flat = self.buf.view(-1)
-        self.views: List[List[torch.Tensor]] = [[] for _ in shapes]
-        owner, at = [], 0
-        for i in order:
-            off = at * _CHUNK
-            for shape in shapes[i]:
-                n = math.prod(shape)
-                self.views[i].append(flat[off:off + n].view(shape))
-                off += n
-            owner += [i] * chunks[i]
-            at += chunks[i]
-        self.owner = torch.tensor(owner, dtype=torch.int64, device=device)
-        self.flat_views = [v for views in self.views for v in views]
-        self.nseg = len(shapes)
-        self.zero = torch.zeros((), dtype=torch.float32, device=device)
-        # a 1-D zero: it takes part in type promotion, so ``where`` of a bf16
-        # tap writes f32 into its view in one launch
-        self.zero1 = torch.zeros(1, dtype=torch.float32, device=device)
-
-    def _nonfinite_chunks(self) -> torch.Tensor:
-        """[chunks] f32 non-finite counts: ``x - x`` is 0 exactly where ``x``
-        is finite (NaN elsewhere), and its 0-"norm" counts the rest (two
-        passes; ``isfinite`` is five)."""
-        return torch.linalg.vector_norm(self.buf - self.buf, ord=0, dim=1)
-
-    def reduce(self, sumsq: bool = True) -> torch.Tensor:
-        """[S, 4] f32 (max |x|, sum of squares (0 unless ``sumsq``),
-        non-finite count, bf16 underflow count) of each segment: one
-        reduction a statistic over every chunk, then the chunks' partials
-        combined by index. max |x| comes from the min and the max (no |x|
-        buffer); the underflow count from the bf16 segments' chunks alone
-        (an f32 copy of a bf16 subnormal is as small); NaN propagates
-        through each."""
-        lo, hi = torch.aminmax(self.buf, dim=1)
-        nonfin = self._nonfinite_chunks()
-        if sumsq:
-            norm = torch.linalg.vector_norm(self.buf, dim=1)
-            parts = [norm * norm, nonfin]
-        else:
-            parts = [torch.zeros_like(nonfin), nonfin]
-        if self.n16:
-            ax = self.buf[:self.n16].abs()
-            under = self.buf.new_zeros(self.nchunks)
-            # the nonzero |x| below the smallest normal, counted as a 0-"norm"
-            under[:self.n16] = torch.linalg.vector_norm(
-                torch.where(ax < BF16_TINY, ax, self.zero), ord=0, dim=1)
-            parts.append(under)
-        else:
-            parts.append(torch.zeros_like(nonfin))
-        raw = self.buf.new_zeros((self.nseg, 4))
-        raw[:, 0].scatter_reduce_(0, self.owner, torch.maximum(hi, -lo), "amax")
-        raw[:, 1:].index_add_(0, self.owner, torch.stack(parts, dim=1))
-        return raw
-
-
-def _counts(device, sizes: Tuple[int, ...], masks: Sequence[Any]) -> torch.Tensor:
-    """[P] f32 real element counts: a masked tensor's real rows times its
-    row width (one sum per distinct mask), an unmasked one's size."""
-    distinct: List[Any] = []
-    pattern = []
-    for m in masks:
-        if m is None:
-            pattern.append(-1)
-            continue
-        k = next((k for k, d in enumerate(distinct) if d is m), None)
-        if k is None:
-            distinct.append(m)
-            k = len(distinct) - 1
-        pattern.append(k)
-    key = ("counts", str(device), sizes, tuple(pattern), tuple(tuple(m.shape) for m in distinct))
-    n = len(distinct)
-    index, widths, one = _cached(key, lambda: (
-        torch.tensor([n if k < 0 else k for k in pattern], dtype=torch.int64, device=device),
-        torch.tensor([float(size) if k < 0 else float(size // max(distinct[k].numel(), 1))
-                      for size, k in zip(sizes, pattern)], dtype=torch.float32, device=device),
-        torch.ones(1, dtype=torch.float32, device=device)))
-    if not distinct:
-        return widths
-    sums = torch.cat([torch.stack([m.sum() for m in distinct]).float(), one])
-    return sums[index] * widths
-
-
-def probe_stats(tensors: Sequence[torch.Tensor], masks: Sequence[Any]) -> torch.Tensor:
-    """[P, 5] f32 raw moments of the tapped ``tensors``, each with its row
-    mask or None (padding rows count as zero: ``where`` drops their
-    garbage, NaN included), accumulated in f32: each is written into its
-    view of a persistent chunk buffer (one ``where`` a tap, which also
-    casts a bf16 one) and ``_Chunks.reduce`` takes them all at once. A few
-    dozen launches a step, no host read back."""
-    device = tensors[0].device
-    shapes = tuple((tuple(x.shape),) for x in tensors)
-    bf16 = tuple(x.dtype == torch.bfloat16 for x in tensors)
-    ch = _cached((str(device), shapes, bf16), lambda: _Chunks(device, shapes, bf16))
-    for x, m, (view,) in zip(tensors, masks, ch.views):
-        if m is None:
-            view.copy_(x)
-            continue
-        torch.where(m.reshape(tuple(m.shape) + (1,) * (x.dim() - m.dim())), x, ch.zero1,
-                    out=view)
-    raw = ch.reduce()
-    counts = _counts(device, tuple(x.numel() for x in tensors), masks)
-    return torch.stack([raw[:, 0], raw[:, 1], counts, raw[:, 2], raw[:, 3]], dim=1)
+        with torch.no_grad():
+            out, ok = ops.numerics_stats(self.taps, self.masks,
+                                          [grads[k] for k in self.order],
+                                          self.group_sizes, tot)
+        self.taps = self.masks = None
+        n = len(self.names)
+        return out[:n], out[n:], ok
 
 
 class HostCopy:
@@ -242,9 +124,9 @@ class HostCopy:
 
 class ProbeRecord:
     """One step's ordered probe collection. ``add`` holds a tapped tensor
-    and its mask (detached; the forward holds most of them for the
-    backward anyway); ``stack`` reduces them all at once to [P, 5] in
-    FORWARD order, the order the NaN drill-down walks."""
+    and its mask (the forward holds most of them for the backward anyway)
+    in FORWARD order, the order the NaN drill-down walks, until
+    ``StepStats`` takes them."""
 
     def __init__(self):
         self.entries: List[Tuple[str, torch.Tensor, Any]] = []
@@ -256,21 +138,7 @@ class ProbeRecord:
         self._seen[name] = seen + 1
         if seen:
             name = f"{name}#{seen}"
-        self.entries.append((name, x.detach(), mask))
-
-    @property
-    def names(self) -> Tuple[str, ...]:
-        return tuple(n for n, *_ in self.entries)
-
-    def stack(self):
-        """(names, [P, 5] f32 device tensor); P == 0 yields an empty stack.
-        Drops the held tensors."""
-        if not self.entries:
-            return (), torch.zeros((0, STAT_WIDTH))
-        out = probe_stats([x for _, x, _ in self.entries], [m for _, _, m in self.entries])
-        names = self.names
-        self.entries, self._seen = [], {}
-        return names, out
+        self.entries.append((name, x, mask))
 
 
 class _TapStack(threading.local):
@@ -308,20 +176,6 @@ def probe(name: str, x, mask=None) -> None:
     _TAPS.stack[-1].add(name, x, mask)
 
 
-def run_probed(enabled: bool, meta: Dict[str, Any], thunk: Callable):
-    """Run ``thunk`` (the loss computation) under probe collection when
-    ``enabled``, recording the forward-ordered tap names into the train
-    step's ``meta`` cell. Returns ``(thunk result, acts stack | None)``."""
-    if not enabled:
-        return thunk(), None
-    rec = ProbeRecord()
-    with collecting(rec):
-        out = thunk()
-    names, acts = rec.stack()
-    meta["act_names"] = names
-    return out, acts
-
-
 # ---------------------------------------------------------------------------
 # gradient groups
 # ---------------------------------------------------------------------------
@@ -332,8 +186,8 @@ def param_groups(model) -> Tuple:
     order, each group's shapes in that order) of ``model``: one group per
     top-level module of its flax parameter tree (``graph_convs_0``,
     ``feature_layers_0``, ``heads_NN_0``, ...), in sorted order, as the JAX
-    package's ``grad_group_stats`` groups a flax params dict. Made once per
-    train step function."""
+    package's ``grad_group_stats`` groups a flax params dict (``StepStats``
+    reduces them). Made once per train step function."""
     from ..bridge import flax_path
 
     banks = [n for n, m in model.named_modules() if getattr(m, "branch_bank", False)]
@@ -350,32 +204,6 @@ def param_groups(model) -> Tuple:
     group_shapes = tuple(tuple(shapes[k] for k in order if index[k] == i)
                          for i in range(len(names)))
     return names, index, order, group_shapes
-
-
-def grad_group_stats(model, grads: Sequence[torch.Tensor], groups=None,
-                     leaf_norms: Optional[Sequence[torch.Tensor]] = None):
-    """(names, [G, 5]) over the top-level parameter groups of ``model``
-    (``grads`` in ``model.parameters()`` order, every one a float tensor
-    outside autograd; ``groups`` a cached ``param_groups(model)``;
-    ``leaf_norms`` the [L] stack of each gradient's 2-norm where the caller
-    has it, as the step's ok flag does). Sorted-name order. The gradients are copied once into a
-    persistent chunk buffer (one multi-tensor launch); max |x| and the
-    non-finite counts come from the buffer (``_Chunks.reduce``), the sums
-    of squares from the 2-norms."""
-    names, index, order, shapes = groups if groups is not None else param_groups(model)
-    device = grads[0].device
-    ch, leaf_group, counts = _cached(("grads", str(device), shapes, tuple(index)), lambda: (
-        _Chunks(device, shapes, (False,) * len(names)),
-        torch.tensor(index, dtype=torch.int64, device=device),
-        torch.tensor([float(sum(math.prod(s) for s in group)) for group in shapes],
-                     dtype=torch.float32, device=device)))
-    torch._foreach_copy_(ch.flat_views, [grads[k] for k in order])
-    if leaf_norms is None:
-        leaf_norms = torch.stack(torch._foreach_norm(grads))
-    sq = leaf_norms.float() ** 2
-    raw = ch.reduce(sumsq=False)
-    group_sq = torch.zeros_like(raw[:, 0]).index_add_(0, leaf_group, sq)
-    return tuple(names), torch.stack([raw[:, 0], group_sq, counts, raw[:, 2], raw[:, 3]], dim=1)
 
 
 def finalize_stats(raw) -> Dict[str, float]:
@@ -454,16 +282,16 @@ def make_nan_diagnostic(model, compute_grad_energy: bool = False,
             rec = ProbeRecord()
             with torch.enable_grad(), collecting(rec):
                 tot, _, _ = compute_loss(apply, batch, model.cfg, compute_grad_energy)
-            act_names, acts = rec.stack()
+            stats = StepStats(rec, groups[0])
             params = list(model.parameters())
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
                 torch.autograd.grad(tot.float(), params, allow_unused=True), params)]
-            grad_names, gstats = grad_group_stats(model, grads, groups[0])
+            acts, gstats, _ = stats.finish(grads)
         finally:
             with torch.no_grad():
                 for b, saved in zip(model.buffers(), buffers):
                     b.copy_(saved)
-        finding = locate_first_nonfinite(act_names, acts, grad_names, gstats)
+        finding = locate_first_nonfinite(stats.names, acts, stats.group_names, gstats)
         if finding is not None:
             finding["loss"] = float(tot.detach())
         return finding

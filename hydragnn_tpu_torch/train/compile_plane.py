@@ -12,9 +12,14 @@ its wall time in that dispatch; PERF.md).
 
 **A specialization** is a ``StepGraph`` per (train or eval) x ladder level:
 static input buffers in the level's padded shapes
-(``GraphLoader.spec_template_batches``), a double-buffered pinned host
-staging copy, the captured graph and its static outputs. Each batch is
-copied into its level's buffers, then the graph replays; the outputs are
+(``GraphLoader.spec_template_batches``), views of one device block laid
+out by ``block_layout``, a double-buffered pinned host block, the
+captured graph and its static outputs. Each batch is copied into its
+level's block in one copy: device to device on the compute stream where
+train/loop.py ``device_prefetch`` staged it on the card in the same
+layout (the staging producer pauses while a level is captured,
+``CAPTURE_LOCK``), else packed into the pinned block and copied over;
+then the graph replays; the outputs are
 cloned out (the next replay overwrites them). All graphs of a plane share
 one memory pool (``torch.cuda.graph_pool_handle``): levels never replay
 concurrently, and each graph keeps its own gradients, so no graph's
@@ -104,6 +109,60 @@ RETRACE_POLICIES = ("warn", "error")
 # why the distributed step runs eagerly (the report's ``graphs_note``)
 DISTRIBUTED_NOTE = ("eager: the distributed step (parallel/engine.py) runs its collectives "
                     "outside CUDA graphs; NCCL under capture comes with a later slice")
+
+
+# held by a capture from its begin to its end, and by the device-staging
+# producer (train/loop.py ``device_prefetch``) around each batch's copy to
+# the card: no staging copy, and no allocation of its, is issued while a
+# CUDA graph is being captured
+CAPTURE_LOCK = threading.Lock()
+
+# each tensor of a batch laid out in one block starts on this boundary (a
+# multiple of every dtype's size, so each slice can be viewed as its dtype)
+BLOCK_ALIGN = 256
+
+
+def block_layout(batch) -> Tuple[List[Tuple[int, int]], int]:
+    """(offset, bytes) of each tensor of the ``GraphBatch`` ``batch`` in
+    ``GraphBatch.apply``'s order, and the aligned total: the layout of a
+    batch in one block (a ``StepGraph``'s buffers, a staged batch)."""
+    spans: List[Tuple[int, int]] = []
+    total = 0
+
+    def visit(t):
+        nonlocal total
+        nbytes = t.numel() * t.element_size()
+        spans.append((total, nbytes))
+        total += -(-nbytes // BLOCK_ALIGN) * BLOCK_ALIGN
+        return t
+
+    batch.apply(visit)
+    return spans, max(total, BLOCK_ALIGN)
+
+
+def pack_block(batch, block: torch.Tensor, spans) -> None:
+    """Copy each tensor of ``batch`` into its span of the byte tensor
+    ``block`` (``block_layout``'s)."""
+    it = iter(spans)
+
+    def pack(t):
+        off, nbytes = next(it)
+        block[off:off + nbytes].view(t.dtype).view(t.shape).copy_(t)
+        return t
+
+    batch.apply(pack)
+
+
+def block_views(batch, block: torch.Tensor, spans):
+    """``batch`` with each tensor replaced by the view of its span of
+    ``block``."""
+    it = iter(spans)
+
+    def view(t):
+        off, nbytes = next(it)
+        return block[off:off + nbytes].view(t.dtype).view(t.shape)
+
+    return batch.apply(view)
 
 
 class RetraceError(RuntimeError):
@@ -365,13 +424,15 @@ def _kernel_wrappers() -> Dict[str, Any]:
     from ..ops.flash_attention import flash_block_summary, flash_self_attention
     from ..ops.fused_edge import fused_edge_message_sum
     from ..ops.multi_agg import fused_multi_agg
+    from ..ops.numerics_stats import numerics_stats
     from ..ops.sorted_segment import sorted_segment_sum
 
     return {"sorted_segment_sum": sorted_segment_sum,
             "fused_edge_message_sum": fused_edge_message_sum,
             "fused_multi_agg": fused_multi_agg,
             "flash_self_attention": flash_self_attention,
-            "flash_block_summary": flash_block_summary}
+            "flash_block_summary": flash_block_summary,
+            "numerics_stats": numerics_stats}
 
 
 def captured_counts() -> Dict[str, Dict[str, int]]:
@@ -382,22 +443,6 @@ def captured_counts() -> Dict[str, Dict[str, int]]:
 # ---------------------------------------------------------------------------
 # captured steps
 # ---------------------------------------------------------------------------
-
-
-def _tensor_leaves(x, out: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The tensors of ``x`` in ``_flatten``'s order."""
-    if isinstance(x, torch.Tensor):
-        out.append(x)
-    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-        for f in dataclasses.fields(x):
-            _tensor_leaves(getattr(x, f.name), out)
-    elif isinstance(x, dict):
-        for k in sorted(x):
-            _tensor_leaves(x[k], out)
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            _tensor_leaves(v, out)
-    return out
 
 
 def _clone_out(x):
@@ -416,20 +461,22 @@ def _clone_out(x):
 
 class StepGraph:
     """One captured step of one (kind, ladder level): static input buffers
-    on the card, a double-buffered pinned host staging copy, the graph and
-    its static outputs. ``run(batch)`` copies ``batch`` in, replays, and
-    returns cloned outputs."""
+    on the card (views of one block), a double-buffered pinned host block,
+    the graph and its static outputs. ``run(batch)`` copies ``batch`` in,
+    replays, and returns cloned outputs."""
 
     def __init__(self, label: str, template, device: torch.device):
         self.label = label
         self.device = device
-        self.static = template.to(device)
-        self._static_leaves = _tensor_leaves(self.static, [])
-        host = _tensor_leaves(template, [])
-        self._staging = [[torch.empty_like(t, device="cpu").pin_memory() for t in host]
+        self._spans, self.nbytes = block_layout(template)
+        self._staging = [torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True)
                          for _ in range(2)]
         self._events: List[Optional[torch.cuda.Event]] = [None, None]
         self._slot = 0
+        self.block = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        pack_block(template, self._staging[0], self._spans)
+        self.block.copy_(self._staging[0])
+        self.static = block_views(template, self.block, self._spans)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out = None
         self.keep: List[torch.Tensor] = []
@@ -442,25 +489,29 @@ class StepGraph:
         self.pool_bytes = 0
         self.kept_bytes = 0
 
+    @torch.no_grad()
     def load(self, batch) -> None:
-        """Copy the host ``batch`` into the static buffers (through the
-        staging slot the copy before last used, once its copies are
-        done)."""
+        """Copy ``batch`` into the static buffers in one copy on the current
+        (compute) stream: only that stream writes the buffers the previous
+        replay reads. A batch staged on the card by train/loop.py
+        ``device_prefetch`` (whose consumer made this stream wait for its
+        copy) carries its block in the same layout (``.block``): one copy
+        device to device. A host batch is packed into the pinned block the
+        copy before last used, once that copy is done."""
+        staged = getattr(batch, "block", None)
+        if staged is not None:
+            if staged.numel() < self.nbytes:
+                raise RuntimeError(f"{self.label}: the staged block holds {staged.numel()} "
+                                   f"bytes, the captured step's {self.nbytes}")
+            self.block.copy_(staged[:self.nbytes], non_blocking=True)
+            return
         slot = self._slot
         self._slot ^= 1
         ev = self._events[slot]
         if ev is not None:
             ev.synchronize()
-        staging = self._staging[slot]
-        src = _tensor_leaves(batch, [])
-        if len(src) != len(staging):
-            raise RuntimeError(f"{self.label}: the batch has {len(src)} tensors, the "
-                               f"captured step {len(staging)}")
-        with torch.no_grad():
-            for st, s in zip(staging, src):
-                st.copy_(s)
-            for d, st in zip(self._static_leaves, staging):
-                d.copy_(st, non_blocking=True)
+        pack_block(batch, self._staging[slot], self._spans)
+        self.block.copy_(self._staging[slot], non_blocking=True)
         ev = self._events[slot] = self._events[slot] or torch.cuda.Event()
         ev.record()
 
@@ -488,7 +539,8 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         stream.wait_stream(torch.cuda.current_stream(dev))
         try:
-            with torch.cuda.stream(stream):
+            # the device-staging producer pauses for the capture
+            with CAPTURE_LOCK, torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     out = body(self.static)

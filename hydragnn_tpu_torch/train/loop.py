@@ -31,6 +31,7 @@ import os
 import pickle
 import sys
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -188,11 +189,15 @@ def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callabl
     if numerics is None:
         tot, tasks, _ = train_loss(apply or model, batch, model.cfg, compute_grad_energy)
     else:
-        from ..obs.numerics import run_probed
+        from ..obs.numerics import ProbeRecord, StepStats, collecting, param_groups
 
-        (tot, tasks, _), acts = run_probed(
-            True, numerics,
-            lambda: train_loss(apply or model, batch, model.cfg, compute_grad_energy))
+        if "groups" not in numerics:
+            numerics["groups"] = param_groups(model)
+        rec = ProbeRecord()
+        with collecting(rec):
+            tot, tasks, _ = train_loss(apply or model, batch, model.cfg, compute_grad_energy)
+        stats = StepStats(rec, numerics["groups"])
+        numerics["act_names"], numerics["grad_names"] = stats.names, stats.group_names
     tot = tot.float()
     tot.backward()
     numer = None
@@ -203,16 +208,9 @@ def step_on(state: TrainState, model, batch: GraphBatch, apply: Optional[Callabl
         grads = [p.grad for p in params]
         ok = None
         if numerics is not None:
-            from ..obs.numerics import grad_group_stats, param_groups
-
-            if "groups" not in numerics:
-                numerics["groups"] = param_groups(model)
-            # each gradient's 2-norm once, for the ok flag (step_ok's global
-            # norm) and the groups' sums of squares
-            leaf_norms = torch.stack(torch._foreach_norm(grads))
-            ok = torch.isfinite(tot) & torch.isfinite(torch.linalg.vector_norm(leaf_norms))
-            numerics["grad_names"], gstats = grad_group_stats(model, grads, numerics["groups"],
-                                                              leaf_norms)
+            # with step_ok's verdict, from the groups' sums of squares (the
+            # global norm is finite exactly where their sum is)
+            acts, gstats, ok = stats.finish(grads, tot)
             numer = {"ok": ok, "act": acts, "grad": gstats}
         if guarded:
             guarded_update(state, ok if ok is not None else step_ok(tot, grads),
@@ -278,8 +276,201 @@ def _count(fn, batch) -> Any:
     return n if n is not None else int(batch.graph_mask.sum())
 
 
+# loader -> staging_bytes: its templates are built once per loader, not at
+# every epoch's start, where the first step waits for them
+_SLOT_BYTES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def staging_bytes(loader) -> int:
+    """Bytes of the largest batch ``loader`` can emit: its ladder's levels'
+    template batches laid out in one block (0 without templates), computed
+    once per loader. The rings of ``device_prefetch`` are sized by it, not
+    per batch."""
+    from .compile_plane import block_layout
+
+    fn = getattr(loader, "spec_template_batches", None)
+    if fn is None:
+        return 0
+    try:
+        return _SLOT_BYTES[loader]
+    except KeyError:
+        n = _SLOT_BYTES[loader] = max((block_layout(t)[1] for _, t in fn()), default=0)
+        return n
+
+
+class _CardRing:
+    """``device_prefetch``'s buffers on a CUDA device: ``slots`` pinned host
+    blocks and as many device blocks of ``nbytes`` each, used in turn, and
+    the side stream that copies one to the other. Batch ``j`` goes to slot
+    ``j % slots``: its pinned block is packed once that block's last copy
+    is done (``copied``), and its device block is written once the step
+    that read it last is (``released``, recorded on the compute stream by
+    the consumer before it takes the next batch). A batch larger than the
+    slot (a loader without templates) grows the slot."""
+
+    def __init__(self, device: torch.device, slots: int, nbytes: int, compute):
+        self.device = device
+        self.side = torch.cuda.Stream(device)
+        self.compute = compute
+        nbytes = max(int(nbytes), 1)
+        self.pinned = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                       for _ in range(slots)]
+        self.blocks = [self._device_block(nbytes) for _ in range(slots)]
+        self.copied: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.released: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.staged = 0
+
+    def _device_block(self, nbytes: int) -> torch.Tensor:
+        block = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        # freed with the ring: reused only once the compute stream is past it
+        block.record_stream(self.compute)
+        return block
+
+    def stage(self, host: GraphBatch, lock):
+        """``host`` packed into the next pinned block and copied to its
+        device block in one transfer on the side stream, issued under
+        ``lock``: ``(host, the device batch (views of the block), the
+        copy's event, the slot)``."""
+        from .compile_plane import block_layout, block_views, pack_block
+
+        k = self.staged % len(self.blocks)
+        if self.staged >= len(self.blocks) and self.released[k] is None:
+            raise RuntimeError("device staging: slot reused before its batch was consumed")
+        self.staged += 1
+        spans, total = block_layout(host)
+        if self.copied[k] is not None:
+            self.copied[k].synchronize()
+        if self.pinned[k].numel() < total:
+            self.pinned[k] = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        pack_block(host, self.pinned[k], spans)
+        with lock, torch.cuda.stream(self.side):
+            if self.released[k] is not None:
+                self.side.wait_event(self.released[k])
+            if self.blocks[k].numel() < total:
+                if self.released[k] is not None:
+                    self.released[k].synchronize()
+                self.blocks[k] = self._device_block(total)
+            block = self.blocks[k][:total]
+            block.copy_(self.pinned[k][:total], non_blocking=True)
+            ev = self.copied[k] = torch.cuda.Event()
+            ev.record(self.side)
+        batch = block_views(host, block, spans)
+        batch.block = block
+        return host, batch, ev, k
+
+
+def device_prefetch(iterator, depth: int = 2, device=None, slot_bytes: int = 0):
+    """Double-buffered device staging: a producer thread (data/pipeline.py
+    ``Producer``) moves upcoming batches to ``device`` ahead of the step
+    that uses them, up to ``depth`` batches ahead, so the host-to-device
+    copy leaves the dispatching thread. Each yielded batch keeps its host
+    batch as ``.host`` (the loop reads its real-graph count there, never
+    from the card).
+
+    On a CUDA device each batch is packed into a ring of ``depth + 2``
+    pinned host blocks of ``slot_bytes`` (``staging_bytes`` of the loader:
+    its largest level) and copied in one ``non_blocking`` transfer, on a
+    side stream, into the device block of the same slot; an event marks
+    the copy. The yielded batch is views of that block, which it carries
+    as ``.block`` (``StepGraph.load`` copies it in whole). The consumer
+    makes the current (compute) stream wait on the copy's event, and
+    before it takes the next batch records on that stream that the batch
+    is consumed: the slot is written again only after that point. A
+    yielded batch is therefore valid until the next one is asked for. The
+    producer's copies hold ``compile_plane.CAPTURE_LOCK``: none is issued
+    while a CUDA graph is being captured. On the CPU the same thread and
+    queue run without streams. An exception in the producer reaches the
+    consumer; an abandoned iteration stops it."""
+    from ..data.pipeline import Producer
+    from .compile_plane import CAPTURE_LOCK
+
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    ring = None
+    if device.type == "cuda":
+        ring = _CardRing(device, max(int(depth), 1) + 2, slot_bytes,
+                         torch.cuda.current_stream(device))
+
+    def staged():
+        if ring is None:
+            for host in iterator:
+                yield host, host.to(device), None, None
+            return
+        torch.cuda.set_device(device)
+        for host in iterator:
+            yield ring.stage(host, CAPTURE_LOCK)
+
+    p = Producer(staged, depth, "device-prefetch")
+    last = None
+    try:
+        while True:
+            if last is not None:
+                # the step of the batch yielded last is enqueued: its slot
+                # may be written once the compute stream is past here
+                ev = torch.cuda.Event()
+                ev.record(ring.compute)
+                ring.released[last] = ev
+            item = p.get()
+            if item is Producer.END:
+                return
+            host, batch, ev, last = item
+            if ev is not None:
+                ring.compute.wait_event(ev)
+            batch.host = host
+            yield batch
+    finally:
+        p.close(2.0)
+        if ring is not None:
+            # a copy staged but never consumed is ordered before the
+            # compute stream's later use of the ring's memory
+            ring.compute.wait_stream(ring.side)
+
+
+def _maybe_device_prefetch(iterator, depth: Optional[int] = None, device=None, loader=None,
+                           distributed: bool = False):
+    """``device_prefetch`` where it applies: ``depth`` from
+    ``Training.double_buffer`` (true = 2, false = off, an int = that
+    depth), ``HYDRAGNN_DEVICE_PREFETCH`` always winning (0 disables), None
+    meaning no config reached here (the env, else 2), as in the JAX
+    package. Only a single-process run stages: the distributed step places
+    its batches itself (``distributed``). Sets the gauge
+    ``hydragnn_device_prefetch_depth`` (0 while staging inline). The rings
+    are sized from ``loader``'s ladder."""
+    if envflags.env_set("HYDRAGNN_DEVICE_PREFETCH"):
+        depth = envflags.env_int("HYDRAGNN_DEVICE_PREFETCH", 2)
+    elif depth is None:
+        depth = 2
+    active = depth > 0 and not distributed and world_size() == 1
+    try:
+        from ..obs.registry import registry
+
+        registry().gauge(
+            "hydragnn_device_prefetch_depth",
+            "Double-buffered device staging queue depth (0 = staging inline)",
+        ).set(float(depth if active else 0))
+    except Exception:  # noqa: BLE001 — observability only
+        pass
+    if not active:
+        return iterator
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    slot = staging_bytes(loader) if device.type == "cuda" and loader is not None else 0
+    return device_prefetch(iterator, depth=depth, device=device, slot_bytes=slot)
+
+
+def _host(batch):
+    """The host batch behind ``batch`` (``device_prefetch`` keeps it)."""
+    return getattr(batch, "host", batch)
+
+
+def prefetch_depth_of(training: Dict[str, Any]) -> int:
+    """``Training.double_buffer`` as a staging depth: true = 2, false = 0,
+    an int = that depth."""
+    db = training.get("double_buffer", True)
+    return 0 if not db else (2 if db is True else int(db))
+
+
 def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
-                nan_watch=None, guard_log=None):
+                nan_watch=None, guard_log=None, prefetch_depth: Optional[int] = None,
+                distributed: bool = False):
     """One training epoch: ``(state, mean loss, mean per-task losses,
     cursor)``, the means over real graphs. A guarded-and-skipped step's
     non-finite loss is left out of the means unless every step was
@@ -301,7 +492,11 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
     (batch index and pad level of every step whose loss came back
     non-finite), the provenance of the ``guard_skip`` event. The
     ``dataload`` and ``train_step`` regions (utils/tracer.py) time the
-    batch's host build and the step's dispatch."""
+    batch's host build and the step's dispatch.
+
+    ``prefetch_depth`` stages the batches on the model's device ahead of
+    the steps (``_maybe_device_prefetch``; ``distributed`` leaves them to
+    the distributed step)."""
     from ..utils import tracer as tr
 
     offset = int(getattr(loader, "start_batch", 0) or 0)
@@ -314,7 +509,8 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
     step_meta = [] if (guard_log is not None or nan_watch is not None) else None
     # the watch keys a step by the state's counter: one host read an epoch
     step0 = int(state.step) if nan_watch is not None else 0
-    it = iter(loader)
+    it = _maybe_device_prefetch(iter(loader), prefetch_depth, module_device(state.model),
+                                loader, distributed)
     i = -1
     while True:
         # profiler ranges named as the step's spans, so a torch.profiler
@@ -346,8 +542,9 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
                 out = step_fn(state, batch)
                 state, tot, tasks = out[0], out[1], out[2]
                 numer = out[3] if len(out) > 3 else None
-                # graph_mask is host data: reading it never waits on the device
-                n = int(batch.graph_mask.sum())
+                # the host batch's graph_mask: reading it never waits on the device
+                host = _host(batch)
+                n = int(host.graph_mask.sum())
                 tr.stop("train_step")
             last = getattr(step_fn, "last_count", None)
             entries.append((tot, tasks, n if last is None else last))
@@ -356,7 +553,7 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
                 level = f"{int(batch.node_mask.shape[-1])}n/{int(batch.edge_mask.shape[-1])}e"
                 step_meta.append((idx, level))
                 if nan_watch is not None:
-                    nan_watch.on_step(state, batch, step0 + len(entries) - 1, idx, numer,
+                    nan_watch.on_step(state, host, step0 + len(entries) - 1, idx, numer,
                                       level=level)
             if sp is not None:
                 dispatch_dt = time.perf_counter() - t_step
@@ -365,7 +562,7 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
                 sp.set_attribute("real_graphs", n)
                 tracer.finish(sp)
             if telemetry is not None:
-                telemetry.on_step(batch, time.perf_counter() - t_step, real_graphs=n,
+                telemetry.on_step(host, time.perf_counter() - t_step, real_graphs=n,
                                   numerics=numer)
             if single and preemption.preempted():
                 cursor = offset + i + 1
@@ -386,11 +583,17 @@ def train_epoch(loader, step_fn, state: TrainState, telemetry=None, tracer=None,
     return state, tot, tasks, cursor
 
 
-def evaluate(loader, eval_fn, state: Optional[TrainState] = None):
+def evaluate(loader, eval_fn, state: Optional[TrainState] = None,
+             prefetch_depth: Optional[int] = None, distributed: bool = False):
+    """The mean loss and per-task losses over ``loader``, its batches
+    staged as ``train_epoch`` stages them (on the state's model's device;
+    on the CPU without a state)."""
+    device = module_device(state.model) if state is not None else None
     entries = []
-    for batch in loader:
+    for batch in _maybe_device_prefetch(iter(loader), prefetch_depth, device, loader,
+                                        distributed):
         tot, tasks, _ = eval_fn(state, batch)
-        entries.append((tot, tasks, _count(eval_fn, batch)))
+        entries.append((tot, tasks, _count(eval_fn, _host(batch))))
     return _weighted_avg(_read_entries(entries))
 
 
@@ -581,6 +784,9 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                          log_name=log_name,
                          remat_policy=str(training.get("remat_policy", "full")))
     plane_rep = None
+    # Training.double_buffer: the batches staged on the card ahead of the
+    # steps (HYDRAGNN_DEVICE_PREFETCH wins), in a single-process run only
+    staging = dict(prefetch_depth=prefetch_depth_of(training), distributed=distributed)
     try:
         step_fn, eval_fn = plane.launch(step_fn, eval_fn, state, train_loader, val_loader,
                                         test_loader, skip_eval=not do_valtest,
@@ -594,7 +800,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
             with tr.timer("train"):
                 state, tr_loss, tr_tasks, cursor = train_epoch(
                     train_loader, step_fn, state, telemetry=telemetry, tracer=tracer,
-                    nan_watch=nan_watch, guard_log=guard_log)
+                    nan_watch=nan_watch, guard_log=guard_log, **staging)
             hist["train"].append(tr_loss)
             hist["train_tasks"].append(tr_tasks)
             if (validator is not None and validator.skipped_total != reported_skips
@@ -669,9 +875,9 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
                 base_lr *= nf_policy.lr_backoff ** (nf_policy.rollbacks_done - rollbacks_before)
             if do_valtest:
                 with tr.timer("validate"):
-                    va_loss, _ = evaluate(val_loader, eval_fn, state)
+                    va_loss, _ = evaluate(val_loader, eval_fn, state, **staging)
                 with tr.timer("test"):
-                    te_loss, _ = evaluate(test_loader, eval_fn, state)
+                    te_loss, _ = evaluate(test_loader, eval_fn, state, **staging)
             else:
                 va_loss = te_loss = tr_loss
             hist["val"].append(va_loss)

@@ -7,7 +7,10 @@ copy: it imports nothing of the JAX package). The flags read today:
 ``HYDRAGNN_MAX_NUM_BATCH``, ``HYDRAGNN_STEP_GUARD`` and
 ``HYDRAGNN_DUMP_TESTDATA`` (train/loop.py); ``HYDRAGNN_TELEMETRY``,
 ``HYDRAGNN_NUMERICS``, ``HYDRAGNN_FLEET`` and ``HYDRAGNN_TRIAL_ID``
-(obs/telemetry.py); ``HYDRAGNN_TRACE_LEVEL`` (utils/tracer.py).
+(obs/telemetry.py); ``HYDRAGNN_TRACE_LEVEL`` (utils/tracer.py);
+``HYDRAGNN_DEVICE_PREFETCH`` (train/loop.py), ``HYDRAGNN_NUM_WORKERS``
+(api.py), ``HYDRAGNN_NATIVE_NEIGHBORS`` (data/neighbors.py) and
+``HYDRAGNN_DDSTORE_*`` (data/ddstore.py).
 
 - ``env_flag``: tri-state on/off: None unset, else False for ``0``/``off``/
   ``false``/empty (any case) and True otherwise;
@@ -15,7 +18,7 @@ copy: it imports nothing of the JAX package). The flags read today:
   ``1``, False for anything else;
 - ``env_int`` / ``env_float``: a number with a default; a malformed value
   warns and falls back instead of crashing the run;
-- ``env_str``: the raw string.
+- ``env_str``: the raw string; ``env_set``: whether the flag is present.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ _FALSY = ("0", "off", "false", "")
 
 def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     return os.environ.get(name, default)
+
+
+def env_set(name: str) -> bool:
+    return env_str(name) is not None
 
 
 def env_flag(name: str) -> Optional[bool]:

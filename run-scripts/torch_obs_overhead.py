@@ -10,8 +10,9 @@ bf16, batch 32, through K1 and K2) it prints the host time of
 ``StepTelemetry.step_begin`` + ``on_step``, then 6 interleaved trials of
 four epochs over those batches (ms per step, host clock around a
 synchronised epoch): telemetry off, telemetry on (``{"enabled": True}``),
-the numerics step with its NaN watch, and the numerics step alone; then,
-under ``torch.profiler``, the device time and kernel count of one step
+the numerics step with its NaN watch, and the numerics step alone; the
+host time to enqueue one step on an idle card without and with numerics;
+then, under ``torch.profiler``, the device time and kernel count of one step
 without and with numerics, and the kernels the numerics step adds.
 """
 
@@ -92,6 +93,22 @@ def main() -> None:
         for k, v in times.items():
             print(f"{k}: median {statistics.median(v):.3f} ms a step "
                   f"({(statistics.median(v) / base - 1) * 100:+.2f}%), min {min(v):.3f}",
+                  flush=True)
+        # the host's share: the time to enqueue one step on an idle card
+        # (the call returns before the card is done), against the step's
+        # time to the card's end
+        for label, fn in (("off", lambda b: step(st, b)), ("numerics", lambda b: nstep(st, b))):
+            host, whole = [], []
+            for i in range(2 * BATCHES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(batches[i % BATCHES])
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e3)
+                whole.append((time.perf_counter() - t0) * 1e3)
+            print(f"{label}: host enqueue {statistics.median(host):.3f} ms a step (min "
+                  f"{min(host):.3f}), to the card's end {statistics.median(whole):.3f} ms",
                   flush=True)
         kernels = {}
         for label, fn in (("off", lambda: step(st, batches[0])),

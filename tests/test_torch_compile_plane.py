@@ -371,7 +371,7 @@ def pytest_off_ladder_batch_after_arming(splits, policy):
 def pytest_kernel_wrappers_count_captures_apart():
     counts = cp.captured_counts()
     assert set(counts) == {"sorted_segment_sum", "fused_edge_message_sum", "fused_multi_agg",
-                           "flash_self_attention", "flash_block_summary"}
+                           "flash_self_attention", "flash_block_summary", "numerics_stats"}
     assert all(v == {} for v in counts.values())
 
 

@@ -17,11 +17,15 @@ ulp of bf16 on each p, and rounds the output (2e-2 of max |v|). K4b's
 m, l and acc, each against its own largest value: f32 1e-5 (summation order,
 exp2 of log2-scaled scores against exp); bf16 2e-2 (m, l and acc = o * l
 rounded to bf16, p rounded against a running maximum). Merging K4b blocks
-rescales them by exp of differences of f32 maxima: 1e-5 of max |v|.
+rescales them by exp of differences of f32 maxima: 1e-5 of max |v|. N1
+reads the same values as its plain version: max |x| and the counts agree
+exactly, the sums of squares to f32 summation order (1e-5 relative).
 """
 
 import contextlib
 import copy
+import itertools
+import time
 
 import pytest
 import torch
@@ -29,6 +33,7 @@ import torch
 from hydragnn_tpu_torch.ops import flash_attention as t_flash
 from hydragnn_tpu_torch.ops import fused_edge as t_fused
 from hydragnn_tpu_torch.ops import multi_agg as t_multi
+from hydragnn_tpu_torch.ops import numerics_stats as t_nstats
 from hydragnn_tpu_torch.ops import sorted_segment as t_sorted
 
 
@@ -1281,6 +1286,70 @@ def _numerics_step(model, batch, swap=()):
     return out[3], step._numerics_meta, launched, len(out)
 
 
+def _numerics_inputs(device, bad_leaf: bool = False):
+    """Taps (bf16 and f32, [N, C] and [N, 4, C], under two masks and none)
+    whose padding rows hold NaN and inf, a NaN in one real row, bf16
+    subnormals, and 60 gradient leaves in 7 groups (more segments than one
+    launch takes, leaves longer than a tile); ``bad_leaf`` plants an inf in
+    a leaf."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    node = torch.rand(517, generator=gen, device=device) < 0.8
+    graph = torch.rand(33, generator=gen, device=device) < 0.5
+
+    def tap(shape, dtype):
+        x = torch.randn(shape, generator=gen, device=device) * 3
+        return x.to(dtype)
+
+    taps = [tap((517, 96), torch.bfloat16), tap((517, 4, 24), torch.bfloat16),
+            tap((517, 96), torch.float32), tap((33, 7), torch.float32), tap((9, 5), torch.bfloat16)]
+    masks = [node, node, node, graph, None]
+    taps[0][~node] = float("nan")
+    taps[2][~node] = float("inf")
+    taps[1][node.nonzero()[3, 0], 2, 5] = float("nan")
+    taps[0][node.nonzero()[0, 0], :4] = torch.tensor([1e-39, -2e-40, 0.0, 5e-39])
+    sizes = torch.randint(1, 9000, (60,), generator=gen, device=device).tolist()
+    leaves = [torch.randn(n, generator=gen, device=device) for n in sizes]
+    if bad_leaf:
+        leaves[41][7] = float("inf")
+    groups = (9, 1, 20, 5, 10, 8, 7)
+    return taps, masks, leaves, groups
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad_leaf", [False, True])
+def pytest_numerics_stats_kernel_matches_its_plain_version_on_card(cuda, bad_leaf):
+    """N1 against its plain version on awkward inputs: max |x| (NaN where a
+    real element is NaN) and the counts exactly, the sums of squares to
+    1e-5 relative, the same ok flag (false with an inf gradient); one
+    launch counted; the same bits twice; a CUDA graph's replay equal to the
+    eager call bit for bit."""
+    taps, masks, leaves, groups = _numerics_inputs(cuda, bad_leaf)
+    tot = torch.tensor(1.5, device=cuda)
+    before = t_nstats.numerics_stats.launches
+    got, ok = t_nstats.numerics_stats(taps, masks, leaves, groups, tot)
+    want, ok_p = t_nstats.numerics_stats_plain(taps, masks, leaves, groups, tot)
+    torch.cuda.synchronize()
+    assert t_nstats.numerics_stats.launches == before + 1
+    assert got.shape == want.shape == (len(taps) + len(groups), 5)
+    assert bool(ok) == bool(ok_p) == (not bad_leaf)
+    assert torch.equal(got[:, 2:], want[:, 2:])
+    assert float(got[0, 4]) == 3.0 and float(got[1, 3]) == 1.0 and bool(got[1, 0].isnan())
+    fin = want[:, 3] == 0
+    assert int((~fin).sum()) == 1 + bad_leaf
+    assert torch.equal(got[fin, 0], want[fin, 0])
+    torch.testing.assert_close(got[fin, 1], want[fin, 1], rtol=1e-5, atol=0)
+    assert not got[~fin, 1].isfinite().any()
+    again, _ = t_nstats.numerics_stats(taps, masks, leaves, groups, tot)
+    assert torch.equal(again.nan_to_num(), got.nan_to_num())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static, static_ok = t_nstats.numerics_stats(taps, masks, leaves, groups, tot)
+    static.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static.nan_to_num(), got.nan_to_num()) and bool(static_ok) == bool(ok)
+
+
 @pytest.mark.gpu
 def pytest_numerics_probes_through_k1_k2_match_the_plain_versions_on_card(cuda):
     """The EGNN of the zoo tests (3 layers, hidden 64, f32: K1 and K2 on its
@@ -1745,3 +1814,167 @@ def pytest_every_family_steps_through_captured_graphs_on_card(cuda, model):
     at 1e-3 of the largest anywhere), eval outputs to 1e-5, deterministic
     algorithms on."""
     assert _family_capture_check(cuda, model) > 0
+
+
+# -- the host data plane: device staging (train/loop.py device_prefetch)
+
+
+def _same_batch(a, b) -> bool:
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, dict):
+            if x.keys() != y.keys() or not all(torch.equal(x[k], y[k].to(x[k].device))
+                                               for k in x):
+                return False
+        elif isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _staging_alive() -> bool:
+    import threading
+
+    return any(t.name == "device-prefetch" and t.is_alive() for t in threading.enumerate())
+
+
+@pytest.mark.gpu
+def pytest_device_prefetch_stages_batches_on_a_side_stream_on_card(cuda):
+    """``device_prefetch`` on the card: every batch of an epoch (more than
+    the ring's slots, so each slot is reused) arrives on the card equal to
+    its host batch bit for bit, in order, with the host batch kept as
+    ``.host`` and its device block as ``.block``, while the compute stream
+    is kept busy between batches (the copies run on the side stream, the
+    consumer's stream waits on each one's event, and a slot is written
+    again only after the step that read it); an early close stops the
+    producer, and a producer's exception reaches the consumer."""
+    from hydragnn_tpu_torch.train.loop import device_prefetch, staging_bytes
+
+    loader, _ = _graph_cell(cuda, copies=0)
+    hosts = list(loader)
+    slot = staging_bytes(loader)
+    assert slot >= max(sum(t.numel() * t.element_size() for t in _leaves(b)) for b in hosts)
+    busy = torch.randn(2048, 2048, device=cuda)
+    seen = []
+    for b in device_prefetch(iter(hosts), depth=2, device=cuda, slot_bytes=slot):
+        busy = torch.tanh(busy @ busy * 1e-3)  # compute-stream work between the batches
+        assert b.x.is_cuda and b.block.is_cuda and b.host is not None
+        # a staged batch is valid until the next one is asked for: read it
+        # on the compute stream now, behind the work queued before it
+        seen.append((b.host, b.apply(lambda t: t.clone())))
+    torch.cuda.synchronize()
+    assert len(seen) == len(hosts) > 4
+    assert all(_same_batch(g, h) and host is h for (host, g), h in zip(seen, hosts))
+    gen = device_prefetch(iter(hosts), depth=2, device=cuda, slot_bytes=slot)
+    next(gen)
+    gen.close()
+    assert not _staging_alive()
+
+    def failing():
+        yield hosts[0]
+        raise OSError("the loader failed")
+
+    with pytest.raises(OSError, match="the loader failed"):
+        list(device_prefetch(failing(), depth=2, device=cuda, slot_bytes=slot))
+    assert not _staging_alive()
+
+
+def _leaves(batch):
+    out = []
+    batch.apply(lambda t: out.append(t) or t)
+    return out
+
+
+@pytest.mark.gpu
+def pytest_capture_while_staging_equals_capture_paused_on_card(cuda):
+    """Levels captured (a blocking compile plane) while the staging
+    producer runs (its host batches built during the captures; its copies
+    wait for ``CAPTURE_LOCK``) step an epoch of staged batches exactly as
+    levels captured with no producer alive: every loss and state tensor
+    bit for bit from one init (deterministic algorithms, bf16, K1 and K2)."""
+    from hydragnn_tpu_torch.train.loop import device_prefetch, staging_bytes
+
+    loader, (a, b) = _graph_cell(cuda)
+    hosts = list(loader)
+    built = []
+
+    def slow():
+        for h in hosts:
+            time.sleep(0.01)
+            built.append(time.perf_counter())
+            yield h
+
+    staged = device_prefetch(slow(), depth=len(hosts), device=cuda,
+                             slot_bytes=staging_bytes(loader))
+    first = next(staged)
+    t0 = time.perf_counter()
+    plane_a, step_a = _graphed(a, loader, "error")
+    t1 = time.perf_counter()
+    try:
+        assert any(t0 <= t <= t1 for t in built), "the producer was not running during capture"
+        with deterministic_algorithms():
+            la = [step_a(a, x)[1] for x in itertools.chain([first], staged)]
+        torch.cuda.synchronize()
+        assert sum(g.replays for g in plane_a.graphs().values()) == len(hosts)
+    finally:
+        plane_a.finish()  # the sentinel is the process's: one armed plane at a time
+    plane_b, step_b = _graphed(b, loader, "error")
+    try:
+        with deterministic_algorithms():
+            lb = [step_b(b, x)[1] for x in device_prefetch(iter(hosts), depth=2, device=cuda,
+                                                           slot_bytes=staging_bytes(loader))]
+        torch.cuda.synchronize()
+    finally:
+        plane_b.finish()
+    assert torch.equal(torch.stack(la), torch.stack(lb))
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+
+
+@pytest.mark.gpu
+def pytest_step_graph_load_from_a_device_batch_equals_the_pinned_route_on_card(cuda):
+    """``StepGraph.load`` of a batch already on the card (staged by
+    ``device_prefetch``: its block in one device-to-device copy on the
+    compute stream) against the same batch from the host (through the
+    pinned block): the replayed train steps of two states from one init
+    give the same losses and state bit for bit, and each eval level's
+    replayed outputs are equal."""
+    from hydragnn_tpu_torch.train import compile_plane as cp
+    from hydragnn_tpu_torch.train.loop import (
+        device_prefetch,
+        make_eval_step,
+        make_train_step,
+        staging_bytes,
+    )
+
+    loader, (a, b) = _graph_cell(cuda)
+    hosts = list(loader)
+
+    def staged():
+        return device_prefetch(iter(hosts), depth=2, device=cuda,
+                               slot_bytes=staging_bytes(loader))
+
+    runs = []
+    for st, place in ((a, lambda: hosts), (b, staged)):
+        plane = cp.CompilePlane(mode="blocking", retrace_policy="error")
+        step, ev = plane.launch(make_train_step(st.model, mixed_precision=True),
+                                make_eval_step(st.model, mixed_precision=True), st, loader,
+                                val_loader=loader)
+        try:
+            with deterministic_algorithms():
+                outs = [ev(st, x) for x in place()]
+                losses = [step(st, x)[1] for x in place()]
+            torch.cuda.synchronize()
+            # each batch one eval replay and one train replay
+            assert sum(g.replays for g in plane.graphs().values()) == 2 * len(hosts)
+        finally:
+            plane.finish()  # the sentinel is the process's: one armed plane at a time
+        runs.append((outs, losses))
+    for x, y in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(x[0], y[0])
+        assert all(torch.equal(x[2][k], y[2][k]) for k in x[2])
+    assert torch.equal(torch.stack(runs[0][1]), torch.stack(runs[1][1]))
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))

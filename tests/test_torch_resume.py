@@ -274,10 +274,15 @@ def pytest_continue_and_startfrom_resume_like_jax(case, tmp_path):
 # the mid-epoch SIGTERM stop and resume
 
 
-def _killing_loader(log, kill_at=None):
+def _killing_loader(log, kill_at=None, make=None):
     """A port ``GraphLoader`` whose shuffled (train) instances record what
-    they yield as ((epoch, batch index), graph ids) and send this process
-    SIGTERM as they yield batch ``kill_at`` = (epoch, index)."""
+    they yield as ((epoch, batch index), graph ids), and ``make``
+    (``make_train_step``) wrapped so that this process gets SIGTERM as the
+    step of batch ``kill_at`` = (epoch, index) starts: device staging
+    draws batches ahead of their steps, so the signal is keyed on the
+    step, through the hand-out order. Returns (the loader class, the
+    wrapped ``make``)."""
+    handed, stepped = [], []
 
     class Loader(GraphLoader):
         def __iter__(self):
@@ -285,16 +290,26 @@ def _killing_loader(log, kill_at=None):
             for k, (grp, batch) in enumerate(zip(groups, super().__iter__())):
                 if self.shuffle:
                     pos = (self.epoch, self.start_batch + k)
+                    handed.append(pos)
                     log.append((pos, tuple(int(i) for i in grp)))
-                    if pos == kill_at:
-                        os.kill(os.getpid(), signal.SIGTERM)
                 yield batch
 
-    return Loader
+    def make_step(model, *a, **kw):
+        inner = make(model, *a, **kw)
+
+        def step(s, b):
+            if handed[len(stepped)] == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            stepped.append(1)
+            return inner(s, b)
+
+        return step
+
+    return Loader, make_step
 
 
 def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
-    """SIGTERM as batch 1 of epoch 1 is handed out: the step of that batch
+    """SIGTERM as the step of batch 1 of epoch 1 starts: that step
     completes, the run saves its state and a loader sidecar with the same
     record as the JAX package's (killed after the same step) and stops with
     a history row per epoch begun; ``continue`` replays exactly the rest of
@@ -308,7 +323,7 @@ def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
     for run in ("uninterrupted", "uninterrupted again"):  # the spread of two runs
         log, losses = [], []
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(tapi, "GraphLoader", _killing_loader(log))
+            mp.setattr(tapi, "GraphLoader", _killing_loader(log)[0])
             mp.setattr(tloop, "make_train_step",
                        _poisoning(tloop.make_train_step, [], losses=losses))
             run_training(copy.deepcopy(cfg), datasets=case.splits, variables=case.v,
@@ -320,10 +335,17 @@ def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
 
     killed_log = []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tapi, "GraphLoader", _killing_loader(killed_log, kill))
+        loader, make = _killing_loader(killed_log, kill, tloop.make_train_step)
+        mp.setattr(tapi, "GraphLoader", loader)
+        mp.setattr(tloop, "make_train_step", make)
         _, _, hist = run_training(copy.deepcopy(cfg), datasets=case.splits, variables=case.v,
                                   device="cpu")
-    assert killed_log == full["uninterrupted"][0][:case.per_epoch[0] + kill[1] + 1]
+    # the batches handed out are the uninterrupted run's in its order, the
+    # killed step's included; device staging (depth 2) draws at most its
+    # queue and the batch in hand beyond it
+    steps = case.per_epoch[0] + kill[1] + 1
+    assert steps <= len(killed_log) <= steps + 3
+    assert killed_log == full["uninterrupted"][0][:len(killed_log)]
     assert tpre.global_stop_noted() and len(hist["train"]) == 2
     assert hist["val"][1] == hist["val"][0] and hist["test"][1] == hist["test"][0]
     ls = tck.load_loader_state(log_name)
@@ -347,7 +369,7 @@ def pytest_sigterm_mid_epoch_resume_like_jax(case, tmp_path, monkeypatch):
     # resume: the rest of epoch 1 first, then a normal epoch
     resumed_log, losses = [], []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tapi, "GraphLoader", _killing_loader(resumed_log))
+        mp.setattr(tapi, "GraphLoader", _killing_loader(resumed_log)[0])
         mp.setattr(tloop, "make_train_step", _poisoning(tloop.make_train_step, [], losses=losses))
         _, state, hist2 = run_training(case.config(num_epoch=2, **{"continue": True}),
                                        datasets=case.splits, variables=case.v, device="cpu")
