@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels  # build + kernel checks only (a short first run)
     python3 chip_smoke.py --plane    # build + capture checks + the compile plane's phases
     python3 chip_smoke.py --data-plane  # build + the host data plane's phase
+    python3 chip_smoke.py --serve-plane  # build + the serving plane's phase
 
 Phases, each fatal on failure (exit code 1):
 
@@ -172,7 +173,8 @@ Phases, each fatal on failure (exit code 1):
    the plain route; DimeNet first takes a bf16 step on a batch with padding
    triplets (every gradient finite). ``performer`` (in ``zoo``): the JAX
    bench's performer cell (GIN hidden 256, 4 layers, 8 heads, PE 4), GIN's
-   sums through K1 (bf16, C = 256). The kernel checks of phase 3 hold K1
+   sums through K1 (bf16, C = 256), its served leg under deterministic
+   algorithms (``ZOO_DETERMINISTIC_SERVED``). The kernel checks of phase 3 hold K1
    at C = 2,304 (bf16 and f32), 128 and 4 (f32) too.
 13. The multibranch GFM recipe (examples/multibranch/multibranch_GFM260_SC25.json
    as committed: EGNN hidden 866, 4 layers, equivariant, 5 branches of
@@ -180,9 +182,9 @@ Phases, each fatal on failure (exit code 1):
    [1, 100], MAE, batch 160, 3 pad buckets, bf16, balanced branch
    sampling, AdamW 1e-3), with per-branch loss weights [1, 2, 1, 0.5, 1]
    and the ``branch<i>`` scalars, on 1,920 OC20-shaped graphs drawn into the
-   branches 40/25/15/12/8 %. ``gfm_train``: ``run_cell_train`` over 2
-   epochs (22 steps; K1 and K2 as egnn_train per step) and
-   ``run_training`` for 2 epochs, each branch's share of the draws;
+   branches 40/25/15/12/8 %. ``gfm_train``: ``run_cell_train`` over 1
+   epoch (11 steps; K1 and K2 as egnn_train per step) and
+   ``run_training`` for 1 epoch, each branch's share of the draws;
    ``gfm``: ``api.run_server`` restores that checkpoint and answers 192
    requests over every branch, against the plain ops on its own
    micro-batches and against ``run_prediction`` branch by branch;
@@ -333,6 +335,38 @@ Phases, each fatal on failure (exit code 1):
    batches equal the list-backed loader's bit for bit, one step's loss
    the same; (f) the native cell-list builder (``g++`` at first use) on an
    open cluster of 32,768 atoms: the same edge set as cKDTree, both timed.
+19. ``serve_plane``, the rest of the serving plane (after ``dist_ranks``,
+   before ``obs_train``; its fleet starts before ``dist_run_training``,
+   whose launch and ``dist_ranks``' two groups of ranks start beside it),
+   on the egnn cell at full width trained 20 AdamW steps, its checkpoints
+   under SGD (the model alone): (c)'s stream first, then (a) and (b) while
+   the killed replica restarts, then the rest of (c); (a) ``Serving.hot_reload`` with ``drain_grace_s`` 1 s:
+   192 requests paced 20 ms apart, the run's next checkpoint published
+   after 48 of them; one swap, none dropped, every answer equal bit for bit
+   to the eager forward with the weights of its batch (replays after the
+   in-place swap read the new weights), the seconds from the pointer's
+   commit to the first new answer; a bit-flipped next checkpoint rejected
+   while the old one serves; ``/readyz`` 503 while a request is admitted
+   in the grace window; (b) mixed precision off, the f32, bf16,
+   int8 w8a8 and int8 weight-only servers on one checkpoint, 96 requests
+   each: every route's relative max error against the f32 server held to
+   ``Serving.quantization.max_error`` (0.05), K1/K2 launches a batch
+   unchanged, graphs/s, p50/p99 and the weight bytes on the card of each,
+   w8a8's ``_int_mm`` calls and int8 GEMM kernels under the profiler, the
+   drift drill (``HYDRAGNN_FAULT_QUANT_DRIFT``) refused at a reload while
+   the old weights serve; (c) ``api.run_server_fleet`` with 2 replica
+   processes on the card over the config's data written by
+   ``ColumnarWriter``: 192 requests through the router from 16 callers
+   while replica 1 is killed (``HYDRAGNN_FAULT_REPLICA_KILL``): 0 failed,
+   the retry counted, replica 1 back ready; local against fleet graphs/s
+   and p50/p99; every answer of the stream against the in-process
+   server's answer to the same request (bit for bit, or within the egnn
+   cell's bf16 limit where the two batched it at different ladder levels,
+   and nearer its own graph's answer than any other graph's); each
+   replica's answers to graphs sent alone equal the in-process server's
+   bit for bit; a second pass all cache hits,
+   bit-identical; a rolling reload moves both replicas to the next
+   checkpoint; K1 and K2 launched in each replica (its ``/stats``).
 
 Each path sets every launch count to 0 just before its requests (or steps)
 and reads them just after, and prints one ``profile:`` block (the
@@ -350,6 +384,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import math
 import subprocess
 import sys
@@ -3289,6 +3324,15 @@ ZOO_RTOL = {
     "performer": {"served": {"energy": (1e-3, 1e-5), "forces": (1e-3, 1e-5)},
                   "gradients": (0.1, 8e-3)},
 }
+# cells whose served leg (the server's warm-up captures, its answers and the
+# plain versions' reference) runs under deterministic algorithms: the
+# performer's per-graph sums (kv_sum, k_sum) are index_add_ in f32, cast to
+# bf16, whose order atomics change from call to call (50 calls at the served
+# shapes gave 50 distinct sums); the served answers left the reference in 1
+# of 64 passes on two commits, by one row at 3.7e-3 / 1.7e-2, and in 0 of 16
+# under deterministic algorithms, where the sum gives one result
+# (run-scripts/torch_performer_repeat.py on an H100 80GB HBM3, 700 W)
+ZOO_DETERMINISTIC_SERVED = ("performer",)
 # f32 step-0 gradients: (largest, median), but for the convs whose update
 # blocks saturate at random init (below)
 ZOO_GRAD_RTOL = (0.05, 5e-3)
@@ -3527,8 +3571,9 @@ def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups, 
     (the config's ``num_epoch``). ``pinned_grads`` gates the step-0
     gradients against K1's plain version with every activation's decisions
     held to that route's (``pinned_route_gradients``), and prints the
-    unpinned readings beside. Returns the launches by (kernel, case) of the
-    kernel route's trajectory and the run."""
+    unpinned kernels' reading beside (without the controls, which only an
+    unpinned gate reads: cut for time, PERF.md §4). Returns the launches by
+    (kernel, case) of the kernel route's trajectory and the run."""
     import torch
 
     from hydragnn_tpu_torch.api import prepare_data
@@ -3564,10 +3609,12 @@ def run_cell_train(label, config, graphs, device, per_step, swap, rtol, groups, 
     # versions, from the same weights on the same batch, in f32 and in
     # bf16, beside the plain route again and each kernel alone; every
     # parameter the loss reaches has a finite, nonzero gradient
-    routes = {"kernels": ((), None), "plain": (swap, None), "the plain route again": (swap, None)}
-    if len(swap) > 1:
-        routes.update({f"{k}'s kernel, the rest plain": (tuple(s for s in swap if s != k), None)
-                       for k in swap})
+    routes = {"kernels": ((), None), "plain": (swap, None)}
+    if not pinned_grads:  # the controls of the unpinned gate
+        routes["the plain route again"] = (swap, None)
+        if len(swap) > 1:
+            routes.update({f"{k}'s kernel, the rest plain": (tuple(s for s in swap if s != k),
+                                                              None) for k in swap})
     for mp in (False, True):
         dname = "bf16" if mp else "f32"
         if pinned_grads:
@@ -3751,6 +3798,9 @@ def run_zoo(cells, device, per_unit):
         done, (loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
         arch = done["NeuralNetwork"]["Architecture"]
         check(arch["use_sorted_aggregation"], f"{label}: sorted aggregation is off")
+        exact = contextlib.ExitStack()
+        if name in ZOO_DETERMINISTIC_SERVED:
+            exact.enter_context(deterministic())
         t0 = time.perf_counter()
         server = run_server(config, datasets=splits, device=device, seed=SEED)
         check(server.wait_ready(timeout=600), f"{label}: server warm-up failed: {server.failed}")
@@ -3802,6 +3852,7 @@ def run_zoo(cells, device, per_unit):
                    ZOO_RTOL[name]["served"])
         model = server.model
         server.close()
+        exact.close()
 
         loader.set_epoch(0)
         steps = [b for _, b in zip(range(2), loader)]
@@ -4283,7 +4334,7 @@ GFM_JSON = "examples/multibranch/multibranch_GFM260_SC25.json"
 GFM_SHARES = (0.40, 0.25, 0.15, 0.12, 0.08)  # each branch's share of the data
 GFM_BRANCH_LOSS_WEIGHTS = [1.0, 2.0, 1.0, 0.5, 1.0]
 GFM_GRAPHS = 1920  # 1,728 train graphs: 11 balanced batches of 160 an epoch
-GFM_EPOCHS = 2
+GFM_EPOCHS = 1  # 11 steps (cut from 2 epochs, 22 steps: PERF.md §4)
 GFM_SERVE_GRAPHS = 128
 # K1 and K2 per step (and per served batch) of the mlp-head recipe are the
 # encoder's, TRAIN_PER_STEP (conv layer 0 in bf16, layers 1-3 promoted to
@@ -4296,7 +4347,7 @@ GFM_CONVHEAD_PER_STEP = {"K1": {"bfloat16/C866": 1, "float32/C866": 17,
                                 "bfloat16/C3": 1, "float32/C3": 17},
                          "K2": {"float32/866x866": 6}}
 GFM_CONVHEAD_BATCH = 32  # the egnn_train batch (PERF.md: the batch cut)
-GFM_CONVHEAD_GRAPHS = 352  # 316 train graphs: 10 balanced batches of 32 (cut from 11: PERF.md §4)
+GFM_CONVHEAD_GRAPHS = 214  # 192 train graphs: 6 balanced batches of 32 (cut from 11: PERF.md §4)
 # gfm_train's gates are egnn_train's (TRAIN_RTOL): the same unpinned
 # comparison, read 1.27e-2 to 1.55e-2 / 2.6e-3 to 3.8e-3 in f32 beside the
 # plain route again at 5.9e-3 to 1.5e-2. The conv-head cell's step-0
@@ -4414,9 +4465,10 @@ def branch_shares(label: str, splits, config, epochs: int) -> None:
 def run_gfm_train(graphs, device):
     """``gfm_train``: the committed GFM recipe at full width through K1 and
     K2 (``run_cell_train``: step-0 gradients in f32 and bf16 against their
-    plain versions, the 22-step trajectories, launches per step, ms per
-    step, peak memory, a profiled step, ``api.run_training`` for 2 epochs),
-    with each branch's share of the draws. Returns the launches."""
+    plain versions, the 11-step trajectories, launches per step, ms per
+    step, peak memory, a profiled step, ``api.run_training`` for
+    ``GFM_EPOCHS`` epochs), with each branch's share of the draws. Returns
+    the launches."""
     from hydragnn_tpu_torch.data.pipeline import split_dataset
 
     label = "gfm_train"
@@ -4425,7 +4477,8 @@ def run_gfm_train(graphs, device):
     config = gfm_config()
     branch_shares(label, splits, config, GFM_EPOCHS)
     launched = run_cell_train(label, config, graphs, device, TRAIN_PER_STEP, ("K1", "K2"),
-                              TRAIN_RTOL, GFM_GROUPS, epochs=GFM_EPOCHS, splits=splits)
+                              TRAIN_RTOL, GFM_GROUPS, epochs=GFM_EPOCHS, splits=splits,
+                              min_steps=11)
     print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
     return launched
 
@@ -4520,7 +4573,7 @@ def run_gfm_convhead_train(graphs, device):
     # 3.29e-2 with PyTorch's atomics: roundings flip ReLUs
     launched = run_cell_train(label, config, graphs, device, GFM_CONVHEAD_PER_STEP,
                               ("K1", "K2"), GFM_CONVHEAD_RTOL, GFM_GROUPS, epochs=1,
-                              splits=splits, min_steps=10, pinned_grads=True)
+                              splits=splits, min_steps=6, pinned_grads=True)
     print(f"{label}: phase in {time.perf_counter() - t0:.1f} s", flush=True)
     return launched
 
@@ -5343,7 +5396,8 @@ DIST_RANKS_BATCH = 32
 # under the recipe's AdamW for 1 step, where a flip can only come from a
 # step-0 sum that rounds to either sign, which the emulation marks
 DIST_SGD = {"type": "SGD", "learning_rate": 1e-3}
-# (2 steps a job, cut from 3: PERF.md §4)
+# (2 steps a job, cut from 3: PERF.md §4): the second step carries the
+# sharded AdamW moments the first one stored
 DIST_RANKS_JOBS = (("dp", "dp", 2, None, 2), ("zero1", "zero1", 2, None, 2),
                    ("zero2", "zero2", 2, None, 2), ("zero3", "zero3", 2, None, 2),
                    ("branch", "branch", 5, DIST_SGD, 2), ("branch_adamw", "branch", 5, None, 1))
@@ -5357,7 +5411,7 @@ DIST_RANKS_RTOL = {"dp": 0.0, "zero1": 0.0, "zero2": 0.0, "zero3": 0.0, "branch"
                    "branch_adamw": 5e-7}
 DIST_NOISE = 1e-6
 DIST_RANKS_TIMEOUT = 420.0
-DIST_RUN_GRAPHS = GFM_NLL_GRAPHS  # 648 train graphs: 4 balanced batches of 160 (+ a short one)
+DIST_RUN_GRAPHS = 360  # 324 train graphs: 2 batches of 160 and a short one (cut from 720: PERF.md §4)
 DIST_RUN_TIMEOUT = 300.0
 # run_prediction's loss from the saved checkpoint against the run's own
 # last test loss (the same model, batches and kernels), relative: 0 in five
@@ -5509,27 +5563,33 @@ def dist_run_rank(out: str) -> None:
     dist.destroy_process_group()
 
 
-def run_dist_run_training():
-    """``dist_run_training``: ``python -m hydragnn_tpu_torch.launch --nprocs
-    1`` starts ``dist_run_rank`` on the card. Checks that the rank joined a
-    group of one over NCCL, trained through the placed zero3 state with K1
-    and K2, recorded ``Parallel.resolved_rules`` in the saved config,
-    wrote the checkpoint, and that ``run_prediction`` from it gives finite
-    answers for every test graph. Returns the launches."""
-    import os
-    import signal
-
-    label = "dist_run_training"
-    t0 = time.perf_counter()
+def start_dist_run_training():
+    """Start ``dist_run_training``'s launch (``python -m
+    hydragnn_tpu_torch.launch --nprocs 1`` running ``dist_run_rank`` on the
+    card) and return it: it runs beside ``dist_ranks`` (no timing gate
+    in either), and ``run_dist_run_training`` waits for it."""
     out = Path.cwd() / "dist_run.json"
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
             f"chip_smoke.dist_run_rank({str(out)!r})")
     cmd = [sys.executable, "-m", "hydragnn_tpu_torch.launch", "--nprocs", "1", "--",
            sys.executable, "-c", code]
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.Popen(cmd, env=env, start_new_session=True)
+    return subprocess.Popen(cmd, env=env, start_new_session=True), out, time.perf_counter()
+
+
+def run_dist_run_training(started):
+    """``dist_run_training``: the launch ``start_dist_run_training`` made.
+    Checks that the rank joined a group of one over NCCL, trained through
+    the placed zero3 state with K1 and K2, recorded
+    ``Parallel.resolved_rules`` in the saved config, wrote the checkpoint,
+    and that ``run_prediction`` from it gives finite answers for every test
+    graph. Returns the launches."""
+    import signal
+
+    label = "dist_run_training"
+    proc, out, t0 = started
     try:
-        rc = proc.wait(timeout=DIST_RUN_TIMEOUT)
+        rc = proc.wait(timeout=max(DIST_RUN_TIMEOUT - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
         rc = None
     finally:
@@ -5827,24 +5887,28 @@ def run_dist_ranks(graphs, device):
         torch.save(job, work / f"{name}.pt")
         groups[world].append((name, job["optimizer"]["type"], steps))
     results = {}
+    # every world size's group started at once (each its own store): the
+    # processes' start-ups overlap
+    t1 = time.perf_counter()
+    started = {world: mp.start_processes(
+        _dist_rank, args=(world, str(work / f"{world}.store"),
+                          [str(work / f"{name}.pt") for name, _, _ in jobs], str(work)),
+        nprocs=world, join=False, start_method="spawn") for world, jobs in groups.items()}
+    deadline = time.monotonic() + DIST_RANKS_TIMEOUT
     for world, jobs in groups.items():
-        t1 = time.perf_counter()
-        paths = [str(work / f"{name}.pt") for name, _, _ in jobs]
-        ctx = mp.start_processes(_dist_rank, args=(world, str(work / f"{world}.store"), paths,
-                                                   str(work)),
-                                 nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + DIST_RANKS_TIMEOUT
+        ctx = started[world]
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
             if time.monotonic() >= deadline:
-                for p in ctx.processes:
-                    p.kill()
+                for c in started.values():
+                    for p in c.processes:
+                        p.kill()
                 fail(f"{label}: the {world} ranks did not finish in {DIST_RANKS_TIMEOUT} s")
         for name, kind, steps in jobs:
             results[name] = (world, kind, steps, [json.loads(
                 (work / name / f"rank{r}.json").read_text()) for r in range(world)])
             (work / f"{name}.pt").unlink()
-        print(f"{label}: {len(jobs)} jobs over {world} ranks in {time.perf_counter() - t1:.1f} s "
-              "(the processes' start included)", flush=True)
+        print(f"{label}: {len(jobs)} jobs over {world} ranks done {time.perf_counter() - t1:.1f} s "
+              "after the groups' start (the processes' start included)", flush=True)
     for name, (world, kind, steps, res) in results.items():
         for r in res:
             want = {k: {c: n * steps for c, n in per.items()}
@@ -6376,11 +6440,12 @@ def run_obs_serve(graphs, device, per_batch):
 # -- the compile and memory plane (train/compile_plane.py, ops/remat.py, tune/)
 
 GRAPHS_TRAIN_BUCKETS = 4  # num_pad_buckets of the graphs_* cells (unpacked batches)
+GRAPHS_TRAIN_GRAPHS = 400  # 360 train graphs: 12 steps an epoch (cut from 768: PERF.md §4)
 GRAPHS_AB_PAIRS = 4  # alternating (eager, replayed) legs of the step-time A/B
 GRAPHS_AB_STEPS = 8  # steps a leg
 REMAT_STEPS = 3  # timed steps a policy
 TUNE_BUDGET = 3  # candidate plans a slot
-TUNE_TRIALS = 3  # timed calls a candidate
+TUNE_TRIALS = 2  # timed calls a candidate (cut from 3: PERF.md §4)
 PLANE_KERNELS = {"sorted_segment_sum": "K1", "fused_edge_message_sum": "K2",
                  "fused_multi_agg": "K3", "flash_self_attention": "K4",
                  "flash_block_summary": "K4b", "numerics_stats": "N1"}
@@ -6941,7 +7006,7 @@ def run_plane_phases(device, train_graphs, serve_graphs, root: Path):
     ``graphs_serve``, ``remat``, ``tune``; returns the graphs' launches by
     (kernel, case)."""
     launched = collections.Counter()
-    launched.update(run_graphs_train(train_graphs, device, TRAIN_PER_STEP))
+    launched.update(run_graphs_train(train_graphs[:GRAPHS_TRAIN_GRAPHS], device, TRAIN_PER_STEP))
     launched.update(run_graphs_serve(serve_graphs, device, TRAIN_PER_STEP))
     run_remat(train_graphs, device)
     run_tune(train_graphs, device, root)
@@ -7448,6 +7513,715 @@ def run_data_plane(device, train_graphs, examples):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# serve_plane: hot reload, reduced-precision weights, the replica fleet
+# ---------------------------------------------------------------------------
+
+SERVE_PLANE_REQUESTS = 192
+SERVE_PLANE_WEIGHT_REQUESTS = 96  # a route's stream of (b): 3 full batches
+SERVE_PLANE_PACE_S = 0.02  # (a)'s stream: one request every 20 ms (3.8 s)
+SERVE_PLANE_PUBLISH_AT = 48  # (a) publishes the second checkpoint after these requests
+SERVE_PLANE_GRACE_S = 1.0
+# the drift drill runs last, on the weight-only server (it publishes epoch 3)
+SERVE_PLANE_ROUTES = (("float32", None), ("bfloat16", None), ("int8", "w8a8"),
+                      ("int8", "weight_only"))
+SERVE_PLANE_MAX_ERROR = 0.05  # Serving.quantization.max_error (the default), every route
+# the served run is trained first (AdamW, as egnn_train): at its random
+# initialization the cell's batch norms hold their initial statistics and
+# bf16 rounding alone moved the energies 9.3% on an H100 (PERF.md §6);
+# run-scripts/torch_quant_sensitivity.py reads both states
+SERVE_PLANE_TRAIN_STEPS = 20
+# w8a8 keeps the last conv's node MLP in f32 (Serving.quantization.exclude):
+# its input concatenates the node features with K2's edge sum, whose scale
+# sets the one static activation scale of both; int8 x int8 there moved the
+# energies 11.5% (calibrated on real rows; 26.9% on every row), w8a8 without
+# it 1.96% (run-scripts/torch_quant_sensitivity.py on an H100, PERF.md §6)
+SERVE_PLANE_W8A8_EXCLUDE = ("graph_convs_3/MLP_0",)
+# the f32 routes' launches a served batch (mixed precision off: every K1 call f32)
+SERVE_PLANE_PER_BATCH = {"K1": {"float32/C866": 3, "float32/C3": 3},
+                         "K2": {"float32/866x866": 1}}
+SERVE_PLANE_KILL_AT = 40  # replica 1 dies before its 41st /predict
+SERVE_PLANE_FLEET_CLIENTS = 16  # concurrent router callers of (c)'s stream
+SERVE_PLANE_IDENTITY = 8  # graphs each replica and the local server answer alone
+# the fleet's answers against the in-process server's where the two batched
+# a request at different ladder levels: the egnn cell's limit for the same
+# bf16 cast through other kernels (SERVE_RTOL, largest row)
+SERVE_PLANE_FLEET_RTOL = SERVE_RTOL["egnn"]["bf16 plain ops"]["energy"][0]
+SERVE_PLANE_READY_S = 420.0
+INT8_GEMM_KERNELS = ("i8", "s8", "int8", "imma", "igemm")  # cuBLASLt int8 GEMM names
+
+
+def _rel_max(got: list, want: list) -> dict:
+    """Per head: the largest |got - want| over every answer over the
+    largest |want|."""
+    import numpy as np
+
+    out = {}
+    for k in want[0]:
+        err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(got, want))
+        ref = max(float(np.abs(b[k]).max()) for b in want)
+        out[k] = err / max(ref, 1e-12)
+    return out
+
+
+def _per_request(got: list, want: list) -> dict:
+    """Per head: the median and the largest of each answer's max |got -
+    want| over the largest |want| (where the relative max error sits)."""
+    import numpy as np
+
+    out = {}
+    for k in want[0]:
+        ref = max(float(np.abs(b[k]).max()) for b in want)
+        e = np.asarray([float(np.abs(a[k] - b[k]).max()) / max(ref, 1e-12)
+                        for a, b in zip(got, want)])
+        out[k] = (round(float(np.median(e)), 6), round(float(e.max()), 6))
+    return out
+
+
+def _latency(handles_or_ms) -> str:
+    import numpy as np
+
+    lat = np.asarray(handles_or_ms)
+    return f"p50 {np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} ms"
+
+
+def _publish(state, log_name: str, epoch: int, flip: bool = False):
+    """Save ``state`` as the run's epoch ``epoch`` (payload, sidecar, then
+    the ``latest`` pointer); ``flip`` flips one bit of the payload after the
+    commit (a corrupt candidate). Returns (entry, the commit's clock)."""
+    from hydragnn_tpu_torch.train.checkpoint import save_model
+    from hydragnn_tpu_torch.utils.faultinject import flip_bit
+
+    path = save_model(state, log_name, epoch=epoch)
+    t_commit = time.perf_counter()
+    if flip:
+        flip_bit(path)
+    return os.path.basename(path), t_commit
+
+
+def _one_step(state, batch, device):
+    """One SGD step of the run (the next checkpoint's weights)."""
+    import torch
+
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    make_train_step(state.model)(state, batch.to(device))
+    torch.cuda.synchronize()
+
+
+def _eager_answers(server, model, requests, handles, cast):
+    """Each served batch rebuilt (its graphs in request order at its
+    level) and run eagerly through ``model`` on ``cast(batch)``: the answers
+    in request order."""
+    import torch
+
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+
+    by_batch = collections.defaultdict(list)
+    for i, h in enumerate(handles):
+        by_batch[h.batch_index].append(i)
+    out = [None] * len(requests)
+    with torch.inference_mode():
+        for idx in by_batch.values():
+            gs = [requests[i] for i in idx]
+            batch = batch_graphs(gs, server.ladder.select_for(gs), sort_edges=True)
+            o = {k: v.float().cpu().numpy()
+                 for k, v in model(cast(batch.to(server.device))).items()}
+            off = 0
+            for p, (i, g) in enumerate(zip(idx, gs)):
+                out[i] = {"energy": o["energy"][p], "forces": o["forces"][off:off + g.num_nodes]}
+                off += g.num_nodes
+    return out
+
+
+def _same(got, want) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(a[k], b[k]) for a, b in zip(got, want) for k in b)
+
+
+def run_serve_reload(label, config, splits, requests, device, state, log_name, per_batch):
+    """(a) ``hot_reload`` on a run directory holding epoch 0: a paced
+    stream of requests during which epoch 1 (one more step of the run) is
+    published; the swap count, every answer against the eager forward
+    with the weights its batch ran on (bit for bit: the replays after the
+    swap read the new weights in place), no request dropped, the seconds
+    from the pointer's commit to the first answer on the new weights; a
+    bit-flipped epoch 2 rejected while epoch 1 keeps serving; the drain's
+    grace window. Returns (launches, the entries)."""
+    import torch
+
+    from hydragnn_tpu_torch.api import run_server
+    from hydragnn_tpu_torch.train.loop import cast_batch_bf16, mp_cast_model
+
+    wrappers = _wrappers()
+    train_batch = next(iter(_train_loader(config, splits)))
+    e0, _ = _publish(state, log_name, 0)
+    ref = {e0: mp_cast_model(state.model).eval()}
+    _one_step(state, train_batch, device)  # epoch 1's weights, published mid-stream
+    cfg = copy.deepcopy(config)
+    cfg["Serving"] = {"hot_reload": True, "reload_poll_s": 0.05,
+                      "drain_grace_s": SERVE_PLANE_GRACE_S, "http_port": 0}
+    t0 = time.perf_counter()
+    server = run_server(cfg, datasets=splits, device=device)
+    check(server.wait_ready(timeout=600), f"{label}: warm-up failed: {server.failed}")
+    check(server.current_checkpoint == e0, f"{label}: restored {server.current_checkpoint}")
+    print(f"{label}: (a) reload server ready in {time.perf_counter() - t0:.2f} s on {e0}",
+          flush=True)
+    watcher = server._watcher
+    batches0 = server.stats()["batches"]
+    _zero_launches(wrappers)
+    handles, published = [], {}
+    t_start = time.perf_counter()
+    for i, g in enumerate(requests):
+        if i == SERVE_PLANE_PUBLISH_AT:
+            e1, published["t_commit"] = _publish(state, log_name, 1)
+            ref[e1] = mp_cast_model(state.model).eval()
+        handles.append(server.submit(g))
+        time.sleep(max(0.0, t_start + (i + 1) * SERVE_PLANE_PACE_S - time.perf_counter()))
+    answers = [h.result(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    stats = server.stats()
+    launched = _check_launches(f"{label} (a) reload stream", wrappers, per_batch,
+                               stats["batches"] - batches0, "batches")
+    labels = [h.checkpoint for h in handles]
+    swapped = [i for i, c in enumerate(labels) if c == e1]
+    check(stats["reloads"] == 1 and watcher.installed == 1 and watcher.rejected == 0,
+          f"{label}: swaps {stats['reloads']}, watcher {watcher.installed} installed / "
+          f"{watcher.rejected} rejected")
+    check(stats["failed_batches"] == 0 and stats["rejected"] == 0 and len(answers) == len(requests),
+          f"{label}: dropped requests: {stats}")
+    check(bool(swapped) and set(labels) == {e0, e1} and labels == sorted(labels, key=[e0, e1].index),
+          f"{label}: answers by checkpoint {collections.Counter(labels)}, not e0 then e1")
+    first_new = min(handles[i].done_at for i in swapped)
+    want = [None] * len(requests)
+    for entry in (e0, e1):
+        idx = [i for i, c in enumerate(labels) if c == entry]
+        got = _eager_answers(server, ref[entry], [requests[i] for i in idx],
+                             [handles[i] for i in idx], cast_batch_bf16)
+        for i, w in zip(idx, got):
+            want[i] = w
+    check(_same(answers, want), f"{label}: a served answer differs from the eager forward with "
+                                f"the weights of its batch")
+    print(f"{label}: (a) {len(requests)} requests in {stats['batches'] - batches0} batches, "
+          f"{len(requests) - len(swapped)} on {e0}, {len(swapped)} on {e1} (1 swap, 0 dropped), "
+          f"every answer equal to the eager forward with its batch's weights bit for bit; "
+          f"pointer commit to the first answer on {e1}: "
+          f"{first_new - published['t_commit']:.3f} s", flush=True)
+    # a corrupt candidate: epoch 2 bit-flipped; the walk-back lands on
+    # epoch 1, which is rejected, and epoch 1 keeps serving
+    _one_step(state, train_batch, device)
+    e2, _ = _publish(state, log_name, 2, flip=True)
+    t0 = time.perf_counter()
+    while watcher.rejected == 0 and time.perf_counter() - t0 < 30:
+        time.sleep(0.05)
+    check(watcher.rejected == 1, f"{label}: the corrupt {e2} was not rejected")
+    tail = requests[:32]
+    hs = [server.submit(g) for g in tail]
+    got = [h.result(timeout=600) for h in hs]
+    check({h.checkpoint for h in hs} == {e1} and _same(
+        got, _eager_answers(server, ref[e1], tail, hs, cast_batch_bf16)),
+        f"{label}: after the rejection the answers are not epoch 1's")
+    # the drain's grace window: /readyz 503 at once, admissions still open
+    port = server.http_port
+    server.initiate_drain()
+    code, _ = http_get(f"http://127.0.0.1:{port}/readyz")
+    h = server.submit(requests[0])
+    check(code == 503 and h.result(timeout=60) is not None,
+          f"{label}: draining /readyz {code}, or a request in the grace window failed")
+    print(f"{label}: (a) {e2} (one bit flipped) rejected, {len(tail)} requests on {e1} after it; "
+          f"draining: /readyz {code}, a request admitted in the {SERVE_PLANE_GRACE_S} s grace",
+          flush=True)
+    server.close()
+    return launched, (e0, e1, e2)
+
+
+def _train_loader(config, splits):
+    from hydragnn_tpu_torch.api import prepare_data
+
+    _, (train_loader, _, _), _ = prepare_data(copy.deepcopy(config), splits)
+    return train_loader
+
+
+def run_serve_weights(label, config, splits, requests, device, state, log_name, entry):
+    """(b) The f32, bf16 and int8 (weight-only and w8a8) servers on the
+    same checkpoint, mixed precision off: each route's relative max error
+    against the f32 server's answers, held to ``Serving.quantization.
+    max_error``; K1 and K2 launches a batch unchanged; w8a8's ``_int_mm``
+    device kernels under the profiler; graphs/s, p50/p99 and the weight
+    bytes on the card of each route; the drift drill refused at a reload
+    with epoch 1 still serving. Returns the launches."""
+    import torch
+
+    from hydragnn_tpu_torch.api import run_server
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.obs.events import EV_QUANT_DRIFT
+    from hydragnn_tpu_torch.obs.events import events as event_log
+    from hydragnn_tpu_torch.ops import quant
+    from hydragnn_tpu_torch.serve.quantize import QuantizedDense
+
+    wrappers = _wrappers()
+    launched = collections.Counter()
+    f32_answers, names, report = None, {}, []
+    train_batch = next(iter(_train_loader(config, splits)))
+    for dtype, mode in SERVE_PLANE_ROUTES:
+        route = dtype if mode is None else f"{dtype} {mode}"
+        cfg = copy.deepcopy(config)
+        cfg["NeuralNetwork"]["Training"]["mixed_precision"] = False
+        drill = dtype == "int8" and mode == "weight_only"
+        cfg["Serving"] = {"weights_dtype": dtype, "http_port": -1, "hot_reload": drill,
+                          "reload_poll_s": 3600.0}
+        if mode is not None:
+            cfg["Serving"]["quantization"] = {
+                "mode": mode, "max_error": SERVE_PLANE_MAX_ERROR,
+                "exclude": list(SERVE_PLANE_W8A8_EXCLUDE if mode == "w8a8" else ())}
+        t0 = time.perf_counter()
+        server = run_server(cfg, datasets=splits, device=device)
+        check(server.wait_ready(timeout=600), f"{label} {route}: warm-up failed: {server.failed}")
+        ready_s = time.perf_counter() - t0
+        check(server.current_checkpoint == entry, f"{label} {route}: on {server.current_checkpoint}")
+        batches0 = server.stats()["batches"]
+        _zero_launches(wrappers)
+        t_start = time.perf_counter()
+        handles = [server.submit(g) for g in requests]
+        answers = [h.result(timeout=600) for h in handles]
+        gps = len(requests) / (max(h.done_at for h in handles) - t_start)
+        torch.cuda.synchronize()
+        stats = server.stats()
+        launched.update(_check_launches(f"{label} (b) {route}", wrappers, SERVE_PLANE_PER_BATCH,
+                                        stats["batches"] - batches0, "batches"))
+        lat = [1e3 * (h.done_at - h.submitted_at) for h in handles]
+        nbytes = server.weight_nbytes()
+        if f32_answers is None:
+            f32_answers, errs, spread = answers, {k: 0.0 for k in answers[0]}, {}
+        else:
+            errs = _rel_max(answers, f32_answers)
+            spread = _per_request(answers, f32_answers)
+            check(max(errs.values()) <= SERVE_PLANE_MAX_ERROR,
+                  f"{label} {route}: relative max error {errs} past {SERVE_PLANE_MAX_ERROR}")
+        gate = stats.get("quantization")
+        print(f"{label}: (b) {route}: ready in {ready_s:.2f} s, {len(requests)} requests in "
+              f"{stats['batches'] - batches0} batches, {gps:.1f} graphs/s, {_latency(lat)}; "
+              f"weight bytes on the card {nbytes} ({nbytes / 2**20:.2f} MiB); relative max error "
+              f"against f32 {errs} (limit {SERVE_PLANE_MAX_ERROR}; per request, median and "
+              f"largest: {spread})" + (f"; gate {gate}" if gate else ""), flush=True)
+        report.append((route, gps, nbytes, errs))
+        if mode == "w8a8":
+            # the int8 products of one eager forward, under the profiler
+            w8a8 = [m for m in server._serve_model.modules()
+                    if isinstance(m, QuantizedDense) and m.act_scale is not None]
+            gs = [g for g, h in zip(requests, handles) if h.batch_index == handles[0].batch_index]
+            batch = batch_graphs(gs, server.ladder.select_for(gs),
+                                 sort_edges=server.sort_edges).to(server.device)
+            for _ in range(2):  # the first profile warms the profiler up (a cold one drops kernels)
+                calls0 = quant.int_mm_calls
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    server._placed_forward(batch)
+                    torch.cuda.synchronize()
+            n_calls = quant.int_mm_calls - calls0
+            kernels = {e.key: e.count for e in _device_events(prof)}
+            int8 = {k: n for k, n in kernels.items()
+                    if any(s in k.lower() for s in INT8_GEMM_KERNELS)}
+            check(n_calls == len(w8a8) > 0 and sum(int8.values()) >= len(w8a8),
+                  f"{label} w8a8: {n_calls} _int_mm calls and "
+                  f"{sum(int8.values())} int8 GEMM kernels for {len(w8a8)} w8a8 layers")
+            int8_product_row(label, batch)
+            print(f"{label}: (b) w8a8: {len(w8a8)} layers run int8 x int8; one eager forward "
+                  f"made {n_calls} _int_mm calls, {sum(int8.values())} int8 "
+                  f"device kernels ({ {_short(k, 70): n for k, n in int8.items()} }) of "
+                  f"{sum(kernels.values())}", flush=True)
+        if drill:
+            # the drift drill: the next checkpoint, quantized with its
+            # scales distorted, is refused by the gate; epoch 1 serves on
+            _one_step(state, train_batch, device)
+            e3, _ = _publish(state, log_name, 3)
+            served = {n: t.detach().clone() for n, t in server._served_tensors.items()}
+            event_log().clear()
+            os.environ["HYDRAGNN_FAULT_QUANT_DRIFT"] = f"{e3}:8"
+            try:
+                verdict = server._watcher.poll_once()
+            finally:
+                os.environ.pop("HYDRAGNN_FAULT_QUANT_DRIFT")
+            drift = [e for e in event_log().snapshot() if e["kind"] == EV_QUANT_DRIFT]
+            hs = [server.submit(g) for g in requests[:32]]
+            after = [h.result(timeout=600) for h in hs]
+            unchanged = all(torch.equal(t, served[n]) for n, t in server._served_tensors.items())
+            check(verdict == "rejected" and len(drift) == 1 and drift[0]["candidate"] == e3
+                  and server.current_checkpoint == entry and unchanged
+                  and {h.checkpoint for h in hs} == {entry}
+                  and _same(after, _eager_answers(server, server._serve_model, requests[:32],
+                                                  hs, lambda b: b)),
+                  f"{label}: the drift drill: {verdict}, events {drift}, serving "
+                  f"{server.current_checkpoint}, served tensors unchanged {unchanged}")
+            print(f"{label}: (b) drift drill: {e3} refused (QuantizationDriftError, max error "
+                  f"{drift[0]['max_error']:.3g} past {drift[0]['limit']}), {entry} still "
+                  f"serving: every served tensor unchanged, 32 answers from it", flush=True)
+        server.close()
+    return launched
+
+
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate of the H100 SXM, ops/s
+
+
+def int8_product_row(label: str, batch) -> None:
+    """The int8 product (``ops/quant.py`` ``int8_matmul``: ``torch._int_mm``,
+    a library call behind no TPU kernel) at the EGNN's widths, 866 x 866,
+    on a served batch's edge rows and node rows: its time beside the f32
+    (TF32 off) and bf16 GEMM of the same shape, its bound (int8 operations
+    over the int8 rate, or bytes over 3.35 TB/s), bit for bit against the
+    card's f64 product (exact: every partial sum is an integer below
+    866 * 127^2 < 2^53) and, on the node rows, against the plain version
+    (the widened int32 product on the CPU)."""
+    import torch
+
+    from hydragnn_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k = n = 866
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    w_pad = quant.pad_weight(w)
+    for what, rows in (("edges", batch.num_edges), ("nodes", batch.num_nodes)):
+        x = torch.randint(-127, 128, (rows, k), generator=gen, device="cuda", dtype=torch.int8)
+        got = quant.int8_matmul(x, w_pad)[:, :n]
+        want = (x.double() @ w.double()).to(torch.int32)
+        check(torch.equal(got, want), f"{label}: _int_mm differs from the exact product")
+        if what == "nodes":
+            check(torch.equal(got.cpu(), quant.int8_matmul(x.cpu(), w.cpu())),
+                  f"{label}: _int_mm differs from its plain version")
+        xf, wf = x.float(), w.float()
+        xb, wb = xf.bfloat16(), wf.bfloat16()
+        ms = cuda_ms(lambda: quant.int8_matmul(x, w_pad), 20)
+        f32 = cuda_ms(lambda: torch.mm(xf, wf), 20)
+        bf16 = cuda_ms(lambda: torch.mm(xb, wb), 20)
+        ops = 2.0 * rows * k * n
+        nbytes = rows * k + k * n + 4 * rows * n
+        bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        print(f"{label}: int8 product [{rows}, {k}] x [{k}, {n}] ({what}): _int_mm "
+              f"{ms:.4f} ms (bound {bound:.4f} ms, "
+              f"{'operations' if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES_PER_S else 'bytes'}), "
+              f"f32 GEMM {f32:.4f} ms, bf16 GEMM {bf16:.4f} ms; equal to the exact product"
+              + (" and to the plain version" if what == "nodes" else ""),
+              flush=True)
+
+
+def _fleet_data(graphs, root: Path):
+    """The egnn cell's graphs in the raw layout its config's Dataset
+    section describes (x = atomic number, coordinates, forces; graph_y =
+    energy), written by the port's ColumnarWriter: what the replicas load."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data import ColumnarWriter
+
+    raw = [dataclasses.replace(
+        g, x=np.concatenate([g.x, g.node_targets["forces"]], axis=1).astype(np.float32),
+        graph_y=np.asarray(g.graph_targets["energy"], np.float32),
+        graph_targets=None, node_targets=None) for g in graphs]
+    path = root / "serve_plane_columnar"
+    ColumnarWriter(str(path)).add(raw).save()
+    return path
+
+
+def _replica_stats(fleet):
+    with fleet._lock:
+        reps = [r for r in fleet._replicas.values() if r.port is not None]
+    return {r.index: fleet._replica_stat(r, "kernel_launches") for r in reps}, \
+        {r.index: fleet._replica_stat(r, "current_checkpoint") for r in reps}
+
+
+def start_serve_fleet(label, config, graphs, state, log_name, root: Path):
+    """(c)'s start: the config's Dataset written to disk, the run's newest
+    weights published in the fleet's own run directory (``root/fleet``, the
+    replicas' working directory) and ``run_server_fleet`` with 2 replicas
+    on the card, not waited for: they start while (a) and (b) run (their
+    graphs/s and latencies are read beside the replicas' start). Returns
+    what ``run_serve_fleet`` needs."""
+    from hydragnn_tpu_torch.api import prepare_data, run_server_fleet
+    from hydragnn_tpu_torch.obs.events import events as event_log
+
+    cfg = copy.deepcopy(config)
+    cfg["Dataset"].update({"format": "columnar", "mode": "mmap",
+                           "path": {"total": str(_fleet_data(graphs, root))}})
+    cfg["Serving"] = {"prediction_cache": True, "fleet_restart_backoff_s": 0.5,
+                      "reload_probe_requests": 8, "router_timeout_s": 120.0}
+    fleet_dir = root / "fleet"
+    fleet_dir.mkdir()
+    config_path = fleet_dir / "serve_plane_fleet.json"
+    config_path.write_text(json.dumps(cfg))
+    _, loaders, _ = prepare_data(json.loads(json.dumps(cfg)))
+    pool = [g for loader in loaders for g in loader.graphs]
+    event_log().clear()
+    with contextlib.chdir(fleet_dir):
+        entry, _ = _publish(state, log_name, 0)
+        t0 = time.perf_counter()
+        fleet = run_server_fleet(str(config_path), replicas=2, per_replica_env={
+            1: {"HYDRAGNN_FAULT_REPLICA_KILL": f"1:{SERVE_PLANE_KILL_AT}"}})
+    print(f"{label}: (c) 2 replicas started on {entry} (the run's weights), from "
+          f"{fleet_dir.name}/", flush=True)
+    return {"fleet": fleet, "t0": t0, "config_path": config_path, "dir": fleet_dir,
+            "requests": [pool[i % len(pool)] for i in range(SERVE_PLANE_REQUESTS)],
+            "entry": entry}
+
+
+def run_fleet_stream(label, ctx):
+    """(c)'s stream, on the fleet ``start_serve_fleet`` started, through its
+    router: 192 requests from 16 callers while replica 1 is killed before
+    its 41st request: 0 failed, the retry counted, the supervisor's
+    ``replica_exit``. Returns (the answers, the fleet's graphs/s, the exit
+    event); replica 1 restarts while (a) and (b) run."""
+    import concurrent.futures
+
+    from hydragnn_tpu_torch.obs.events import events as event_log
+
+    fleet, requests = ctx["fleet"], ctx["requests"]
+    check(fleet.wait_ready(timeout=SERVE_PLANE_READY_S), f"{label}: the fleet did not "
+          f"become ready: {fleet.replica_state()}")
+    print(f"{label}: (c) 2 replicas ready {time.perf_counter() - ctx['t0']:.2f} s after "
+          f"their start ({fleet.replica_state()})", flush=True)
+    router = fleet.router()
+    fleet._refresh_cache_context()
+    check(router.cache is not None and router.cache.context is not None,
+          f"{label}: the prediction cache has no context")
+
+    def call(g):
+        t = time.perf_counter()
+        out = router.predict(g)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    t_start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVE_PLANE_FLEET_CLIENTS) as ex:
+        results = list(ex.map(call, requests))
+    fleet_s = time.perf_counter() - t_start
+    first = [r for r, _ in results]
+    st = router.stats()
+    t_wait = time.perf_counter()
+    while True:  # the supervisor notices the death within a tick or two
+        exits = [e for e in event_log().snapshot() if e["kind"] == "replica_exit"]
+        if exits or time.perf_counter() - t_wait > 30:
+            break
+        time.sleep(0.1)
+    check(st["failed"] == 0 and st["succeeded"] == len(requests) and st["retries"] >= 1
+          and exits and exits[0]["replica"] == 1,
+          f"{label}: router {st}, exits {exits}")
+    print(f"{label}: (c) fleet: {len(requests)} requests from {SERVE_PLANE_FLEET_CLIENTS} "
+          f"callers, {len(requests) / fleet_s:.1f} graphs/s, {_latency([m for _, m in results])}"
+          f"; replica 1 killed before its request {SERVE_PLANE_KILL_AT + 1}: 0 failed, "
+          f"{st['retries']} retried; router "
+          f"{ {k: st[k] for k in ('succeeded', 'retries', 'hedges', 'cache_hits')} }",
+          flush=True)
+    return first, len(requests) / fleet_s, exits[0]
+
+
+def fleet_against_local(label, requests, got, want) -> None:
+    """(c)'s first pass through the router (across the kill, its retries and
+    hedges included) against the in-process server's answers to the same
+    requests, request by request: the same heads and shapes, and bit for bit,
+    or, where the two servers batched the request at different ladder
+    levels (whose GEMM shapes round otherwise in bf16), within
+    ``SERVE_PLANE_FLEET_RTOL`` of the head's largest value; and each answer
+    nearer the in-process server's answer to its own graph than to its
+    answer to any other graph with as many atoms, so an answer delivered to
+    the wrong caller fails."""
+    import numpy as np
+
+    ref = {k: max(float(np.abs(w[k]).max()) for w in want) for k in want[0]}
+
+    def dist(a, b):
+        if set(a) != set(b) or any(a[k].shape != b[k].shape for k in b):
+            return float("inf")
+        return max(float(np.abs(a[k] - b[k]).max()) / max(ref[k], 1e-12) for k in b)
+
+    errs = [dist(a, b) for a, b in zip(got, want)]
+    exact = sum(all(np.array_equal(a[k], b[k]) for k in b) for a, b in zip(got, want))
+    answers = {}  # atoms -> graph -> the in-process server's answer
+    for g, w in zip(requests, want):
+        answers.setdefault(g.num_nodes, {})[id(g)] = w
+    nearest_other = [min((dist(a, w) for other, w in answers[g.num_nodes].items()
+                          if other != id(g)), default=float("inf"))
+                     for g, a in zip(requests, got)]
+    wrong = [i for i, (e, o) in enumerate(zip(errs, nearest_other))
+             if e > SERVE_PLANE_FLEET_RTOL or not (e < o or e == 0.0)]
+    check(len(got) == len(want) and not wrong,
+          f"{label}: the fleet's answers to requests {wrong[:8]} lie "
+          f"{[errs[i] for i in wrong[:8]]} of the head's largest value from the in-process "
+          f"server's (limit {SERVE_PLANE_FLEET_RTOL}), and "
+          f"{[nearest_other[i] for i in wrong[:8]]} from its answer to another graph")
+    print(f"{label}: (c) the fleet's {len(got)} answers against the in-process server's: "
+          f"{exact} bit for bit, the largest of the rest {max(errs):.3g} of the head's "
+          f"largest value (limit {SERVE_PLANE_FLEET_RTOL}); each nearer its own graph's "
+          f"answer than any other graph's, the nearest other at least "
+          f"{min(nearest_other):.3g}", flush=True)
+
+
+def finish_serve_fleet(label, ctx, device, state, log_name, launched, stream):
+    """(c) after the stream: the in-process server on the same config (its
+    graphs/s and p50/p99 beside the fleet's; the stream's 192 answers held
+    against its own, ``fleet_against_local``), replica 1 back ready (the
+    seconds since its exit); each replica's answers to 8 graphs sent alone
+    against the in-process server's, bit for bit; a second pass all cache
+    hits, bit-identical; a rolling reload to the next checkpoint on both
+    replicas; K1 and K2 launched in each replica. ``launched`` gathers the
+    in-process server's launches."""
+    import torch
+
+    from hydragnn_tpu_torch.api import run_server
+    from hydragnn_tpu_torch.serve import HTTPReplicaClient
+
+    fleet, requests, config_path = ctx["fleet"], ctx["requests"], ctx["config_path"]
+    first, fleet_gps, exit_event = stream
+    router = fleet.router()
+    local = None
+    try:
+        # the in-process server on the same config
+        wrappers = _wrappers()
+        with contextlib.chdir(ctx["dir"]):
+            local = run_server(str(config_path), device=device)
+        check(local.wait_ready(timeout=600), f"{label}: local server: {local.failed}")
+        batches0 = local.stats()["batches"]
+        _zero_launches(wrappers)
+        t_start = time.perf_counter()
+        handles = [local.submit(g) for g in requests]
+        local_answers = [h.result(timeout=600) for h in handles]
+        local_gps = len(requests) / (max(h.done_at for h in handles) - t_start)
+        torch.cuda.synchronize()
+        launched.update(_check_launches(
+            f"{label} (c) local server", wrappers,
+            {"K1": {"bfloat16/C866": 1, "float32/C866": 2, "bfloat16/C3": 1, "float32/C3": 2},
+             "K2": {"float32/866x866": 1}}, local.stats()["batches"] - batches0, "batches"))
+        lat = [1e3 * (h.done_at - h.submitted_at) for h in handles]
+        print(f"{label}: (c) local server on the same config: {local_gps:.1f} graphs/s, "
+              f"{_latency(lat)} (fleet {fleet_gps:.1f} graphs/s)", flush=True)
+        fleet_against_local(label, requests, first, local_answers)
+        check(fleet.wait_ready(timeout=SERVE_PLANE_READY_S), f"{label}: replica 1 did not come "
+              f"back: {fleet.replica_state()}")
+        back_s = time.time() - exit_event["ts"]
+        check(fleet.replica_state()[1]["restarts"] >= 1, f"{label}: {fleet.replica_state()}")
+        launches0, on = _replica_stats(fleet)
+        check(set(on.values()) == {local.current_checkpoint},
+              f"{label}: replicas on {on}, the local server on {local.current_checkpoint}")
+        clients = {i: HTTPReplicaClient(f"http://127.0.0.1:{r.port}", name=f"replica{i}")
+                   for i, r in fleet._replicas.items()}
+        for g in requests[:SERVE_PLANE_IDENTITY]:
+            want = local.submit(g).result(timeout=600)
+            for i, c in clients.items():
+                got = c.predict(g, timeout_s=120.0)
+                check(all(got[k].tobytes() == want[k].tobytes() for k in want),
+                      f"{label}: replica {i}'s answer differs from the in-process server's")
+        local.close()
+        local = None
+        hits0 = router.stats()["cache_hits"]
+        again = [router.predict(g) for g in requests]
+        hits = router.stats()["cache_hits"] - hits0
+        check(hits == len(requests) and all(a[k].tobytes() == b[k].tobytes()
+                                            for a, b in zip(again, first) for k in b),
+              f"{label}: second pass {hits} hits of {len(requests)}, or a hit differs")
+        print(f"{label}: (c) replica 1 back ready {back_s:.2f} s after its exit; each "
+              f"replica's answers to {SERVE_PLANE_IDENTITY} graphs served alone equal the "
+              f"in-process server's bit for bit; second pass {hits} cache hits of "
+              f"{len(requests)}, bit-identical", flush=True)
+        # the rolling reload to the next checkpoint
+        with contextlib.chdir(ctx["dir"]):
+            e1, _ = _publish(state, log_name, 1)
+        t0 = time.perf_counter()
+        res = fleet.rolling_reload(requests[:8], timeout_s=300.0)
+        launches1, on = _replica_stats(fleet)
+        check(res["status"] == "done" and res["installed"] == 2 and set(on.values()) == {e1},
+              f"{label}: rolling reload {res}, replicas on {on}")
+        for i in (1, 2):
+            for k in ("sorted_segment_sum", "fused_edge_message_sum"):
+                before = sum(launches0.get(i, {}).get(k, {}).values())
+                after = sum(launches1[i].get(k, {}).values())
+                check(after > before, f"{label}: replica {i} launched {k} {after - before} "
+                                      f"times in (c)'s later passes")
+        print(f"{label}: (c) rolling reload to {e1} in {time.perf_counter() - t0:.2f} s: {res}; "
+              f"kernel launches a replica {launches1}", flush=True)
+        for i in (1, 2):
+            log = Path(fleet.run_dir) / f"replica_{i}.log"
+            lines = [ln for ln in log.read_text().splitlines() if "REPLICA_READY" in ln]
+            print(f"{label}: (c) replica {i}: {lines}", flush=True)
+    finally:
+        if local is not None:
+            local.close()
+        fleet.close()
+
+
+def prepare_serve_plane(device, graphs, root: Path):
+    """``serve_plane``'s start: the egnn cell at full width trained
+    ``SERVE_PLANE_TRAIN_STEPS`` AdamW steps (mixed precision, as
+    egnn_train), its checkpoints under SGD (the model alone: saves and
+    restores move the 88 MB of weights), and the fleet of (c) started in
+    ``root/fleet`` (``start_serve_fleet``): the full smoke makes it before
+    the multi-GPU phases, whose processes start beside the replicas'
+    (no timing gate in them). Returns what ``run_serve_plane`` needs."""
+    import torch
+
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.config.config import get_log_name_config
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import TrainState, make_optimizer
+    from hydragnn_tpu_torch.train.loop import make_train_step
+
+    label = "serve_plane"
+    config = serving_config()
+    splits = split_dataset(graphs, 0.9, seed=0)
+    done, _, _ = prepare_data(copy.deepcopy(config), splits)
+    log_name = get_log_name_config(done)
+    model = create_model(done, device=device, seed=SEED)
+    t0 = time.perf_counter()
+    train = TrainState.create(model, make_optimizer(model, {"type": "AdamW", "learning_rate": 1e-3}))
+    step = make_train_step(model, mixed_precision=True)
+    loader = _train_loader(config, splits)
+    loader.set_epoch(0)
+    batches = list(loader)
+    for i in range(SERVE_PLANE_TRAIN_STEPS):
+        step(train, batches[i % len(batches)].to(device))
+    torch.cuda.synchronize()
+    print(f"{label}: the run trained {SERVE_PLANE_TRAIN_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    model.eval()
+    state = TrainState.create(model, make_optimizer(model, {"type": "SGD", "learning_rate": 1e-3}))
+    return {"config": config, "splits": splits, "log_name": log_name, "state": state,
+            "graphs": graphs, "root": root,
+            "fleet": start_serve_fleet(label, config, graphs, state, log_name, root)}
+
+
+def run_serve_plane(device, prepared):
+    """The ``serve_plane`` phase on what ``prepare_serve_plane`` made: (c)'s
+    stream with replica 1 killed, then (a) hot reload and (b) the weights'
+    routes while replica 1 restarts, then the rest of (c). Returns the
+    launches by (kernel, case)."""
+    t_phase = time.perf_counter()
+    label = "serve_plane"
+    config, splits, state = prepared["config"], prepared["splits"], prepared["state"]
+    log_name, graphs, ctx = prepared["log_name"], prepared["graphs"], prepared["fleet"]
+    requests = [graphs[i % len(graphs)] for i in range(SERVE_PLANE_REQUESTS)]
+    launched = collections.Counter()
+    per_batch = {"K1": {"bfloat16/C866": 1, "float32/C866": 2, "bfloat16/C3": 1,
+                        "float32/C3": 2}, "K2": {"float32/866x866": 1}}
+    try:
+        stream = run_fleet_stream(label, ctx)
+        with contextlib.chdir(prepared["root"]):
+            got, entries = run_serve_reload(label, config, splits, requests, device, state,
+                                            log_name, per_batch)
+            launched.update(got)
+            print(f"{label}: (c) stream and (a) in {time.perf_counter() - t_phase:.1f} s",
+                  flush=True)
+            # (b) serves epoch 1: the pointer names the corrupt epoch 2,
+            # whose walk-back restores it
+            launched.update(run_serve_weights(label, config, splits,
+                                              requests[:SERVE_PLANE_WEIGHT_REQUESTS], device,
+                                              state, log_name, entries[1]))
+        print(f"{label}: (c) stream, (a) and (b) in {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    except BaseException:
+        ctx["fleet"].close()
+        raise
+    finish_serve_fleet(label, ctx, device, state, log_name, launched, stream)
+    print(f"{label}: phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main() -> None:
     with contextlib.ExitStack() as stack:
         run_smoke(stack)
@@ -7467,6 +8241,9 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
                          "memory plane's phases only (graphs_train, graphs_serve, remat, tune)")
     ap.add_argument("--data-plane", action="store_true",
                     help="build, then the host data plane's phase only (data_plane)")
+    ap.add_argument("--serve-plane", action="store_true",
+                    help="build, then the serving plane's phase only (serve_plane: hot reload, "
+                         "the bf16 and int8 routes, the replica fleet)")
     ap.add_argument("--md17", choices=MD17_ROUTES,
                     help="run only the MD17 recipe through this route (K1's kernel or its "
                          "plain version, with or without deterministic algorithms), ungated")
@@ -7531,6 +8308,25 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
 
     nvcc_thread = threading.Thread(target=build_all, name="nvcc", daemon=True)
     nvcc_thread.start()
+    if args.serve_plane:
+        from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+
+        graphs = oc20_shaped_dataset(128)
+        nvcc_thread.join()
+        if "error" in build_out:
+            raise build_out["error"]
+        print(f"build: {build_out['seconds']} s per kernel", flush=True)
+        warm_up_card()
+        (REPO / "build").mkdir(exist_ok=True)
+        work = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                                               dir=REPO / "build"))
+        stack.enter_context(contextlib.chdir(work))
+        run_serve_plane(device, prepare_serve_plane(device, graphs, Path(work)))
+        print(f"chip_smoke: every phase in {time.perf_counter() - t_main:.1f} s", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     from hydragnn_tpu_torch.api import prepare_data
     from hydragnn_tpu_torch.data.graph import batch_graphs
@@ -7541,6 +8337,22 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
         oc20_shaped_dataset,
     )
 
+    # gin_ring's supercell, and its requests' dense Laplacian PE in a thread
+    # of their own (numpy's eigh leaves the GIL), beside the data below
+    t0 = time.perf_counter()
+    topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
+    topology_s = time.perf_counter() - t0
+    ring_out = {}
+
+    def ring_pe():
+        try:
+            ring_out["requests"] = gin_ring_requests(topology, GIN_RING_REQUESTS)
+        except BaseException as e:  # noqa: BLE001 -- raised in the main thread
+            ring_out["error"] = e
+
+    ring_thread = threading.Thread(target=ring_pe, name="ring_pe", daemon=True)
+    if not (args.kernels or args.plane or args.data_plane):
+        ring_thread.start()
     # one real batch of each path gives its kernels' shapes
     oc20 = oc20_shaped_dataset(128)
     paths = {"egnn": (serving_config(), oc20),
@@ -7607,22 +8419,24 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
               f"{int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
               f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += example_kernel_cases(example_batches, device)
-    t0 = time.perf_counter()
-    topology = bcc_supercell(GIN_RING_CELLS, jitter=0.03, seed=SEED)
-    topology_s = time.perf_counter() - t0
     batch = batch_graphs([topology], gin_ring_spec(topology), sort_edges=True)
     print(f"batch gin_ring: 1 graph, {int(batch.node_mask.sum())}/{batch.num_nodes} nodes, "
           f"{int(batch.edge_mask.sum())}/{batch.num_edges} edges", flush=True)
     cases += gin_ring_kernel_cases(batch, device)
-    ring_requests = None
-    if not (args.kernels or args.plane or args.data_plane):
-        ring_requests = gin_ring_requests(topology, GIN_RING_REQUESTS)
-        print(f"gin_ring requests and their PE made while the kernels built, in "
-              f"{ring_requests[1]:.2f} s", flush=True)
     # the obs_train step's numerics (its cell is the egnn model, trained):
     # its forward runs K1 and K2, so it comes after the data, once the
-    # kernels are built
+    # kernels are built, while gin_ring's PE may still run
     cases.append(numerics_kernel_case(egnn_config, first["egnn"], device))
+    ring_requests = None
+    if ring_thread.is_alive() or ring_out:
+        t0 = time.perf_counter()
+        ring_thread.join()
+        if "error" in ring_out:
+            raise ring_out["error"]
+        ring_requests = ring_out["requests"]
+        print(f"gin_ring requests and their PE made while the kernels built, in "
+              f"{ring_requests[1]:.2f} s (the cases waited {time.perf_counter() - t0:.2f} s "
+              f"for them)", flush=True)
     nvcc_thread.join()
     if "error" in build_out:
         raise build_out["error"]
@@ -7756,10 +8570,25 @@ def run_smoke(stack: contextlib.ExitStack) -> None:
         launched.update({(k, f"gfm/{c}"): n
                          for (k, c), n in run_dist_gfm_train(gfm_graphs, device).items()})
         clock("dist_gfm_train")
-        launched.update({(k, f"gfm/{c}"): n for (k, c), n in run_dist_run_training().items()})
-        clock("dist_run_training")
-        run_dist_ranks(gfm_graphs, device)
-        clock("dist_ranks")
+        # serve_plane's fleet, dist_run_training's launch and dist_ranks'
+        # groups start together: their processes' start-ups overlap (none of
+        # the three gates a time)
+        Path("serve_plane").mkdir()
+        with contextlib.chdir("serve_plane"):
+            serve_prepared = prepare_serve_plane(device, paths["egnn"][1], Path.cwd())
+        try:
+            dist_run = start_dist_run_training()
+            run_dist_ranks(gfm_graphs, device)
+            clock("dist_ranks")
+            launched.update({(k, f"gfm/{c}"): n
+                             for (k, c), n in run_dist_run_training(dist_run).items()})
+            clock("dist_run_training")
+        except BaseException:
+            serve_prepared["fleet"]["fleet"].close()
+            raise
+        # the serving plane: hot reload, the weights' routes, the fleet
+        launched.update(run_serve_plane(device, serve_prepared))
+        clock("serve_plane")
         # the observability plane on the egnn cell, training then serving,
         # each in its own directory (an empty ./logs)
         for label, phase in (

@@ -17,7 +17,8 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     # lazy: `import hydragnn_tpu_torch` stays light (no model or kernel code)
-    if name in ("run_training", "run_prediction", "run_server", "prepare_data"):
+    if name in ("run_training", "run_prediction", "run_server", "run_server_fleet",
+                "prepare_data"):
         from . import api
 
         return getattr(api, name)

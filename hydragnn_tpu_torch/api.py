@@ -586,7 +586,7 @@ def run_prediction(config, variables=None, datasets=None, device: DeviceLike = N
 
 
 def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
-               seed: int = 0):
+               seed: int = 0, install_sigterm: bool = False):
     """Start a ``GraphServer`` over the run's pad-bucket ladder, warmed on
     the test split's template graphs, and return it (started; callers
     submit requests and ``close()`` it, or use it as a context manager).
@@ -594,10 +594,12 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
     newest verified checkpoint (``stats()["current_checkpoint"]`` names the
     file); with no checkpoint file on disk it warns and serves the seeded
     initialization, and with checkpoint files of which none verifies and
-    loads it raises ``FileNotFoundError``."""
+    loads it raises ``FileNotFoundError``. ``Serving.hot_reload`` attaches
+    a ``CheckpointWatcher`` on the run's ``latest`` pointer;
+    ``install_sigterm`` wires SIGTERM to a graceful drain."""
     import warnings
 
-    from .serve import GraphServer, ServeConfig
+    from .serve import CheckpointWatcher, GraphServer, ServeConfig
     from .train.checkpoint import has_checkpoint
 
     config, (_, _, test_loader), _ = prepare_data(config, datasets)
@@ -634,6 +636,9 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
             device=dev,
             log_name=log_name,
             checkpoint_label=entry,
+            # the int8 snapshots beside the run's checkpoints: a replica
+            # that finds one skips quantization and calibration
+            checkpoint_dir="./logs",
             tracer=tracer,
             flight_recorder=flight,
             events_stream=armed,
@@ -641,4 +646,37 @@ def run_server(config, datasets=None, variables=None, device: DeviceLike = None,
     except BaseException:
         _disarm_plane(tracer, flight, armed)
         raise
-    return server.start()
+    server.start(install_sigterm=install_sigterm)
+    if serve_cfg.hot_reload:
+        server.attach_watcher(CheckpointWatcher(
+            server, log_name, poll_s=serve_cfg.reload_poll_s, initial_entry=entry).start())
+    return server
+
+
+def run_server_fleet(config, replicas: Optional[int] = None, path: str = "./logs",
+                     per_replica_env=None, wait_ready_s: Optional[float] = None,
+                     device: DeviceLike = None):
+    """Start a serving fleet: ``Serving.fleet_replicas`` (or ``replicas``)
+    worker processes (``python -m hydragnn_tpu_torch.serve.replica``), each
+    a ``run_server`` deployment on its own ephemeral port, supervised by a
+    ``ReplicaManager`` (restart with backoff, flap benching, wedge
+    detection, rolling reload with rollback) and fronted by its
+    ``router()`` (retries, hedging, circuit breakers, the optional
+    prediction cache). Replica ``i`` runs on card ``i mod count``;
+    ``device="cpu"`` runs the replicas on the CPU (tests).
+
+    ``config`` is a config dict or a JSON path whose ``Dataset`` section
+    the replicas load. ``per_replica_env`` maps a 1-based replica index to
+    extra environment. ``wait_ready_s`` blocks until every replica passes
+    ``/readyz`` or raises; None returns at once. Returns the started
+    manager: ``.router().predict(graph)`` serves, ``.close()`` drains."""
+    from .serve.fleet import ReplicaManager
+
+    manager = ReplicaManager(config, path=path, per_replica_env=per_replica_env,
+                             replicas=replicas, device=device).start()
+    if wait_ready_s is not None and not manager.wait_ready(timeout=float(wait_ready_s)):
+        state = manager.replica_state()
+        manager.close()
+        raise RuntimeError(f"serving fleet failed to become ready within {wait_ready_s}s: "
+                           f"{state}")
+    return manager

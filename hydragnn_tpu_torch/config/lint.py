@@ -175,6 +175,28 @@ _HANDLED = {
     "Serving.drain_timeout_s",
     "Serving.http_port",
     "Serving.http_host",
+    # hot reload, reduced-precision weights and the fleet (serve/)
+    "Serving.hot_reload",
+    "Serving.reload_poll_s",
+    "Serving.weights_dtype",
+    "Serving.quantization",
+    "Serving.drain_grace_s",
+    "Serving.fleet_replicas",
+    "Serving.fleet_restart_backoff_s",
+    "Serving.fleet_restart_backoff_max_s",
+    "Serving.fleet_flap_window_s",
+    "Serving.fleet_flap_max_restarts",
+    "Serving.fleet_ready_floor",
+    "Serving.router_timeout_s",
+    "Serving.router_retries",
+    "Serving.router_backoff_s",
+    "Serving.router_hedge_factor",
+    "Serving.router_hedge_min_s",
+    "Serving.breaker_failures",
+    "Serving.breaker_cooldown_s",
+    "Serving.prediction_cache",
+    "Serving.reload_error_spike",
+    "Serving.reload_probe_requests",
     "Telemetry.enabled",
     "Telemetry.interval_steps",
     "Telemetry.http_port",
@@ -188,6 +210,7 @@ _HANDLED = {
     "Telemetry.trace_interval_steps",
     "Telemetry.flight_recorder",
     "Telemetry.numerics",
+    "Telemetry.fleet",
     "Telemetry.fleet_collector",
     "Telemetry.fleet_collector_port",
     "Telemetry.fleet_collector_host",
@@ -217,9 +240,6 @@ _NOT_PORTED = {
     ),
     "NeuralNetwork.Training.walltime_minutes": "utils/walltime.py is not ported: ignored",
     "NeuralNetwork.Training.CheckRemainingTime": "utils/walltime.py is not ported: ignored",
-    "Telemetry.fleet": (
-        "validated; fleet: true raises NotImplementedError (obs/fleet.py is not ported)"
-    ),
     "Visualization.create_plots": "postprocess/ is not ported: no plots are made",
 }
 _NOT_PORTED.update({f"Mixture.{k}": "the mixture plane (mix/) is not ported: a Mixture "
@@ -227,18 +247,6 @@ _NOT_PORTED.update({f"Mixture.{k}": "the mixture plane (mix/) is not ported: a M
                     for k in ("temperature", "weights", "draws_per_epoch", "balance",
                               "branch_loss_weights", "drift_ema_decay", "drift_threshold",
                               "demote_after", "seed")})
-_NOT_PORTED.update({f"Serving.{k}": "the port's server (serve/server.py) warns on this key "
-                    "and ignores it: serve/{reload,fleet,router,cache,quantize}.py are not "
-                    "ported"
-                    for k in ("hot_reload", "reload_poll_s", "weights_dtype", "drain_grace_s",
-                              "fleet_replicas", "fleet_restart_backoff_s",
-                              "fleet_restart_backoff_max_s", "fleet_flap_window_s",
-                              "fleet_flap_max_restarts", "fleet_ready_floor",
-                              "router_timeout_s", "router_retries", "router_backoff_s",
-                              "router_hedge_factor", "router_hedge_min_s", "breaker_failures",
-                              "breaker_cooldown_s", "prediction_cache", "quantization",
-                              "reload_error_spike", "reload_probe_requests")})
-
 # reference keys the port does not consume, with what applies on the H100
 _NOT_APPLICABLE = {
     "NeuralNetwork.Architecture.SyncBatchNorm": (

@@ -4,9 +4,10 @@ every subsystem publishes into, the Prometheus scrape and health endpoint,
 the per-step train instrumentation with its versioned ``metrics.jsonl``
 stream and the card's MFU, the on-demand profiling trigger, request and
 step spans (obs/trace.py), the structured event log (obs/events.py), the
-numerics probes with NaN provenance (obs/numerics.py) and the crash
-flight recorder (obs/flightrec.py). The fleet layer, the sharding
-inspector and the run doctor are not ported yet."""
+numerics probes with NaN provenance (obs/numerics.py), the crash
+flight recorder (obs/flightrec.py) and the fleet layer (obs/fleet.py:
+cross-host aggregation, the straggler/desync watchdog, trace stitching).
+The sharding inspector and the run doctor are not ported yet."""
 
 from .events import (
     DEFAULT_SEVERITY,
@@ -17,6 +18,14 @@ from .events import (
     severity_rank,
 )
 from .events import emit as emit_event
+from .fleet import (
+    FleetCollector,
+    FleetPlane,
+    FleetPusher,
+    host_identity,
+    merge_traces,
+    registry_snapshot,
+)
 from .flightrec import FlightRecorder
 from .numerics import NanWatch, probe
 from .prometheus import TelemetryHTTPServer, render_text, start_endpoint
@@ -49,6 +58,9 @@ __all__ = [
     "Counter",
     "DEFAULT_SEVERITY",
     "EventLog",
+    "FleetCollector",
+    "FleetPlane",
+    "FleetPusher",
     "FlightRecorder",
     "Gauge",
     "Histogram",
@@ -65,12 +77,15 @@ __all__ = [
     "detach_stream",
     "emit_event",
     "events",
+    "host_identity",
     "host_memory_bytes",
+    "merge_traces",
     "mfu_estimate",
     "peak_flops",
     "probe",
     "publish_build_info",
     "registry",
+    "registry_snapshot",
     "render_text",
     "resolve_telemetry",
     "severity_rank",

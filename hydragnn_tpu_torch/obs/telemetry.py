@@ -80,8 +80,7 @@ TELEMETRY_DEFAULTS: Dict[str, Any] = {
     # the NaN provenance drill-down (obs/numerics.py); HYDRAGNN_NUMERICS=1/0
     # overrides
     "numerics": False,
-    # the fleet plane's keys (validated as the JAX package does; turning
-    # the plane on raises: it is not in the port yet)
+    # the fleet plane (obs/fleet.py): HYDRAGNN_FLEET=1/0 overrides "fleet"
     "fleet": False,
     "fleet_collector": None,
     "fleet_collector_port": 0,
@@ -133,8 +132,7 @@ def resolve_telemetry(config: Dict[str, Any]) -> Dict[str, Any]:
     ``HYDRAGNN_TELEMETRY`` overrides ``enabled`` and ``HYDRAGNN_NUMERICS``
     ``numerics`` (``0``/``off`` forces off, ``1`` forces on), and a bad
     value raises ``ValueError``. ``fleet: true`` (or ``HYDRAGNN_FLEET=1``)
-    raises ``NotImplementedError``: the fleet plane comes with a later
-    slice of the port."""
+    turns on the fleet plane (obs/fleet.py)."""
     section = dict((config or {}).get("Telemetry", {}) or {})
     unknown = sorted(set(section) - set(TELEMETRY_DEFAULTS))
     if unknown:
@@ -230,13 +228,6 @@ def resolve_telemetry(config: Dict[str, Any]) -> Dict[str, Any]:
                 "Telemetry.fleet_collector must be a 'host:port' address, "
                 f"got {out['fleet_collector']!r}"
             )
-    if out["fleet"]:
-        raise NotImplementedError(
-            "Telemetry.fleet: the fleet plane (cross-rank aggregation and "
-            "the straggler/desync watchdog, obs/fleet.py) is not in "
-            "hydragnn_tpu_torch yet; it comes with the port's fleet slice. "
-            "Set Telemetry.fleet to false (and unset HYDRAGNN_FLEET)."
-        )
     return out
 
 
@@ -632,6 +623,13 @@ class StepTelemetry:
             if settings["profile_trigger"]
             else None
         )
+        # the fleet plane (obs/fleet.py): rank 0's collector and every
+        # rank's pusher; None when Telemetry.fleet is off
+        self.fleet = None
+        if settings.get("fleet"):
+            from .fleet import FleetPlane
+
+            self.fleet = FleetPlane.from_settings(settings, self.run_dir)
         self.http = None
         if settings["http_port"] is not None:
             from .prometheus import start_endpoint
@@ -902,7 +900,7 @@ class StepTelemetry:
                     "padding_waste_graphs": round(waste["graphs"], 4),
                     "padding_waste_edges": round(waste["edges"], 4),
                     "mfu_est": round(mfu, 9) if mfu is not None else None,
-                    # the port has no comm accounting yet (the fleet slice)
+                    # no comm accounting yet (it comes with the distributed capture)
                     "comm_bytes_per_step": None,
                     "comm_fraction_est": None,
                     "buckets": buckets,
@@ -910,6 +908,10 @@ class StepTelemetry:
             )
             if num_rec is not None:
                 self.stream.write("numerics", {"step": w["step"], **num_rec})
+        if self.fleet is not None:
+            # the window IS the heartbeat: registry snapshot, step index and
+            # window step time, pushed on the fleet plane's own thread
+            self.fleet.on_window(w["step"], step_time_s=step_s, comm_fraction_est=None)
         if self.writer is not None:
             self.writer.add_scalars(
                 {
@@ -1077,6 +1079,9 @@ class StepTelemetry:
 
     def close(self) -> None:
         self.flush(final=True)
+        if self.fleet is not None:
+            self.fleet.close(final_step=self.global_step)
+            self.fleet = None
         if self.trigger is not None:
             self.trigger.close()
         if self.http is not None:

@@ -9,12 +9,16 @@ is rebuilt, an unchanged one is loaded as it is. A failed build or load
 raises ``RuntimeError`` with the compiler's output.
 
 Nothing here runs when the package is imported; the first wrapper that
-launches a kernel on a CUDA tensor triggers its build.
+launches a kernel on a CUDA tensor triggers its build. Processes that share
+a checkout (the replicas of a serving fleet) build under one file lock:
+the first builds what is missing, the others wait and load it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -101,12 +105,31 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
     os.replace(tmp, out)
 
 
+@contextlib.contextmanager
+def _process_lock():
+    """An exclusive ``flock`` on the build directory's lock file: across
+    processes what ``_lock`` is across threads."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Build every named kernel whose library is missing, one ``nvcc`` per
-    source, all started together. Returns seconds per kernel built (0.0 for
-    a kernel whose library was already there)."""
+    source, all started together, under the build directory's file lock.
+    Returns seconds per kernel built (0.0 for a kernel whose library was
+    already there)."""
+    names = list(names)
     compiler = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _process_lock():
+        return _build_locked(compiler, names)
+
+
+def _build_locked(compiler: str, names) -> Dict[str, float]:
     started = {}
     seconds: Dict[str, float] = {}
     for name in names:

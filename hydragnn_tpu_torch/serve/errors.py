@@ -1,8 +1,9 @@
 """Typed serving errors: every way a request can fail maps to one exception
-class with a stable ``code``. Counterpart of ``hydragnn_tpu/serve/errors.py``
-for the single-server slice (the fleet's replica/breaker codes come with the
-fleet). Admission failures raise from ``GraphServer.submit``; in-flight
-failures arrive on the request's ``PredictionHandle``."""
+class with a stable ``code``. Counterpart of ``hydragnn_tpu/serve/errors.py``.
+Admission failures raise from ``GraphServer.submit``; in-flight failures
+arrive on the request's ``PredictionHandle``; the fleet's router and wire
+codec (serve/router.py, serve/wire.py) carry the same codes between
+processes and rebuild the typed error from its code (``error_from_code``)."""
 
 from __future__ import annotations
 
@@ -83,9 +84,62 @@ class WedgedStepError(RequestError):
     code = "wedged_step"
 
 
+class ReplicaUnavailableError(RequestError):
+    """A fleet replica could not take the request at the transport level
+    (connection refused or reset, the process died mid-request, a
+    non-protocol failure of its /predict). Retryable on another replica:
+    the request never entered a device batch."""
+
+    code = "replica_unavailable"
+
+
+class BreakerOpenError(RequestError):
+    """The target replica's circuit breaker is open; raised to callers only
+    when every candidate replica is broken or benched."""
+
+    code = "breaker_open"
+
+
+class NoReplicasError(RequestError):
+    """The router exhausted its retries without a replica that could serve
+    the request; ``attempts`` holds each attempt's failure code."""
+
+    code = "no_replicas"
+
+    def __init__(self, message: str, request_id: Optional[int] = None,
+                 attempts: Optional[list] = None):
+        super().__init__(message, request_id)
+        self.attempts = list(attempts or [])
+
+
+#: stable code -> class (append-only: the wire codec and remote clients
+#: rebuild typed errors from these codes)
 ERROR_CODES = {
     cls.code: cls
     for cls in (ServeError, RequestError, InvalidRequestError, QueueFullError,
-                SheddedError, DeadlineExceededError, ServerDrainingError,
-                ServerClosedError, WedgedStepError)
+                SheddedError, DeadlineExceededError, WedgedStepError,
+                ServerDrainingError, ServerClosedError, ReplicaUnavailableError,
+                BreakerOpenError, NoReplicasError)
 }
+
+#: codes safe to retry on another replica: the request provably had no
+#: effect on the failing one. ``shed`` and ``queue_full`` are backpressure
+#: (retrying elsewhere amplifies an overload), ``invalid_request`` fails the
+#: same way everywhere.
+RETRYABLE_CODES = frozenset((
+    ReplicaUnavailableError.code,
+    ServerDrainingError.code,
+    ServerClosedError.code,
+    WedgedStepError.code,
+    BreakerOpenError.code,
+))
+
+
+def error_from_code(code: str, message: str) -> ServeError:
+    """The typed serving error of a stable wire code; an unknown code (a
+    newer server than client) degrades to ``ServeError``."""
+    cls = ERROR_CODES.get(code, ServeError)
+    try:
+        return cls(message)
+    except TypeError:  # every current class takes (message)
+        return ServeError(message)

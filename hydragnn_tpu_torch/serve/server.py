@@ -16,7 +16,21 @@ slice:
   flips (this is where the CUDA kernels are built and first launched);
 - **overload**: shedding with ``SheddedError`` when the projected queue wait
   exceeds ``Serving.slo_p99_s``; deadlines expire at dequeue;
-- **drain/close**: ``drain()`` stops admissions while queued work completes;
+- **drain/close**: ``initiate_drain`` (wired to SIGTERM by
+  ``start(install_sigterm=True)``) turns ``/readyz`` not-ready at once and
+  keeps admitting for ``Serving.drain_grace_s``, so a load balancer stops
+  routing before clients meet ``ServerDrainingError``; queued work
+  completes;
+- **hot reload** (serve/reload.py): a verified candidate is restored into
+  a standby copy of the model on the host, prepared into the served form
+  off the serve loop, and copied into the served tensors IN PLACE between
+  batches: every level's CUDA graph holds the addresses of those tensors,
+  so a swap that rebound them would leave the replays on the old weights.
+  ``PredictionHandle.checkpoint`` names the weights that answered;
+- **reduced-precision weights** (``Serving.weights_dtype``): ``bfloat16``
+  serves a copy whose floating parameters are bf16, ``int8`` a quantized
+  copy (serve/quantize.py) behind the accuracy gate, at construction and
+  at every reload; the f32 master then stays on the host;
 - **watchdog**: every device step runs on a replaceable step runner; one
   that blows ``Serving.step_timeout_s`` fails its batch's requests with
   ``WedgedStepError``, emits ``serve_wedge``, dumps the flight recorder,
@@ -30,11 +44,16 @@ slice:
   ``serve/bucket_select``, ``serve/device_step`` and ``serve/respond``);
   the ``serve_*`` events.
 
-Not in this slice: hot reload, int8 and the fleet/router/cache.
+Chaos hooks (utils/faultinject.py, exact no-ops unarmed):
+``HYDRAGNN_FAULT_SERVE_REQ_NAN``, ``HYDRAGNN_FAULT_SERVE_WEDGE``,
+``HYDRAGNN_FAULT_SERVE_SLOW_CLIENT`` and ``HYDRAGNN_FAULT_QUANT_DRIFT``.
+The fleet (serve/fleet.py, serve/router.py, serve/replica.py) runs
+replicas of this server.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import queue
@@ -56,6 +75,8 @@ from ..obs.events import emit as _emit_event
 from ..obs.registry import registry as _obs_registry
 from ..obs.trace import STATUS_ERROR, STATUS_OK
 from ..train.loop import cast_batch_bf16, mp_cast_model
+from ..train.state import InferenceState, cast_inference_weights
+from ..utils import faultinject
 from .config import ServeConfig
 from .errors import (
     DeadlineExceededError,
@@ -131,10 +152,11 @@ class _StepRunner:
 class PredictionHandle:
     """Client-side handle of one submitted request: ``result()`` blocks for
     the outcome and re-raises the request's typed error; ``error()`` returns
-    it as a value. ``batch_index`` is the served batch that answered it."""
+    it as a value. ``batch_index`` is the served batch that answered it,
+    ``checkpoint`` the checkpoint file whose weights did."""
 
-    __slots__ = ("request_id", "deadline", "submitted_at", "done_at", "batch_index", "_event",
-                 "_result", "_error", "trace")
+    __slots__ = ("request_id", "deadline", "submitted_at", "done_at", "batch_index",
+                 "checkpoint", "_event", "_result", "_error", "trace")
 
     def __init__(self, request_id: int, deadline: float):
         self.request_id = request_id
@@ -143,6 +165,7 @@ class PredictionHandle:
         self.submitted_at: float = time.perf_counter()
         self.done_at: Optional[float] = None
         self.batch_index: Optional[int] = None
+        self.checkpoint: Optional[str] = None
         self._event = threading.Event()
         self._result: Optional[Dict[str, np.ndarray]] = None
         self._error: Optional[RequestError] = None
@@ -210,7 +233,11 @@ class GraphServer:
     ``model`` is moved to ``device`` (the current CUDA device when None;
     raises when there is none) and served in eval mode; with
     ``mixed_precision`` the server keeps a bfloat16 copy of it and casts the
-    input channels, as the JAX package's eval step does. ``sort_edges``
+    input channels, as the JAX package's eval step does (not for int8
+    weights, which define their own precision). ``Serving.weights_dtype``
+    picks the served form of the weights (module docstring);
+    ``checkpoint_dir`` locates the int8 snapshots beside the run's
+    checkpoints. ``sort_edges``
     must match the model's ``sorted_aggregation``. ``checkpoint_label`` names
     the checkpoint file the weights were restored from (``run_server``
     passes the file its walk-back actually restored); ``stats()`` reports
@@ -224,12 +251,15 @@ class GraphServer:
                  template_graphs: Sequence[Graph], mixed_precision: bool = False,
                  sort_edges: bool = False, device: DeviceLike = None,
                  log_name: str = "serve", checkpoint_label: Optional[str] = None,
-                 tracer=None, flight_recorder=None, events_stream: bool = False):
+                 checkpoint_dir: Optional[str] = None, tracer=None, flight_recorder=None,
+                 events_stream: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.mixed_precision = bool(mixed_precision)
-        self._serve_model = mp_cast_model(self.model) if self.mixed_precision else self.model
         self.cfg = serve_config or ServeConfig()
+        self.mixed_precision = bool(mixed_precision)
+        # int8 weights define their own precision: casting the inputs (and
+        # the f32 scales) to bf16 would shift the values the gate certified
+        self._cast_inputs = self.mixed_precision and self.cfg.weights_dtype != "int8"
         self.ladder = ladder
         self.sort_edges = sort_edges
         self.log_name = log_name
@@ -249,6 +279,34 @@ class GraphServer:
         # real-graph slots are bounded by the worst spec (n_graphs counts
         # the dummy slot too)
         self._batch_cap = min(int(self.cfg.micro_batch_graphs), self._worst.n_graphs - 1)
+        # the reload plane: the standby restore target (made at first use),
+        # the staged swap, the int8 snapshots' directory and gate report
+        self._checkpoint_dir = checkpoint_dir
+        self._quant_report: Optional[Dict[str, Any]] = None
+        self._standby: Optional[InferenceState] = None
+        self.reload_lock = threading.Lock()
+        self._swap_lock = threading.Lock()
+        self._pending_state: Optional[Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
+                                            Optional[str]]] = None
+        self._watcher = None  # serve/reload.CheckpointWatcher
+        self._prev_sigterm = None
+        # admissions stay open until this monotonic stamp once draining
+        # (Serving.drain_grace_s; 0 rejects at once)
+        self._drain_admit_deadline = 0.0
+        # the served module: the f32 model itself, its bf16 copy (mixed
+        # precision or bf16 weights) or its int8 copy; int8 calibrates and
+        # gates on the template batches, so after the fields above
+        self._serve_model = self._served_module(
+            self._cast_weights(InferenceState(self.model), checkpoint_label))
+        if self._serve_model is not self.model:
+            self._serve_model.eval()
+        if self.cfg.weights_dtype != "float32":
+            # the served copy holds the weights the card needs; the f32
+            # master (reload bookkeeping, ``server.model``) stays on the host
+            self.model = self.model.cpu()
+        self._served_tensors = dict(self._serve_model.state_dict(keep_vars=True))
+        self._master_tensors = (dict(self.model.state_dict(keep_vars=True))
+                                if self._serve_model is not self.model else {})
         self._queue: "queue.Queue[_Request]" = queue.Queue(
             maxsize=max(int(self.cfg.max_queue_requests), 0)
         )
@@ -274,7 +332,7 @@ class GraphServer:
         self._stats: Dict[str, int] = {
             "submitted": 0, "admitted": 0, "completed": 0, "rejected": 0,
             "shed": 0, "queue_full": 0, "deadline_expired": 0,
-            "wedged_batches": 0, "failed_batches": 0, "batches": 0,
+            "wedged_batches": 0, "failed_batches": 0, "batches": 0, "reloads": 0,
         }
         # seconds spent per served batch phase, summed: forming the batch
         # (after its first request), host batching, and the model step
@@ -326,7 +384,7 @@ class GraphServer:
     def _placed_forward(self, batch) -> Dict[str, torch.Tensor]:
         """The served forward on a batch on the server's device (what each
         level's CUDA graph captures)."""
-        if self.mixed_precision:
+        if self._cast_inputs:
             batch = cast_batch_bf16(batch)
         with torch.inference_mode():
             return self._serve_model(batch)
@@ -355,13 +413,27 @@ class GraphServer:
 
     # -- lifecycle -------------------------------------------------------
 
-    def start(self) -> "GraphServer":
+    def start(self, install_sigterm: bool = False) -> "GraphServer":
         """Launch warm-up + the serve loop, and mount the endpoint
         (``Serving.http_port`` >= 0; a failed bind warns). Admission opens at
-        once: requests queue while the ladder warms."""
+        once: requests queue while the ladder warms. ``install_sigterm``
+        wires SIGTERM to ``initiate_drain`` (from the main thread only)."""
         if self._closed:
             raise ServerClosedError("server is closed")
         if self._serve_thread is None:
+            if install_sigterm:
+                import signal
+
+                def _on_sigterm(signum, frame):
+                    # only flags: the serve loop finishes the admitted work
+                    self.initiate_drain()
+                    if callable(self._prev_sigterm):
+                        self._prev_sigterm(signum, frame)
+
+                try:
+                    self._prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+                except ValueError:
+                    pass  # not the main thread: the caller wires the drain
             if int(self.cfg.http_port) >= 0:
                 from ..obs.prometheus import start_endpoint
 
@@ -384,6 +456,10 @@ class GraphServer:
             )
             self._serve_thread.start()
         return self
+
+    def attach_watcher(self, watcher) -> None:
+        """Register a started ``CheckpointWatcher``: ``close()`` stops it."""
+        self._watcher = watcher
 
     def _warm_level(self, spec, batch) -> None:
         """Warm one ladder level: on the card one eager forward, then its
@@ -469,9 +545,14 @@ class GraphServer:
         return True
 
     def initiate_drain(self) -> None:
-        """Stop admitting; queued and in-flight requests still complete.
-        The ready gauge and ``/readyz`` report not-ready from here on (only
-        the instance that reported ready zeroes the shared gauge)."""
+        """Stop admitting, after ``Serving.drain_grace_s`` (async-signal
+        safe: a float store and flags); queued and in-flight requests still
+        complete. The ready gauge and ``/readyz`` report not-ready from here
+        on, at once: a load balancer observes the flip within the grace
+        window and stops routing before clients meet
+        ``ServerDrainingError`` (only the instance that reported ready
+        zeroes the shared gauge)."""
+        self._drain_admit_deadline = time.monotonic() + float(self.cfg.drain_grace_s)
         self._draining.set()
         if self._ready.is_set():
             self._m_ready.set(0)
@@ -494,11 +575,16 @@ class GraphServer:
             self.drain(timeout)
         self._closed = True
         self._stop.set()
+        # a staged reload the serve loop will never take drops here
+        with self._swap_lock:
+            self._pending_state = None
         if self._ready.is_set():
             self._m_ready.set(0)
         if self._http is not None:
             self._http.close()
             self._http = None
+        if self._watcher is not None:
+            self._watcher.stop()
         if self._serve_thread is not None:
             self._serve_thread.join(timeout=_JOIN_TIMEOUT_S)
             if self._serve_thread.is_alive():
@@ -510,6 +596,14 @@ class GraphServer:
         if self._armed:
             sentinel().disarm()
             self._armed = False
+        if self._prev_sigterm is not None:
+            import signal
+
+            try:
+                signal.signal(signal.SIGTERM, self._prev_sigterm)
+            except ValueError:
+                pass
+            self._prev_sigterm = None
         self._graphs = None  # the levels' graphs and their pool, released now
         self._close_plane()
         self._drained.set()
@@ -548,6 +642,8 @@ class GraphServer:
         idx = next(self._submit_seq)
         t_admit_wall = time.time()
         self._bump("submitted")
+        # chaos hook: a slow client holding the admission door
+        faultinject.maybe_slow_client(idx)
         if self._closed or self.failed is not None:
             self._bump("rejected")
             raise ServerClosedError(
@@ -555,12 +651,14 @@ class GraphServer:
                 else f"server failed at warm-up: {self.failed}",
                 request_id=idx,
             )
-        if self._draining.is_set():
+        # the grace window: /readyz is already 503, admissions stay open
+        if self._draining.is_set() and time.monotonic() >= self._drain_admit_deadline:
             self._bump("rejected")
             raise ServerDrainingError(
-                "server is draining; request not admitted", request_id=idx
-            )
-        g = _strip_targets(graph)
+                "server is draining (SIGTERM or drain()); request not admitted",
+                request_id=idx)
+        # chaos hook: a corrupt request by submission index
+        g = faultinject.poison_request(_strip_targets(graph), idx)
         if _channel_signature(g) != self._channel_sig:
             self._bump("rejected")
             raise InvalidRequestError(
@@ -721,9 +819,19 @@ class GraphServer:
     def _serve_loop(self) -> None:
         while not self._stop.is_set():
             reqs = self._collect_batch()
+            # the hot-reload swap point: after batch forming, before the
+            # dispatch; a state staged while the loop waited serves the
+            # very next batch
+            with self._swap_lock:
+                pending, self._pending_state = self._pending_state, None
+            if pending is not None:
+                self._swap_in(*pending)
             if reqs is None:
+                # exit once the grace window has passed too: a request
+                # admitted in it must not race a loop that already quit
                 if (self._draining.is_set() and self._queue.qsize() == 0
-                        and self._holdover is None):
+                        and self._holdover is None
+                        and time.monotonic() >= self._drain_admit_deadline):
                     break
                 continue
             self._inflight_graphs = len(reqs)
@@ -743,8 +851,13 @@ class GraphServer:
                         attributes={"level": f"{spec.n_nodes}n/{spec.n_edges}e"})
                 batch = batch_graphs(graphs, spec, sort_edges=self.sort_edges)
                 t_built = time.perf_counter()
-                outputs = self._runner.run(lambda b=batch: self._device_step(b),
-                                           self.cfg.step_timeout_s)
+
+                def step(b=batch, bi=batch_index):
+                    faultinject.maybe_serve_wedge(bi)  # chaos hook: a wedged step
+                    return self._device_step(b)
+
+                label = self.current_checkpoint
+                outputs = self._runner.run(step, self.cfg.step_timeout_s)
                 if step_span is not None:
                     dev_dt = time.perf_counter() - t_built
                     self._tracer.emit_completed("serve/device_step", time.time() - dev_dt,
@@ -793,7 +906,7 @@ class GraphServer:
             self._bump("batches")
             self._bump("completed", len(reqs))
             with torch.profiler.record_function("serve/respond"):
-                self._deliver(reqs, batch, outputs, batch_index)
+                self._deliver(reqs, batch, outputs, batch_index, label)
             if step_span is not None:
                 resp_dt = time.perf_counter() - t_done
                 self._tracer.emit_completed("serve/respond", time.time() - resp_dt, resp_dt,
@@ -808,7 +921,7 @@ class GraphServer:
         self._drained.set()
 
     def _deliver(self, reqs: List[_Request], batch, outputs: Dict[str, Any],
-                 batch_index: int) -> None:
+                 batch_index: int, checkpoint: Optional[str] = None) -> None:
         """Slice the padded outputs back per request: graph heads by graph
         row, node heads by the request's node span."""
         node_offsets = np.cumsum([0] + [r.graph.num_nodes for r in reqs])
@@ -823,6 +936,7 @@ class GraphServer:
                 else:
                     result[name] = a
             r.handle.batch_index = batch_index
+            r.handle.checkpoint = checkpoint
             r.handle._resolve(result)
             self._m_req_lat.observe(r.handle.done_at - r.handle.submitted_at, outcome="ok")
             self._end_request_trace(r.handle)
@@ -907,6 +1021,157 @@ class GraphServer:
                 return
             self._fail_request(req.handle, err)
 
+    # -- weights: the served form, reloads -------------------------------
+
+    def _cast_weights(self, state: InferenceState, entry: Optional[str] = None):
+        """Apply ``Serving.weights_dtype`` to an incoming f32 state: the one
+        precision gate for the construction and every reload, so a reload
+        never reverts the server to f32. ``int8`` goes through the
+        quantization plane (calibration and the accuracy gate; ``entry``
+        names the checkpoint for the snapshot and the drift drill) and may
+        raise ``QuantizationDriftError``."""
+        if self.cfg.weights_dtype == "float32":
+            return state
+        if self.cfg.weights_dtype == "int8":
+            return self._quantize_state(state, entry)
+        return cast_inference_weights(state, self.cfg.weights_dtype)
+
+    def _served_module(self, state) -> torch.nn.Module:
+        """The module the server runs for a cast state: its own model, or
+        that model's bf16 copy under mixed precision."""
+        return mp_cast_model(state.model) if self._cast_inputs else state.model
+
+    def _quant_batches(self) -> list:
+        """The calibration and gate batches: the template graphs packed as
+        the micro-batcher packs requests (up to the batch cap, within the
+        worst level's budget), each batch at the ladder level it selects
+        (the shapes serving runs), capped at
+        ``Serving.quantization.calibration_batches``. The JAX server
+        calibrates on one graph per level (``spec_template_batches``);
+        static activation scales from single graphs saturated the EGNN's
+        activations on real traffic (up to 15x past the calibrated range at
+        hidden 24), so the port calibrates on full batches, and on their
+        real rows only (``_quantize_state``)."""
+        batches, cur, n, e = [], [], 0, 0
+        worst = self.ladder.specs[-1]
+        for g in self._template_graphs:
+            if cur and (len(cur) >= self._batch_cap or n + g.num_nodes > worst.n_nodes - 1
+                        or e + g.num_edges > worst.n_edges):
+                batches.append(cur)
+                cur, n, e = [], 0, 0
+            if g.num_nodes > worst.n_nodes - 1 or g.num_edges > worst.n_edges:
+                continue
+            cur.append(g)
+            n, e = n + g.num_nodes, e + g.num_edges
+        if cur:
+            batches.append(cur)
+        if not batches:
+            raise ValueError(
+                "int8 quantization needs at least one template batch to calibrate and "
+                "gate on: the ladder does not describe the template dataset")
+        cap = max(1, int(self.cfg.quantization.calibration_batches))
+        return [batch_graphs(gs, self.ladder.select_for(gs), sort_edges=self.sort_edges)
+                for gs in batches[:cap]]
+
+    def _quantize_state(self, state: InferenceState, entry: Optional[str]):
+        """The int8 install: the snapshot's fast path (no calibration: the
+        artifact banked its gate report), else quantize, calibrate and gate
+        on the server's device, then publish the snapshot beside the
+        checkpoint for the rest of the fleet."""
+        from . import quantize as qz
+
+        spec = self.cfg.quantization
+        if isinstance(state, qz.QuantizedInferenceState):
+            self._quant_report = {"source": "prequantized", "mode": state.mode}
+            return state
+        fp = InferenceState(state.model.to(self.device).eval(), state.step)
+        if entry and self._checkpoint_dir:
+            loaded = qz.load_snapshot(fp.model, self.log_name, entry, spec.mode,
+                                      self._checkpoint_dir)
+            if loaded is not None:
+                qstate, report = loaded
+                qstate.model.to(self.device)
+                self._quant_report = dict(report, source="snapshot", mode=qstate.mode)
+                return qstate
+        batches = self._quant_batches()
+        # calibrated and gated on the real rows: the padding's rows (the
+        # dummy node sums every padding edge) set no scale and no verdict
+        qstate = qz.quantize_state(fp.model, fp, batches, spec.mode, spec.exclude)
+        factor = faultinject.maybe_quant_drift(entry)
+        if factor:
+            qstate = qz.apply_scale_drift(qstate, factor)
+        report = qz.gate_or_raise(fp, qstate, batches, spec.max_error,
+                                  run=self.log_name, entry=entry)
+        self._quant_report = dict(report, source="calibrated")
+        if entry and self._checkpoint_dir:
+            try:
+                qz.save_snapshot(qstate, self._quant_report, self.log_name, entry,
+                                 self._checkpoint_dir)
+            except OSError:
+                pass  # the artifact is an accelerator, not a dependency
+        return qstate
+
+    @property
+    def restore_template(self) -> InferenceState:
+        """The standby restore target of reloads: a host copy of the f32
+        model, made at first use. A restore writes only here, never into
+        the served tensors."""
+        if self._standby is None:
+            self._standby = InferenceState(copy.deepcopy(self.model).cpu().eval())
+        return self._standby
+
+    def _install_state(self, state: InferenceState, label: Optional[str]) -> bool:
+        """Stage a restored f32 state (the standby); the serve loop copies
+        it into the served tensors at the next batch boundary (in-flight
+        batches keep the weights they started with). The cast, the
+        quantization and its gate run here, off the serve loop: staging
+        never stalls traffic, and a gate refusal (``QuantizationDriftError``)
+        propagates with nothing staged. A candidate whose served form does
+        not fit the served tensors raises ``ValueError``. Refused (False)
+        on a draining, stopping or closed server."""
+        if self.cfg.weights_dtype == "int8":
+            state = InferenceState(copy.deepcopy(state.model), state.step)
+        module = self._served_module(self._cast_weights(state, entry=label))
+        values = {n: t.detach().to(self.device, copy=True)
+                  for n, t in module.state_dict().items()}
+        master_device = next(self.model.parameters()).device
+        master = ({n: t.detach().to(master_device, copy=True)
+                   for n, t in state.model.state_dict().items()}
+                  if self._master_tensors and module is not state.model else {})
+        for have, got, what in ((self._served_tensors, values, "served"),
+                                (self._master_tensors, master, "master")):
+            if got and {n: tuple(t.shape) for n, t in have.items()} != \
+                    {n: tuple(t.shape) for n, t in got.items()}:
+                raise ValueError(f"reload candidate {label!r} does not fit the {what} "
+                                 "tensors (another model or quantized structure)")
+        with self._swap_lock:
+            if self._closed or self._stop.is_set() or self._draining.is_set():
+                return False
+            self._pending_state = (values, master, label)
+            return True
+
+    def _swap_in(self, values: Dict[str, torch.Tensor], master: Dict[str, torch.Tensor],
+                 label: Optional[str]) -> None:
+        """Copy a staged state into the served tensors in place, on the
+        step runner (the stream the replays run on), then name it."""
+        def copy_all():
+            with torch.no_grad():
+                for tensors, new in ((self._served_tensors, values),
+                                     (self._master_tensors, master)):
+                    for n, t in new.items():
+                        tensors[n].copy_(t)
+
+        self._runner.run(copy_all, self.cfg.step_timeout_s)
+        self.current_checkpoint = label
+        self._bump("reloads")
+
+    def weight_nbytes(self) -> int:
+        """Bytes of the served module's parameters and buffers (on the
+        card when the server runs there)."""
+        from .quantize import weight_nbytes
+
+        return weight_nbytes(self._serve_model)
+
     def _bump(self, key: str, by: int = 1) -> None:
         with self._stats_lock:
             self._stats[key] = self._stats.get(key, 0) + by
@@ -929,5 +1194,8 @@ class GraphServer:
             mixed_precision=self.mixed_precision,
             current_checkpoint=self.current_checkpoint,
             http_port=self.http_port,
+            weights_dtype=self.cfg.weights_dtype,
         )
+        if self._quant_report is not None:
+            out["quantization"] = dict(self._quant_report)
         return out

@@ -24,4 +24,4 @@ from .loop import (
 )
 from .loss import compute_loss, energy_force_loss, predict_energy_forces
 from .optimizer import ReduceLROnPlateau, clip_grad_norm, make_optimizer, optimizer_step
-from .state import InferenceState, LoaderState, TrainState
+from .state import InferenceState, LoaderState, TrainState, cast_inference_weights

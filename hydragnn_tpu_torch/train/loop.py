@@ -682,7 +682,7 @@ def train_validate_test(model, state: TrainState, train_loader, val_loader, test
     if obs_settings["numerics"] and (world_size() > 1 or step_fn is not None):
         raise NotImplementedError(
             "Telemetry.numerics on the distributed step (parallel/engine.py) is not "
-            "in hydragnn_tpu_torch yet: it comes with the port's fleet slice. Train "
+            "in hydragnn_tpu_torch yet: it comes with the distributed capture slice. Train "
             "on one process, or set Telemetry.numerics to false (and unset "
             "HYDRAGNN_NUMERICS).")
     distributed = step_fn is not None or world_size() > 1

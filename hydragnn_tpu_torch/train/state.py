@@ -23,6 +23,7 @@ mid-epoch checkpoint.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, Optional
 
@@ -182,6 +183,33 @@ class InferenceState:
         _check_model(self.model, payload)
         self.model.load_state_dict(payload["model"], strict=True)
         return dataclasses.replace(self, step=int(payload.get("step", 0)))
+
+
+def cast_inference_weights(state, dtype):
+    """A copy of ``state`` (an ``InferenceState``, or anything with a
+    ``model`` and a ``step``) whose model's floating parameters are cast to
+    ``dtype``: the ``Serving.weights_dtype: bfloat16`` step. Batch-norm
+    statistics (buffers) keep f32: running moments, a rounding error of
+    the parameters' bytes. Integer leaves pass through. The model's layers
+    promote (flax promotion, ``models/layers.py`` ``dense``), so on f32
+    inputs the products run in f32 on the bf16-valued weights, as the JAX
+    package's do.
+
+    ``dtype="int8"`` is a quantization, not a cast: the serving plane's
+    weight-only transform (serve/quantize.py ``quantize_weights``, a
+    ``QuantizedInferenceState``); the server adds calibration and the
+    accuracy gate on top."""
+    if str(dtype) == "int8":
+        from ..serve.quantize import quantize_weights
+
+        return quantize_weights(state)
+    dt = getattr(torch, str(dtype).replace("torch.", ""))
+    model = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dt)
+    return dataclasses.replace(state, model=model)
 
 
 @dataclasses.dataclass(frozen=True)

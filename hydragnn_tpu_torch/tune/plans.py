@@ -34,11 +34,16 @@ applied before a plan becomes a tuned-table key or reaches a kernel.
   own, 64 at d = 32) or, at d = 32, half of it (the one more instance the
   library is built with). The online softmax rescales per tile, so a
   plan moves the outputs within the kernel's rounding.
+- ``int8_dot`` (the w8a8 product, ``ops/quant.py`` ``int8_matmul``):
+  ``block_m`` / ``block_n`` / ``block_k``, keyed under dtype ``int8`` so an
+  int8 plan is never confused with an f32 or bf16 entry for the same
+  shapes. As in the JAX package the plan is advisory: the product is
+  ``torch._int_mm``, which takes no launch constants.
 
 ``KERNELS`` keys are the tuned-table kernel ids; versions are the sha256 of
 each kernel's source (``KERNEL_VERSION``, ``ops/_build.source_digest``), so
-an edited kernel invalidates its tuned entries by construction. The JAX
-package's ``int8_dot`` plan waits for the port's quantized-serving slice.
+an edited kernel invalidates its tuned entries by construction;
+``int8_dot``'s is ``ops/quant.py`` ``KERNEL_VERSION``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ SEGMENT = "segment_sum"
 FUSED_EDGE = "fused_edge"
 MULTI_AGG = "multi_agg"
 FLASH = "flash_attention"
+INT8_DOT = "int8_dot"
 
 # kernel id -> its source under csrc/ (its KERNEL_VERSION)
 SOURCES = {SEGMENT: "sorted_segment_sum", FUSED_EDGE: "fused_edge",
@@ -114,6 +120,13 @@ KERNELS: Dict[str, KernelSpec] = {
         defaults={"block_k": 0},
         grid={"block_k": (0, 16, 32, 64)},
     ),
+    INT8_DOT: KernelSpec(
+        kernel=INT8_DOT,
+        params=("block_m", "block_n", "block_k"),
+        defaults={"block_m": 128, "block_n": 128, "block_k": 128},
+        grid={"block_m": (64, 128, 256), "block_n": (128, 256),
+              "block_k": (128, 256, 512)},
+    ),
 }
 
 _VERSIONS: Dict[str, str] = {}
@@ -121,7 +134,12 @@ _VERSIONS: Dict[str, str] = {}
 
 def kernel_version(kernel: str) -> str:
     """The kernel's ``KERNEL_VERSION``: the sha256 (16 hex digits) of its
-    source and the shared headers, read once per process."""
+    source and the shared headers, read once per process (``int8_dot``:
+    ``ops/quant.py`` ``KERNEL_VERSION``)."""
+    if kernel == INT8_DOT:
+        from ..ops.quant import KERNEL_VERSION
+
+        return str(KERNEL_VERSION)
     if kernel not in SOURCES:
         raise KeyError(f"unknown kernel {kernel!r}")
     if kernel not in _VERSIONS:
@@ -196,6 +214,13 @@ def normalize(kernel: str, plan: Dict[str, int], shapes: Dict[str, Any]) -> Dict
         allowed = (own // 2, own) if int(shapes.get("head_dim", 32)) == 32 else (own,)
         bk = int(p["block_k"])
         return {"block_k": own if bk <= 0 else _snap(bk, allowed)}
+    if kernel == INT8_DOT:
+        from ..ops.quant import normalize_tiles
+
+        bm, bn, bk = normalize_tiles(int(shapes.get("rows", 0)), int(shapes.get("cols", 0)),
+                                     int(shapes.get("k", 0)), p["block_m"], p["block_n"],
+                                     p["block_k"])
+        return {"block_m": bm, "block_n": bn, "block_k": bk}
     raise KeyError(f"unknown kernel {kernel!r}")
 
 

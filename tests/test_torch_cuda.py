@@ -1978,3 +1978,95 @@ def pytest_step_graph_load_from_a_device_batch_equals_the_pinned_route_on_card(c
         assert all(torch.equal(x[2][k], y[2][k]) for k in x[2])
     assert torch.equal(torch.stack(runs[0][1]), torch.stack(runs[1][1]))
     assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+
+
+# -- the serving plane: the int8 product and the in-place reload
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 16, 17, 40, 2272])
+@pytest.mark.parametrize("k,n", [(866, 866), (866, 889), (889, 889), (4, 866), (866, 1)])
+def pytest_int_mm_matches_plain_at_padded_egnn_shapes(cuda, rows, k, n):
+    """``int8_matmul`` on the card (``torch._int_mm`` on operands zero-padded
+    to its rules) against the widened int32 product on the CPU, bit for bit,
+    at the EGNN's widths (866 hidden, 889 in the heads) with the weight
+    padded once (``pad_weight``) as the quantized layers hold it."""
+    from hydragnn_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(rows * 7 + k + n)
+    x = torch.randint(-127, 128, (rows, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    want = quant.int8_matmul(x, w)
+    calls = quant.int_mm_calls
+    got = quant.int8_matmul(x.to(cuda), quant.pad_weight(w).to(cuda))
+    unpadded = quant.int8_matmul(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert quant.int_mm_calls - calls == 2
+    assert got.dtype == torch.int32 and torch.equal(got[:, :n].cpu(), want)
+    assert not got[:, n:].any()
+    assert torch.equal(unpadded.cpu(), want)
+
+
+def _serve_cell(cuda, weights_dtype="float32", mixed_precision=True):
+    """A small EGNN (K1 in every layer, K2 in the last) behind a started
+    GraphServer on the card, its levels captured, and a second set of
+    weights for the same model."""
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.api import prepare_data
+    from hydragnn_tpu_torch.data.pipeline import split_dataset
+    from hydragnn_tpu_torch.data.synthetic import oc20_shaped_dataset
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serve import GraphServer, ServeConfig
+
+    graphs = oc20_shaped_dataset(32, mean_atoms=20, min_atoms=10, max_atoms=40)
+    cfg = cs.serving_config(batch_size=4, hidden=64, head=32)
+    cfg["NeuralNetwork"]["Training"]["mixed_precision"] = mixed_precision
+    config, (_, _, test_loader), _ = prepare_data(cfg, split_dataset(graphs, 0.5, seed=0))
+    first = create_model(config, device=cuda, seed=1)
+    second = create_model(config, device=cuda, seed=2)
+    server = GraphServer(
+        first, test_loader.ladder,
+        ServeConfig(micro_batch_graphs=4, batch_window_s=0.002, http_port=-1,
+                    weights_dtype=weights_dtype,
+                    quantization={"mode": "w8a8", "max_error": 1.0}
+                    if weights_dtype == "int8" else None),
+        template_graphs=test_loader.graphs, mixed_precision=mixed_precision, sort_edges=True,
+        device=cuda, checkpoint_label="first").start()
+    assert server.wait_ready(120), server.failed
+    return server, graphs, second
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights_dtype", ["float32", "bfloat16", "int8"])
+def pytest_replay_after_an_in_place_swap_equals_the_eager_forward(cuda, weights_dtype):
+    """A swap writes the new weights into the captured tensors in place:
+    the first replay after it equals, bit for bit, the eager forward of the
+    served module with the new weights (a rebinding swap would leave the
+    replays on the old ones), and no served tensor moved."""
+    from hydragnn_tpu_torch.data.graph import batch_graphs
+    from hydragnn_tpu_torch.train.loop import cast_batch_bf16
+    from hydragnn_tpu_torch.train.state import InferenceState
+
+    server, _, second = _serve_cell(cuda, weights_dtype, weights_dtype == "float32")
+    try:
+        req = server._template_graphs[0]  # its level was captured at warm-up
+        ptrs = {n: t.data_ptr() for n, t in server._served_tensors.items()}
+        replays = sum(x.replays for x in server._graphs.graphs.values())
+        before = server.submit(req).result(timeout=60)
+        assert server._install_state(InferenceState(second.cpu()), "second")
+        h = server.submit(req)
+        got = h.result(timeout=60)
+        assert h.checkpoint == "second" and server.stats()["reloads"] == 1
+        assert sum(x.replays for x in server._graphs.graphs.values()) == replays + 2
+        assert {n: t.data_ptr() for n, t in server._served_tensors.items()} == ptrs
+        batch = batch_graphs([req], server.ladder.select_for([req]),
+                             sort_edges=True).to(cuda)
+        with torch.inference_mode():
+            eager = server._serve_model(cast_batch_bf16(batch) if server._cast_inputs else batch)
+        n = req.num_nodes
+        assert torch.equal(torch.from_numpy(got["energy"]), eager["energy"][0].float().cpu())
+        assert torch.equal(torch.from_numpy(got["forces"]), eager["forces"][:n].float().cpu())
+        assert not all(torch.equal(torch.from_numpy(before[k]), torch.from_numpy(got[k]))
+                       for k in got)
+    finally:
+        server.close()

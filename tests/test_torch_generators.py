@@ -221,9 +221,10 @@ def pytest_lint_names_what_the_port_has_not_ported():
               "Telemetry": {"fleet": False}}
     got = _lint_map(t_lint, config)
     for key in ("NeuralNetwork.Training.elastic", "NeuralNetwork.Training.checkpoint_backend",
-                "NeuralNetwork.Training.walltime_minutes", "Mixture.temperature",
-                "Serving.hot_reload", "Telemetry.fleet"):
+                "NeuralNetwork.Training.walltime_minutes", "Mixture.temperature"):
         assert got[key] == "not-ported", key
+    # the serving plane's hot reload and the fleet plane are ported
+    assert got["Serving.hot_reload"] == got["Telemetry.fleet"] == "handled"
     assert got["NeuralNetwork.Training.double_buffer"] == "handled"
     assert got["NeuralNetwork.Training.early_stopping"] == "legacy"
     assert got["NeuralNetwork.Architecture.SyncBatchNorm"] == "not-applicable"
@@ -232,7 +233,7 @@ def pytest_lint_names_what_the_port_has_not_ported():
     assert "torch.distributed" in dict((f.path, f.message) for f in findings)[
         "NeuralNetwork.Architecture.SyncBatchNorm"]
     report = t_lint.format_report(findings)
-    assert report.splitlines()[-1].startswith("summary: 1 unknown, 6 not-ported, 1 legacy, "
+    assert report.splitlines()[-1].startswith("summary: 1 unknown, 4 not-ported, 1 legacy, "
                                               "1 not-applicable")
 
 

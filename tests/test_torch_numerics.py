@@ -234,7 +234,7 @@ def pytest_numerics_on_a_distributed_step_raises(case):
     ts = case.torch_state()
     cfg = copy.deepcopy(case.tc)
     cfg["Telemetry"] = {"numerics": True}
-    with pytest.raises(NotImplementedError, match="fleet slice"):
+    with pytest.raises(NotImplementedError, match="distributed capture slice"):
         train_validate_test(ts.model, ts, case.tloader, case.tloader, case.tloader, cfg,
                             step_fn=make_train_step(ts.model))
 

@@ -128,12 +128,16 @@ def pytest_resolve_telemetry_matches_jax(section, env, monkeypatch):
 
 
 def pytest_fleet_raises_not_implemented(monkeypatch):
+    """The fleet plane is ported (obs/fleet.py): ``fleet: true`` and
+    ``HYDRAGNN_FLEET=1`` resolve as the JAX package resolves them, and no
+    longer raise."""
     monkeypatch.delenv("HYDRAGNN_FLEET", raising=False)
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        t_telemetry.resolve_telemetry({"Telemetry": {"fleet": True}})
+    section = {"Telemetry": {"fleet": True}}
+    assert t_telemetry.resolve_telemetry(section) == j_telemetry.resolve_telemetry(section)
+    assert t_telemetry.resolve_telemetry(section)["fleet"] is True
     monkeypatch.setenv("HYDRAGNN_FLEET", "1")
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        t_telemetry.resolve_telemetry({})
+    assert t_telemetry.resolve_telemetry({})["fleet"] is True
+    assert t_telemetry.resolve_telemetry({}) == j_telemetry.resolve_telemetry({})
 
 
 def pytest_peak_is_the_cards_own():

@@ -175,12 +175,14 @@ def pytest_admission_errors_are_typed():
 
 
 def pytest_serve_config_resolution():
+    # every key of the JAX package's surface is consumed now; an unknown
+    # (typo'd) key warns and is ignored
     with pytest.warns(UserWarning, match="not consumed"):
         cfg = ServeConfig.from_config({"Serving": {"hot_reload": True, "http_port": 0,
-                                                   "step_timeout_s": 5.0},
+                                                   "step_timeout_s": 5.0, "hot_relaod": 1},
                                        "NeuralNetwork": {"Training": {"batch_size": 7}}})
     assert cfg.micro_batch_graphs == 7
-    assert (cfg.http_port, cfg.step_timeout_s) == (0, 5.0)
+    assert (cfg.http_port, cfg.step_timeout_s, cfg.hot_reload) == (0, 5.0, True)
     with pytest.raises(ValueError):
         ServeConfig(micro_batch_graphs=0)
     with pytest.raises(ValueError):
